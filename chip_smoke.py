@@ -11,15 +11,33 @@ without printing a result:
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every kernel of the port from pathway_tpu_torch/csrc;
 3. kernel vs plain: ``flash_attn`` against ``flash_attn_reference`` on the
-   card (ragged masks, an all-masked row, causal and not, f32 and bf16),
-   then timed at the ingest shape beside the plain version, one PyTorch
-   library call and the card's bound;
-4. main path at full MiniLM-L6 width, bf16, seeded random weights:
+   card (ragged masks, an all-masked row, causal and not, f32 and bf16; and
+   the decoder's case: head_dim 64, causal, left-padded), then timed at the
+   ingest shape beside the plain version, one PyTorch library call and the
+   card's bound;
+4. RAG main path at full MiniLM-L6 width, bf16, seeded random weights:
    ingest 32,768 docs through FusedRAGPipeline, retrieve (recall@10
    against exact f32 scoring of the port's own f32 embeddings), single and
    batched retrieve + rerank; the attention launch count must show that
    every encode went through the kernel; a small input is checked against
-   the same model run on the CPU.
+   the same model run on the CPU;
+5. the decoder's kernels against their plain versions on the card:
+   ``paged_attn_decode`` (bf16 and int8 K/V, ragged masks, an empty slot,
+   sentinel tails, shuffled physical blocks), ``flash_chunk_attn`` and
+   ``flash_chunk_attn_paged`` (starts 0, 64 and 640, dead tiles, int8; the
+   paged variant equal to the dense one on the gathered row), ``wq_matmul``
+   (the four GPT-2 shapes, M in {1, 16, 64, 200}, an N no tile divides);
+   each timed at its main-path shape beside its plain version, its bound
+   and, where one exists, one PyTorch library call;
+6. the answer-LLM main path at full GPT-2-small width, bf16, seeded random
+   weights, a byte-level tokenizer: ``DecoderChat(continuous=True)`` over a
+   paged KV pool with the paged decode kernel, flash chunked prefill and
+   int8 weights through the wq kernel serves 48 greedy requests; launch
+   counts must show every decode step, prefill piece and layer product
+   went through its kernel; 8 requests are held against the port's static
+   ``generate``; then a short run with int8 K/V, a dense-pool run (whole-
+   prompt admission through the causal ``flash_attn``), and an f32 check of
+   a small input, card against CPU.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -44,6 +62,14 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak, same sheet
 
 N_DOCS, INGEST_BATCH, N_QUERIES, TOP_K, RERANK_K = 32768, 4096, 64, 10, 32
+# the decoder main path: GPT-2 small, 16 slots, chunks of 16 steps, 64 new
+# tokens, prompts up to 512 tokens in pieces of 64, paged blocks of 64
+# (cache_len 512 + 64 + 5 * 16 = 656, rounded up to 704)
+N_REQUESTS, MAX_NEW, N_SLOTS, CACHE_LEN, BLOCK, PIECE = 48, 64, 16, 704, 64, 64
+# the card's bf16 noise against the port's static path: first-token logits
+# (spread ~0.55 with random weights) within 0.1; at least 7 of 8 first
+# tokens and 3 of 8 whole streams equal
+LOGIT_TOL, MIN_FIRST_EQUAL, MIN_STREAMS_EQUAL = 0.1, 7, 3
 
 
 def info(msg: str) -> None:
@@ -59,13 +85,22 @@ def gpu_line() -> str:
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events). The
+    card first sleeps long enough for the host to queue every call, so the
+    events bracket the calls' device work back to back, not the host's
+    rate of issuing them (a small kernel runs faster than Python calls
+    it)."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0  # an upper bound on one call's issue time
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0, 2 * iters * host_s + 0.01) * 2e9))  # ~2 GHz clock
     start.record()
     for _ in range(iters):
         fn()
@@ -118,6 +153,25 @@ def check_flash_attn(dev) -> float:
                 if not torch.all(out[0] == 0):
                     raise AssertionError("all-masked row is not exact zeros")
                 worst = max(worst, err)
+    # the decoder's whole-prompt admission: head_dim 64, causal, left-padded
+    for S in (64, 128):
+        B, nh, hd = 16, 12, 64
+        lens = torch.randint(1, S + 1, (B,), generator=g)
+        lens[0] = S
+        mask = (torch.arange(S)[None, :] >= (S - lens)[:, None]).to(torch.int32).to(dev)
+        base = [torch.randn((B, nh, S, hd), generator=g) for _ in range(3)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dev, dtype) for t in base)
+            out = FA.flash_attn(q, k, v, mask, causal=True)
+            torch.cuda.synchronize()
+            ref = FA.flash_attn_reference(q, k, v, mask, causal=True)
+            err = (out - ref).abs().max().item()
+            name = str(dtype).split(".")[-1]
+            info(f"flash_attn hd=64 S={S} {name} causal left-padded: "
+                 f"max_abs_err={err:.3e} (atol {ATOL[name]})")
+            if not err <= ATOL[name]:
+                raise AssertionError(f"flash_attn (hd 64, causal) disagrees: {err}")
+            worst = max(worst, err)
     return worst
 
 
@@ -275,6 +329,472 @@ def check_against_cpu(emb, cfg, docs, queries) -> None:
         raise AssertionError("the card disagrees with the CPU on a small input")
 
 
+# ---------------------------------------------------------------- phase 5
+def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+    """Least time the card could take: bytes over the memory rate or
+    operations over the bf16 peak, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def paged_case(g, dev, quant: bool, lens):
+    """Decode-shape operands: 16 slots x 12 heads x head_dim 64, blocks of
+    64, 11 a slot, shuffled physical ids, sentinel block 0 zero, each
+    slot's table past its live length pointing at the sentinel."""
+    import torch
+
+    B, nh, hd, Bk, M = N_SLOTS, 12, 64, BLOCK, CACHE_LEN // BLOCK
+    n_blocks = B * M + 1
+    q = torch.randn((B, nh, hd), generator=g).to(dev, torch.bfloat16)
+    if quant:
+        kb, vb = (torch.randint(-127, 128, (n_blocks, nh, Bk, hd), generator=g,
+                                dtype=torch.int8).to(dev) for _ in range(2))
+        kbs, vbs = (torch.empty((n_blocks, nh, Bk, 1)).uniform_(0.005, 0.03, generator=g)
+                    .to(dev) for _ in range(2))
+    else:
+        kb, vb = (torch.randn((n_blocks, nh, Bk, hd), generator=g).to(dev, torch.bfloat16)
+                  for _ in range(2))
+        kbs = vbs = None
+    for t in (kb, vb, kbs, vbs):
+        if t is not None:
+            t[0] = 0
+    tbl = (torch.randperm(n_blocks - 1, generator=g)[: B * M] + 1).reshape(B, M)
+    for b in range(B):
+        tbl[b, (int(lens[b]) + Bk - 1) // Bk:] = 0
+    mask = (torch.arange(M * Bk)[None, :] < lens[:, None]).to(torch.int32)
+    return [q, kb, vb, kbs, vbs, tbl.to(torch.int32).to(dev), mask.to(dev)]
+
+
+def check_paged_decode(dev) -> dict:
+    import torch
+
+    from pathway_tpu_torch.models import paged_attention as PA
+
+    g = torch.Generator().manual_seed(2)
+    worst = 0.0
+    timed = None
+    for quant in (False, True):
+        # main-path live lengths (prompt 16..480 + up to 64 new), one empty
+        # slot, one ragged inside its first block
+        lens = torch.randint(16, 545, (N_SLOTS,), generator=g)
+        lens[0], lens[1] = 0, 5
+        args = paged_case(g, dev, quant, lens)
+        out = PA.paged_attn_decode(*args)
+        torch.cuda.synchronize()
+        ref = PA.paged_attn_decode_reference(*args)
+        err = (out.float() - ref.float()).abs().max().item()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+        if not torch.all(out[0] == 0):
+            raise AssertionError("paged_attn_decode: the empty slot is not exact zeros")
+        if any(t is not None and bool(torch.any(t[0] != 0)) for t in args[1:5]):
+            raise AssertionError("paged_attn_decode: the sentinel block changed")
+        info(f"paged_attn_decode {'int8' if quant else 'bf16'} K/V: max_abs_err={err:.3e} "
+             f"(rtol 2^-7, atol 1e-3: one bf16 ulp of the output)")
+        worst = max(worst, err)
+        if not quant:
+            timed = (args, lens)
+    args, lens = timed
+    live = int(lens.sum())
+    nh, hd = 12, 64
+    n_bytes = (nbytes(args[0], args[5], args[6]) + nbytes(args[0])
+               + live * nh * hd * 2 * args[1].element_size())
+    b_ms, b_by = bound(n_bytes, 4.0 * live * nh * hd)
+    return {
+        "max_abs_err": worst,
+        "ms": cuda_time_ms(lambda: PA.paged_attn_decode(*args), 200),
+        "plain_ms": cuda_time_ms(lambda: PA.paged_attn_decode_reference(*args), 20),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"16 slots x 12 heads x 64, block 64, {live} live columns",
+    }
+
+
+def chunk_case(g, dev, quant: bool, start: int):
+    import torch
+
+    nh, T, hd, C = 12, PIECE, 64, CACHE_LEN
+    q = torch.randn((nh, T, hd), generator=g).to(dev, torch.bfloat16)
+    if quant:
+        k, v = (torch.randint(-127, 128, (nh, C, hd), generator=g, dtype=torch.int8).to(dev)
+                for _ in range(2))
+        ks, vs = (torch.empty((nh, C, 1)).uniform_(0.005, 0.03, generator=g).to(dev)
+                  for _ in range(2))
+    else:
+        k, v = (torch.randn((nh, C, hd), generator=g).to(dev, torch.bfloat16)
+                for _ in range(2))
+        ks = vs = None
+    row_mask = (torch.arange(C) < start + T).to(torch.int32)
+    return q, k, v, ks, vs, row_mask.to(dev)
+
+
+def to_blocks(g, row, dev):
+    """A dense (heads, C, d) row cut into shuffled physical blocks of BLOCK
+    columns behind a table row; block 0 stays the zero sentinel."""
+    import torch
+
+    if row is None:
+        return None, None
+    nh, C, d = row.shape
+    M = C // BLOCK
+    perm = (torch.randperm(M + 4, generator=g)[:M] + 1).to(dev)
+    planes = torch.zeros((M + 5, nh, BLOCK, d), dtype=row.dtype, device=dev)
+    planes[perm.long()] = row.reshape(nh, M, BLOCK, d).transpose(0, 1)
+    return planes, perm.to(torch.int32)
+
+
+def check_flash_chunk(dev) -> tuple[dict, dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.models import flash_attention as FA
+
+    g = torch.Generator().manual_seed(3)
+    worst = {"dense": 0.0, "paged": 0.0}
+    for quant in (False, True):
+        for start in (0, 64, 640):
+            q, k, v, ks, vs, row_mask = chunk_case(g, dev, quant, start)
+            row_mask[start // 2::9] = 0  # holes among the live columns
+            out = FA.flash_chunk_attn(q, k, v, row_mask, start, k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            ref = FA.flash_chunk_attn_reference(q, k, v, row_mask, start,
+                                                k_scale=ks, v_scale=vs)
+            err = (out - ref).abs().max().item()
+            # the same cache as shuffled physical blocks behind a table row
+            gp = torch.Generator().manual_seed(start + quant)
+            (kb, tbl), (vb, _), (kbs, _), (vbs, _) = (
+                to_blocks(gp.manual_seed(7), t, dev) for t in (k, v, ks, vs))
+            paged = FA.flash_chunk_attn_paged(q, kb, vb, kbs, vbs, tbl, row_mask, start)
+            torch.cuda.synchronize()
+            ref_p = FA.flash_chunk_attn_paged_reference(q, kb, vb, kbs, vbs, tbl,
+                                                        row_mask, start)
+            err_p = (paged - ref_p).abs().max().item()
+            info(f"flash_chunk_attn start={start} {'int8' if quant else 'bf16'} K/V: "
+                 f"dense max_abs_err={err:.3e}, paged {err_p:.3e} (atol 2e-3); "
+                 f"paged == dense on the gathered row: {torch.equal(paged, out)}")
+            if not (err <= 2e-3 and err_p <= 2e-3):
+                raise AssertionError("flash_chunk_attn disagrees with its plain version")
+            if not torch.equal(paged, out):
+                raise AssertionError("flash_chunk_attn_paged differs from the dense variant")
+            worst["dense"] = max(worst["dense"], err)
+            worst["paged"] = max(worst["paged"], err_p)
+    # timed at the longest piece the main path gives: queries 448..511
+    start = 448
+    q, k, v, _, _, row_mask = chunk_case(g, dev, False, start)
+    (kb, tbl), (vb, _) = (to_blocks(g.manual_seed(11), t, dev) for t in (k, v))
+    T, C, nh, hd = PIECE, CACHE_LEN, 12, 64
+    live = start + T
+    cols = torch.arange(C, device=dev)
+    allowed = (row_mask > 0)[None, :] & (cols[None, :] <= start + torch.arange(T, device=dev)[:, None])
+    attn_mask = allowed[None, None]
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q[None], k[None], v[None], attn_mask=attn_mask), 100)
+    flops = 4.0 * nh * hd * sum(start + t + 1 for t in range(T))
+    n_bytes = nbytes(q, row_mask) + nh * T * hd * 4 + live * nh * hd * 2 * k.element_size()
+    rows = {}
+    for name, fn, plain, extra in (
+        ("dense",
+         lambda: FA.flash_chunk_attn(q, k, v, row_mask, start),
+         lambda: FA.flash_chunk_attn_reference(q, k, v, row_mask, start), 0),
+        ("paged",
+         lambda: FA.flash_chunk_attn_paged(q, kb, vb, None, None, tbl, row_mask, start),
+         lambda: FA.flash_chunk_attn_paged_reference(q, kb, vb, None, None, tbl, row_mask, start),
+         nbytes(tbl)),
+    ):
+        b_ms, b_by = bound(n_bytes + extra, flops)
+        rows[name] = {
+            "max_abs_err": worst[name], "ms": cuda_time_ms(fn, 100),
+            "plain_ms": cuda_time_ms(plain, 20), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib,
+            "shape": f"64 queries at 448 over 512 live of 704 columns, 12 heads x 64, bf16",
+        }
+    return rows["dense"], rows["paged"]
+
+
+WQ_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+
+
+def check_wq_matmul(dev) -> dict:
+    import torch
+
+    from pathway_tpu_torch.models import wq_matmul as WQ
+
+    g = torch.Generator().manual_seed(4)
+    worst = 0.0
+
+    def operands(M, K, N):
+        return (torch.randn((M, K), generator=g).to(dev, torch.bfloat16),
+                torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8).to(dev),
+                torch.empty((1, N)).uniform_(1e-4, 1e-2, generator=g).to(dev))
+
+    for K, N in WQ_SHAPES + ((768, 2309),):  # 2309: no tile of 32 divides it
+        for M in (1, 16, 64, 200):
+            x, w, s = operands(M, K, N)
+            out = WQ.wq_matmul(x, w, s)
+            torch.cuda.synchronize()
+            ref = WQ.wq_matmul_reference(x, w, s)
+            err = (out - ref).abs().max().item()
+            top = ref.abs().max().item()
+            if not err <= 1e-5 * top:
+                raise AssertionError(f"wq_matmul {M}x{K}x{N}: err {err} > 1e-5 x {top}")
+            worst = max(worst, err)
+    info(f"wq_matmul: max_abs_err={worst:.3e} over the GPT-2 shapes and M in "
+         f"{{1, 16, 64, 200}} (each within 1e-5 of its largest output)")
+    # timed: one decode layer's four products at M = 16
+    ops = [operands(N_SLOTS, K, N) for K, N in WQ_SHAPES]
+    n_bytes = sum(nbytes(x, w, s) + x.shape[0] * w.shape[1] * 4 for x, w, s in ops)
+    flops = sum(2.0 * x.shape[0] * x.shape[1] * w.shape[1] for x, w, _ in ops)
+    b_ms, b_by = bound(n_bytes, flops)
+    return {
+        "max_abs_err": worst,
+        "ms": cuda_time_ms(lambda: [WQ.wq_matmul(*o) for o in ops], 100),
+        "plain_ms": cuda_time_ms(lambda: [WQ.wq_matmul_reference(*o) for o in ops], 30),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": "one decode layer: M=16 at 768x2304, 768x768, 768x3072, 3072x768",
+    }
+
+
+# ---------------------------------------------------------------- phase 6
+def byte_tokenizer():
+    """GPT-2's byte-level tokenizer with the 256 byte symbols and no merges:
+    one id per byte, no EOS."""
+    from pathway_tpu_torch.models.bpe import BPETokenizer, bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    return BPETokenizer({b2u[i]: i for i in range(256)}, [])
+
+
+def make_prompts(n: int, lo: int, hi: int, seed: int) -> list[str]:
+    """Seeded ASCII prompts of lo..hi bytes (= tokens)."""
+    rng = np.random.default_rng(seed)
+    chars = np.array(list("abcdefghijklmnopqrstuvwxyz     ,."))
+    return ["".join(rng.choice(chars, int(n_tok)))
+            for n_tok in rng.integers(lo, hi + 1, n)]
+
+
+def counters():
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.models import paged_attention as PA
+    from pathway_tpu_torch.models import wq_matmul as WQ
+
+    return {"flash_attn": FA.flash_attn, "flash_chunk_attn": FA.flash_chunk_attn,
+            "flash_chunk_attn_paged": FA.flash_chunk_attn_paged,
+            "paged_attn_decode": PA.paged_attn_decode, "wq_matmul": WQ.wq_matmul}
+
+
+def serve(chat, prompts: list[str]) -> dict:
+    """One run of the server through DecoderChat's entry points, with every
+    kernel count set to 0 just before and read just after."""
+    import torch
+
+    for f in counters().values():
+        f.launches = 0
+    s0 = dict(chat.server.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = chat.submit_batch(prompts)
+    texts = chat.resolve_batch([reqs])[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters().items()}
+    stats = {k: v - s0[k] for k, v in chat.server.stats.items()}
+    if chat.server.failed is not None:
+        raise AssertionError(f"the serving loop died: {chat.server.failed!r}")
+    for r, t in zip(reqs, texts):
+        if t is None or len(r.tokens) != MAX_NEW:  # no EOS in a byte vocab
+            raise AssertionError(f"a request finished with {len(r.tokens)} tokens")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    ttft = [r.first_token_at - r.submitted_at for r in reqs]
+    return {"reqs": reqs, "wall_s": wall, "launches": launches, "stats": stats,
+            "tok_per_s": n_tok / wall, "ttft_p50_s": statistics.median(ttft)}
+
+
+def require(cond: bool, what: str) -> None:
+    info(f"  check: {what}: {'ok' if cond else 'FAILED'}")
+    if not cond:
+        raise AssertionError(what)
+
+
+def paged_first_logits(chat, ids: list[int]):
+    """The first-token logits of ``ids`` through the server's paged path:
+    right-padded pieces of PIECE tokens into a one-slot paged pool, flash
+    chunk attention, the chat's (int8, wq-kernel) weights."""
+    import torch
+
+    from pathway_tpu_torch.models import decoder as D
+
+    dev, cfg = chat.device, chat.cfg
+    M = CACHE_LEN // BLOCK
+    pool = D.paged_pool_init(chat.params, cfg, 1, CACHE_LEN, M + 1, BLOCK)
+    D.paged_table_set(pool, 0, np.arange(1, M + 1, dtype=np.int32))
+    n = len(ids)
+    W = -(-n // PIECE) * PIECE
+    r_ids = np.zeros((1, W), np.int32)
+    r_mask = np.zeros((1, W), np.int32)
+    r_ids[0, :n], r_mask[0, :n] = ids, 1
+    pos = np.minimum(np.arange(W), n - 1)[None].astype(np.int32)
+    for o in range(0, W, PIECE):
+        last = o + PIECE >= W
+        t = [torch.from_numpy(a[:, o:o + PIECE]).to(dev) for a in (r_ids, r_mask, pos)]
+        D.pool_prefill_chunk(chat.params, *t, pool, 0, o, n, cfg, first=o == 0,
+                             last=last, last_col=(n - 1) - (W - PIECE) if last else None,
+                             flash=True)
+    return pool["logits"][0]
+
+
+def hold_against_static(chat, prompts, reqs) -> dict:
+    """8 requests against the port's own static path on the card: dense
+    whole-prompt prefill (first-token logits) and ``generate`` (streams)."""
+    import torch
+
+    from pathway_tpu_torch.models import decoder as D
+
+    tok, dev, cfg = chat.tokenizer, chat.device, chat.cfg
+    diffs, first_eq, streams_eq = [], 0, 0
+    for p, r in zip(prompts[:8], reqs[:8]):
+        ids = tok.encode(p)
+        x = torch.tensor([ids], dtype=torch.int32, device=dev)
+        m = torch.ones_like(x)
+        static_logits, _ = D.prefill(chat.params, x, m, cfg, len(ids))
+        served = paged_first_logits(chat, ids)
+        diffs.append((served - static_logits[0]).abs().max().item())
+        toks = D.generate(chat.params, x, m, cfg, MAX_NEW)[0].tolist()
+        first_eq += int(r.tokens[0] == toks[0] == int(static_logits[0].argmax()))
+        streams_eq += int(r.tokens == toks)
+    return {"max_logit_diff": max(diffs), "first_equal": first_eq,
+            "streams_equal": streams_eq}
+
+
+def check_decoder_against_cpu(params, tok) -> None:
+    """f32 at GPT-2 widths, 2 layers, int8 weights: the same paged serving
+    pool functions (flash chunk pieces, paged-kernel decode, wq kernel) on
+    the card and on the CPU (plain versions) agree on a small input."""
+    import dataclasses
+
+    import torch
+
+    from pathway_tpu_torch.models import decoder as D
+
+    cfg = dataclasses.replace(D.GPT2_SMALL, layers=2, dtype=torch.float32, wq_kernel=True)
+    small = {k: v for k, v in params.items() if k != "layers"}
+    small["layers"] = {k: v[:2] for k, v in params["layers"].items()}
+    prompts = make_prompts(2, 40, 150, seed=5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = D.quantize_params(D.map_params(lambda t: t.to(dev), small), cfg)
+        M = CACHE_LEN // BLOCK
+        pool = D.paged_pool_init(p, cfg, 2, CACHE_LEN, 2 * M + 1, BLOCK)
+        for slot, text in enumerate(prompts):
+            D.paged_table_set(pool, slot, np.arange(1, M + 1, dtype=np.int32) + slot * M)
+            ids = tok.encode(text)
+            n = len(ids)
+            W = -(-n // PIECE) * PIECE
+            a = np.zeros((3, 1, W), np.int32)
+            a[0, 0, :n], a[1, 0, :n] = ids, 1
+            a[2, 0] = np.minimum(np.arange(W), n - 1)
+            for o in range(0, W, PIECE):
+                last = o + PIECE >= W
+                t = [torch.from_numpy(a[i][:, o:o + PIECE]).to(dev) for i in range(3)]
+                D.pool_prefill_chunk(p, *t, pool, slot, o, n, cfg, first=o == 0, last=last,
+                                     last_col=(n - 1) - (W - PIECE) if last else None,
+                                     flash=True)
+        first = pool["logits"].clone()
+        pool, toks = D.pool_decode_chunk(p, pool, np.array([True, True]), None, cfg, 8,
+                                         paged_kernel=True)
+        out[dev] = (first.cpu(), pool["logits"].cpu(), toks.cpu())
+    d0 = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    d1 = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    same = torch.equal(out["cuda"][2], out["cpu"][2])
+    info(f"decoder card vs cpu (f32, 2 layers, int8 weights, paged + flash + wq kernels): "
+         f"first-token logits max diff {d0:.3e}, after 8 steps {d1:.3e} (<= 1e-3), "
+         f"tokens equal: {same}")
+    require(d0 <= 1e-3 and d1 <= 1e-3 and same, "the card agrees with the CPU in f32")
+
+
+def run_decoder(dev, gpu: str) -> dict:
+    """Phase 6; returns the summed launches of every decoder run."""
+    import torch
+
+    from pathway_tpu_torch import DecoderChat
+    from pathway_tpu_torch.models import decoder as D
+
+    t0 = time.perf_counter()
+    params = D.init_params(torch.Generator().manual_seed(0), D.GPT2_SMALL)
+    tok = byte_tokenizer()
+    common = dict(params=params, cfg=D.GPT2_SMALL, tokenizer=tok, continuous=True,
+                  n_slots=N_SLOTS, chunk_steps=16, max_new_tokens=MAX_NEW,
+                  max_prompt_tokens=512, prefill_chunk=PIECE, weight_quant="int8",
+                  wq_kernel=True, device=dev)
+    chat = DecoderChat(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True,
+                       flash_prefill=True, **common)
+    info(f"decoder: GPT-2 small (vocab 50257, hidden 768, 12 layers, 12 heads, ffn "
+         f"3072), seeded random weights, int8 weights; cache_len {chat.server.cache_len}, "
+         f"{chat.server._total_blocks} blocks of {BLOCK}; set-up {time.perf_counter() - t0:.1f} s")
+    require(chat.server.cache_len == CACHE_LEN, "paged cache_len is 704")
+    serve(chat, make_prompts(4, 16, 200, seed=99))  # warm-up, outside the counts
+    prompts = make_prompts(N_REQUESTS, 16, 480, seed=1)
+    total = {n: 0 for n in counters()}
+    out = serve(chat, prompts)
+    st, ln = out["stats"], out["launches"]
+    info(f"decoder main run [{gpu}]: {N_REQUESTS} requests x {MAX_NEW} tokens in "
+         f"{out['wall_s']:.3f} s wall; decode {out['tok_per_s']:.1f} tokens/s; TTFT p50 "
+         f"{out['ttft_p50_s'] * 1e3:.1f} ms; {st['decode_steps']} decode steps in "
+         f"{st['chunks']} chunks, {st['prefill_chunks']} prefill pieces; launches {ln}")
+    require(ln["paged_attn_decode"] >= 12 * st["decode_steps"] > 0,
+            "every decode step and layer went through paged_attn_decode")
+    require(ln["flash_chunk_attn_paged"] >= 12 * st["prefill_chunks"] > 0,
+            "every prefill piece and layer went through flash_chunk_attn_paged")
+    require(ln["wq_matmul"] >= 48 * (st["decode_steps"] + st["prefill_chunks"]),
+            "every layer product went through wq_matmul")
+    total = {n: total[n] + ln[n] for n in total}
+    chat.close()
+    main_run = (chat, prompts, out["reqs"])
+
+    chat = DecoderChat(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True,
+                       flash_prefill=True, kv_quant="int8", **common)
+    out = serve(chat, make_prompts(16, 16, 480, seed=2))
+    st, ln = out["stats"], out["launches"]
+    info(f"decoder int8-KV run [{gpu}]: 16 requests in {out['wall_s']:.3f} s wall; decode "
+         f"{out['tok_per_s']:.1f} tokens/s; TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms; "
+         f"launches {ln}")
+    require(ln["paged_attn_decode"] >= 12 * st["decode_steps"] > 0
+            and ln["flash_chunk_attn_paged"] >= 12 * st["prefill_chunks"] > 0,
+            "the int8-KV run went through the fused int8 kernels")
+    total = {n: total[n] + ln[n] for n in total}
+    chat.close()
+
+    chat = DecoderChat(paged_kv=False, flash_prefill=True, **common)
+    prompts = make_prompts(12, 8, 64, seed=3) + make_prompts(4, 100, 200, seed=4)
+    out = serve(chat, prompts)
+    st, ln = out["stats"], out["launches"]
+    info(f"decoder dense-pool run [{gpu}]: 16 requests in {out['wall_s']:.3f} s wall; "
+         f"decode {out['tok_per_s']:.1f} tokens/s; TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} "
+         f"ms; {st['admit_dispatches']} whole-prompt admissions, {st['prefill_chunks']} "
+         f"pieces; launches {ln}")
+    require(ln["flash_attn"] >= 12 * st["admit_dispatches"] > 0,
+            "every whole-prompt admission went through the causal flash_attn")
+    require(ln["flash_chunk_attn"] >= 12 * st["prefill_chunks"] > 0,
+            "every dense prefill piece went through flash_chunk_attn")
+    require(ln["wq_matmul"] >= 48 * (st["decode_steps"] + st["prefill_chunks"]
+                                     + st["admit_dispatches"]),
+            "every layer product of the dense run went through wq_matmul")
+    total = {n: total[n] + ln[n] for n in total}
+    chat.close()
+    check_decoder_against_cpu(params, tok)
+    held = hold_against_static(*main_run)
+    info(f"decoder vs the port's static generate (8 requests of the main run): "
+         f"first-token logits max diff {held['max_logit_diff']:.4f} (<= {LOGIT_TOL}); "
+         f"first tokens equal {held['first_equal']}/8 (>= {MIN_FIRST_EQUAL}); 64-token "
+         f"streams equal {held['streams_equal']}/8 (>= {MIN_STREAMS_EQUAL})")
+    require(held["max_logit_diff"] <= LOGIT_TOL and held["first_equal"] >= MIN_FIRST_EQUAL
+            and held["streams_equal"] >= MIN_STREAMS_EQUAL,
+            "the server agrees with the static path")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -330,15 +850,42 @@ def main() -> int:
         raise AssertionError(f"recall@10 {out['recall_at_10']:.4f} < 0.9")
     check_against_cpu(out["emb"], MINILM_L6, docs, queries)
 
+    # phase 5: the decoder's kernels against their plain versions, timed
+    rows = {"paged_attn_decode": check_paged_decode(dev)}
+    rows["flash_chunk_attn"], rows["flash_chunk_attn_paged"] = check_flash_chunk(dev)
+    rows["wq_matmul"] = check_wq_matmul(dev)
+    for name, r in rows.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        info(f"{name} at {r['shape']} [{gpu}]: kernel {r['ms']:.4f} ms, plain "
+             f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
+             f"({r['bound_by']}), max abs err {r['max_abs_err']:.3e}")
+
+    # phase 6: the answer-LLM main path
+    dec = run_decoder(dev, gpu)
+
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",
         "source": "pathway_tpu_torch/csrc/flash_attn.cu",
         "replaces": "pathway_tpu/models/flash_attention.py:116",
-        "launches": launches,
-        "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
+        "launches": launches + dec["flash_attn"],
+        "max_abs_err": max(worst, timing["max_abs_err"]), "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
     }]
+    for name, src, replaces in (
+        ("flash_chunk_attn", "flash_chunk.cu", "pathway_tpu/models/flash_attention.py:263"),
+        ("flash_chunk_attn_paged", "flash_chunk.cu", "pathway_tpu/models/flash_attention.py:263"),
+        ("paged_attn_decode", "paged_attn.cu", "pathway_tpu/models/paged_attention.py:49"),
+        ("wq_matmul", "wq_matmul.cu", "pathway_tpu/models/wq_matmul.py:64"),
+    ):
+        r = rows[name]
+        kernel_rows.append({
+            "name": name, "route": "cuda", "source": f"pathway_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": dec[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

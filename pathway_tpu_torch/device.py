@@ -26,3 +26,16 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
     return dev
+
+
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """Host data (or a tensor) on ``device``. A host-to-card copy goes
+    through pinned memory without blocking, so the host never waits for the
+    work already queued on the card."""
+    t = torch.as_tensor(x, dtype=dtype)
+    device = torch.device(device)
+    if t.device == device:
+        return t
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "pathway_tpu_torch"
@@ -28,6 +30,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+# the K/V element type code of the attention kernels' C interface
+KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # library name -> (source file, {exported function: ctypes argtypes})
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -39,6 +44,31 @@ KERNELS = {
             # stream
             "pathway_flash_attn": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                    _I, _I, _P),
+        },
+    ),
+    "flash_chunk": (
+        "flash_chunk.cu",
+        {
+            # q, k, v, k_scale, v_scale, tbl_row, row_mask, out, nh, T, hd,
+            # C, block, start, sm_scale, q_bf16, kv_kind, stream
+            "pathway_flash_chunk_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _I, _I, _I, _F, _I, _I, _P),
+        },
+    ),
+    "paged_attn": (
+        "paged_attn.cu",
+        {
+            # q, kb, vb, kb_scale, vb_scale, tbl, slot_mask, out, B, nh, hd,
+            # block, blocks per slot, sm_scale, q_bf16, kv_kind, stream
+            "pathway_paged_attn_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                          _I, _I, _I, _I, _F, _I, _I, _P),
+        },
+    ),
+    "wq_matmul": (
+        "wq_matmul.cu",
+        {
+            # x, w, scale, out, M, K, N, x_bf16, stream
+            "pathway_wq_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
         },
     ),
 }

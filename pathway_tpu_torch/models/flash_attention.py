@@ -1,5 +1,8 @@
-"""Whole-sequence flash attention: a hand-written CUDA kernel for Hopper and
-its plain PyTorch version.
+"""Flash attention: hand-written CUDA kernels for Hopper and their plain
+PyTorch versions. ``flash_attn`` is whole-sequence self-attention (the
+encoder, and the decoder's whole-prompt prefill with ``causal=True``);
+``flash_chunk_attn`` / ``flash_chunk_attn_paged`` are the chunked-prefill
+reads of a piece against one slot's cache (further below).
 
 Counterpart of ``pathway_tpu/models/flash_attention.py``: ``flash_attn``
 has the same signature and layout — q/k/v (B, heads, S, head_dim) in the
@@ -109,6 +112,177 @@ def flash_attn(q, k, v, mask, *, causal=True, sm_scale=None):
 
 
 flash_attn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Chunk-vs-cache attention for pool_prefill_chunk: a T-token query piece at
+# offset ``start`` over one slot's cache row (dense) or block-table row
+# (paged). One CUDA kernel (csrc/flash_chunk.cu) with two index modes.
+# --------------------------------------------------------------------------
+
+def flash_chunk_attn_reference(q, k_row, v_row, row_mask, start, *,
+                               k_scale=None, v_scale=None, sm_scale=None):
+    """Plain version over a dense row: query row t attends the columns
+    ``live & (col <= start + t)``; int8 K/V are widened and scaled in f32.
+    A row with nothing to attend is exact zeros. Returns (heads, T,
+    head_dim) float32."""
+    nh, T, hd = q.shape
+    C = k_row.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    k, v = k_row.float(), v_row.float()
+    if k_scale is not None:
+        k = k * k_scale.float()
+        v = v * v_scale.float()
+    s = torch.einsum("ntd,ncd->ntc", q.float(), k) * sm_scale
+    rows = int(start) + torch.arange(T, device=q.device)
+    cols = torch.arange(C, device=q.device)
+    live = ((row_mask > 0)[None, :] & (cols[None, :] <= rows[:, None]))[None]
+    s = torch.where(live, s, _NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    return torch.einsum("ntc,ncd->ntd", p, v) / torch.where(l == 0.0, 1.0, l)
+
+
+def flash_chunk_attn_paged_reference(q, kb, vb, kb_scale, vb_scale, tbl_row,
+                                     row_mask, start, *, sm_scale=None):
+    """Plain version of the paged variant: gather the slot's row, then the
+    dense plain version."""
+    from pathway_tpu_torch.models.paged_attention import gather_rows
+
+    def row(planes):
+        return None if planes is None else gather_rows(planes, tbl_row[None])[0]
+
+    return flash_chunk_attn_reference(
+        q, row(kb), row(vb), row_mask, start, k_scale=row(kb_scale),
+        v_scale=row(vb_scale), sm_scale=sm_scale,
+    )
+
+
+def _check_chunk_args(name, q, k, v, ks, vs, row_mask, C):
+    ts = [("q", q), ("k", k), ("v", v), ("row_mask", row_mask)]
+    if k.dtype == torch.int8:
+        if ks is None or vs is None:
+            raise ValueError(f"{name}: int8 K/V need k_scale and v_scale")
+        if ks.dtype != torch.float32 or vs.dtype != torch.float32:
+            raise TypeError(f"{name}: scales must be float32")
+        if tuple(ks.shape) != tuple(k.shape[:-1]) + (1,) or vs.shape != ks.shape:
+            raise ValueError(f"{name}: scales must be {tuple(k.shape[:-1]) + (1,)}")
+        ts += [("k_scale", ks), ("v_scale", vs)]
+    elif ks is not None or vs is not None:
+        raise ValueError(f"{name}: scales are only taken with int8 K/V")
+    for n, t in ts:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {n} must be a CUDA tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {n} must be contiguous")
+        if n in ("q", "k", "v") and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {n} must be 16-byte aligned")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: q must be bf16 or f32, got {q.dtype}")
+    if k.dtype != v.dtype or k.dtype not in (q.dtype, torch.int8):
+        raise TypeError(f"{name}: K/V must share q's dtype, or be int8")
+    if row_mask.dtype != torch.int32 or tuple(row_mask.shape) != (C,):
+        raise ValueError(f"{name}: row_mask must be int32 ({C},)")
+    hd = q.shape[-1]
+    if hd % 8 or not 8 <= hd <= 128:
+        raise ValueError(f"{name}: head_dim must be a multiple of 8 in [8, 128], got {hd}")
+
+
+def _launch_chunk(q, k, v, ks, vs, tbl_row, row_mask, start, C, Bk, sm_scale):
+    from pathway_tpu_torch import kernels
+
+    nh, T, hd = q.shape
+    out = torch.empty((nh, T, hd), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    quant = k.dtype == torch.int8
+    with torch.cuda.device(q.device):
+        kernels.launch(
+            "flash_chunk", "pathway_flash_chunk_attn",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
+            None if tbl_row is None else tbl_row.data_ptr(),
+            row_mask.data_ptr(), out.data_ptr(),
+            nh, T, hd, C, Bk, int(start), float(sm_scale),
+            int(q.dtype == torch.bfloat16), kernels.KV_KIND[k.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    return out
+
+
+def flash_chunk_attn(q, k_row, v_row, row_mask, start, *, k_scale=None,
+                     v_scale=None, sm_scale=None):
+    """Chunk-vs-cache attention over one slot's DENSE cache row.
+
+    Args:
+      q: (heads, T, head_dim) query piece, bf16 or f32.
+      k_row/v_row: (heads, cache_len, head_dim) the slot's cache row (int8
+        when quantized, else q's dtype).
+      row_mask: (cache_len,) int32 live-column mask.
+      start: absolute column of the piece's first query (int); query row t
+        attends ``live & (col <= start + t)``.
+      k_scale/v_scale: (heads, cache_len, 1) f32 scales, or None.
+
+    Returns (heads, T, head_dim) float32. Tiles wholly past
+    ``start + T - 1``, and columns that are not live, are not read.
+    """
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_chunk_attn_reference(q, k_row, v_row, row_mask, start,
+                                          k_scale=k_scale, v_scale=v_scale,
+                                          sm_scale=sm_scale)
+    nh, T, hd = q.shape
+    C = k_row.shape[1]
+    _check_chunk_args("flash_chunk_attn", q, k_row, v_row, k_scale, v_scale,
+                      row_mask, C)
+    if k_row.shape != (nh, C, hd) or v_row.shape != k_row.shape:
+        raise ValueError(f"flash_chunk_attn: k_row/v_row must be ({nh}, C, {hd})")
+    out = _launch_chunk(q, k_row, v_row, k_scale, v_scale, None, row_mask,
+                        start, C, C, sm_scale)
+    flash_chunk_attn.launches += 1
+    return out
+
+
+flash_chunk_attn.launches = 0
+
+
+def flash_chunk_attn_paged(q, kb, vb, kb_scale, vb_scale, tbl_row, row_mask,
+                           start, *, sm_scale=None):
+    """Chunk-vs-cache attention straight over the paged pool's physical
+    block planes ``kb``/``vb`` (n_blocks, heads, block, head_dim), walking
+    ONE slot's block-table row ``tbl_row`` (M,) int32; ``row_mask`` is
+    (M * block,) in logical order. Same contract as
+    :func:`flash_chunk_attn` on the gathered row."""
+    nh, T, hd = q.shape
+    Bk = kb.shape[2]
+    M = tbl_row.shape[0]
+    if row_mask.shape[0] != M * Bk:
+        raise ValueError(
+            f"row_mask width {row_mask.shape[0]} != table blocks {M} x block {Bk}"
+        )
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    if q.device.type == "cpu":
+        return flash_chunk_attn_paged_reference(
+            q, kb, vb, kb_scale, vb_scale, tbl_row, row_mask, start,
+            sm_scale=sm_scale)
+    _check_chunk_args("flash_chunk_attn_paged", q, kb, vb, kb_scale, vb_scale,
+                      row_mask, M * Bk)
+    if kb.dim() != 4 or kb.shape[1] != nh or kb.shape[3] != hd or vb.shape != kb.shape:
+        raise ValueError(f"flash_chunk_attn_paged: kb/vb must be (n_blocks, {nh}, block, {hd})")
+    if (not tbl_row.is_cuda or tbl_row.dtype != torch.int32
+            or not tbl_row.is_contiguous()):
+        raise ValueError("flash_chunk_attn_paged: tbl_row must be a contiguous int32 CUDA tensor")
+    out = _launch_chunk(q, kb, vb, kb_scale, vb_scale, tbl_row, row_mask,
+                        start, M * Bk, Bk, sm_scale)
+    flash_chunk_attn_paged.launches += 1
+    return out
+
+
+flash_chunk_attn_paged.launches = 0
 
 
 # --------------------------------------------------------------------------

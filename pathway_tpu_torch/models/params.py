@@ -1,11 +1,15 @@
 """Parameter bridge between the JAX package's pytrees and the port.
 
-``from_jax_params`` takes the JAX encoder pytree as numpy arrays (the
-stacked ``(L, ...)`` layer leaves of ``pathway_tpu/models/transformer.py``
-``init_params``, or a cross-encoder ``head`` dict) and returns the same
-nested dict of torch tensors; ``to_numpy`` goes the other way. Values are
-carried bit for bit. The port imports no JAX: callers convert with
-``np.asarray`` on their side.
+``from_jax_params`` takes a JAX pytree as numpy arrays and returns the same
+nested dict of torch tensors; ``to_numpy`` goes the other way. It serves
+the encoder (the stacked ``(L, ...)`` layer leaves of
+``pathway_tpu/models/transformer.py`` ``init_params``, a cross-encoder
+``head`` dict) and the decoder alike: ``pathway_tpu/models/decoder.py``
+``init_params`` with its tied ``wte``, the int8 payloads and f32 ``_scale``
+leaves after ``quantize_params``, and the serving pools (int8 and int32
+planes). Values and dtypes are carried bit for bit (bf16 as its 16-bit
+patterns). The port imports no JAX: callers convert with ``np.asarray`` on
+their side.
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def from_jax_params(tree, device="cpu") -> dict:
-    """Nested dict of numpy arrays (the JAX param pytree, or a head dict)
-    -> the same nesting of tensors on ``device``, dtypes kept."""
+    """Nested dict of numpy arrays (a JAX param pytree or pool) -> the same
+    nesting of tensors on ``device``, dtypes kept."""
     return map_params(lambda a: _to_tensor(a, device), tree)
 
 

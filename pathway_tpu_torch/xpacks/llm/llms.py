@@ -1,0 +1,721 @@
+"""The answer LLM of the port: ``DecoderChat`` and its continuous-batching
+server (counterparts of ``TPUDecoderChat`` and ``_ContinuousServer`` in
+``pathway_tpu/xpacks/llm/llms.py``).
+
+``DecoderChat`` has the JAX chat's constructor and call surface but is a
+plain class: the Pathway UDF engine is not ported. It generates either
+batch-static (``decoder.generate``, one call per batch of prompts) or, with
+``continuous=True``, through ``_ContinuousServer``: a background thread that
+owns a slot pool (dense, or paged with a block table), admits requests into
+free slots at chunk boundaries, prefills long prompts piece by piece
+interleaved with decode chunks, runs ``pipeline_depth`` chunks ahead of the
+token drain, and frees a slot as soon as its dispatched steps cover its
+budget.
+
+Behaviour is set by constructor arguments whose defaults are the JAX flag
+defaults, for every feature the server carries. The JAX server's prefix
+cache (and tier 2), speculative decode, disaggregated lanes, tenant
+scheduling, the serving mesh and chunk autotune are not ported; asking for
+any of them raises ``NotImplementedError`` (their defaults here are off).
+Nothing reads an environment variable.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import threading
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from pathway_tpu_torch.device import resolve_device, to_device
+from pathway_tpu_torch.models import decoder as D
+from pathway_tpu_torch.ops import next_pow2
+
+# Serving failures travel the string response channel as a reserved-prefix
+# marker (the \x00 prefix cannot appear in decoded model output).
+SERVE_ERROR_MARKER = "\x00pathway_tpu:serve_error\x00"
+
+
+def encode_serve_error(reason: str) -> str:
+    return SERVE_ERROR_MARKER + json.dumps({"reason": reason})
+
+
+def _parse_quant(raw) -> str:
+    """``int8`` (or any truthy spelling, or True) enables int8; anything
+    else is full precision."""
+    if raw is True:
+        return "int8"
+    if raw in (False, None):
+        return ""
+    return "int8" if str(raw).strip().lower() in ("1", "true", "yes", "on", "int8") else ""
+
+
+def _messages_to_list(messages) -> list[dict]:
+    if isinstance(messages, str):
+        return [{"role": "user", "content": messages}]
+    return [dict(m) for m in messages]
+
+
+class DecoderChat:
+    """Local GPT-2-family chat generating on the card.
+
+    Construct from explicit ``params`` (the port's param dict, any device)
+    + ``cfg`` + ``tokenizer`` (``encode``/``decode`` and an ``eos_id``).
+    Calls take a list of messages (each a string or a list of
+    ``{"role", "content"}`` dicts) and return one completion string each.
+    ``device=None`` runs on CUDA and raises without it; ``device="cpu"``
+    runs the plain PyTorch path."""
+
+    def __init__(
+        self,
+        checkpoint_path: str | None = None,
+        params: dict | None = None,
+        cfg=None,
+        tokenizer=None,
+        max_new_tokens: int = 64,
+        temperature: float = 0.0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        max_prompt_tokens: int = 512,
+        seed: int = 0,
+        continuous: bool = False,
+        n_slots: int = 16,
+        chunk_steps: int = 16,
+        pipeline_depth: int = 4,
+        chunked_prefill: bool | None = None,
+        prefill_chunk: int | None = None,
+        eager_refill: bool | None = None,
+        prefix_cache: bool | None = None,
+        prefix_cache_mb: float | None = None,
+        prefix_block: int | None = None,
+        spec_decode: bool | None = None,
+        spec_draft_layers: int | None = None,
+        spec_k: int | None = None,
+        kv_quant: str | bool | None = None,
+        paged_kv: bool | None = None,
+        paged_kv_block: int | None = None,
+        paged_kv_blocks: int | None = None,
+        paged_kernel: bool | None = None,
+        flash_prefill: bool | None = None,
+        disagg: bool | None = None,
+        disagg_prefill_budget: int | None = None,
+        tenant_sched: bool | None = None,
+        tenant_budget: int | None = None,
+        tenant_weights: str | None = None,
+        prefix_t2_mb: float | None = None,
+        mesh=None,
+        weight_quant: str | bool | None = None,
+        wq_kernel: bool | None = None,
+        device=None,
+    ):
+        if checkpoint_path is not None:
+            raise NotImplementedError(
+                "DecoderChat cannot load a checkpoint yet: pass params, cfg "
+                "and tokenizer"
+            )
+        if params is None or cfg is None or tokenizer is None:
+            raise ValueError("DecoderChat needs params + cfg + tokenizer")
+        self.device = resolve_device(device)
+        self.weight_quant = _parse_quant(weight_quant)
+        self.wq_kernel = bool(self.weight_quant) and bool(wq_kernel)
+        if self.wq_kernel:
+            cfg = dataclasses.replace(cfg, wq_kernel=True)
+        params = D.map_params(lambda t: t.to(self.device), params)
+        if self.weight_quant:
+            self.params = D.quantize_params(params, cfg)
+        else:
+            self.params = D.cast_params_for_inference(params, cfg)
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.max_new_tokens = int(max_new_tokens)
+        self.temperature = float(temperature)
+        self.top_k = top_k
+        self.top_p = top_p
+        self.max_prompt_tokens = min(int(max_prompt_tokens),
+                                     cfg.max_position - self.max_new_tokens)
+        if self.max_prompt_tokens <= 0:
+            raise ValueError(
+                f"max_new_tokens ({self.max_new_tokens}) leaves no room for a "
+                f"prompt within max_position ({cfg.max_position})"
+            )
+        self._seed = int(seed)
+        self._calls = 0
+        self._server: _ContinuousServer | None = None
+        if continuous:
+            self._server = _ContinuousServer(
+                self.params, cfg, tokenizer,
+                n_slots=n_slots, chunk_steps=chunk_steps,
+                max_prompt_tokens=self.max_prompt_tokens,
+                default_max_new=self.max_new_tokens,
+                temperature=self.temperature, top_k=self.top_k,
+                top_p=self.top_p, seed=seed,
+                pipeline_depth=pipeline_depth,
+                chunked_prefill=chunked_prefill,
+                prefill_chunk=prefill_chunk,
+                eager_refill=eager_refill,
+                prefix_cache=prefix_cache,
+                prefix_cache_mb=prefix_cache_mb,
+                prefix_block=prefix_block,
+                spec_decode=spec_decode,
+                spec_draft_layers=spec_draft_layers,
+                spec_k=spec_k,
+                kv_quant=kv_quant,
+                paged_kv=paged_kv,
+                paged_kv_block=paged_kv_block,
+                paged_kv_blocks=paged_kv_blocks,
+                paged_kernel=paged_kernel,
+                flash_prefill=flash_prefill,
+                disagg=disagg,
+                disagg_prefill_budget=disagg_prefill_budget,
+                tenant_sched=tenant_sched,
+                tenant_budget=tenant_budget,
+                tenant_weights=tenant_weights,
+                prefix_t2_mb=prefix_t2_mb,
+                mesh=mesh,
+            )
+
+    @property
+    def server(self) -> "_ContinuousServer | None":
+        return self._server
+
+    def close(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+
+    def _format_prompt(self, messages) -> str:
+        if isinstance(messages, str):
+            return messages
+        parts = [f"{m.get('role', 'user')}: {m.get('content', '')}"
+                 for m in _messages_to_list(messages)]
+        return "\n".join(parts) + "\nassistant:"
+
+    def _prompt_cap(self, max_new: int) -> int:
+        cap = min(self.max_prompt_tokens, self.cfg.max_position - max_new)
+        if cap <= 0:
+            raise ValueError(
+                f"max_new_tokens ({max_new}) leaves no room for a prompt "
+                f"within max_position ({self.cfg.max_position})"
+            )
+        return cap
+
+    # two-phase protocol (continuous mode): submit enqueues every row
+    # without waiting; resolve blocks on the completions
+    def submit_batch(self, messages: list, **kwargs):
+        if self._server is None:
+            raise TypeError("submit_batch requires continuous=True")
+        max_new = int(kwargs.pop("max_new_tokens", self.max_new_tokens))
+        # priority and tenant only steer the degradation ladder and the
+        # tenant scheduler, neither of which is ported
+        kwargs.pop("priority", None)
+        kwargs.pop("tenant", None)
+        if kwargs:
+            raise TypeError(
+                f"continuous DecoderChat cannot vary {sorted(kwargs)} per "
+                f"call; set them on the constructor"
+            )
+        if max_new > self.max_new_tokens:
+            raise ValueError(
+                f"continuous DecoderChat serves at most the constructor's "
+                f"max_new_tokens ({self.max_new_tokens}) per request; got {max_new}"
+            )
+        cap = self._prompt_cap(max_new)
+        return [self._server.submit(
+            self.tokenizer.encode(self._format_prompt(m))[-cap:], max_new)
+            for m in messages]
+
+    def resolve_batch(self, handles) -> list:
+        out = []
+        for reqs in handles:
+            texts = []
+            for req in reqs:
+                req.done.wait()
+                if req.text is None:
+                    texts.append(encode_serve_error(req.error_reason or "serve_failed"))
+                else:
+                    texts.append(req.text)
+            out.append(texts)
+        return out
+
+    def __call__(self, messages: list, **kwargs) -> list[str | None]:
+        if self._server is not None:
+            return self.resolve_batch([self.submit_batch(messages, **kwargs)])[0]
+        max_new = int(kwargs.pop("max_new_tokens", self.max_new_tokens))
+        temp = float(kwargs.pop("temperature", self.temperature))
+        top_k = kwargs.pop("top_k", self.top_k)
+        # clamp into [1, vocab_size], as HF does
+        top_k = None if top_k is None else min(max(1, int(top_k)), self.cfg.vocab_size)
+        top_p = kwargs.pop("top_p", self.top_p)
+        top_p = None if top_p is None else float(top_p)
+        if kwargs:
+            raise TypeError(f"DecoderChat got unsupported call kwargs: {sorted(kwargs)}")
+        cap = self._prompt_cap(max_new)
+        encoded = [self.tokenizer.encode(self._format_prompt(m))[-cap:]
+                   for m in messages]
+        s = min(next_pow2(max((len(e) for e in encoded), default=1), 8), cap)
+        rows = next_pow2(len(encoded), 1)
+        ids = np.zeros((rows, s), np.int32)
+        mask = np.zeros((rows, s), np.int32)
+        for r, e in enumerate(encoded):  # LEFT-padded (decoder contract)
+            e = e[-s:]
+            if e:
+                ids[r, s - len(e):] = e
+                mask[r, s - len(e):] = 1
+            else:
+                mask[r, -1] = 1  # empty prompt: one live pad slot
+        # a new draw per call: sampling must not replay one fixed draw
+        self._calls += 1
+        gen = torch.Generator(device=self.device).manual_seed(
+            self._seed * 1_000_003 + self._calls)
+        eos = getattr(self.tokenizer, "eos_id", None)
+        toks = D.generate(
+            self.params, to_device(ids, self.device), to_device(mask, self.device),
+            self.cfg, max_new, temperature=temp, generator=gen, eos_id=eos,
+            top_k=top_k, top_p=top_p,
+        ).cpu().numpy()
+        out: list[str | None] = []
+        for r in range(len(encoded)):
+            t = toks[r].tolist()
+            if eos is not None and eos in t:
+                t = t[: t.index(eos)]
+            out.append(self.tokenizer.decode(t))
+        return out
+
+
+class _PendingCompletion:
+    """One in-flight continuous-batching request (host-side record)."""
+
+    __slots__ = ("ids", "max_new", "tokens", "done", "text", "submitted_at",
+                 "finished_at", "first_token_at", "error_reason")
+
+    def __init__(self, ids: list, max_new: int):
+        self.ids = ids
+        self.max_new = max_new
+        self.tokens: list[int] = []
+        self.done = threading.Event()
+        self.text: str | None = None
+        self.submitted_at = time.perf_counter()
+        self.finished_at: float | None = None
+        self.first_token_at: float | None = None  # first token DRAINED
+        self.error_reason: str | None = None
+
+
+_UNPORTED = (
+    # (argument, asked-for test, what it is)
+    ("prefix_cache", lambda v: bool(v), "the prefix KV cache"),
+    ("prefix_t2_mb", lambda v: v is not None and float(v) > 0, "the tier-2 prefix cache"),
+    ("spec_decode", lambda v: bool(v), "self-speculative decode"),
+    ("disagg", lambda v: bool(v), "disaggregated prefill/decode lanes"),
+    ("tenant_sched", lambda v: bool(v), "tenant scheduling and preemption"),
+    ("mesh", lambda v: v is not None, "the serving mesh"),
+    ("chunk_autotune", lambda v: bool(v), "chunk-steps autotune"),
+)
+
+
+class _ContinuousServer:
+    """Slot-pool serving loop for ``DecoderChat(continuous=True)``.
+
+    A background thread owns the pool. Each loop tick dispatches the active
+    lanes' decode chunk FIRST (prefill/decode overlap), then admits waiting
+    requests into free slots: a dense pool prefills a short prompt whole
+    (same-bucket arrivals batched into one ``pool_admit_batch``) and a long
+    one in ``prefill_chunk`` pieces, one piece per tick; a paged pool
+    allocates exactly the blocks a request can reach and always admits
+    right-padded, piece by piece. Up to ``pipeline_depth`` chunks run ahead
+    of the token drain (each chunk's tokens copy to the host as soon as it
+    is queued), and eager refill frees a lane whose dispatched steps cover
+    its budget at dispatch time. A stream ends at EOS or at its own
+    ``max_new``."""
+
+    def __init__(self, params, cfg, tokenizer, *, n_slots: int,
+                 chunk_steps: int, max_prompt_tokens: int,
+                 default_max_new: int, temperature: float, top_k, top_p,
+                 seed: int, pipeline_depth: int = 4,
+                 chunked_prefill: bool | None = None,
+                 prefill_chunk: int | None = None,
+                 eager_refill: bool | None = None,
+                 prefix_cache: bool | None = None,
+                 prefix_cache_mb: float | None = None,
+                 prefix_block: int | None = None,
+                 spec_decode: bool | None = None,
+                 spec_draft_layers: int | None = None,
+                 spec_k: int | None = None,
+                 kv_quant: str | bool | None = None,
+                 paged_kv: bool | None = None,
+                 paged_kv_block: int | None = None,
+                 paged_kv_blocks: int | None = None,
+                 paged_kernel: bool | None = None,
+                 flash_prefill: bool | None = None,
+                 disagg: bool | None = None,
+                 disagg_prefill_budget: int | None = None,
+                 tenant_sched: bool | None = None,
+                 tenant_budget: int | None = None,
+                 tenant_weights: str | None = None,
+                 prefix_t2_mb: float | None = None,
+                 mesh=None,
+                 chunk_autotune: bool | None = None):
+        asked = dict(prefix_cache=prefix_cache, prefix_t2_mb=prefix_t2_mb,
+                     spec_decode=spec_decode, disagg=disagg,
+                     tenant_sched=tenant_sched, mesh=mesh,
+                     chunk_autotune=chunk_autotune)
+        for name, on, what in _UNPORTED:
+            if on(asked[name]):
+                raise NotImplementedError(
+                    f"{name}: {what} is not ported to pathway_tpu_torch yet")
+        self.cfg = cfg
+        self.params = params
+        self.device = params["wte"].device
+        self.tokenizer = tokenizer
+        self.n_slots = int(n_slots)
+        self.chunk_steps = int(chunk_steps)
+        self.max_prompt_bucket = next_pow2(max_prompt_tokens, 8)
+        # a lane may overrun its budget until its tokens drain: one chunk of
+        # cache slack per in-flight chunk plus the one being dispatched
+        self.pipeline_depth = max(0, int(pipeline_depth))
+        self._slack = self.chunk_steps
+        self.cache_len = (self.max_prompt_bucket + int(default_max_new)
+                          + (self.pipeline_depth + 1) * self._slack)
+        self.kv_quant = _parse_quant(kv_quant)
+        self.eos_id = getattr(tokenizer, "eos_id", None)
+        self.chunked_prefill = True if chunked_prefill is None else bool(chunked_prefill)
+        self.prefill_chunk = max(8, next_pow2(
+            64 if prefill_chunk is None else int(prefill_chunk), 8))
+        self.eager_refill = True if eager_refill is None else bool(eager_refill)
+        self.paged_kv = bool(paged_kv)
+        self.paged_kernel = bool(self.paged_kv and paged_kernel)
+        self.flash_prefill = bool(flash_prefill)
+        self.paged_block = 0
+        self._paged_blocks_override = 0
+        self._allocator = None
+        self._total_blocks = 0
+        self._slot_blocks: dict[int, list] = {}
+        if self.paged_kv:
+            # a pow2 multiple of the prefill chunk; cache_len rounds up to
+            # whole blocks (table rows address whole blocks)
+            pb = 0 if paged_kv_block is None else int(paged_kv_block)
+            self.paged_block = next_pow2(max(pb, self.prefill_chunk), self.prefill_chunk)
+            self.cache_len = -(-self.cache_len // self.paged_block) * self.paged_block
+            self._paged_blocks_override = max(
+                0, 0 if paged_kv_blocks is None else int(paged_kv_blocks))
+        self.pool = self._build_pool()
+        self._temperature = float(temperature)
+        self._top_k = top_k
+        self._top_p = top_p
+        self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        # slot -> (remaining prefill pieces, n_prompt, meta), one piece per tick
+        self._pending_prefill: dict[int, tuple] = {}
+        # per-slot DISPATCHED decode steps since admission (eager refill)
+        self._sent = [0] * self.n_slots
+        self.queue: deque = deque()
+        self.slots: list = [None] * self.n_slots
+        self.free = list(range(self.n_slots))
+        self.lock = threading.Lock()
+        self.wake = threading.Event()
+        self._stop = False
+        self.failed: BaseException | None = None
+        self.stats = {"chunks": 0, "admitted": 0, "decode_steps": 0,
+                      "prefill_chunks": 0, "admit_dispatches": 0}
+        # in-flight chunk records, oldest first
+        self._inflight: deque = deque()
+        self.thread = threading.Thread(target=self._run_safe, daemon=True,
+                                       name="pathway:decoder-serve")
+        self.thread.start()
+
+    def _build_pool(self):
+        """A fresh pool: ``pool_init``, or ``paged_pool_init`` plus a fresh
+        host ``BlockAllocator`` (default: every slot's full table plus the
+        sentinel)."""
+        if self.paged_kv:
+            per_slot = self.cache_len // self.paged_block
+            auto = self.n_slots * per_slot + 1
+            self._total_blocks = max(2, self._paged_blocks_override or auto)
+            self._allocator = D.BlockAllocator(self._total_blocks)
+            self._slot_blocks = {}
+            return D.paged_pool_init(
+                self.params, self.cfg, self.n_slots, self.cache_len,
+                n_blocks=self._total_blocks, block=self.paged_block,
+                kv_quant=bool(self.kv_quant))
+        return D.pool_init(self.params, self.cfg, self.n_slots, self.cache_len,
+                           kv_quant=bool(self.kv_quant))
+
+    def _release_slot_kv(self, slot: int) -> None:
+        """A freed paged slot's table row points at the sentinel BEFORE its
+        blocks return to the allocator, so no two rows share a block."""
+        if self._allocator is not None:
+            row = self._slot_blocks.pop(slot, None)
+            if row:
+                M = self.cache_len // self.paged_block
+                self.pool = D.paged_table_set(self.pool, slot, np.zeros((M,), np.int32))
+                self._allocator.release(row)
+
+    def _fail_request(self, req, reason: str) -> None:
+        req.error_reason = reason
+        req.text = None
+        req.done.set()
+
+    def _run_safe(self):
+        try:
+            if self.device.type == "cuda":
+                with torch.cuda.device(self.device):
+                    self._loop()
+            else:
+                self._loop()
+        except BaseException as exc:  # noqa: BLE001 - never hang waiters
+            self.failed = exc
+        finally:
+            # every request still in a slot, queued, or waiting in the
+            # in-flight snapshots completes with the error sentinel
+            with self.lock:
+                pending = [r for r in self.slots if r is not None]
+                pending.extend(self.queue)
+                self.queue.clear()
+            for rec in list(self._inflight):
+                pending.extend(r for r in rec[2] if r is not None)
+            for req in pending:
+                if not req.done.is_set():
+                    req.text = None
+                    req.done.set()
+
+    def submit(self, prompt_ids: list, max_new: int) -> _PendingCompletion:
+        req = _PendingCompletion(list(prompt_ids), int(max_new))
+        with self.lock:
+            if self.failed is not None:
+                raise RuntimeError(f"decoder serving loop died: {self.failed!r}")
+            if self._stop:
+                raise RuntimeError("decoder serving loop is shut down")
+            self.queue.append(req)
+        self.wake.set()
+        return req
+
+    def _admit_one(self, slot: int, req, direct: list) -> None:
+        """Admission host work for ONE request: pad the prompt and either
+        schedule prefill pieces or queue a whole-prompt admission."""
+        e = req.ids[-self.max_prompt_bucket:]
+        n = len(e)
+        if self.paged_kv:
+            self._admit_one_paged(slot, req, e, n)
+            return
+        s = max(8, next_pow2(max(n, 1), 8))
+        ids = np.zeros((1, s), np.int32)
+        mask = np.zeros((1, s), np.int32)
+        if e:
+            ids[0, s - n:] = e
+            mask[0, s - n:] = 1
+        else:
+            mask[0, -1] = 1
+        if self.chunked_prefill and s > self.prefill_chunk:
+            pos = np.clip(np.cumsum(mask[0]) - 1, 0, None)[None, :].astype(np.int32)
+            P = self.prefill_chunk
+            pieces = [(ids[:, o:o + P], mask[:, o:o + P], pos[:, o:o + P], o)
+                      for o in range(0, s, P)]
+            self._pending_prefill[slot] = (pieces, int(mask.sum()), None)
+        else:
+            direct.append((slot, ids, mask, s))
+        self.stats["admitted"] += 1
+
+    def _admit_one_paged(self, slot: int, req, e: list, n: int) -> None:
+        """Paged admission: allocate exactly the blocks this request can
+        reach, install the slot's table row, and schedule the prompt as
+        RIGHT-padded pieces (token i at cache column i). On
+        ``PagedPoolOOM`` nothing is written and the request waits at the
+        queue head."""
+        if not e:
+            e, n = [0], 1  # one pad token at column 0
+        B = self.paged_block
+        per_slot = self.cache_len // B
+        cover = min(self.cache_len,
+                    n + req.max_new + (self.pipeline_depth + 1) * self._slack)
+        need = min(per_slot, -(-cover // B))
+        try:
+            row = self._allocator.alloc(need)
+        except D.PagedPoolOOM:
+            self.slots[slot] = None
+            with self.lock:
+                self.free.append(int(slot))
+            if need > self._total_blocks - 1:
+                self._fail_request(req, "paged_oom")  # can never fit
+                return
+            with self.lock:
+                self.queue.appendleft(req)
+            return
+        self._slot_blocks[slot] = row
+        row_arr = np.zeros((per_slot,), np.int32)
+        row_arr[:len(row)] = row
+        # the first piece clears the slot's mask row
+        self.pool = D.paged_table_set(self.pool, slot, row_arr)
+        P = self.prefill_chunk
+        W = -(-n // P) * P
+        r_ids = np.zeros((1, W), np.int32)
+        r_mask = np.zeros((1, W), np.int32)
+        r_ids[0, :n] = e
+        r_mask[0, :n] = 1
+        pos = np.minimum(np.arange(W), n - 1)[None, :].astype(np.int32)
+        pieces = [(r_ids[:, o:o + P], r_mask[:, o:o + P], pos[:, o:o + P], o)
+                  for o in range(0, W, P)]
+        lc = (n - 1) - (W - P)
+        self._pending_prefill[slot] = (pieces, n, {"last_col": None if lc == P - 1 else lc})
+        self.stats["admitted"] += 1
+
+    def _prefill_piece(self, slot: int, active) -> None:
+        """Dispatch one pending prefill piece for ``slot``."""
+        pieces, n_prompt, meta = self._pending_prefill[slot]
+        p_ids, p_mask, p_pos, off = pieces.pop(0)
+        first, last = off == 0, not pieces
+        lc = meta.get("last_col") if (meta and last) else None
+        dev = self.device
+        self.pool = D.pool_prefill_chunk(
+            self.params, to_device(p_ids, dev), to_device(p_mask, dev),
+            to_device(p_pos, dev), self.pool, slot, off, n_prompt, self.cfg,
+            first=first, last=last, last_col=lc, flash=self.flash_prefill)
+        self.stats["prefill_chunks"] += 1
+        if last:
+            del self._pending_prefill[slot]
+            active[slot] = True
+
+    def _admit_direct(self, direct, active) -> None:
+        """Whole-prompt admissions: same-bucket arrivals group into
+        pow2-sized ``pool_admit_batch`` calls."""
+        dev = self.device
+        by_s: dict[int, list] = {}
+        for item in direct:
+            by_s.setdefault(item[3], []).append(item)
+        groups = []
+        for grp in by_s.values():
+            o = 0
+            while o < len(grp):
+                m = 1 << ((len(grp) - o).bit_length() - 1)
+                groups.append(grp[o:o + m])
+                o += m
+        for part in groups:
+            ids = to_device(np.concatenate([p[1] for p in part], axis=0), dev)
+            mask = to_device(np.concatenate([p[2] for p in part], axis=0), dev)
+            slots = [p[0] for p in part]
+            if len(part) == 1:
+                self.pool = D.pool_admit(self.params, ids, mask, self.pool,
+                                         slots[0], self.cfg, flash=self.flash_prefill)
+            else:
+                self.pool = D.pool_admit_batch(self.params, ids, mask, self.pool,
+                                               slots, self.cfg, flash=self.flash_prefill)
+            self.stats["admit_dispatches"] += 1
+            for slot in slots:
+                active[slot] = True
+
+    def _dispatch_decode(self, active) -> bool:
+        """One decode chunk over the active lanes; False if none."""
+        if not active.any():
+            return False
+        steps = self.chunk_steps
+        self.pool, toks = D.pool_decode_chunk(
+            self.params, self.pool, to_device(active.copy(), self.device),
+            self._gen, self.cfg, steps, temperature=self._temperature,
+            top_k=self._top_k, top_p=self._top_p, paged_kernel=self.paged_kernel)
+        self._inflight.append((_HostCopy(toks), active.copy(), list(self.slots)))
+        self.stats["chunks"] += 1
+        self.stats["decode_steps"] += steps
+        for slot in np.nonzero(active)[0]:
+            req = self.slots[slot]
+            if req is None:
+                continue
+            self._sent[slot] += steps
+            if self.eager_refill and self._sent[slot] >= req.max_new:
+                # no later chunk can add to this answer: free the slot now;
+                # its tokens drain from the snapshots, and stream order
+                # puts the next occupant's writes after this chunk
+                self.slots[slot] = None
+                active[slot] = False
+                self._release_slot_kv(slot)
+                with self.lock:
+                    self.free.append(int(slot))
+        return True
+
+    def _drain(self, rec, active) -> None:
+        """Hand one chunk's tokens to the requests it served."""
+        host, was_active, snap_slots = rec
+        toks = host.numpy()
+        for slot in np.nonzero(was_active)[0]:
+            req = snap_slots[slot]
+            if req is None or req.done.is_set():
+                continue
+            for t in toks[:, slot].tolist():
+                if self.eos_id is not None and t == self.eos_id:
+                    req.max_new = 0  # stream closed
+                    break
+                if not req.tokens:
+                    req.first_token_at = time.perf_counter()
+                req.tokens.append(int(t))
+                if len(req.tokens) >= req.max_new:
+                    break
+            if req.max_new == 0 or len(req.tokens) >= req.max_new:
+                req.text = self.tokenizer.decode(req.tokens)
+                req.finished_at = time.perf_counter()
+                # eager refill may already have freed (and re-admitted) it
+                if self.slots[slot] is req:
+                    self.slots[slot] = None
+                    active[slot] = False
+                    self._release_slot_kv(slot)
+                    with self.lock:
+                        self.free.append(int(slot))
+                req.done.set()
+
+    def _loop(self):
+        active = np.zeros(self.n_slots, dtype=bool)
+        inflight = self._inflight
+        while not self._stop:
+            # decode FIRST: newcomer admission overlaps the in-flight chunk
+            dispatched = self._dispatch_decode(active)
+            admissions = []
+            with self.lock:
+                while self.queue and self.free:
+                    admissions.append((self.free.pop(), self.queue.popleft()))
+            direct: list = []
+            for slot, req in admissions:
+                # the slot record goes in first, so a failing admission
+                # still finds (and fails) this request
+                self.slots[slot] = req
+                self._sent[slot] = 0
+                self._admit_one(slot, req, direct)
+            self._admit_direct(direct, active)
+            for slot in list(self._pending_prefill):
+                self._prefill_piece(slot, active)
+            if not dispatched:  # the pool was empty: decode the newcomers
+                dispatched = self._dispatch_decode(active)
+            if dispatched:
+                if len(inflight) <= self.pipeline_depth:
+                    continue
+            elif not inflight:
+                if self._pending_prefill:
+                    continue
+                self.wake.clear()
+                self.wake.wait(timeout=0.05)
+                continue
+            self._drain(inflight.popleft(), active)
+
+    def shutdown(self, timeout: float = 10.0):
+        self._stop = True
+        self.wake.set()
+        t = self.thread
+        if t is not None and t.is_alive():
+            t.join(timeout=timeout)
+
+
+class _HostCopy:
+    """A device tensor's copy to the host, started at once: on the card it
+    lands in pinned memory without blocking, and ``numpy()`` waits for it."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.is_cuda:
+            self._buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._buf.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._buf = t
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._buf.numpy()

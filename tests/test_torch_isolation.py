@@ -1,6 +1,8 @@
 """The port stands alone: no module of pathway_tpu_torch, nor
-chip_smoke.py or tools/, imports JAX or the JAX package; entry points refuse to run
-on the CPU unless asked; CPU tensors never launch a kernel."""
+chip_smoke.py or tools/, imports JAX or the JAX package; every CUDA source
+is bound in kernels.py; entry points refuse to run on the CPU unless asked;
+CPU tensors never launch a kernel; the decoder server refuses the JAX
+serving features it does not carry."""
 
 import ast
 from pathlib import Path
@@ -16,8 +18,13 @@ from pathway_tpu_torch import (
     HashTokenizer,
     SentenceEmbedderModel,
 )
+from pathway_tpu_torch import DecoderChat, kernels
 from pathway_tpu_torch.device import resolve_device
+from pathway_tpu_torch.models import decoder as TD
 from pathway_tpu_torch.models import flash_attention as TFA
+from pathway_tpu_torch.models import paged_attention as TPA
+from pathway_tpu_torch.models import wq_matmul as TWQ
+from pathway_tpu_torch.models.bpe import BPETokenizer, bytes_to_unicode
 from pathway_tpu_torch.models.transformer import TransformerConfig
 
 ROOT = Path(pathway_tpu_torch.__file__).resolve().parent.parent
@@ -54,7 +61,21 @@ def test_port_imports_no_jax_and_no_jax_package(path):
 def test_source_scan_sees_the_whole_package():
     names = {p.name for p in _sources()}
     assert {"chip_smoke.py", "flash_attention.py", "fused_query.py",
-            "knn.py", "kernels.py", "profile_rag_path.py"} <= names
+            "knn.py", "kernels.py", "profile_rag_path.py", "decoder.py",
+            "paged_attention.py", "wq_matmul.py", "bpe.py", "llms.py"} <= names
+
+
+def test_every_cuda_source_is_bound():
+    """Each csrc/*.cu is one kernel library of kernels.py, and each bound
+    symbol is defined extern "C" in its source."""
+    sources = {p.name for p in kernels.CSRC.glob("*.cu")}
+    bound = {src for src, _ in kernels.KERNELS.values()}
+    assert sources == bound == {"flash_attn.cu", "flash_chunk.cu",
+                                "paged_attn.cu", "wq_matmul.cu"}
+    for src, fns in kernels.KERNELS.values():
+        text = (kernels.CSRC / src).read_text()
+        for fn in fns:
+            assert f'extern "C" cudaError_t {fn}(' in text, (src, fn)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -72,6 +93,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+    dcfg, params, tok = _tiny_decoder()
+    for continuous in (False, True):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DecoderChat(params=params, cfg=dcfg, tokenizer=tok, continuous=continuous)
+    chat = DecoderChat(params=params, cfg=dcfg, tokenizer=tok, max_new_tokens=2,
+                       device="cpu")
+    assert len(chat(["ab"])) == 1
+
+
+def _tiny_decoder():
+    dcfg = TD.DecoderConfig(vocab_size=256, hidden=16, layers=1, heads=2,
+                            intermediate=32, max_position=128, dtype=torch.float32)
+    b2u = bytes_to_unicode()
+    tok = BPETokenizer({b2u[i]: i for i in range(256)}, [])
+    return dcfg, TD.init_params(torch.Generator().manual_seed(0), dcfg), tok
 
 
 def test_flash_attn_on_cpu_launches_nothing():
@@ -85,3 +121,42 @@ def test_flash_attn_on_cpu_launches_nothing():
     SentenceEmbedderModel(cfg, tokenizer=HashTokenizer(vocab_size=1000),
                           device="cpu")(["a b c"])
     assert TFA.flash_attn.launches == before
+
+
+def test_decoder_kernels_on_cpu_launch_nothing():
+    """A paged, int8-weight, int8-KV server run with every kernel route on
+    (and a dense one with flash prefill) launches no kernel on the CPU."""
+    dcfg, params, tok = _tiny_decoder()
+    counters = (TPA.paged_attn_decode, TFA.flash_chunk_attn,
+                TFA.flash_chunk_attn_paged, TWQ.wq_matmul, TFA.flash_attn)
+    before = [f.launches for f in counters]
+    for kw in (dict(paged_kv=True, paged_kernel=True, kv_quant="int8"),
+               dict(paged_kv=False)):
+        chat = DecoderChat(params=params, cfg=dcfg, tokenizer=tok,
+                           max_new_tokens=4, max_prompt_tokens=32, continuous=True,
+                           n_slots=2, chunk_steps=2, prefill_chunk=8,
+                           flash_prefill=True, weight_quant="int8", wq_kernel=True,
+                           device="cpu", **kw)
+        try:
+            out = chat(["a short one", "a prompt long enough for two pieces"])
+        finally:
+            chat.close()
+        assert len(out) == 2 and chat.server.stats["decode_steps"] > 0
+    assert [f.launches for f in counters] == before
+
+
+@pytest.mark.parametrize("feature", [
+    dict(prefix_cache=True), dict(spec_decode=True), dict(disagg=True),
+    dict(tenant_sched=True), dict(prefix_t2_mb=8.0), dict(mesh=object()),
+])
+def test_server_refuses_features_left_out(feature):
+    dcfg, params, tok = _tiny_decoder()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        DecoderChat(params=params, cfg=dcfg, tokenizer=tok, continuous=True,
+                    device="cpu", **feature)
+    from pathway_tpu_torch.xpacks.llm.llms import _ContinuousServer
+
+    with pytest.raises(NotImplementedError, match="autotune"):
+        _ContinuousServer(params, dcfg, tok, n_slots=1, chunk_steps=2,
+                          max_prompt_tokens=8, default_max_new=2, temperature=0.0,
+                          top_k=None, top_p=None, seed=0, chunk_autotune=True)

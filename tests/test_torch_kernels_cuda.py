@@ -7,21 +7,29 @@ with only PyTorch. Run there with:
 
 (``--noconftest``: the suite's conftest imports JAX.)
 
-Tolerance: the kernel keeps scores and probabilities in f32 and differs
-from the dense f32 plain version only in summation order and in its fast
-exp, so atol 1e-4 for f32 inputs and 2e-3 for bf16 inputs.
+Tolerances. The attention kernels keep scores and probabilities in f32
+and differ from the dense f32 plain versions only in summation order and
+in their fast exp: atol 1e-4 for f32 inputs, 2e-3 for bf16 or int8 inputs
+(larger values). ``paged_attn_decode`` returns q's dtype: bf16 outputs may
+round to the neighbouring bf16 value, so rtol 2**-7 (one bf16 ulp) and atol
+1e-3. ``wq_matmul`` sums exact products in f32 in another order than the
+f32 cuBLAS product of the plain version: rtol 1e-5, atol 1e-5 of the
+largest output.
 """
 
 import pytest
 import torch
 
 from pathway_tpu_torch.models import flash_attention as TFA
+from pathway_tpu_torch.models import paged_attention as TPA
+from pathway_tpu_torch.models import wq_matmul as TWQ
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -58,3 +66,148 @@ def test_flash_attn_kernel_refuses_bad_inputs(cuda):
         TFA.flash_attn(q, q, q, mask.long())
     with pytest.raises(ValueError, match="contiguous"):
         TFA.flash_attn(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, mask)
+
+
+def _paged_case(g, B, nh, hd, Bk, M, quant, dtype, dev):
+    """Shuffled physical blocks, ragged masks, an empty slot (0), a slot
+    whose table tail is the sentinel (1), block 0 zero."""
+    n_blocks = B * M + 1
+    q = torch.randn((B, nh, hd), generator=g).to(dev, dtype)
+    if quant:
+        kb, vb = (torch.randint(-127, 128, (n_blocks, nh, Bk, hd), generator=g,
+                                dtype=torch.int8).to(dev) for _ in range(2))
+        kbs, vbs = (torch.empty((n_blocks, nh, Bk, 1)).uniform_(0.01, 0.05, generator=g).to(dev)
+                    for _ in range(2))
+    else:
+        kb, vb = (torch.randn((n_blocks, nh, Bk, hd), generator=g).to(dev, dtype)
+                  for _ in range(2))
+        kbs = vbs = None
+    for t in (kb, vb, kbs, vbs):
+        if t is not None:
+            t[0] = 0
+    tbl = (torch.randperm(n_blocks - 1, generator=g)[: B * M] + 1).reshape(B, M)
+    lens = torch.randint(1, M * Bk + 1, (B,), generator=g)
+    lens[0] = 0
+    if B > 1:
+        lens[1] = min(Bk + 3, M * Bk)
+        tbl[1, (lens[1] + Bk - 1) // Bk:] = 0
+    mask = (torch.arange(M * Bk)[None, :] < lens[:, None]).to(torch.int32)
+    return (q, kb, vb, kbs, vbs, tbl.to(torch.int32).to(dev), mask.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,nh,hd,Bk,M", [(16, 12, 64, 64, 11), (3, 2, 8, 8, 3),
+                                          (4, 3, 128, 16, 5), (5, 1, 32, 64, 2),
+                                          (2, 2, 256, 8, 4)])
+def test_paged_attn_kernel_matches_plain_version(cuda, B, nh, hd, Bk, M, quant, dtype):
+    g = torch.Generator().manual_seed(B * 100 + hd + Bk)
+    args = _paged_case(g, B, nh, hd, Bk, M, quant, dtype, cuda)
+    before = TPA.paged_attn_decode.launches
+    out = TPA.paged_attn_decode(*args)
+    torch.cuda.synchronize()
+    assert TPA.paged_attn_decode.launches == before + 1
+    ref = TPA.paged_attn_decode_reference(*args)
+    assert out.dtype == dtype and out.shape == ref.shape
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    else:
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+    assert torch.all(out[0] == 0)  # the empty slot
+    for t in args[1:5]:
+        if t is not None:
+            assert torch.all(t[0] == 0)
+
+
+def _chunk_case(g, nh, T, C, hd, quant, dtype, dev, start):
+    q = torch.randn((nh, T, hd), generator=g).to(dev, dtype)
+    if quant:
+        k, v = (torch.randint(-127, 128, (nh, C, hd), generator=g, dtype=torch.int8).to(dev)
+                for _ in range(2))
+        ks, vs = (torch.empty((nh, C, 1)).uniform_(0.01, 0.05, generator=g).to(dev)
+                  for _ in range(2))
+    else:
+        k, v = (torch.randn((nh, C, hd), generator=g).to(dev, dtype) for _ in range(2))
+        ks = vs = None
+    row_mask = (torch.arange(C) < start + T).to(torch.int32)
+    row_mask[3::7] = 0  # holes
+    return q, k, v, ks, vs, row_mask.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,T,C,hd,Bk,start", [(12, 64, 704, 64, 64, 0),
+                                                (12, 64, 704, 64, 64, 64),
+                                                (12, 64, 704, 64, 64, 640),
+                                                (4, 8, 96, 8, 16, 7),
+                                                (3, 5, 48, 128, 8, 40),
+                                                (2, 40, 64, 32, 32, 0)])
+def test_flash_chunk_kernels_match_plain_version(cuda, nh, T, C, hd, Bk, start, quant, dtype):
+    g = torch.Generator().manual_seed(C + start + hd)
+    q, k, v, ks, vs, row_mask = _chunk_case(g, nh, T, C, hd, quant, dtype, cuda, start)
+    atol = 1e-4 if dtype == torch.float32 and not quant else 2e-3
+    before = TFA.flash_chunk_attn.launches
+    out = TFA.flash_chunk_attn(q, k, v, row_mask, start, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert TFA.flash_chunk_attn.launches == before + 1
+    ref = TFA.flash_chunk_attn_reference(q, k, v, row_mask, start, k_scale=ks, v_scale=vs)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, rtol=0, atol=atol)
+    # the same cache cut into shuffled physical blocks behind a table row
+    M = C // Bk
+    n_blocks = M + 3
+    perm = (torch.randperm(n_blocks - 1, generator=g)[:M] + 1).to(cuda)
+
+    def planes(row):
+        if row is None:
+            return None
+        pl = torch.zeros((n_blocks, nh, Bk, row.shape[-1]), dtype=row.dtype, device=cuda)
+        pl[perm.long()] = row.reshape(nh, M, Bk, -1).transpose(0, 1)
+        return pl
+
+    kb, vb, kbs, vbs = (planes(t) for t in (k, v, ks, vs))
+    tbl = perm.to(torch.int32)
+    before = TFA.flash_chunk_attn_paged.launches
+    paged = TFA.flash_chunk_attn_paged(q, kb, vb, kbs, vbs, tbl, row_mask, start)
+    torch.cuda.synchronize()
+    assert TFA.flash_chunk_attn_paged.launches == before + 1
+    assert torch.equal(paged, out)  # same arithmetic, other addressing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 16, 64, 200])
+@pytest.mark.parametrize("K,N", [(768, 2304), (768, 768), (768, 3072), (3072, 768),
+                                 (100, 27), (64, 130)])
+def test_wq_matmul_kernel_matches_plain_version(cuda, M, K, N, dtype):
+    g = torch.Generator().manual_seed(M * 7 + K + N)
+    x = torch.randn((M, K), generator=g).to(cuda, dtype)
+    w = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8).to(cuda)
+    s = torch.empty((1, N)).uniform_(1e-4, 1e-2, generator=g).to(cuda)
+    before = TWQ.wq_matmul.launches
+    out = TWQ.wq_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert TWQ.wq_matmul.launches == before + 1
+    ref = TWQ.wq_matmul_reference(x, w, s)
+    assert out.dtype == torch.float32 and out.shape == (M, N)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_new_kernels_refuse_bad_inputs(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        TWQ.wq_matmul(x, torch.zeros((8, 4), device=cuda), torch.ones(4, device=cuda))
+    q = torch.zeros((2, 2, 8), device=cuda)
+    kb = torch.zeros((3, 2, 8, 8), device=cuda, dtype=torch.int8)
+    tbl = torch.ones((2, 1), dtype=torch.int32, device=cuda)
+    mask = torch.ones((2, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="scale"):
+        TPA.paged_attn_decode(q, kb, kb, None, None, tbl, mask)
+    qc = torch.zeros((2, 4, 12), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        TFA.flash_chunk_attn(qc, torch.zeros((2, 16, 12), device=cuda),
+                             torch.zeros((2, 16, 12), device=cuda),
+                             torch.ones(16, dtype=torch.int32, device=cuda), 0)

@@ -11,6 +11,13 @@ from pathway_tpu_torch.models import transformer as TT
 
 SMALL = dict(vocab_size=1000, hidden=32, layers=2, heads=4, intermediate=64)
 
+# The tier-1 suite runs six worker processes on eight cores, and every
+# worker imports this module while collecting. One intra-op thread per
+# process keeps the port's small-width tests from crowding out the JAX
+# tests' own thread pools (the JAX continuous server's tests are sensitive
+# to host scheduling, ROADMAP C).
+torch.set_num_threads(1)
+
 
 def configs(dtype: str = "float32"):
     """(JAX config, port config) of the small test encoder."""

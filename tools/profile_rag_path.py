@@ -1,20 +1,31 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's RAG main path, on one GPU.
+"""Where the time goes on the port's main paths, on one GPU.
 
-Builds the same full-width pipeline as ``chip_smoke.py`` (MiniLM-L6,
-bf16, seeded random weights, 32,768 docs), then traces three phases with
-``torch.profiler``: ingest of one 4,096-doc batch, single-query retrieve
-(k=10) and single-query retrieve + rerank (k=32). For each phase it
-prints the host wall time, the device busy time (sum of kernel times on
-the one stream), the device idle share, and the kernels with the most
-device time. Run from the repository root:
+RAG path (``--path rag``): builds the same full-width pipeline as
+``chip_smoke.py`` (MiniLM-L6, bf16, seeded random weights, 32,768 docs),
+then traces ingest of one 4,096-doc batch, single-query retrieve (k=10)
+and single-query retrieve + rerank (k=32).
 
-    python3 tools/profile_rag_path.py [--out chiprun_out/profile.json]
+Decoder path (``--path decoder``): GPT-2 small at full width, bf16, seeded
+random weights, int8 weights through the wq kernel, a paged KV pool of 16
+slots (blocks of 64, cache_len 704) filled with prompts of 256 tokens;
+traces one decode chunk (16 steps over 16 active slots, paged decode
+kernel) and one 64-token prefill piece at offset 192 (flash chunk kernel),
+the serving loop's two device calls, without the loop's thread.
+
+Each phase is traced with ``torch.profiler``; the tool prints the host
+wall time, the device busy time (sum of kernel times on the one stream),
+the device idle share, and the kernels with the most device time. Run from
+the repository root:
+
+    python3 tools/profile_rag_path.py [--path rag|decoder|all]
+                                      [--out build/profile.json]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -52,22 +63,51 @@ def traced(fn, reps: int) -> dict:
     }
 
 
-def main() -> int:
+def decoder_phases() -> dict:
+    import numpy as np
     import torch
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="chiprun_out/profile.json")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_rag_path: no CUDA device", file=sys.stderr)
-        return 1
+    import chip_smoke as C
+    from pathway_tpu_torch.models import decoder as D
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(D.GPT2_SMALL, wq_kernel=True)
+    params = D.quantize_params(D.map_params(
+        lambda t: t.to(dev), D.init_params(torch.Generator().manual_seed(0), cfg)), cfg)
+    B, M, P, n = C.N_SLOTS, C.CACHE_LEN // C.BLOCK, C.PIECE, 256
+    pool = D.paged_pool_init(params, cfg, B, C.CACHE_LEN, B * M + 1, C.BLOCK)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 256, (1, n)).astype(np.int32)).to(dev)
+    ones = torch.ones_like(ids)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
+
+    def piece(slot, o, last=False):
+        D.pool_prefill_chunk(params, ids[:, o:o + P], ones[:, o:o + P], pos[:, o:o + P],
+                             pool, slot, o, n, cfg, first=o == 0, last=last, flash=True)
+
+    for slot in range(B):
+        D.paged_table_set(pool, slot, np.arange(1, M + 1, dtype=np.int32) + slot * M)
+        for o in range(0, n, P):
+            piece(slot, o, last=o + P >= n)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+
+    def chunk():
+        D.pool_decode_chunk(params, pool, active, None, cfg, 16, paged_kernel=True)
+        pool["write"].fill_(n)  # rewind the cursors: every rep decodes the same span
+        pool["pos"].fill_(n)
+
+    return {
+        "decode_chunk_16_steps": traced(chunk, 3),
+        "prefill_piece_64": traced(lambda: piece(0, 192), 10),
+    }
+
+
+def rag_phases() -> dict:
+    import torch
+
     import chip_smoke as C
     from pathway_tpu_torch.models.transformer import MINILM_L6
 
-    gpu = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
     docs, queries = C.corpus()
     pipe = C.run_main_path(torch.device("cuda", 0), docs, queries, MINILM_L6)["pipe"]
     extra = [d + " extra" for d in docs[: C.INGEST_BATCH]]
@@ -77,11 +117,33 @@ def main() -> int:
         i = next(counter)
         pipe.add([f"x{i}_{j}" for j in range(len(extra))], extra)
 
-    phases = {
+    return {
         "retrieve_k10": traced(lambda: pipe.retrieve([queries[0]], k=10), 10),
         "retrieve_rerank_k32": traced(lambda: pipe.retrieve_rerank(queries[1], k=32), 5),
         "ingest_batch_4096": traced(ingest, 2),  # last: it grows the corpus
     }
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("rag", "decoder", "all"), default="all")
+    ap.add_argument("--out", default="build/profile.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_rag_path: no CUDA device", file=sys.stderr)
+        return 1
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phases = {}
+    if args.path in ("rag", "all"):
+        phases.update(rag_phases())
+    if args.path in ("decoder", "all"):
+        phases.update(decoder_phases())
     result = {"gpu": gpu, "torch": torch.__version__, "phases": phases}
     for name, ph in phases.items():
         print(f"{name} [{gpu}]: wall {ph['wall_ms']:.3f} ms, device busy "
