@@ -28,7 +28,11 @@ without printing a result:
    paged variant equal to the dense one on the gathered row), ``wq_matmul``
    (the four GPT-2 shapes, M in {1, 16, 64, 200}, an N no tile divides);
    each timed at its main-path shape beside its plain version, its bound
-   and, where one exists, one PyTorch library call;
+   and, where one exists, one PyTorch library call; the chunk kernel's grid
+   candidates side by side; ``wq_matmul`` also over 12 layers' distinct
+   weights (past the L2 cache) and at a prefill piece's 64 rows, and
+   whether ``torch._weight_int8pack_mm`` runs on the card (its time is the
+   row's library call when it does);
 6. the answer-LLM main path at full GPT-2-small width, bf16, seeded random
    weights, a byte-level tokenizer: ``DecoderChat(continuous=True)`` over a
    paged KV pool with the paged decode kernel, flash chunked prefill and
@@ -511,6 +515,20 @@ def check_flash_chunk(dev) -> tuple[dict, dict]:
             "library_ms": lib,
             "shape": f"64 queries at 448 over 512 live of 704 columns, 12 heads x 64, bf16",
         }
+    # the split-width candidates of the bf16 design, side by side (dense),
+    # each checked against the plain version first
+    rows["dense"]["blocks"] = FA.chunk_plan(nh, T, C, start, hd).blocks(nh)
+    rows["dense"]["split_ms"] = {}
+    ref = FA.flash_chunk_attn_reference(q, k, v, row_mask, start)
+    for cols in FA.SPLIT_CANDIDATES:
+        def fn(cols=cols):
+            return FA._launch_chunk(q, k, v, None, None, None, row_mask, start, C, C,
+                                    hd ** -0.5, split_cols=cols)
+        err = (fn() - ref).abs().max().item()
+        if not err <= 2e-3:
+            raise AssertionError(f"chunk split width {cols} disagrees: {err}")
+        blocks = FA.chunk_plan(nh, T, C, start, hd, cols).blocks(nh)
+        rows["dense"]["split_ms"][f"{cols} columns, {blocks} blocks"] = cuda_time_ms(fn, 100)
     return rows["dense"], rows["paged"]
 
 
@@ -543,18 +561,64 @@ def check_wq_matmul(dev) -> dict:
             worst = max(worst, err)
     info(f"wq_matmul: max_abs_err={worst:.3e} over the GPT-2 shapes and M in "
          f"{{1, 16, 64, 200}} (each within 1e-5 of its largest output)")
-    # timed: one decode layer's four products at M = 16
+    # timed: one decode layer's four products at M = 16, as PR 2 timed them
+    # (one layer's weights, 7.7 MB, stay in the 50 MB L2 between calls)
     ops = [operands(N_SLOTS, K, N) for K, N in WQ_SHAPES]
     n_bytes = sum(nbytes(x, w, s) + x.shape[0] * w.shape[1] * 4 for x, w, s in ops)
     flops = sum(2.0 * x.shape[0] * x.shape[1] * w.shape[1] for x, w, _ in ops)
     b_ms, b_by = bound(n_bytes, flops)
+    # a decode step's weights: 12 layers' distinct weights (~85 MB, past L2)
+    layers = [[(ops[i][0],) + operands(N_SLOTS, K, N)[1:] for i, (K, N) in enumerate(WQ_SHAPES)]
+              for _ in range(12)]
+    # a prefill piece: M = 64
+    ops64 = [operands(PIECE, K, N) for K, N in WQ_SHAPES]
+    lib_ms, probe = None, int8pack_probe(ops)
+    if probe["fn"] is not None:
+        lib_ms = cuda_time_ms(probe["fn"], 100)
+    info(f"torch._weight_int8pack_mm on the card: {probe['text']}")
+    plans = {f"{K}x{N}": WQ.wq_plan(N_SLOTS, K, N).blocks for K, N in WQ_SHAPES}
     return {
         "max_abs_err": worst,
         "ms": cuda_time_ms(lambda: [WQ.wq_matmul(*o) for o in ops], 100),
+        "ms_l2_cold": cuda_time_ms(
+            lambda: [WQ.wq_matmul(*o) for layer in layers for o in layer], 20) / 12,
+        "ms_m64": cuda_time_ms(lambda: [WQ.wq_matmul(*o) for o in ops64], 100),
         "plain_ms": cuda_time_ms(lambda: [WQ.wq_matmul_reference(*o) for o in ops], 30),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "library_probe": probe["text"], "blocks": plans,
         "shape": "one decode layer: M=16 at 768x2304, 768x768, 768x3072, 3072x768",
     }
+
+
+def int8pack_probe(ops) -> dict:
+    """Whether ``torch._weight_int8pack_mm`` (x (M, K), w^T (N, K) int8,
+    per-column scales) runs on the card: f32 scales, then bf16 scales (the
+    dtype of x). Returns a callable over the four products (transposed
+    weights made here, outside any timing) and what the probe saw; the port
+    never calls it."""
+    import torch
+
+    from pathway_tpu_torch.models import wq_matmul as WQ
+
+    wts = [w.t().contiguous() for _, w, _ in ops]
+    seen = []
+    for dt in (torch.float32, torch.bfloat16):
+        scales = [s.reshape(-1).to(dt) for _, _, s in ops]
+        try:
+            outs = [torch._weight_int8pack_mm(x, wt, sc) for (x, _, _), wt, sc in zip(ops, wts, scales)]
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 -- the probe records any refusal
+            seen.append(f"{str(dt)[6:]} scales: {type(e).__name__}: {str(e).splitlines()[0][:200]}")
+            continue
+        err = max(((o.float() - WQ.wq_matmul_reference(*op)).abs().max()
+                   / WQ.wq_matmul_reference(*op).abs().max()).item()
+                  for o, op in zip(outs, ops))
+        seen.append(f"{str(dt)[6:]} scales: runs, {outs[0].dtype} out, max error "
+                    f"{err:.2e} of the largest output")
+        return {"fn": lambda: [torch._weight_int8pack_mm(x, wt, sc) for (x, _, _), wt, sc
+                               in zip(ops, wts, scales)],
+                "text": f"torch {torch.__version__}: " + "; ".join(seen)}
+    return {"fn": None, "text": f"torch {torch.__version__}: " + "; ".join(seen)}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -859,6 +923,13 @@ def main() -> int:
         info(f"{name} at {r['shape']} [{gpu}]: kernel {r['ms']:.4f} ms, plain "
              f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
              f"({r['bound_by']}), max abs err {r['max_abs_err']:.3e}")
+    r = rows["wq_matmul"]
+    info(f"wq_matmul [{gpu}]: per decode layer L2-cold (12 layers' weights) "
+         f"{r['ms_l2_cold']:.4f} ms, prefill piece (M = 64) {r['ms_m64']:.4f} ms; "
+         f"blocks per product at M = 16 {r['blocks']}")
+    r = rows["flash_chunk_attn"]
+    info(f"flash_chunk_attn [{gpu}]: {r['blocks']} blocks; split widths "
+         + "; ".join(f"{c}: {ms:.4f} ms" for c, ms in r["split_ms"].items()))
 
     # phase 6: the answer-LLM main path
     dec = run_decoder(dev, gpu)
@@ -885,6 +956,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("ms_l2_cold", "ms_m64", "split_ms") if k in r},
         })
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -50,9 +50,11 @@ KERNELS = {
         "flash_chunk.cu",
         {
             # q, k, v, k_scale, v_scale, tbl_row, row_mask, out, nh, T, hd,
-            # C, block, start, sm_scale, q_bf16, kv_kind, stream
+            # C, block, start, sm_scale, q_bf16, kv_kind, split_cols,
+            # n_splits, part, stream
             "pathway_flash_chunk_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                         _I, _I, _I, _I, _I, _F, _I, _I, _P),
+                                         _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                                         _I, _P, _P),
         },
     ),
     "paged_attn": (
@@ -67,11 +69,17 @@ KERNELS = {
     "wq_matmul": (
         "wq_matmul.cu",
         {
-            # x, w, scale, out, M, K, N, x_bf16, stream
-            "pathway_wq_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+            # x, w, scale, out, M, K, N, x_bf16, k_per_split, n_splits,
+            # row_groups, stream
+            "pathway_wq_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _P),
         },
     ),
 }
+
+# streaming multiprocessors of the H100 SXM: the host-side plans size
+# their grids to at least this many blocks
+SMS = 132
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

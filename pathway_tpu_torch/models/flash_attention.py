@@ -20,6 +20,7 @@ raise. ``flash_attn.launches`` counts kernel launches.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -120,6 +121,91 @@ flash_attn.launches = 0
 # (paged). One CUDA kernel (csrc/flash_chunk.cu) with two index modes.
 # --------------------------------------------------------------------------
 
+# The bf16 kernel cuts the live columns [0, min(C, start + T)) into splits
+# of ``split_cols`` logical columns (a multiple of SPLIT_UNIT, the kernel's
+# tile), one block per (64-query tile, head, split); split boundaries
+# depend on neither the index mode nor the block size. CHUNK_SPLIT_COLS
+# was chosen on the card (PERF.md): the main-path piece (12 heads, 64
+# queries at column 448) launches 192 blocks on the 132 SMs. Past
+# MAX_SPLITS splits the splits widen, which bounds the workspace.
+SPLIT_UNIT, MAX_SPLITS, QUERY_TILE = 32, 64, 64
+CHUNK_SPLIT_COLS = 32
+# the split widths timed side by side on the card (chip_smoke.py)
+SPLIT_CANDIDATES = (32, 64)
+
+
+class ChunkPlan(NamedTuple):
+    """Grid of the bf16 chunk kernel: ``q_tiles`` x heads x ``n_splits``
+    blocks over the live columns ``[0, live_end)``; with ``n_splits`` > 1,
+    ``part_floats`` f32 of partials (acc, then m and l) that a second
+    kernel combines."""
+
+    live_end: int
+    split_cols: int
+    n_splits: int
+    q_tiles: int
+    part_floats: int
+
+    def splits(self):
+        """[lo, hi) column range of each split, in order."""
+        return [(s * self.split_cols, min((s + 1) * self.split_cols, self.live_end))
+                for s in range(self.n_splits)]
+
+    def blocks(self, nh: int) -> int:
+        return self.q_tiles * nh * self.n_splits
+
+
+def chunk_plan(nh, T, C, start, hd, split_cols=CHUNK_SPLIT_COLS) -> ChunkPlan:
+    """Splits of ``split_cols`` columns over the live columns; wider (whole
+    SPLIT_UNITs) where more than MAX_SPLITS would be needed."""
+    live_end = max(0, min(C, start + T))
+    n_units = -(-live_end // SPLIT_UNIT)
+    if -(-live_end // split_cols) > MAX_SPLITS:
+        split_cols = SPLIT_UNIT * -(-n_units // MAX_SPLITS)
+    n_splits = max(1, -(-live_end // split_cols))
+    return ChunkPlan(live_end, split_cols, n_splits, -(-T // QUERY_TILE),
+                     nh * n_splits * T * (hd + 2) if n_splits > 1 else 0)
+
+
+def flash_chunk_split_reference(q, k_row, v_row, row_mask, start, *,
+                                k_scale=None, v_scale=None, sm_scale=None,
+                                split_cols=CHUNK_SPLIT_COLS):
+    """Plain version of the bf16 kernel's split-and-combine rule, in f32:
+    per split of :func:`chunk_plan`, the running max m, the sum l of
+    exp(s - m) and acc = sum exp(s - m) v; then, in split order over the
+    splits with l > 0, out = sum e_s acc_s / sum e_s l_s with
+    e_s = exp(m_s - max m). A row with no live column is exact zeros.
+    Returns (heads, T, head_dim) float32."""
+    nh, T, hd = q.shape
+    C = k_row.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    k, v = k_row.float(), v_row.float()
+    if k_scale is not None:
+        k = k * k_scale.float()
+        v = v * v_scale.float()
+    s = torch.einsum("ntd,ncd->ntc", q.float(), k) * sm_scale
+    rows = int(start) + torch.arange(T, device=q.device)
+    cols = torch.arange(C, device=q.device)
+    live = ((row_mask > 0)[None, :] & (cols[None, :] <= rows[:, None]))[None]
+    parts = []
+    for lo, hi in chunk_plan(nh, T, C, int(start), hd, split_cols).splits():
+        sl, lv = s[..., lo:hi], live[..., lo:hi]
+        m = torch.where(lv, sl, _NEG).amax(dim=-1, keepdim=True)
+        p = torch.where(lv, torch.exp(sl - m), 0.0)
+        parts.append((m, p.sum(dim=-1, keepdim=True), p @ v[:, lo:hi]))
+    mx = torch.full_like(parts[0][0], _NEG)
+    for m, l, _ in parts:
+        mx = torch.where(l > 0, torch.maximum(mx, m), mx)
+    o = torch.zeros((nh, T, hd), dtype=torch.float32, device=q.device)
+    den = torch.zeros_like(parts[0][1])
+    for m, l, acc in parts:
+        e = torch.where(l > 0, torch.exp(m - mx), 0.0)
+        den = den + l * e
+        o = o + e * acc
+    return o / torch.where(den == 0.0, 1.0, den)
+
+
 def flash_chunk_attn_reference(q, k_row, v_row, row_mask, start, *,
                                k_scale=None, v_scale=None, sm_scale=None):
     """Plain version over a dense row: query row t attends the columns
@@ -190,7 +276,8 @@ def _check_chunk_args(name, q, k, v, ks, vs, row_mask, C):
         raise ValueError(f"{name}: head_dim must be a multiple of 8 in [8, 128], got {hd}")
 
 
-def _launch_chunk(q, k, v, ks, vs, tbl_row, row_mask, start, C, Bk, sm_scale):
+def _launch_chunk(q, k, v, ks, vs, tbl_row, row_mask, start, C, Bk, sm_scale,
+                  split_cols=CHUNK_SPLIT_COLS):
     from pathway_tpu_torch import kernels
 
     nh, T, hd = q.shape
@@ -198,6 +285,12 @@ def _launch_chunk(q, k, v, ks, vs, tbl_row, row_mask, start, C, Bk, sm_scale):
     if out.numel() == 0:
         return out
     quant = k.dtype == torch.int8
+    # the f32-query kernel takes no plan
+    plan = (chunk_plan(nh, T, C, int(start), hd, split_cols)
+            if q.dtype == torch.bfloat16 else ChunkPlan(0, SPLIT_UNIT, 1, 1, 0))
+    part = None
+    if plan.n_splits > 1:
+        part = torch.empty(plan.part_floats, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         kernels.launch(
             "flash_chunk", "pathway_flash_chunk_attn",
@@ -207,6 +300,8 @@ def _launch_chunk(q, k, v, ks, vs, tbl_row, row_mask, start, C, Bk, sm_scale):
             row_mask.data_ptr(), out.data_ptr(),
             nh, T, hd, C, Bk, int(start), float(sm_scale),
             int(q.dtype == torch.bfloat16), kernels.KV_KIND[k.dtype],
+            plan.split_cols, plan.n_splits,
+            None if part is None else part.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     return out

@@ -4,11 +4,15 @@ plain PyTorch version.
 Counterpart of ``pathway_tpu/models/wq_matmul.py``: ``wq_matmul(x, w,
 scale)`` computes ``x (M, K) @ dequant(w (K, N) int8)`` with the scale
 ``(1, N)`` float32 applied per output channel, float32 out. The kernel
-(``csrc/wq_matmul.cu``) stages each int8 weight tile in shared memory,
-widens it there (int8 values are exact in bf16 and f32), accumulates in
-f32 and scales the output columns, so no full-precision copy of the
-weight is ever written. M and N are guarded inside the kernel: any M and
-N work, and nothing outside the operands is read.
+(``csrc/wq_matmul.cu``) streams int8 weight tiles through shared memory,
+widens them in registers (int8 values are exact in bf16 and f32),
+accumulates in f32 (bf16 x on the tensor cores) and scales the output
+columns, so no full-precision copy of the weight is ever written. M, K and
+N are guarded inside the kernel: any shape works, and nothing outside the
+operands is read. For bf16 x, :func:`wq_plan` cuts K into splits so that
+a decode product fills the card; the splits of a column tile run as one
+thread-block cluster and add their sums in split order, so results do not
+vary from run to run.
 
 Routing is by the tensors' device and nothing else: CPU tensors take
 ``wq_matmul_reference``; CUDA tensors launch the kernel or raise.
@@ -17,7 +21,51 @@ Routing is by the tensors' device and nothing else: CPU tensors take
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+from pathway_tpu_torch.kernels import SMS
+
+# the bf16 kernel's tile: output columns and rows a block owns, and the
+# k rows of one mma step (a split is a whole number of them); the splits of
+# a column tile form one thread-block cluster, of at most 8 blocks
+TILE_N, TILE_M, STEP_K, MAX_SPLITS = 32, 64, 16, 8
+# two blocks a streaming multiprocessor: faster on the card than one
+# (PERF.md), as more, smaller K splits keep more weight bytes in flight
+MIN_BLOCKS = 2 * SMS
+
+
+class WqPlan(NamedTuple):
+    """Grid of the bf16 kernel for one (M, K, N): ``n_tiles`` column tiles
+    x ``n_splits`` K splits of ``k_per_split`` rows x ``row_groups`` groups
+    of 64-row tiles."""
+
+    n_tiles: int
+    n_splits: int
+    k_per_split: int
+    row_groups: int
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * self.n_splits * self.row_groups
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wq_plan(M: int, K: int, N: int) -> WqPlan:
+    """Split K (and spread row tiles) until the grid has at least
+    MIN_BLOCKS blocks where the shape allows it. Row tiles go first, since
+    they need no reduction; K splits are whole 16-row steps, none of them
+    empty, and at most MAX_SPLITS."""
+    n_tiles, steps, row_tiles = _cdiv(N, TILE_N), _cdiv(K, STEP_K), _cdiv(M, TILE_M)
+    need = _cdiv(MIN_BLOCKS, n_tiles)
+    groups = min(row_tiles, need)
+    groups = _cdiv(row_tiles, _cdiv(row_tiles, groups))
+    per_split = max(steps // _cdiv(need, groups), _cdiv(steps, MAX_SPLITS))
+    return WqPlan(n_tiles, _cdiv(steps, per_split), STEP_K * per_split, groups)
 
 
 def wq_matmul_reference(x, w, scale):
@@ -66,12 +114,15 @@ def wq_matmul(x, w, scale):
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    bf16 = x.dtype == torch.bfloat16
+    # the f32 kernel takes no plan
+    plan = wq_plan(M, K, N) if bf16 else WqPlan(1, 1, STEP_K * _cdiv(K, STEP_K), 1)
     with torch.cuda.device(x.device):
         kernels.launch(
             "wq_matmul", "pathway_wq_matmul",
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            M, K, N, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            M, K, N, int(bf16), plan.k_per_split, plan.n_splits,
+            plan.row_groups, torch.cuda.current_stream(x.device).cuda_stream,
         )
     wq_matmul.launches += 1
     return out

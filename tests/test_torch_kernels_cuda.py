@@ -176,6 +176,67 @@ def test_flash_chunk_kernels_match_plain_version(cuda, nh, T, C, hd, Bk, start, 
     assert torch.equal(paged, out)  # same arithmetic, other addressing
 
 
+def _to_planes(row, perm, n_blocks, Bk, dev):
+    """A dense (heads, C, d) row as shuffled physical blocks of Bk columns
+    at the ids ``perm``; other blocks stay zero."""
+    if row is None:
+        return None
+    nh, C, d = row.shape
+    pl = torch.zeros((n_blocks, nh, Bk, d), dtype=row.dtype, device=dev)
+    pl[perm.long()] = row.reshape(nh, C // Bk, Bk, d).transpose(0, 1)
+    return pl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nh,T,C,hd,Bk,start,dead_to", [
+    (2, 5, 128, 8, 16, 45, 0),       # start off the split grid, last split partly dead
+    (3, 40, 192, 128, 64, 77, 0),    # T = 40, head_dim 128
+    (2, 16, 128, 64, 16, 20, 24),    # rows 0-3 have no live column
+    (12, 64, 704, 64, 64, 448, 0),   # the main-path piece
+    (2, 8, 4096, 64, 64, 4000, 0),   # more splits than a combine holds: wider splits
+    (2, 70, 256, 40, 16, 100, 0),    # two query tiles, head_dim 40
+    (1, 4, 20032, 64, 64, 19990, 0),  # splits wider than one staged window
+])
+def test_flash_chunk_split_design_edges(cuda, nh, T, C, hd, Bk, start, dead_to, quant):
+    """The bf16 design's edges: split and query-tile boundaries, dead rows,
+    padded head_dim; paged equal to dense bit for bit at the same split
+    boundaries; two runs equal (the combine adds splits in a fixed order)."""
+    g = torch.Generator().manual_seed(C + start + hd + T)
+    q, k, v, ks, vs, row_mask = _chunk_case(g, nh, T, C, hd, quant, torch.bfloat16, cuda, start)
+    row_mask[:dead_to] = 0
+    plan = TFA.chunk_plan(nh, T, C, start, hd)
+    assert plan.n_splits <= TFA.MAX_SPLITS
+    out = TFA.flash_chunk_attn(q, k, v, row_mask, start, k_scale=ks, v_scale=vs)
+    again = TFA.flash_chunk_attn(q, k, v, row_mask, start, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    ref = TFA.flash_chunk_attn_reference(q, k, v, row_mask, start, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-3)
+    assert torch.equal(out, again)
+    dead = start + torch.arange(T) < dead_to
+    assert torch.all(out[:, dead.to(cuda)] == 0)
+    M = C // Bk
+    perm = (torch.randperm(M + 2, generator=g)[:M] + 1).to(cuda)
+    kb, vb, kbs, vbs = (_to_planes(t, perm, M + 3, Bk, cuda) for t in (k, v, ks, vs))
+    paged = TFA.flash_chunk_attn_paged(q, kb, vb, kbs, vbs, perm.to(torch.int32), row_mask, start)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_cols", TFA.SPLIT_CANDIDATES + (96,))
+@pytest.mark.parametrize("nh,T,C,start", [(12, 64, 704, 448), (2, 70, 256, 100)])
+def test_flash_chunk_split_widths_agree(cuda, nh, T, C, start, split_cols):
+    """Every split width computes the same function."""
+    g = torch.Generator().manual_seed(split_cols + T)
+    q, k, v, ks, vs, row_mask = _chunk_case(g, nh, T, C, 64, True, torch.bfloat16, cuda, start)
+    out = TFA._launch_chunk(q, k, v, ks, vs, None, row_mask, start, C, C, 1 / 8,
+                            split_cols=split_cols)
+    torch.cuda.synchronize()
+    ref = TFA.flash_chunk_attn_reference(q, k, v, row_mask, start, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M", [1, 16, 64, 200])
@@ -193,6 +254,29 @@ def test_wq_matmul_kernel_matches_plain_version(cuda, M, K, N, dtype):
     ref = TWQ.wq_matmul_reference(x, w, s)
     assert out.dtype == torch.float32 and out.shape == (M, N)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("M", [1, 16, 64, 65, 200])
+@pytest.mark.parametrize("K,N", [(100, 2309), (3072, 2309), (3072, 768)])
+def test_wq_matmul_mma_design_edges(cuda, M, K, N, misaligned):
+    """The bf16 design's edges: split K with a ragged last step (K = 100),
+    row tiles past 64, a ragged N, and a weight one byte off 16-byte
+    alignment (the guarded narrow loads); two runs equal (the splits'
+    partial sums meet in a fixed order)."""
+    g = torch.Generator().manual_seed(M * 7 + K + N + misaligned)
+    x = torch.randn((M, K), generator=g).to(cuda, torch.bfloat16)
+    flat = torch.randint(-127, 128, (K * N + 1,), generator=g, dtype=torch.int8).to(cuda)
+    w = flat[1:].view(K, N) if misaligned else flat[:-1].view(K, N)
+    assert (w.data_ptr() % 16 != 0) == misaligned
+    s = torch.empty((1, N)).uniform_(1e-4, 1e-2, generator=g).to(cuda)
+    out = TWQ.wq_matmul(x, w, s)
+    again = TWQ.wq_matmul(x, w, s)
+    torch.cuda.synchronize()
+    ref = TWQ.wq_matmul_reference(x, w, s)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda

@@ -54,7 +54,7 @@ def traced(fn, reps: int) -> dict:
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + e.self_device_time_total
     busy_ms = sum(per_kernel.values()) / 1e3 / reps
     wall_ms = wall * 1e3 / reps
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
