@@ -28,8 +28,9 @@ without printing a result:
    paged variant equal to the dense one on the gathered row), ``wq_matmul``
    (the four GPT-2 shapes, M in {1, 16, 64, 200}, an N no tile divides);
    each timed at its main-path shape beside its plain version, its bound
-   and, where one exists, one PyTorch library call; the chunk kernel's grid
-   candidates side by side; ``wq_matmul`` also over 12 layers' distinct
+   and one PyTorch library call (``scaled_dot_product_attention`` on the
+   gathered rows for the paged kernels); the chunk kernel's grid and the
+   paged decode kernel's split plans side by side; ``wq_matmul`` also over 12 layers' distinct
    weights (past the L2 cache) and at a prefill piece's 64 rows, and
    whether ``torch._weight_int8pack_mm`` runs on the card (its time is the
    row's library call when it does);
@@ -74,6 +75,18 @@ N_REQUESTS, MAX_NEW, N_SLOTS, CACHE_LEN, BLOCK, PIECE = 48, 64, 16, 704, 64, 64
 # (spread ~0.55 with random weights) within 0.1; at least 7 of 8 first
 # tokens and 3 of 8 whole streams equal
 LOGIT_TOL, MIN_FIRST_EQUAL, MIN_STREAMS_EQUAL = 0.1, 7, 3
+# each kernel's current design, as its source describes it
+DESIGN = {
+    "flash_attn": "bf16: mma.sync m16n8k16, persistent blocks over 64-row groups, "
+                  "2-stage cp.async ring; f32: CUDA-core FMA",
+    "flash_chunk_attn": "bf16: mma.sync, split over the cache + combine kernel",
+    "flash_chunk_attn_paged": "bf16: mma.sync, split over the cache + combine kernel, "
+                              "block-table addressing",
+    "paged_attn_decode": "bf16: flash-decoding splits combined in a cluster, 2-stage "
+                         "cp.async ring, a lane per 16-byte chunk; f32: a block per "
+                         "(slot, head)",
+    "wq_matmul": "bf16: mma.sync, split K reduced in a cluster",
+}
 
 
 def info(msg: str) -> None:
@@ -158,7 +171,7 @@ def check_flash_attn(dev) -> float:
                     raise AssertionError("all-masked row is not exact zeros")
                 worst = max(worst, err)
     # the decoder's whole-prompt admission: head_dim 64, causal, left-padded
-    for S in (64, 128):
+    for S in (64, 128, 512):
         B, nh, hd = 16, 12, 64
         lens = torch.randint(1, S + 1, (B,), generator=g)
         lens[0] = S
@@ -376,6 +389,7 @@ def paged_case(g, dev, quant: bool, lens):
 
 def check_paged_decode(dev) -> dict:
     import torch
+    import torch.nn.functional as F
 
     from pathway_tpu_torch.models import paged_attention as PA
 
@@ -408,11 +422,31 @@ def check_paged_decode(dev) -> dict:
     n_bytes = (nbytes(args[0], args[5], args[6]) + nbytes(args[0])
                + live * nh * hd * 2 * args[1].element_size())
     b_ms, b_by = bound(n_bytes, 4.0 * live * nh * hd)
+    # the library yardstick: one scaled_dot_product_attention call on the
+    # K/V rows gathered once beforehand (the gather is not timed) with the
+    # boolean slot mask; the port never calls it
+    q, kb, vb, _, _, tbl, mask = args
+    k_rows, v_rows = PA.gather_rows(kb, tbl), PA.gather_rows(vb, tbl)
+    attn_mask = (mask > 0)[:, None, None, :]
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k_rows, v_rows, attn_mask=attn_mask), 200)
+    # the split plans of the bf16 design side by side, each checked first
+    B, M = tbl.shape
+    split_ms = {}
+    ref = PA.paged_attn_decode_reference(*args)
+    for cols in PA.SPLIT_CANDIDATES:
+        def fn(cols=cols):
+            return PA._launch(*args, torch.empty_like(q), hd ** -0.5, split_cols=cols)
+        torch.testing.assert_close(fn().float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+        plan = PA.decode_plan(M, BLOCK, cols)
+        name = f"{plan.entries} entries x {plan.n_splits} splits, {plan.blocks(B, nh)} blocks"
+        split_ms[name] = cuda_time_ms(fn, 200)
     return {
         "max_abs_err": worst,
         "ms": cuda_time_ms(lambda: PA.paged_attn_decode(*args), 200),
         "plain_ms": cuda_time_ms(lambda: PA.paged_attn_decode_reference(*args), 20),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "split_ms": split_ms,
         "shape": f"16 slots x 12 heads x 64, block 64, {live} live columns",
     }
 
@@ -930,6 +964,8 @@ def main() -> int:
     r = rows["flash_chunk_attn"]
     info(f"flash_chunk_attn [{gpu}]: {r['blocks']} blocks; split widths "
          + "; ".join(f"{c}: {ms:.4f} ms" for c, ms in r["split_ms"].items()))
+    info(f"paged_attn_decode [{gpu}]: split plans "
+         + "; ".join(f"{c}: {ms:.4f} ms" for c, ms in rows["paged_attn_decode"]["split_ms"].items()))
 
     # phase 6: the answer-LLM main path
     dec = run_decoder(dev, gpu)
@@ -938,6 +974,7 @@ def main() -> int:
         "name": "flash_attn", "route": "cuda",
         "source": "pathway_tpu_torch/csrc/flash_attn.cu",
         "replaces": "pathway_tpu/models/flash_attention.py:116",
+        "design": DESIGN["flash_attn"],
         "launches": launches + dec["flash_attn"],
         "max_abs_err": max(worst, timing["max_abs_err"]), "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
@@ -952,7 +989,7 @@ def main() -> int:
         r = rows[name]
         kernel_rows.append({
             "name": name, "route": "cuda", "source": f"pathway_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": dec[name],
+            "replaces": replaces, "design": DESIGN[name], "launches": dec[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -62,13 +62,14 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "mma_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 64;
 constexpr int kDims = 32;       // head_dim columns per thread
 constexpr int kTile = 32;       // cache columns per shared-memory tile
 constexpr int kChunk = 16;      // cache columns per online-softmax update
-constexpr float kNeg = -1e30f;  // finite sentinel: exp(kNeg - kNeg) == 1
 
 __device__ __forceinline__ void load8(const float* __restrict__ p, float* dst) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -286,67 +287,6 @@ constexpr int kCCols = 32;         // cache columns per ring stage
 constexpr int kCWindow = 256;      // columns whose row addresses are staged at once
 constexpr int kMaxSplits = 64;     // splits a plan may hold (wider splits past it)
 constexpr int kCombineThreads = 128;
-
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? bytes : 0;  // 0: zero-fill, nothing read
-  if (bytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(n));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// the f32 pair (x, y) as hi = bf16x2(x, y) and lo = bf16x2 of what hi left
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bf16x2_bits(h);
-  lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-// byte j of a word of int8 biased by 0x80, as an exact f32 value; two such
-// values packed as bf16x2 (their low 16 bits are zero)
-__device__ __forceinline__ float biased_byte(uint32_t u, int j) {
-  return __int_as_float(static_cast<int>(__byte_perm(u, 0x4B000000u, 0x7540u | j))) - 8388736.f;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
-}
 
 template <typename KT, int HD>
 struct ChunkSmem {

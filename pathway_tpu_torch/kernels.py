@@ -61,9 +61,11 @@ KERNELS = {
         "paged_attn.cu",
         {
             # q, kb, vb, kb_scale, vb_scale, tbl, slot_mask, out, B, nh, hd,
-            # block, blocks per slot, sm_scale, q_bf16, kv_kind, stream
+            # block, blocks per slot, sm_scale, q_bf16, kv_kind, entries,
+            # n_splits, stream
             "pathway_paged_attn_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                          _I, _I, _I, _I, _F, _I, _I, _P),
+                                          _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                                          _P),
         },
     ),
     "wq_matmul": (

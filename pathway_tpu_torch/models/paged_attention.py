@@ -13,15 +13,58 @@ by 1 and returns exact zeros.
 Routing is by the tensors' device and nothing else: CPU tensors take
 ``paged_attn_decode_reference``; CUDA tensors launch ``csrc/paged_attn.cu``
 or raise. ``paged_attn_decode.launches`` counts kernel launches.
+
+For bf16 queries the kernel splits each slot's table row across blocks
+(flash-decoding); :func:`decode_plan` sizes the splits on the host and
+:func:`paged_attn_decode_split_reference` is the plain version of the
+split-and-combine arithmetic.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 _NEG = -1e30  # finite sentinel, as in the JAX kernel
+
+# The bf16 kernel cuts each slot's table row into splits of
+# ``split_cols // block`` entries (at least one), one block per (split,
+# head, slot); a (slot, head)'s splits are one thread-block cluster, so at
+# most MAX_SPLITS (a portable cluster), past which the splits widen.
+# DECODE_SPLIT_COLS was chosen on the card among SPLIT_CANDIDATES
+# (chip_smoke.py times them side by side; PERF.md).
+MAX_SPLITS = 8
+DECODE_SPLIT_COLS = 256
+SPLIT_CANDIDATES = (128, 256, 512)
+
+
+class DecodePlan(NamedTuple):
+    """Grid of the bf16 kernel: ``n_splits`` splits of ``entries`` table
+    entries per (slot, head)."""
+
+    entries: int
+    n_splits: int
+
+    def splits(self, M: int):
+        """[lo, hi) table entries of each split, in order."""
+        return [(s * self.entries, min((s + 1) * self.entries, M))
+                for s in range(self.n_splits)]
+
+    def blocks(self, B: int, nh: int) -> int:
+        return B * nh * self.n_splits
+
+
+def decode_plan(M, Bk, split_cols=DECODE_SPLIT_COLS) -> DecodePlan:
+    """Splits of ``split_cols // Bk`` table entries (at least one), widened
+    where more than MAX_SPLITS would be needed. At the main-path shape (16
+    slots x 12 heads, 11 entries of 64 columns) the default makes 3 splits:
+    576 blocks for the 132 SMs."""
+    entries = max(1, split_cols // Bk)
+    if -(-M // entries) > MAX_SPLITS:
+        entries = -(-M // MAX_SPLITS)
+    return DecodePlan(entries, -(-M // entries))
 
 
 def gather_rows(kb, tbl):
@@ -53,6 +96,46 @@ def paged_attn_decode_reference(q, kb, vb, kb_scale, vb_scale, tbl, slot_mask,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bnt,bntd->bnd", p, v) / torch.where(l == 0.0, 1.0, l)
     return out.to(q.dtype)
+
+
+def paged_attn_decode_split_reference(q, kb, vb, kb_scale, vb_scale, tbl,
+                                      slot_mask, *, sm_scale=None,
+                                      split_cols=DECODE_SPLIT_COLS):
+    """Plain version of the bf16 kernel's split-and-combine rule, in f32:
+    per split of :func:`decode_plan`, the running max m, the sum l of
+    exp(s - m) and acc = sum exp(s - m) v over its live columns; then, in
+    split order over the splits with l > 0, out = sum e_s acc_s /
+    sum e_s l_s with e_s = exp(m_s - max m). A slot with no live column is
+    exact zeros. Output in ``q.dtype``."""
+    B, nh, hd = q.shape
+    Bk = kb.shape[2]
+    M = tbl.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    k = gather_rows(kb, tbl).float()
+    v = gather_rows(vb, tbl).float()
+    if kb_scale is not None:
+        k = k * gather_rows(kb_scale, tbl).float()
+        v = v * gather_rows(vb_scale, tbl).float()
+    s = torch.einsum("bnd,bntd->bnt", q.float(), k) * sm_scale
+    live = (slot_mask > 0)[:, None, :]
+    parts = []
+    for lo, hi in decode_plan(M, Bk, split_cols).splits(M):
+        sl, lv = s[..., lo * Bk:hi * Bk], live[..., lo * Bk:hi * Bk]
+        m = torch.where(lv, sl, _NEG).amax(dim=-1, keepdim=True)
+        p = torch.where(lv, torch.exp(sl - m), 0.0)
+        acc = torch.einsum("bnt,bntd->bnd", p, v[:, :, lo * Bk:hi * Bk])
+        parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+    mx = torch.full_like(parts[0][0], _NEG)
+    for m, l, _ in parts:
+        mx = torch.where(l > 0, torch.maximum(mx, m), mx)
+    out = torch.zeros((B, nh, hd), dtype=torch.float32, device=q.device)
+    den = torch.zeros_like(parts[0][1])
+    for m, l, acc in parts:
+        e = torch.where(l > 0, torch.exp(m - mx), 0.0)
+        den = den + l * e
+        out = out + e * acc
+    return (out / torch.where(den == 0.0, 1.0, den)).to(q.dtype)
 
 
 def _check_kernel_args(q, kb, vb, kb_scale, vb_scale, tbl, slot_mask):
@@ -113,12 +196,27 @@ def paged_attn_decode(q, kb, vb, kb_scale, vb_scale, tbl, slot_mask, *,
         return paged_attn_decode_reference(q, kb, vb, kb_scale, vb_scale, tbl,
                                            slot_mask, sm_scale=sm_scale)
     _check_kernel_args(q, kb, vb, kb_scale, vb_scale, tbl, slot_mask)
-    from pathway_tpu_torch import kernels
-
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    _launch(q, kb, vb, kb_scale, vb_scale, tbl, slot_mask, out, sm_scale)
+    paged_attn_decode.launches += 1
+    return out
+
+
+paged_attn_decode.launches = 0
+
+
+def _launch(q, kb, vb, kb_scale, vb_scale, tbl, slot_mask, out, sm_scale,
+            split_cols=DECODE_SPLIT_COLS):
+    from pathway_tpu_torch import kernels
+
+    B, nh, hd = q.shape
+    Bk = kb.shape[2]
+    M = tbl.shape[1]
     quant = kb.dtype == torch.int8
+    # the f32-query kernel takes no plan
+    plan = decode_plan(M, Bk, split_cols) if q.dtype == torch.bfloat16 else DecodePlan(M, 1)
     with torch.cuda.device(q.device):
         kernels.launch(
             "paged_attn", "pathway_paged_attn_decode",
@@ -128,10 +226,7 @@ def paged_attn_decode(q, kb, vb, kb_scale, vb_scale, tbl, slot_mask, *,
             tbl.data_ptr(), slot_mask.data_ptr(), out.data_ptr(),
             B, nh, hd, Bk, M, float(sm_scale),
             int(q.dtype == torch.bfloat16), kernels.KV_KIND[kb.dtype],
+            plan.entries, plan.n_splits,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    paged_attn_decode.launches += 1
     return out
-
-
-paged_attn_decode.launches = 0

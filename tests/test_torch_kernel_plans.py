@@ -1,17 +1,19 @@
-"""The host-side plans of the port's split kernels and the plain version of
-the chunk kernel's split-and-combine rule, on the CPU.
+"""The host-side plans of the port's split kernels and the plain versions of
+their split-and-combine rules, on the CPU.
 
 ``chunk_plan`` (csrc/flash_chunk.cu, bf16 queries) cuts the live cache
-columns into splits; ``wq_plan`` (csrc/wq_matmul.cu, bf16 x) cuts K. Both
-must cover their range exactly once and fill the 132 SMs at the
+columns into splits; ``decode_plan`` (csrc/paged_attn.cu, bf16 queries)
+cuts each slot's block-table row; ``wq_plan`` (csrc/wq_matmul.cu, bf16 x)
+cuts K. Each must cover its range exactly once and fill the 132 SMs at the
 main-path shapes; the chunk plan also sizes the workspace of partials. The kernels themselves
 are held against their plain versions on the card
 (``tests/test_torch_kernels_cuda.py``); here
-``flash_chunk_split_reference`` -- per-split m, l and acc combined in split
-order, the kernel's arithmetic in f32 -- is held against the JAX Pallas
-kernels (interpreter, as ``tests/test_torch_flash_chunk.py`` runs them) and
-against the port's single-softmax plain version. Tolerance 1e-5: f32 both
-sides, summed in another order."""
+``flash_chunk_split_reference`` and ``paged_attn_decode_split_reference``
+-- per-split m, l and acc combined in split order, the kernels' arithmetic
+in f32 -- are held against the JAX Pallas kernels (interpreter, as
+``tests/test_torch_flash_chunk.py`` and ``tests/test_torch_paged_attention.py``
+run them) and against the port's single-softmax plain versions. Tolerance
+1e-5: f32 both sides, summed in another order."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,8 @@ import pytest
 import torch
 
 from pathway_tpu.models import flash_attention as JFA
+from pathway_tpu.models import paged_attention as JPA
+from tests.test_paged_kv import _kernel_case
 from pathway_tpu_torch import kernels
 from pathway_tpu_torch.models import flash_attention as TFA
 from pathway_tpu_torch.models import paged_attention as TPA
@@ -195,3 +199,76 @@ def test_split_reference_all_dead_is_zero():
     q, k, v, _, _ = _case(2, 4, 96, 8, False, seed=3)
     out = TFA.flash_chunk_split_reference(_t(q), _t(k), _t(v), torch.zeros(96, dtype=torch.int32), 50)
     assert torch.all(out == 0.0)
+
+
+# the decoder main path's paged decode: 16 slots x 12 heads, 11 table
+# entries of 64 columns (cache_len 704)
+MAIN_DECODE = dict(B=16, nh=12, M=11, Bk=64)
+
+
+@pytest.mark.parametrize("split_cols", TPA.SPLIT_CANDIDATES + (8, 64))
+@pytest.mark.parametrize("M,Bk", [(1, 64), (11, 64), (6, 8), (4, 16), (100, 8), (9, 32), (3, 128)])
+def test_decode_plan_covers_every_entry_once(M, Bk, split_cols):
+    plan = TPA.decode_plan(M, Bk, split_cols)
+    seen = np.zeros(M, np.int64)
+    for lo, hi in plan.splits(M):
+        assert lo < hi  # no empty split
+        seen[lo:hi] += 1
+    assert np.all(seen == 1)
+    assert 1 <= plan.n_splits <= TPA.MAX_SPLITS  # one portable cluster
+    assert (plan.n_splits - 1) * plan.entries < M <= plan.n_splits * plan.entries
+
+
+def test_decode_plan_fills_the_card_at_the_main_path_shape():
+    B, nh, M, Bk = MAIN_DECODE.values()
+    plan = TPA.decode_plan(M, Bk)
+    assert plan.blocks(B, nh) >= kernels.SMS
+    assert plan == TPA.DecodePlan(entries=4, n_splits=3)
+
+
+@pytest.mark.parametrize("split_cols", TPA.SPLIT_CANDIDATES)
+def test_decode_candidates_grids(split_cols):
+    B, nh, M, Bk = MAIN_DECODE.values()
+    plan = TPA.decode_plan(M, Bk, split_cols)
+    assert plan.entries == split_cols // Bk and plan.blocks(B, nh) >= kernels.SMS
+
+
+def _jax_paged(q, kb, vb, ks, vs, tbl, mask):
+    return np.asarray(JPA.paged_attn_decode(
+        jnp.asarray(q), jnp.asarray(kb), jnp.asarray(vb),
+        None if ks is None else jnp.asarray(ks), None if vs is None else jnp.asarray(vs),
+        jnp.asarray(tbl), jnp.asarray(mask)))
+
+
+@pytest.mark.parametrize("split_cols", [8, 16, 32])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("nh,Bk,M", [(1, 8, 1), (4, 8, 3), (2, 16, 2), (4, 16, 4)])
+def test_decode_split_reference_matches_jax_kernel(nh, Bk, M, quant, split_cols):
+    """The corners of tests/test_paged_kv.py's kernel case, with splits of
+    one or more table entries."""
+    case = _kernel_case(nh, Bk, M, quant)
+    want = _jax_paged(*case)
+    got = TPA.paged_attn_decode_split_reference(*(_t(a) for a in case), split_cols=split_cols)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    plain = TPA.paged_attn_decode_reference(*(_t(a) for a in case))
+    torch.testing.assert_close(got, plain, **TOL)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_split_reference_edges_match_jax_kernel(quant):
+    """An empty slot (every split dead), a sentinel tail, a non-prefix mask
+    with a whole dead split, and one live column in the last block."""
+    q, kb, vb, ks, vs, tbl, mask = _kernel_case(4, 8, 4, quant, seed=3)
+    mask[0, :] = 0
+    mask[1, :] = 0
+    mask[1, 31] = 1
+    mask[2, :] = (np.arange(32) % 3 == 0)
+    mask[2, 8:16] = 0
+    mask[2, 24:] = 0
+    tbl[2, 3] = 0
+    assert TPA.decode_plan(4, 8, 8).n_splits == 4  # the dead entry is a split
+    for split_cols in (8, 16):
+        got = TPA.paged_attn_decode_split_reference(
+            *(_t(a) for a in (q, kb, vb, ks, vs, tbl, mask)), split_cols=split_cols).numpy()
+        np.testing.assert_allclose(got, _jax_paged(q, kb, vb, ks, vs, tbl, mask), **TOL)
+        assert np.all(got[0] == 0.0) and np.isfinite(got).all()

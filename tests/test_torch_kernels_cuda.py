@@ -56,6 +56,30 @@ def test_flash_attn_kernel_matches_plain_version(cuda, b, nh, seq, hd, dtype, at
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("seq", [1, 16, 21, 32, 160, 512])
+def test_flash_attn_mma_design_edges(cuda, seq, hd, dtype, atol, causal):
+    """The bf16 design's edges: every key-tile width (S <= 16, <= 32, more),
+    groups of 4 or 2 heads that cross batch rows (nh = 3), 64-row query
+    chunks past S = 64, left-padded masks (the decoder's admission) and an
+    all-masked row; more groups than persistent blocks at S = 16."""
+    b, nh = (2000, 3) if seq == 16 else (3, 3)
+    g = torch.Generator(device="cpu").manual_seed(seq * 7 + hd)
+    q, k, v = (torch.randn((b, nh, seq, hd), generator=g).to(cuda, dtype) for _ in range(3))
+    lens = torch.randint(1, seq + 1, (b,), generator=g)
+    lens[0], lens[1] = 0, seq
+    mask = (torch.arange(seq)[None, :] >= (seq - lens)[:, None]).to(torch.int32).to(cuda)
+    out = TFA.flash_attn(q, k, v, mask, causal=causal)
+    torch.cuda.synchronize()
+    ref = TFA.flash_attn_reference(q, k, v, mask, causal=causal)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, rtol=0, atol=atol)
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.cuda
 def test_flash_attn_kernel_refuses_bad_inputs(cuda):
     q = torch.zeros((1, 1, 8, 12), device=cuda)
     mask = torch.ones((1, 8), dtype=torch.int32, device=cuda)
@@ -118,6 +142,55 @@ def test_paged_attn_kernel_matches_plain_version(cuda, B, nh, hd, Bk, M, quant, 
     for t in args[1:5]:
         if t is not None:
             assert torch.all(t[0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [5, 8, 20, 64, 128, 256])
+@pytest.mark.parametrize("Bk", [8, 16, 32, 64])
+def test_paged_attn_split_design_edges(cuda, Bk, hd, dtype, quant):
+    """The bf16 design's edges at every block size and head_dim (5: rows
+    of an odd byte count, 20: of 8-byte copies): slot 0 empty (every split
+    dead), slot 1 one live column in its last block,
+    slot 2 a non-prefix mask with a sentinel tail, slot 3 full; every
+    split plan (one to eight splits a cluster) agrees with the plain version, and
+    two runs are equal (splits meet in a fixed order). f32 queries take the
+    earlier design and are held to the plain version as well."""
+    B, nh, M = 4, 3, 6
+    g = torch.Generator().manual_seed(Bk * 1000 + hd + quant)
+    q, kb, vb, kbs, vbs, tbl, mask = _paged_case(g, B, nh, hd, Bk, M, quant, dtype, cuda)
+    mask = mask.cpu()
+    tbl = tbl.cpu()
+    mask[0] = 0
+    mask[1] = 0
+    mask[1, M * Bk - 1] = 1
+    mask[2] = (torch.rand(M * Bk, generator=g) < 0.4).to(torch.int32)
+    mask[2, (M - 2) * Bk:] = 0
+    tbl[2, M - 2:] = 0
+    mask[3] = 1
+    args = (q, kb, vb, kbs, vbs, tbl.to(cuda), mask.to(cuda))
+    ref = TPA.paged_attn_decode_reference(*args)
+
+    def check(out):
+        assert out.dtype == dtype and out.shape == ref.shape
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+        else:
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+        assert torch.all(out[0] == 0)
+
+    out = TPA.paged_attn_decode(*args)
+    again = TPA.paged_attn_decode(*args)
+    torch.cuda.synchronize()
+    check(out)
+    assert torch.equal(out, again)
+    if dtype == torch.bfloat16:
+        for cols in TPA.SPLIT_CANDIDATES + (Bk, 2 * Bk):  # (Bk: a split an entry)
+            o = torch.empty_like(q)
+            TPA._launch(*args, o, hd ** -0.5, split_cols=cols)
+            torch.cuda.synchronize()
+            check(o)
 
 
 def _chunk_case(g, nh, T, C, hd, quant, dtype, dev, start):
