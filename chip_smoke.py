@@ -42,7 +42,18 @@ without printing a result:
    went through its kernel; 8 requests are held against the port's static
    ``generate``; then a short run with int8 K/V, a dense-pool run (whole-
    prompt admission through the causal ``flash_attn``), and an f32 check of
-   a small input, card against CPU.
+   a small input, card against CPU. The prefix cache is on, as its default;
+   the random prompts share almost no block, so each run prints its stats;
+7. shared-prompt serving through the prefix cache at the same width: the
+   chunk and decode kernels over rows whose leading blocks are shared,
+   against their plain versions; a paged pool serves a warm-up request and
+   then 48 more at once behind one 256-token head (every one a hit of 4
+   shared blocks, every suffix piece and decode step through its kernel),
+   beside the same 49 prompts with the cache off; a dense pool's arena
+   serves 16 requests behind a 128-token head; a paged tier 1 of 3 blocks
+   with a 64 MB host tier demotes six 192-token heads and promotes the
+   first back, beside the same trace without tier 2. Greedy streams must be
+   equal token for token to the cache-off (or tier-2-off) arm.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -75,6 +86,11 @@ N_REQUESTS, MAX_NEW, N_SLOTS, CACHE_LEN, BLOCK, PIECE = 48, 64, 16, 704, 64, 64
 # (spread ~0.55 with random weights) within 0.1; at least 7 of 8 first
 # tokens and 3 of 8 whole streams equal
 LOGIT_TOL, MIN_FIRST_EQUAL, MIN_STREAMS_EQUAL = 0.1, 7, 3
+# phase 7: one paged block of GPT-2 small's K+V in bf16 is 2 * 12 layers *
+# 12 heads * 64 tokens * 64 * 2 bytes = 2,359,296 bytes; tier 1 of the
+# tier-2 run holds 3 of them
+KV_BLOCK_BYTES = 2 * 12 * 12 * BLOCK * 64 * 2
+SHARED_HEAD, DENSE_HEAD, T2_HEAD = 256, 128, 192
 # each kernel's current design, as its source describes it
 DESIGN = {
     "flash_attn": "bf16: mma.sync m16n8k16, persistent blocks over 64-row groups, "
@@ -685,7 +701,8 @@ def counters():
 
 def serve(chat, prompts: list[str]) -> dict:
     """One run of the server through DecoderChat's entry points, with every
-    kernel count set to 0 just before and read just after."""
+    kernel count set to 0 just before and read just after. A dead loop, a
+    short stream or a dropped tier-2 promotion fails the run."""
     import torch
 
     for f in counters().values():
@@ -701,6 +718,8 @@ def serve(chat, prompts: list[str]) -> dict:
     stats = {k: v - s0[k] for k, v in chat.server.stats.items()}
     if chat.server.failed is not None:
         raise AssertionError(f"the serving loop died: {chat.server.failed!r}")
+    if chat.server.stats["t2_dropped"]:
+        raise AssertionError("a tier-2 promotion was dropped")
     for r, t in zip(reqs, texts):
         if t is None or len(r.tokens) != MAX_NEW:  # no EOS in a byte vocab
             raise AssertionError(f"a request finished with {len(r.tokens)} tokens")
@@ -812,20 +831,32 @@ def check_decoder_against_cpu(params, tok) -> None:
     require(d0 <= 1e-3 and d1 <= 1e-3 and same, "the card agrees with the CPU in f32")
 
 
-def run_decoder(dev, gpu: str) -> dict:
-    """Phase 6; returns the summed launches of every decoder run."""
+def prefix_line(st: dict) -> str:
+    return (f"{st['prefix_requests']} lookups, {st['prefix_hit_requests']} hits, "
+            f"{st['prefix_hit_tokens']} hit tokens, {st['prefix_miss_tokens']} miss tokens")
+
+
+def decoder_setup(dev):
+    """GPT-2 small's seeded random weights, the byte tokenizer and the
+    serving settings the decoder phases share."""
     import torch
 
-    from pathway_tpu_torch import DecoderChat
     from pathway_tpu_torch.models import decoder as D
 
-    t0 = time.perf_counter()
     params = D.init_params(torch.Generator().manual_seed(0), D.GPT2_SMALL)
     tok = byte_tokenizer()
     common = dict(params=params, cfg=D.GPT2_SMALL, tokenizer=tok, continuous=True,
                   n_slots=N_SLOTS, chunk_steps=16, max_new_tokens=MAX_NEW,
                   max_prompt_tokens=512, prefill_chunk=PIECE, weight_quant="int8",
                   wq_kernel=True, device=dev)
+    return params, tok, common
+
+
+def run_decoder(dev, gpu: str, params, tok, common) -> dict:
+    """Phase 6; returns the summed launches of every decoder run."""
+    from pathway_tpu_torch import DecoderChat
+
+    t0 = time.perf_counter()
     chat = DecoderChat(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True,
                        flash_prefill=True, **common)
     info(f"decoder: GPT-2 small (vocab 50257, hidden 768, 12 layers, 12 heads, ffn "
@@ -847,6 +878,7 @@ def run_decoder(dev, gpu: str) -> dict:
             "every prefill piece and layer went through flash_chunk_attn_paged")
     require(ln["wq_matmul"] >= 48 * (st["decode_steps"] + st["prefill_chunks"]),
             "every layer product went through wq_matmul")
+    info(f"  prefix cache (default on): {prefix_line(st)}")
     total = {n: total[n] + ln[n] for n in total}
     chat.close()
     main_run = (chat, prompts, out["reqs"])
@@ -861,6 +893,7 @@ def run_decoder(dev, gpu: str) -> dict:
     require(ln["paged_attn_decode"] >= 12 * st["decode_steps"] > 0
             and ln["flash_chunk_attn_paged"] >= 12 * st["prefill_chunks"] > 0,
             "the int8-KV run went through the fused int8 kernels")
+    info(f"  prefix cache (default on): {prefix_line(st)}")
     total = {n: total[n] + ln[n] for n in total}
     chat.close()
 
@@ -879,6 +912,7 @@ def run_decoder(dev, gpu: str) -> dict:
     require(ln["wq_matmul"] >= 48 * (st["decode_steps"] + st["prefill_chunks"]
                                      + st["admit_dispatches"]),
             "every layer product of the dense run went through wq_matmul")
+    info(f"  prefix cache (default on): {prefix_line(st)}")
     total = {n: total[n] + ln[n] for n in total}
     chat.close()
     check_decoder_against_cpu(params, tok)
@@ -890,6 +924,202 @@ def run_decoder(dev, gpu: str) -> dict:
     require(held["max_logit_diff"] <= LOGIT_TOL and held["first_equal"] >= MIN_FIRST_EQUAL
             and held["streams_equal"] >= MIN_STREAMS_EQUAL,
             "the server agrees with the static path")
+    return total
+
+
+# ---------------------------------------------------------------- phase 7
+def check_shared_blocks(dev) -> None:
+    """The paged kernels at the main-path widths over a cached head shared
+    copy-on-write: two table rows whose first 4 entries are the same
+    physical blocks; a suffix piece at start 256 over the second row (chunk
+    kernel) and one decode step over both rows, each against its plain
+    version; the shared blocks must not change."""
+    import torch
+
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.models import paged_attention as PA
+
+    g = torch.Generator().manual_seed(12)
+    nh, hd, M, n_shared = 12, 64, CACHE_LEN // BLOCK, SHARED_HEAD // BLOCK
+    n_blocks = 2 * M + 1
+    kb, vb = (torch.randn((n_blocks, nh, BLOCK, hd), generator=g).to(dev, torch.bfloat16)
+              for _ in range(2))
+    kb[0], vb[0] = 0, 0
+    ids = torch.randperm(n_blocks - 1, generator=g) + 1
+    tbl = torch.stack([ids[:M], torch.cat([ids[:n_shared], ids[M:2 * M - n_shared]])])
+    tbl = tbl.to(torch.int32).to(dev)
+    before = (kb.clone(), vb.clone())
+    cols = torch.arange(CACHE_LEN)
+    row_mask = (cols < SHARED_HEAD + PIECE).to(torch.int32).to(dev)
+    q = torch.randn((nh, PIECE, hd), generator=g).to(dev, torch.bfloat16)
+    out = FA.flash_chunk_attn_paged(q, kb, vb, None, None, tbl[1], row_mask, SHARED_HEAD)
+    torch.cuda.synchronize()
+    ref = FA.flash_chunk_attn_paged_reference(q, kb, vb, None, None, tbl[1], row_mask,
+                                              SHARED_HEAD)
+    err = (out - ref).abs().max().item()
+    lens = torch.tensor([SHARED_HEAD + 200, SHARED_HEAD + 17])
+    mask = (cols[None, :] < lens[:, None]).to(torch.int32).to(dev)
+    qd = torch.randn((2, nh, hd), generator=g).to(dev, torch.bfloat16)
+    dec = PA.paged_attn_decode(qd, kb, vb, None, None, tbl, mask)
+    torch.cuda.synchronize()
+    ref_d = PA.paged_attn_decode_reference(qd, kb, vb, None, None, tbl, mask)
+    info(f"shared prefix blocks: flash_chunk_attn_paged at start {SHARED_HEAD} "
+         f"max_abs_err={err:.3e} (atol 2e-3); paged_attn_decode max_abs_err="
+         f"{(dec.float() - ref_d.float()).abs().max().item():.3e} (rtol 2^-7, atol 1e-3)")
+    require(err <= 2e-3, "the chunk kernel over shared blocks agrees with its plain version")
+    torch.testing.assert_close(dec.float(), ref_d.float(), rtol=2 ** -7, atol=1e-3)
+    require(torch.equal(before[0], kb) and torch.equal(before[1], vb),
+            "the kernels left the shared blocks unchanged")
+
+
+def shared_prompts(head_len: int, lens: list[int], seed: int) -> list[str]:
+    """One seeded head of ``head_len`` tokens, then a seeded suffix of each
+    length in ``lens``."""
+    rng = np.random.default_rng(seed)
+    chars = np.array(list("abcdefghijklmnopqrstuvwxyz     ,."))
+    head = "".join(rng.choice(chars, head_len))
+    return [head + "".join(rng.choice(chars, int(k))) for k in lens]
+
+
+def counting(D, names):
+    """Wrap the decoder's pool functions ``names`` in call counters (the
+    server calls them through the module); returns the counts and an undo."""
+    calls = {n: 0 for n in names}
+    orig = {n: getattr(D, n) for n in names}
+
+    def wrap(n):
+        def f(*a, **k):
+            calls[n] += 1
+            return orig[n](*a, **k)
+        return f
+
+    for n in names:
+        setattr(D, n, wrap(n))
+    return calls, lambda: [setattr(D, n, f) for n, f in orig.items()]
+
+
+def streams(out) -> list:
+    return [r.tokens for r in out["reqs"]]
+
+
+def run_shared_prompt(gpu: str, tok, common) -> dict:
+    """Phase 7; returns the summed launches of its cache-on runs."""
+    from pathway_tpu_torch import DecoderChat
+    from pathway_tpu_torch.engine import probes
+    from pathway_tpu_torch.models import decoder as D
+
+    total = {n: 0 for n in counters()}
+    paged = dict(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True, flash_prefill=True)
+
+    # paged tier 1: a warm-up request, then 48 at once behind one head
+    rng = np.random.default_rng(71)
+    lens = rng.integers(16, 225, N_REQUESTS + 1).tolist()
+    prompts = shared_prompts(SHARED_HEAD, lens, seed=70)
+    arms = {}
+    for on in (True, False):
+        probes.reset_prefix_stats()
+        chat = DecoderChat(prefix_cache=on, **paged, **common)
+        warm = serve(chat, prompts[:1])
+        out = serve(chat, prompts[1:])
+        arms[on] = (warm, out, probes.prefix_stats())
+        chat.close()
+    (warm, out, ledger), (warm_off, out_off, _) = arms[True], arms[False]
+    st, ln = out["stats"], out["launches"]
+    suffix_pieces = sum(-(-k // PIECE) for k in lens[1:])
+    for on, (w, o, _) in arms.items():
+        info(f"shared-prompt paged run [{gpu}], cache {'on' if on else 'off'}: 48 "
+             f"requests behind a {SHARED_HEAD}-token head in {o['wall_s']:.3f} s wall "
+             f"(warm-up request {w['wall_s']:.3f} s); decode {o['tok_per_s']:.1f} "
+             f"tokens/s; TTFT p50 {o['ttft_p50_s'] * 1e3:.1f} ms; "
+             f"{o['stats']['prefill_chunks']} prefill pieces; {prefix_line(o['stats'])}; "
+             f"launches {o['launches']}")
+    require(st["prefix_hit_requests"] == N_REQUESTS
+            and st["prefix_hit_tokens"] == N_REQUESTS * SHARED_HEAD,
+            f"all {N_REQUESTS} requests hit the {SHARED_HEAD}-token head")
+    require(st["prefill_chunks"] == suffix_pieces,
+            f"only the suffixes were prefilled ({suffix_pieces} pieces)")
+    require(ln["flash_chunk_attn_paged"] >= 12 * st["prefill_chunks"] > 0,
+            "every suffix piece and layer went through flash_chunk_attn_paged")
+    require(ln["paged_attn_decode"] >= 12 * st["decode_steps"] > 0,
+            "every decode step and layer went through paged_attn_decode")
+    require(ledger["copy_bytes"] == 0, "paged hits shared blocks, copying no KV")
+    require(streams(warm) + streams(out) == streams(warm_off) + streams(out_off),
+            "cache-on streams equal the cache-off streams token for token (49)")
+    total = {n: total[n] + warm["launches"][n] + ln[n] for n in total}
+
+    # dense arena: a warm-up request, then 15 at once behind one head; every
+    # prompt fills its 256-token bucket, so the cache-off admission (left-
+    # padded to the bucket) lays tokens out as a hit (right-padded) does
+    prompts = shared_prompts(DENSE_HEAD, [256 - DENSE_HEAD] * 16, seed=80)
+    arms = {}
+    for on in (True, False):
+        calls, undo = counting(D, ("kv_extract", "pool_admit_cached"))
+        try:
+            chat = DecoderChat(paged_kv=False, flash_prefill=True, prefix_cache=on,
+                               **common)
+            warm = serve(chat, prompts[:1])
+            out = serve(chat, prompts[1:])
+            chat.close()
+        finally:
+            undo()
+        arms[on] = (warm, out, calls)
+    (warm, out, calls), (warm_off, out_off, _) = arms[True], arms[False]
+    st, ln = out["stats"], out["launches"]
+    for on, (w, o, c) in arms.items():
+        info(f"dense-arena run [{gpu}], cache {'on' if on else 'off'}: 15 requests behind "
+             f"a {DENSE_HEAD}-token head in {o['wall_s']:.3f} s wall; TTFT p50 "
+             f"{o['ttft_p50_s'] * 1e3:.1f} ms; {o['stats']['prefill_chunks']} prefill "
+             f"pieces; {prefix_line(o['stats'])}; calls {c}; launches {o['launches']}")
+    require(st["prefix_hit_requests"] >= 15 and calls["pool_admit_cached"] >= 15
+            and calls["kv_extract"] >= 1,
+            "kv_extract published the head and pool_admit_cached seeded >= 15 hits")
+    require(ln["flash_chunk_attn"] >= 12 * st["prefill_chunks"] > 0,
+            "every dense suffix piece and layer went through flash_chunk_attn")
+    require(streams(warm) + streams(out) == streams(warm_off) + streams(out_off),
+            "dense cache-on streams equal the cache-off streams token for token (16)")
+    total = {n: total[n] + warm["launches"][n] + ln[n] for n in total}
+
+    # tier 2: six 192-token heads churn a 3-block tier 1 into a 64 MB host
+    # tier; the first head comes back (a tier-2 hit, promoted), then again
+    heads = [shared_prompts(T2_HEAD, [0], seed=90 + i)[0] for i in range(6)]
+    trace = [h + "?" for h in heads] + [heads[0] + "?"]
+    arms = {}
+    for t2_mb in (64.0, 0.0):
+        probes.reset_prefix_stats()
+        probes.reset_stage_seconds()
+        chat = DecoderChat(prefix_cache_mb=3 * KV_BLOCK_BYTES / 2 ** 20,
+                           prefix_t2_mb=t2_mb, **paged, **common)
+        runs = [serve(chat, [p]) for p in trace]
+        drained = chat.server.t2_drain(timeout=60)
+        runs.append(serve(chat, [heads[0] + "!"]))
+        resident = chat.server.prefix.match(tok.encode(heads[0]))[0]
+        stats = {k: sum(r["stats"][k] for r in runs) for k in runs[0]["stats"]}
+        arms[t2_mb] = (runs, stats, probes.prefix_stats(), probes.stage_seconds(),
+                       probes.stage_items(), drained, resident, chat.server.prefix)
+        chat.close()
+    runs, st, ledger, secs, items, drained, resident, prefix = arms[64.0]
+    runs_off = arms[0.0][0]
+    info(f"tier-2 run [{gpu}]: tier 1 {prefix.capacity_blocks} blocks, tier 2 "
+         f"{prefix.tier2.capacity_blocks} blocks; {ledger['t2_demoted_blocks']} blocks "
+         f"demoted, {ledger['t2_lookups']} lookups, {ledger['t2_hits']} hits, "
+         f"{st['t2_promoted_blocks']} blocks promoted; export "
+         f"{secs.get('t2_export', 0.0) * 1e3:.3f} ms for {items.get('t2_export', 0):.0f} "
+         f"blocks, h2d {secs.get('t2_h2d', 0.0) * 1e3:.3f} ms for "
+         f"{items.get('t2_h2d', 0):.0f} blocks; resident match {resident} blocks; TTFT "
+         f"of the returning head {runs[6]['ttft_p50_s'] * 1e3:.1f} ms, of the last "
+         f"request {runs[7]['ttft_p50_s'] * 1e3:.1f} ms (tier-2 off: "
+         f"{arms[0.0][0][7]['ttft_p50_s'] * 1e3:.1f} ms)")
+    require(drained, "every tier-2 promotion landed within 60 s")
+    require(st["t2_hit_requests"] >= 1 and st["t2_promoted_blocks"] >= 1
+            and st["t2_promoted_blocks"] == ledger["t2_hit_blocks"],
+            "the returning head hit tier 2 and every hit block was promoted")
+    require(resident == T2_HEAD // BLOCK, "the promoted head is resident (3 blocks)")
+    require(arms[0.0][1]["t2_hit_requests"] == 0 and arms[0.0][7].tier2 is None,
+            "the tier-2-off arm has no host tier")
+    require([t for r in runs for t in streams(r)] == [t for r in runs_off for t in streams(r)],
+            "tier-2 streams equal the tier-2-off streams token for token (8)")
+    for r in runs:
+        total = {n: total[n] + r["launches"][n] for n in total}
     return total
 
 
@@ -968,7 +1198,13 @@ def main() -> int:
          + "; ".join(f"{c}: {ms:.4f} ms" for c, ms in rows["paged_attn_decode"]["split_ms"].items()))
 
     # phase 6: the answer-LLM main path
-    dec = run_decoder(dev, gpu)
+    params, tok, common = decoder_setup(dev)
+    dec = run_decoder(dev, gpu, params, tok, common)
+
+    # phase 7: shared-prompt serving through the prefix cache
+    check_shared_blocks(dev)
+    shared = run_shared_prompt(gpu, tok, common)
+    dec = {n: dec[n] + shared[n] for n in dec}
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",

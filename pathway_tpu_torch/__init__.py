@@ -6,8 +6,8 @@ It carries the RAG main path: hashing tokenizer -> MiniLM-style encoder
 embedder and brute-force KNN index -> cross-encoder rerank, in
 ``FusedRAGPipeline``; and the answer LLM: a GPT-2-family decoder served by
 ``DecoderChat`` (batch-static, or a continuous-batching server over a dense
-or paged KV pool) with CUDA kernels for chunked prefill, paged decode and
-int8-weight products. Entry points run on CUDA unless given
+or paged KV pool, with a prefix KV cache and its host tier) with CUDA
+kernels for chunked prefill, paged decode and int8-weight products. Entry points run on CUDA unless given
 ``device="cpu"``. The package imports neither JAX nor ``pathway_tpu``.
 """
 

@@ -19,6 +19,11 @@ its plain PyTorch version for tensors on the CPU:
 * ``wq_matmul`` for the four layer weights when they are int8 and
   ``DecoderConfig.wq_kernel`` is set.
 
+The prefix cache's block moves (``kv_extract``, ``kv_insert``,
+``pool_admit_cached``, ``paged_admit_cached``, ``kv_block_export``,
+``kv_block_import``) are data movement: indexed reads and writes, no
+kernel.
+
 Unlike JAX, the pool functions update the pool dict IN PLACE (the KV
 planes are the dominant device object; JAX donated them for the same
 reason) and return it. Where JAX clamps a slice start
@@ -472,11 +477,19 @@ def cast_params_for_inference(params: dict, cfg: DecoderConfig) -> dict:
 
 
 def pool_init(params: dict, cfg: DecoderConfig, n_slots: int, cache_len: int,
-              kv_quant: bool = False) -> dict:
+              kv_quant: bool = False, arena_blocks: int = 0,
+              arena_block: int = 0) -> dict:
     """Empty dense serving pool on the params' device: per-slot KV rows
     (L, n_slots, nh, cache_len, hd), staged logits, slot masks and cursors;
     int8 KV adds f32 scale planes (the ``k_scale`` key is the format
-    marker). The JAX prefix arena is not ported."""
+    marker).
+
+    With ``arena_blocks > 0`` the pool also carries the prefix cache's KV
+    arena, ``arena_blocks`` blocks of ``arena_block`` tokens shaped
+    ``(n, L, nh, block, hd)`` (block-major, so :func:`kv_extract` /
+    :func:`kv_insert` move whole blocks with one indexed op), in the KV
+    dtype, with f32 scale planes under int8 KV. Which block holds which
+    prefix is host state (``engine/prefix_cache.PrefixCache``)."""
     L, nh, hd = cfg.layers, cfg.heads, cfg.head_dim
     dev = _device(params)
     kv_dtype = torch.int8 if kv_quant else cfg.dtype
@@ -495,6 +508,13 @@ def pool_init(params: dict, cfg: DecoderConfig, n_slots: int, cache_len: int,
     if kv_quant:
         pool["k_scale"] = z((L, n_slots, nh, cache_len, 1), torch.float32)
         pool["v_scale"] = z((L, n_slots, nh, cache_len, 1), torch.float32)
+    if arena_blocks > 0:
+        shape = (arena_blocks, L, nh, arena_block)
+        pool["arena_k"] = z(shape + (hd,), kv_dtype)
+        pool["arena_v"] = z(shape + (hd,), kv_dtype)
+        if kv_quant:
+            pool["arena_k_scale"] = z(shape + (1,), torch.float32)
+            pool["arena_v_scale"] = z(shape + (1,), torch.float32)
     return pool
 
 
@@ -917,12 +937,17 @@ def _paged_gather(pool: dict) -> dict:
 
 
 def _paged_scatter(pool: dict, view: dict) -> dict:
-    """Write a dense view back into the block planes. Sentinel entries are
-    skipped, so block 0 stays zero; every other target is owned by one
-    slot, so the write order cannot matter."""
+    """Write a dense view back into the block planes, skipping the sentinel
+    (block 0 stays zero) and every block that more than one table row
+    references. Those are copy-on-write prefix blocks: no pool op writes a
+    shared column (suffix and decode writes land past the shared run;
+    inactive decode lanes write back the bytes they read), so the view
+    holds the bytes they already have. Every target left belongs to one
+    row, so no two writes meet and the write order cannot matter."""
     tbl = pool["block_tbl"].long()
     Bk = paged_block(pool)
-    keep = tbl > 0
+    refs = torch.bincount(tbl.flatten(), minlength=pool["kb"].shape[1])
+    keep = (tbl > 0) & (refs[tbl] == 1)
 
     def s(plane, row):
         L, S, nh, C, d = row.shape
@@ -944,4 +969,137 @@ def paged_table_set(pool: dict, slot: int, row) -> dict:
     """Install ``slot``'s block-table row ((max_blocks,) int32, unallocated
     tail = sentinel 0)."""
     pool["block_tbl"][slot] = to_device(row, pool["block_tbl"].device, torch.int32)
+    return pool
+
+
+def paged_admit_cached(pool: dict, slot: int, row, n_cached: int) -> dict:
+    """Copy-on-write counterpart of :func:`pool_admit_cached`: install
+    ``slot``'s table row, whose first ``n_cached // block`` entries are
+    pinned shared blocks holding the cached prompt prefix, and mark the
+    first ``n_cached`` mask columns live (all others dead). No KV bytes
+    move. The host then prefills the uncached suffix in right-padded pieces
+    from column ``n_cached`` (``first=False``), which never write a shared
+    block."""
+    paged_table_set(pool, slot, row)
+    C = pool["slot_mask"].shape[1]
+    cols = torch.arange(C, device=pool["slot_mask"].device)
+    pool["slot_mask"][slot] = (cols < int(n_cached)).to(torch.int32)
+    return pool
+
+
+# ---- prefix-cache block moves ----------------------------------------------
+#
+# Pure data movement between a slot's cache row, the dense pool's prefix
+# arena and host blobs: the moved bytes are bit-identical to their source.
+# Indexed reads and writes in place; no kernel.
+
+
+def _kv_channels(pool: dict) -> list[tuple[str, str]]:
+    """(cache key, arena key) pairs a block copy moves: the int8 scale
+    planes ride along when the pool is quantized."""
+    ch = [("k", "arena_k"), ("v", "arena_v")]
+    if pool_quantized(pool):
+        ch += [("k_scale", "arena_k_scale"), ("v_scale", "arena_v_scale")]
+    return ch
+
+
+def _arena_span(pool: dict, start: int, n: int) -> tuple[int, int]:
+    """(clamped start, width) of an ``n``-block span of a dense cache row,
+    clamped as ``dynamic_slice`` clamps it."""
+    if pool_paged(pool):
+        raise ValueError(
+            "arena block copies are dense-pool machinery; a paged pool "
+            "shares its own blocks (paged_admit_cached)"
+        )
+    w = n * pool["arena_k"].shape[3]
+    return _clamp_start(start, w, pool["k"].shape[3]), w
+
+
+def kv_extract(pool: dict, slot: int, start: int, idxs) -> dict:
+    """Copy the KV span ``[start, start + n*block)`` of ``slot``'s cache row
+    into arena blocks ``idxs`` ((n,) ids): publishes a prompt's freshly
+    prefilled blocks into the prefix arena. The start clamps so the span
+    fits the row, as ``dynamic_slice``. Dense pools only."""
+    idxs = to_device(idxs, pool["slot_mask"].device, torch.long)
+    st, w = _arena_span(pool, start, idxs.shape[0])
+    for c, a in _kv_channels(pool):
+        L, _, nh, _, d = pool[c].shape
+        span = pool[c][:, slot, :, st:st + w]  # (L, nh, n*Bk, d)
+        pool[a][idxs] = span.reshape(L, nh, len(idxs), -1, d).permute(2, 0, 1, 3, 4)
+    return pool
+
+
+def kv_insert(pool: dict, slot: int, start: int, idxs) -> dict:
+    """Scatter arena blocks ``idxs`` into ``slot``'s cache row at ``[start,
+    start + n*block)``, the inverse of :func:`kv_extract` (start clamped
+    the same way). An arena block holds token i of its prefix at column
+    i % block, so the copy is layout-exact only for a right-padded prompt
+    (token i at column i, ``start = 0``). Dense pools only."""
+    idxs = to_device(idxs, pool["slot_mask"].device, torch.long)
+    st, w = _arena_span(pool, start, idxs.shape[0])
+    for c, a in _kv_channels(pool):
+        L, _, nh, _, d = pool[c].shape
+        span = pool[a][idxs]  # (n, L, nh, Bk, d)
+        pool[c][:, slot, :, st:st + w] = span.permute(1, 2, 0, 3, 4).reshape(L, nh, w, d)
+    return pool
+
+
+def pool_admit_cached(pool: dict, slot: int, idxs) -> dict:
+    """Seed ``slot`` with a cached prompt prefix: arena blocks ``idxs`` land
+    at cache columns ``[0, n*block)`` and the slot's mask row becomes 1
+    there, 0 beyond, the state right-padded prefill pieces over those
+    tokens would have left. The host then prefills the uncached suffix in
+    pieces from column ``n*block`` (``first=False``), whose ``last`` piece
+    stages the logits and cursors. Dense pools only (paged pools share
+    blocks: :func:`paged_admit_cached`)."""
+    kv_insert(pool, slot, 0, idxs)
+    n_cached = len(idxs) * pool["arena_k"].shape[3]
+    C = pool["slot_mask"].shape[1]
+    cols = torch.arange(C, device=pool["slot_mask"].device)
+    pool["slot_mask"][slot] = (cols < n_cached).to(torch.int32)
+    return pool
+
+
+def _block_store_channels(pool: dict) -> list[tuple[str, str]]:
+    """(blob key, pool key) pairs of the pool's block store: the dense
+    pool's prefix arena or the paged pool's block planes. Blob keys are the
+    same for both, so a payload moves between pool kinds of one model."""
+    if pool_paged(pool):
+        ch = [("k", "kb"), ("v", "vb")]
+        if pool_quantized(pool):
+            ch += [("k_scale", "kb_scale"), ("v_scale", "vb_scale")]
+        return ch
+    return _kv_channels(pool)
+
+
+def kv_block_export(pool: dict, idxs) -> dict:
+    """Gather block-store blocks ``idxs`` into per-channel ``(n, L, nh,
+    block, d)`` tensors on the pool's device (the tier-2 host blob layout):
+    arena blocks of a dense pool, pool blocks of a paged one."""
+    paged = pool_paged(pool)
+    idxs = to_device(idxs, pool["slot_mask"].device, torch.long)
+    out = {}
+    for b, a in _block_store_channels(pool):
+        if paged:  # (L, n_blocks, nh, Bk, d) -> (n, L, nh, Bk, d)
+            out[b] = pool[a][:, idxs].transpose(0, 1).contiguous()
+        else:
+            out[b] = pool[a][idxs]
+    return out
+
+
+def kv_block_import(pool: dict, idxs, blobs: dict) -> dict:
+    """Scatter exported payloads (tensors on the pool's device) into
+    block-store blocks ``idxs``, the inverse of :func:`kv_block_export`.
+    The blob's channels must match the pool's (an int8 pool needs the
+    scale planes)."""
+    paged = pool_paged(pool)
+    idxs = to_device(idxs, pool["slot_mask"].device, torch.long)
+    for b, a in _block_store_channels(pool):
+        if b not in blobs:
+            raise ValueError(f"kv_block_import: blob missing channel {b!r}")
+        blob = blobs[b].to(pool[a].dtype)
+        if paged:
+            pool[a][:, idxs] = blob.transpose(0, 1)
+        else:
+            pool[a][idxs] = blob
     return pool

@@ -12,12 +12,20 @@ interleaved with decode chunks, runs ``pipeline_depth`` chunks ahead of the
 token drain, and frees a slot as soon as its dispatched steps cover its
 budget.
 
+The server carries the JAX server's prefix KV cache, on by default as in
+JAX: a host radix tree (``engine/prefix_cache.py``) over block-aligned
+prompt prefixes whose KV stays on the card, in an arena beside a dense pool
+or as shared copy-on-write blocks of a paged pool, so a request whose
+prompt head is cached prefills only its suffix; with ``prefix_t2_mb > 0``
+evicted prefixes demote to host RAM and come back by asynchronous
+promotion.
+
 Behaviour is set by constructor arguments whose defaults are the JAX flag
-defaults, for every feature the server carries. The JAX server's prefix
-cache (and tier 2), speculative decode, disaggregated lanes, tenant
-scheduling, the serving mesh and chunk autotune are not ported; asking for
-any of them raises ``NotImplementedError`` (their defaults here are off).
-Nothing reads an environment variable.
+defaults, for every feature the server carries. The JAX server's
+speculative decode, disaggregated lanes, tenant scheduling, the serving
+mesh and chunk autotune are not ported; asking for any of them raises
+``NotImplementedError`` (their defaults here are off). Nothing reads an
+environment variable.
 """
 
 from __future__ import annotations
@@ -32,6 +40,9 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch.device import resolve_device, to_device
+from pathway_tpu_torch.engine.async_runtime import StageWorker
+from pathway_tpu_torch.engine.prefix_cache import PrefixCache
+from pathway_tpu_torch.engine.probes import record_prefix, record_stage
 from pathway_tpu_torch.models import decoder as D
 from pathway_tpu_torch.ops import next_pow2
 
@@ -305,8 +316,6 @@ class _PendingCompletion:
 
 _UNPORTED = (
     # (argument, asked-for test, what it is)
-    ("prefix_cache", lambda v: bool(v), "the prefix KV cache"),
-    ("prefix_t2_mb", lambda v: v is not None and float(v) > 0, "the tier-2 prefix cache"),
     ("spec_decode", lambda v: bool(v), "self-speculative decode"),
     ("disagg", lambda v: bool(v), "disaggregated prefill/decode lanes"),
     ("tenant_sched", lambda v: bool(v), "tenant scheduling and preemption"),
@@ -324,8 +333,12 @@ class _ContinuousServer:
     (same-bucket arrivals batched into one ``pool_admit_batch``) and a long
     one in ``prefill_chunk`` pieces, one piece per tick; a paged pool
     allocates exactly the blocks a request can reach and always admits
-    right-padded, piece by piece. Up to ``pipeline_depth`` chunks run ahead
-    of the token drain (each chunk's tokens copy to the host as soon as it
+    right-padded, piece by piece. With the prefix cache, admission first
+    matches the prompt's cached head: a dense hit copies arena blocks into
+    the slot's row, a paged hit shares the cached blocks through the table
+    row, and either prefills only the suffix, right-padded; a finished
+    prompt's full blocks are published into the tree. Up to
+    ``pipeline_depth`` chunks run ahead of the token drain (each chunk's tokens copy to the host as soon as it
     is queued), and eager refill frees a lane whose dispatched steps cover
     its budget at dispatch time. A stream ends at EOS or at its own
     ``max_new``."""
@@ -357,8 +370,7 @@ class _ContinuousServer:
                  prefix_t2_mb: float | None = None,
                  mesh=None,
                  chunk_autotune: bool | None = None):
-        asked = dict(prefix_cache=prefix_cache, prefix_t2_mb=prefix_t2_mb,
-                     spec_decode=spec_decode, disagg=disagg,
+        asked = dict(spec_decode=spec_decode, disagg=disagg,
                      tenant_sched=tenant_sched, mesh=mesh,
                      chunk_autotune=chunk_autotune)
         for name, on, what in _UNPORTED:
@@ -400,6 +412,54 @@ class _ContinuousServer:
             self.cache_len = -(-self.cache_len // self.paged_block) * self.paged_block
             self._paged_blocks_override = max(
                 0, 0 if paged_kv_blocks is None else int(paged_kv_blocks))
+        # the prefix KV cache: a hit admits right-padded (token i at column
+        # i, the cached blocks' layout) through the piece machinery, so the
+        # cache needs chunked prefill
+        self.prefix = None
+        self.prefix_block = 0
+        self._prefix_nodes: dict = {}  # request -> node whose path it pins
+        want_prefix = True if prefix_cache is None else bool(prefix_cache)
+        if want_prefix and self.chunked_prefill:
+            mb = 64.0 if prefix_cache_mb is None else float(prefix_cache_mb)
+            blk = 0 if prefix_block is None else int(prefix_block)
+            # a pow2 multiple of the piece, so cached prefixes end on piece
+            # boundaries; under paged KV a cached block is a pool block
+            blk = next_pow2(max(blk, self.prefill_chunk), self.prefill_chunk)
+            if self.paged_kv:
+                blk = self.paged_block
+            itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+            # int8 KV: head_dim int8 bytes plus one f32 scale a head-token
+            per_tok = cfg.head_dim + 4 if self.kv_quant else cfg.head_dim * itemsize
+            block_bytes = 2 * cfg.layers * cfg.heads * blk * per_tok
+            n_blocks = int(mb * (1 << 20) // block_bytes)
+            if n_blocks >= 1:
+                self.prefix_block = blk
+                self._prefix_kwargs = dict(n_blocks=n_blocks, block=blk,
+                                           block_bytes=block_bytes)
+                # tier 2: eviction demotes leaf edges to host RAM through
+                # the export callback; budget 0 is the single-tier cache
+                t2_mb = 0.0 if prefix_t2_mb is None else float(prefix_t2_mb)
+                t2_blocks = int(t2_mb * (1 << 20) // block_bytes)
+                if t2_blocks >= 1:
+                    self._prefix_kwargs.update(tier2_blocks=t2_blocks,
+                                               export=self._export_blocks)
+                self.prefix = self._make_prefix_cache()
+        # tier-2 promotions: a worker thread stages a hit's host blobs on
+        # the card; the loop adopts them between ticks (_drain_promotions).
+        # _t2_pending counts hits not yet adopted (t2_drain waits on it);
+        # _t2_waiting holds requests whose last prefill piece waits for
+        # their own promotion, so the promotion, not the request's own
+        # insert, publishes the head
+        self._promote_worker = None
+        self._promote_ready: deque = deque()
+        self._t2_pending = 0
+        self._t2_waiting: set = set()
+        self._h2d_stream = None
+        if self.prefix is not None and self.prefix.tier2 is not None:
+            if self.device.type == "cuda":
+                self._h2d_stream = torch.cuda.Stream(self.device)
+            self._promote_worker = StageWorker(self._stage_promotion, maxsize=4,
+                                               name="prefix-t2-h2d")
         self.pool = self._build_pool()
         self._temperature = float(temperature)
         self._top_k = top_k
@@ -417,7 +477,11 @@ class _ContinuousServer:
         self._stop = False
         self.failed: BaseException | None = None
         self.stats = {"chunks": 0, "admitted": 0, "decode_steps": 0,
-                      "prefill_chunks": 0, "admit_dispatches": 0}
+                      "prefill_chunks": 0, "admit_dispatches": 0,
+                      "prefix_hit_tokens": 0, "prefix_miss_tokens": 0,
+                      "prefix_hit_requests": 0, "prefix_requests": 0,
+                      "t2_hit_requests": 0, "t2_promoted_blocks": 0,
+                      "t2_dropped": 0}
         # in-flight chunk records, oldest first
         self._inflight: deque = deque()
         self.thread = threading.Thread(target=self._run_safe, daemon=True,
@@ -425,12 +489,14 @@ class _ContinuousServer:
         self.thread.start()
 
     def _build_pool(self):
-        """A fresh pool: ``pool_init``, or ``paged_pool_init`` plus a fresh
-        host ``BlockAllocator`` (default: every slot's full table plus the
+        """A fresh pool: ``pool_init`` with the prefix arena, or
+        ``paged_pool_init`` plus a fresh host ``BlockAllocator`` (default:
+        every slot's full table plus the prefix budget plus the
         sentinel)."""
+        cached = self.prefix.capacity_blocks if self.prefix is not None else 0
         if self.paged_kv:
             per_slot = self.cache_len // self.paged_block
-            auto = self.n_slots * per_slot + 1
+            auto = self.n_slots * per_slot + cached + 1
             self._total_blocks = max(2, self._paged_blocks_override or auto)
             self._allocator = D.BlockAllocator(self._total_blocks)
             self._slot_blocks = {}
@@ -439,11 +505,24 @@ class _ContinuousServer:
                 n_blocks=self._total_blocks, block=self.paged_block,
                 kv_quant=bool(self.kv_quant))
         return D.pool_init(self.params, self.cfg, self.n_slots, self.cache_len,
-                           kv_quant=bool(self.kv_quant))
+                           kv_quant=bool(self.kv_quant), arena_blocks=cached,
+                           arena_block=self.prefix_block)
+
+    def _make_prefix_cache(self) -> PrefixCache:
+        """The prefix tree: arena-backed for a dense pool; ADOPTED for a
+        paged one, whose cached ids are pool blocks held through the
+        allocator's pin and release."""
+        kw = dict(self._prefix_kwargs)
+        if self.paged_kv:
+            kw["pin"] = lambda ids: self._allocator.pin(ids)
+            kw["unpin"] = lambda ids: self._allocator.release(ids)
+        return PrefixCache(**kw)
 
     def _release_slot_kv(self, slot: int) -> None:
         """A freed paged slot's table row points at the sentinel BEFORE its
-        blocks return to the allocator, so no two rows share a block."""
+        blocks return to the allocator, so no stale row ever references a
+        block that a new owner writes. On shared prefix blocks the release
+        drops only the slot's own pin; the tree's pin keeps them."""
         if self._allocator is not None:
             row = self._slot_blocks.pop(slot, None)
             if row:
@@ -491,12 +570,27 @@ class _ContinuousServer:
         return req
 
     def _admit_one(self, slot: int, req, direct: list) -> None:
-        """Admission host work for ONE request: pad the prompt and either
-        schedule prefill pieces or queue a whole-prompt admission."""
+        """Admission host work for ONE request: match its cached prefix,
+        pad the prompt, and either schedule prefill pieces or queue a
+        whole-prompt admission."""
         e = req.ids[-self.max_prompt_bucket:]
         n = len(e)
         if self.paged_kv:
             self._admit_one_paged(slot, req, e, n)
+            return
+        m_hit, arena_ids, node = self._prefix_match(req, e, n)
+        if m_hit:
+            # seed columns [0, m_hit * B) from the arena (a copy, no
+            # compute), then prefill only the suffix, right-padded: token i
+            # at column i, as the arena blocks hold it
+            self.prefix.acquire(node)
+            self._prefix_nodes[req] = node
+            self.pool = D.pool_admit_cached(self.pool, slot, arena_ids[:m_hit])
+            record_prefix("copy_bytes", m_hit * self.prefix.block_bytes)
+            pieces, meta = self._right_pieces(e, n, m_hit * self.prefix_block)
+            meta["insert"] = (req, e, 0)
+            self._pending_prefill[slot] = (pieces, n, meta)
+            self.stats["admitted"] += 1
             return
         s = max(8, next_pow2(max(n, 1), 8))
         ids = np.zeros((1, s), np.int32)
@@ -506,62 +600,117 @@ class _ContinuousServer:
             mask[0, s - n:] = 1
         else:
             mask[0, -1] = 1
+        # a miss publishes its full blocks from the left-padded row, where
+        # token 0 sits at column s - n
+        ins = ((req, e, s - n) if self.prefix is not None and n >= self.prefix_block
+               else None)
         if self.chunked_prefill and s > self.prefill_chunk:
             pos = np.clip(np.cumsum(mask[0]) - 1, 0, None)[None, :].astype(np.int32)
             P = self.prefill_chunk
             pieces = [(ids[:, o:o + P], mask[:, o:o + P], pos[:, o:o + P], o)
                       for o in range(0, s, P)]
-            self._pending_prefill[slot] = (pieces, int(mask.sum()), None)
+            self._pending_prefill[slot] = (pieces, int(mask.sum()),
+                                           {"insert": ins} if ins else None)
         else:
-            direct.append((slot, ids, mask, s))
+            direct.append((slot, ids, mask, s, ins))
         self.stats["admitted"] += 1
 
-    def _admit_one_paged(self, slot: int, req, e: list, n: int) -> None:
-        """Paged admission: allocate exactly the blocks this request can
-        reach, install the slot's table row, and schedule the prompt as
-        RIGHT-padded pieces (token i at cache column i). On
-        ``PagedPoolOOM`` nothing is written and the request waits at the
-        queue head."""
-        if not e:
-            e, n = [0], 1  # one pad token at column 0
-        B = self.paged_block
-        per_slot = self.cache_len // B
-        cover = min(self.cache_len,
-                    n + req.max_new + (self.pipeline_depth + 1) * self._slack)
-        need = min(per_slot, -(-cover // B))
-        try:
-            row = self._allocator.alloc(need)
-        except D.PagedPoolOOM:
-            self.slots[slot] = None
-            with self.lock:
-                self.free.append(int(slot))
-            if need > self._total_blocks - 1:
-                self._fail_request(req, "paged_oom")  # can never fit
-                return
-            with self.lock:
-                self.queue.appendleft(req)
-            return
-        self._slot_blocks[slot] = row
-        row_arr = np.zeros((per_slot,), np.int32)
-        row_arr[:len(row)] = row
-        # the first piece clears the slot's mask row
-        self.pool = D.paged_table_set(self.pool, slot, row_arr)
+    def _prefix_match(self, req, e: list, n: int) -> tuple[int, list, object]:
+        """Match prompt ``e`` against the tree and account the result;
+        returns ``(m_hit, block ids, node)``. A hit never covers the final
+        token: at least one suffix token goes through a prefill piece to
+        produce the first-token logits. Probes tier 2 past the match."""
+        if self.prefix is None or n <= self.prefix_block:
+            return 0, [], None
+        B = self.prefix_block
+        m, ids, node = self.prefix.match(e)
+        m_hit = min(m, (n - 1) // B)
+        hit_t = m_hit * B
+        record_prefix("requests", 1)
+        record_prefix("hit_tokens", hit_t)
+        record_prefix("miss_tokens", n - hit_t)
+        if m_hit:
+            record_prefix("hit_requests", 1)
+            self.stats["prefix_hit_requests"] += 1
+        self.stats["prefix_requests"] += 1
+        self.stats["prefix_hit_tokens"] += hit_t
+        self.stats["prefix_miss_tokens"] += n - hit_t
+        # the tier-2 continuation starts at the true matched depth m
+        self._t2_probe(req, e, n, m, node)
+        return m_hit, ids, node
+
+    def _right_pieces(self, e: list, n: int, n_cached: int) -> tuple[list, dict]:
+        """Right-padded prefill pieces (token i at column i) over columns
+        ``[n_cached, W)``, W the prompt rounded up to whole pieces; the
+        meta's ``last_col`` is the final token's column in the last piece
+        (None when it is the piece's last column)."""
         P = self.prefill_chunk
-        W = -(-n // P) * P
+        W = n_cached + -((n_cached - n) // P) * P
         r_ids = np.zeros((1, W), np.int32)
         r_mask = np.zeros((1, W), np.int32)
         r_ids[0, :n] = e
         r_mask[0, :n] = 1
         pos = np.minimum(np.arange(W), n - 1)[None, :].astype(np.int32)
         pieces = [(r_ids[:, o:o + P], r_mask[:, o:o + P], pos[:, o:o + P], o)
-                  for o in range(0, W, P)]
+                  for o in range(n_cached, W, P)]
         lc = (n - 1) - (W - P)
-        self._pending_prefill[slot] = (pieces, n, {"last_col": None if lc == P - 1 else lc})
+        return pieces, {"last_col": None if lc == P - 1 else lc}
+
+    def _admit_one_paged(self, slot: int, req, e: list, n: int) -> None:
+        """Paged admission: allocate exactly the blocks this request can
+        reach beyond its cached head, install the slot's table row (the
+        cached head's shared blocks first, copy-on-write), and schedule the
+        rest of the prompt as RIGHT-padded pieces (token i at cache column
+        i). On ``PagedPoolOOM`` nothing is written and the request waits at
+        the queue head."""
+        if not e:
+            e, n = [0], 1  # one pad token at column 0
+        B = self.paged_block
+        per_slot = self.cache_len // B
+        m_hit, pool_ids, node = self._prefix_match(req, e, n)
+        cover = min(self.cache_len,
+                    n + req.max_new + (self.pipeline_depth + 1) * self._slack)
+        need = min(per_slot, -(-cover // B))
+        try:
+            fresh = self._allocator.alloc(need - m_hit)
+        except D.PagedPoolOOM:
+            self.slots[slot] = None
+            with self.lock:
+                self.free.append(int(slot))
+            if need - m_hit > self._total_blocks - 1:
+                self._fail_request(req, "paged_oom")  # can never fit
+                return
+            with self.lock:
+                self.queue.appendleft(req)
+            return
+        shared = [int(i) for i in pool_ids[:m_hit]]
+        if shared:
+            # the slot's own pin on the shared blocks, dropped by
+            # _release_slot_kv; the tree holds its own
+            self._allocator.pin(shared)
+        row = shared + fresh
+        self._slot_blocks[slot] = row
+        row_arr = np.zeros((per_slot,), np.int32)
+        row_arr[:len(row)] = row
+        n_cached = m_hit * B
+        # one table edit installs the row and the cached columns' mask; no
+        # KV bytes move, and the pieces write only past the shared run
+        self.pool = D.paged_admit_cached(self.pool, slot, row_arr, n_cached)
+        if m_hit:
+            self.prefix.acquire(node)
+            self._prefix_nodes[req] = node
+        pieces, meta = self._right_pieces(e, n, n_cached)
+        if self.prefix is not None and n >= B:
+            meta["insert"] = (req, e, 0)
+        self._pending_prefill[slot] = (pieces, n, meta)
         self.stats["admitted"] += 1
 
-    def _prefill_piece(self, slot: int, active) -> None:
-        """Dispatch one pending prefill piece for ``slot``."""
+    def _prefill_piece(self, slot: int, active) -> bool:
+        """Dispatch one pending prefill piece for ``slot``; False when the
+        last piece is held for the request's own tier-2 promotion."""
         pieces, n_prompt, meta = self._pending_prefill[slot]
+        if len(pieces) == 1 and self.slots[slot] in self._t2_waiting:
+            return False
         p_ids, p_mask, p_pos, off = pieces.pop(0)
         first, last = off == 0, not pieces
         lc = meta.get("last_col") if (meta and last) else None
@@ -574,10 +723,14 @@ class _ContinuousServer:
         if last:
             del self._pending_prefill[slot]
             active[slot] = True
+            if meta and meta.get("insert") is not None:
+                self._prefix_insert(slot, *meta["insert"])
+        return True
 
     def _admit_direct(self, direct, active) -> None:
         """Whole-prompt admissions: same-bucket arrivals group into
-        pow2-sized ``pool_admit_batch`` calls."""
+        pow2-sized ``pool_admit_batch`` calls; then each admitted prompt's
+        full blocks are published into the prefix tree."""
         dev = self.device
         by_s: dict[int, list] = {}
         for item in direct:
@@ -602,6 +755,198 @@ class _ContinuousServer:
             self.stats["admit_dispatches"] += 1
             for slot in slots:
                 active[slot] = True
+        for slot, _, _, _, ins in direct:
+            if ins is not None:
+                self._prefix_insert(slot, *ins)
+
+    # -- prefix cache --------------------------------------------------
+
+    def _prefix_insert(self, slot: int, req, e: list, base: int) -> None:
+        """Publish ``slot``'s freshly prefilled full blocks of prompt ``e``
+        into the tree. ``base`` is the cache column of token 0 (``s - n``
+        for a left-padded dense miss, 0 for right-padded rows). Moves the
+        request's pin to the deepest node, so the whole prefix stays pinned
+        while it decodes."""
+        B = self.prefix_block
+        if self.paged_kv:
+            # zero-copy adoption: right-padded admission puts prompt block i
+            # at row entry i, so the row is the block_ids argument
+            row = self._slot_blocks.get(slot)
+            if row is None:
+                return
+            node, _, _ = self.prefix.insert(e, n_blocks=min(len(e) // B, len(row)),
+                                            block_ids=row)
+        else:
+            node, first_new, new_ids = self.prefix.insert(e)
+            if new_ids:
+                self.pool = D.kv_extract(self.pool, slot, base + first_new * B, new_ids)
+        old = self._prefix_nodes.get(req)
+        self.prefix.acquire(node)
+        if old is not None:
+            self.prefix.release(old)
+        self._prefix_nodes[req] = node
+
+    def _prefix_release(self, req) -> None:
+        node = self._prefix_nodes.pop(req, None)
+        if node is not None:
+            self.prefix.release(node)
+
+    def prefix_reset(self) -> None:
+        """Drop every cached prefix and zero the server's prefix counters.
+        Call only while no request is in flight: a paged pool's cached
+        blocks unpin back to the allocator, a dense arena starts empty, and
+        staged promotions are dropped with the tree they targeted."""
+        if self.prefix is None:
+            return
+        self._prefix_nodes.clear()
+        if self.paged_kv:
+            self.prefix.reset()
+        else:
+            self.prefix = self._make_prefix_cache()
+        for k in ("prefix_hit_tokens", "prefix_miss_tokens",
+                  "prefix_hit_requests", "prefix_requests"):
+            self.stats[k] = 0
+        while True:
+            try:
+                req = self._promote_ready.popleft()[0]
+            except IndexError:
+                break
+            with self.lock:
+                self._t2_pending -= 1
+                self._t2_waiting.discard(req)
+
+    # -- tier-2 promotions ---------------------------------------------
+
+    def _export_blocks(self, ids: list) -> dict:
+        """Tier-2 demotion callback (``PrefixCache(export=...)``): the KV
+        bytes of arena or pool blocks ``ids`` as host numpy blobs in the
+        ``kv_block_export`` layout. Runs on the loop thread inside eviction
+        and waits for its device-to-host copy."""
+        t0 = time.perf_counter()
+        blobs = {c: _host_blob(v) for c, v in D.kv_block_export(self.pool, ids).items()}
+        record_stage("t2_export", time.perf_counter() - t0, len(ids))
+        return blobs
+
+    def _t2_probe(self, req, e: list, n: int, m: int, node) -> None:
+        """Tier-2 lookup past a tier-1 match of ``m`` blocks. A hit
+        schedules an asynchronous promotion; this request still prefills
+        its head itself, and the next request on that head hits tier 1."""
+        if self.prefix.tier2 is None:
+            return
+        n_full = (n - 1) // self.prefix_block
+        if m >= n_full:
+            return
+        record_prefix("t2_lookups", 1)
+        hit = self.prefix.match_t2(e, n_full, node, m)
+        if hit is None:
+            return
+        keys, blobs = hit
+        record_prefix("t2_hits", 1)
+        self.stats["t2_hit_requests"] += 1
+        with self.lock:
+            self._t2_pending += 1
+            self._t2_waiting.add(req)
+        self._promote_worker.submit((req, list(e), int(m), list(keys), blobs))
+
+    def _stage_promotion(self, item) -> None:
+        """StageWorker fn (worker thread, total): move a hit's blobs to the
+        card. On the card: pinned host copies and non-blocking copies on a
+        side stream, then an event the worker waits for (so the stage time
+        is the copy's) and the loop's stream waits on before reading."""
+        req, tokens, j, keys, blobs = item
+        try:
+            t0 = time.perf_counter()
+            event = None
+            if self._h2d_stream is None:
+                staged = {c: _device_blob(v, self.device) for c, v in blobs.items()}
+            else:
+                with torch.cuda.device(self.device), torch.cuda.stream(self._h2d_stream):
+                    staged = {c: _device_blob(v, self.device) for c, v in blobs.items()}
+                    event = torch.cuda.Event()
+                    event.record(self._h2d_stream)
+                event.synchronize()
+            record_stage("t2_h2d", time.perf_counter() - t0, len(keys))
+            self._promote_ready.append((req, tokens, j, keys, staged, event))
+        except Exception:  # noqa: BLE001 - nothing applied yet: drop the hit
+            with self.lock:
+                self._t2_pending -= 1
+                self._t2_waiting.discard(req)
+                self.stats["t2_dropped"] += 1
+        self.wake.set()
+
+    def _drain_promotions(self) -> None:
+        """Adopt every staged promotion (loop thread, once a tick, before
+        admissions, so a request right behind its promotion hits tier 1)."""
+        while self._promote_ready:
+            req, tokens, j, keys, staged, event = self._promote_ready.popleft()
+            promoted = 0
+            try:
+                promoted = self._apply_promotion(tokens, j, keys, staged, event)
+            finally:
+                with self.lock:
+                    self._t2_pending -= 1
+                    self._t2_waiting.discard(req)
+                    if not promoted:
+                        self.stats["t2_dropped"] += 1
+
+    def _apply_promotion(self, tokens, j: int, keys: list, staged: dict,
+                         event) -> int:
+        """Re-insert a staged tier-2 edge into the tree and scatter its KV
+        bytes into device blocks; returns the blocks promoted (0: dropped).
+        The tree may have moved since the lookup, so re-match and keep only
+        the still-missing part; a path that changed is dropped."""
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for v in staged.values():
+                v.record_stream(stream)
+        B = self.prefix_block
+        nb = j + len(keys)
+        j2, _, _ = self.prefix.match(tokens[: nb * B])
+        if j2 != j:
+            d = j2 - j
+            if d < 0 or d >= len(keys):
+                return 0
+            keys = keys[d:]
+            staged = {c: v[d:] for c, v in staged.items()}
+            j = j2
+        if self.paged_kv:
+            try:
+                ids = self._allocator.alloc(len(keys))
+            except D.PagedPoolOOM:
+                return 0  # the pool is the scarce tier: decode wins
+            _, _, new_ids = self.prefix.insert(tokens[: nb * B], n_blocks=nb,
+                                               block_ids=[0] * j + ids)
+            if new_ids:
+                self.pool = D.kv_block_import(
+                    self.pool, new_ids, {c: v[:len(new_ids)] for c, v in staged.items()})
+            # the tree pinned what it adopted: drop the allocation's own
+            # refs, which frees any tail the budget did not take
+            self._allocator.release(ids)
+        else:
+            _, first_new, new_ids = self.prefix.insert(tokens[: nb * B], n_blocks=nb)
+            d = first_new - j
+            if not new_ids or d < 0 or d >= len(keys):
+                return 0
+            self.pool = D.kv_block_import(
+                self.pool, new_ids, {c: v[d:d + len(new_ids)] for c, v in staged.items()})
+        self.stats["t2_promoted_blocks"] += len(new_ids)
+        record_prefix("t2_promoted_blocks", len(new_ids))
+        return len(new_ids)
+
+    def t2_drain(self, timeout: float = 10.0) -> bool:
+        """Wait until every scheduled tier-2 promotion has been staged and
+        adopted; True on success, False when ``timeout`` seconds pass."""
+        if self._promote_worker is None:
+            return True
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            with self.lock:
+                if self._t2_pending <= 0:
+                    return True
+            self.wake.set()
+            time.sleep(0.005)
+        return False
 
     def _dispatch_decode(self, active) -> bool:
         """One decode chunk over the active lanes; False if none."""
@@ -658,6 +1003,7 @@ class _ContinuousServer:
                     self._release_slot_kv(slot)
                     with self.lock:
                         self.free.append(int(slot))
+                self._prefix_release(req)
                 req.done.set()
 
     def _loop(self):
@@ -666,6 +1012,8 @@ class _ContinuousServer:
         while not self._stop:
             # decode FIRST: newcomer admission overlaps the in-flight chunk
             dispatched = self._dispatch_decode(active)
+            # adopt staged tier-2 promotions before admissions
+            self._drain_promotions()
             admissions = []
             with self.lock:
                 while self.queue and self.free:
@@ -678,18 +1026,21 @@ class _ContinuousServer:
                 self._sent[slot] = 0
                 self._admit_one(slot, req, direct)
             self._admit_direct(direct, active)
+            held = False
             for slot in list(self._pending_prefill):
-                self._prefill_piece(slot, active)
+                held |= not self._prefill_piece(slot, active)
             if not dispatched:  # the pool was empty: decode the newcomers
                 dispatched = self._dispatch_decode(active)
             if dispatched:
                 if len(inflight) <= self.pipeline_depth:
                     continue
             elif not inflight:
-                if self._pending_prefill:
+                if self._pending_prefill and not held:
                     continue
+                # idle, or only pieces waiting for a staging promotion
+                # (the stage worker sets wake)
                 self.wake.clear()
-                self.wake.wait(timeout=0.05)
+                self.wake.wait(timeout=0.002 if held else 0.05)
                 continue
             self._drain(inflight.popleft(), active)
 
@@ -699,6 +1050,25 @@ class _ContinuousServer:
         t = self.thread
         if t is not None and t.is_alive():
             t.join(timeout=timeout)
+        if self._promote_worker is not None:
+            self._promote_worker.close()
+
+
+def _host_blob(t: torch.Tensor) -> np.ndarray:
+    """A block payload as a host numpy array; bf16, which numpy lacks,
+    travels as its int16 bit pattern."""
+    t = t.cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _device_blob(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The inverse of :func:`_host_blob` on ``device``: through pinned
+    memory and a non-blocking copy on the card (no KV plane is int16, so
+    int16 means bf16 bits)."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t.view(torch.bfloat16) if a.dtype == np.int16 else t
 
 
 class _HostCopy:

@@ -62,7 +62,8 @@ def test_source_scan_sees_the_whole_package():
     names = {p.name for p in _sources()}
     assert {"chip_smoke.py", "flash_attention.py", "fused_query.py",
             "knn.py", "kernels.py", "profile_rag_path.py", "decoder.py",
-            "paged_attention.py", "wq_matmul.py", "bpe.py", "llms.py"} <= names
+            "paged_attention.py", "wq_matmul.py", "bpe.py", "llms.py",
+            "prefix_cache.py", "probes.py", "async_runtime.py"} <= names
 
 
 def test_every_cuda_source_is_bound():
@@ -146,8 +147,8 @@ def test_decoder_kernels_on_cpu_launch_nothing():
 
 
 @pytest.mark.parametrize("feature", [
-    dict(prefix_cache=True), dict(spec_decode=True), dict(disagg=True),
-    dict(tenant_sched=True), dict(prefix_t2_mb=8.0), dict(mesh=object()),
+    dict(spec_decode=True), dict(disagg=True), dict(tenant_sched=True),
+    dict(mesh=object()),
 ])
 def test_server_refuses_features_left_out(feature):
     dcfg, params, tok = _tiny_decoder()

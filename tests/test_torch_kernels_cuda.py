@@ -368,3 +368,60 @@ def test_new_kernels_refuse_bad_inputs(cuda):
         TFA.flash_chunk_attn(qc, torch.zeros((2, 16, 12), device=cuda),
                              torch.zeros((2, 16, 12), device=cuda),
                              torch.ones(16, dtype=torch.int32, device=cuda), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,T,hd,Bk,M,n_shared", [(12, 64, 64, 64, 11, 4),
+                                                   (3, 8, 32, 16, 6, 2),
+                                                   (2, 5, 8, 8, 5, 1)])
+def test_paged_kernels_over_shared_prefix_blocks(cuda, nh, T, hd, Bk, M, n_shared,
+                                                 quant, dtype):
+    """A cached prompt head shared copy-on-write: two table rows whose first
+    ``n_shared`` entries are the same physical blocks. The chunk kernel runs
+    a suffix piece at ``start = n_cached`` over the second row, the decode
+    kernel both rows; each equals its plain version, and the shared blocks
+    are read, never written."""
+    g = torch.Generator().manual_seed(nh * 1000 + Bk * 10 + n_shared)
+    n_blocks = 2 * M + 1
+    if quant:
+        kb, vb = (torch.randint(-127, 128, (n_blocks, nh, Bk, hd), generator=g,
+                                dtype=torch.int8).to(cuda) for _ in range(2))
+        kbs, vbs = (torch.empty((n_blocks, nh, Bk, 1)).uniform_(0.01, 0.05, generator=g)
+                    .to(cuda) for _ in range(2))
+    else:
+        kb, vb = (torch.randn((n_blocks, nh, Bk, hd), generator=g).to(cuda, dtype)
+                  for _ in range(2))
+        kbs = vbs = None
+    for t in (kb, vb, kbs, vbs):
+        if t is not None:
+            t[0] = 0
+    ids = torch.randperm(n_blocks - 1, generator=g) + 1
+    row0 = ids[:M]
+    row1 = torch.cat([row0[:n_shared], ids[M:2 * M - n_shared]])
+    tbl = torch.stack([row0, row1]).to(torch.int32).to(cuda)
+    before = [t.clone() for t in (kb, vb, kbs, vbs) if t is not None]
+    n_cached = n_shared * Bk
+    cols = torch.arange(M * Bk)
+    row_mask = (cols < n_cached + T).to(torch.int32).to(cuda)
+    q = torch.randn((nh, T, hd), generator=g).to(cuda, dtype)
+    out = TFA.flash_chunk_attn_paged(q, kb, vb, kbs, vbs, tbl[1], row_mask, n_cached)
+    torch.cuda.synchronize()
+    ref = TFA.flash_chunk_attn_paged_reference(q, kb, vb, kbs, vbs, tbl[1], row_mask,
+                                               n_cached)
+    atol = 1e-4 if dtype == torch.float32 and not quant else 2e-3
+    torch.testing.assert_close(out, ref, rtol=0, atol=atol)
+    # decode: row 0 ends inside its own blocks, row 1 past its suffix
+    lens = torch.tensor([n_cached + 3, min(n_cached + T + 2, M * Bk)])
+    mask = (cols[None, :] < lens[:, None]).to(torch.int32).to(cuda)
+    qd = torch.randn((2, nh, hd), generator=g).to(cuda, dtype)
+    dec = TPA.paged_attn_decode(qd, kb, vb, kbs, vbs, tbl, mask)
+    torch.cuda.synchronize()
+    ref = TPA.paged_attn_decode_reference(qd, kb, vb, kbs, vbs, tbl, mask)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(dec.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    else:
+        torch.testing.assert_close(dec, ref, rtol=0, atol=1e-4)
+    for b, t in zip(before, (t for t in (kb, vb, kbs, vbs) if t is not None)):
+        assert torch.equal(b, t)

@@ -295,7 +295,9 @@ def test_continuous_server_matches_jax_static_generate(tparams, static_tokens, c
             assert srv.stats["prefill_chunks"] >= len(PROMPTS)
             for name in ("kb", "vb"):
                 assert torch.all(srv.pool[name][:, 0] == 0)
-            assert srv._allocator.n_allocated == 0  # every block returned
+            # every block returned but those the prefix tree (on by
+            # default) still pins
+            assert srv._allocator.n_allocated == srv.prefix.used_blocks
         texts = chat([PROMPTS[0], PROMPTS[2]])
         assert texts == [ToyCharTokenizer(64).decode(want[i].tolist()) for i in (0, 2)]
     finally:
