@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero
 without printing a result:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles every kernel of the port from pathway_tpu_torch/csrc;
+2. build: compiles every kernel of the port from pathway_tpu_torch/csrc
+   and the C++ tokenizers from pathway_tpu_torch/native, all at once;
 3. kernel vs plain: ``flash_attn`` against ``flash_attn_reference`` on the
    card (ragged masks, an all-masked row, causal and not, f32 and bf16; and
    the decoder's case: head_dim 64, causal, left-padded), then timed at the
@@ -53,7 +54,27 @@ without printing a result:
    serves 16 requests behind a 128-token head; a paged tier 1 of 3 blocks
    with a 64 MB host tier demotes six 192-token heads and promotes the
    first back, beside the same trace without tier 2. Greedy streams must be
-   equal token for token to the cache-off (or tier-2-off) arm.
+   equal token for token to the cache-off (or tier-2-off) arm;
+8. ingest through the embedder seam (``SentenceTransformerEmbedder``) at
+   the same MiniLM-L6 width and corpus: 8 ``submit_batch`` of 4,096 docs,
+   then one ``resolve_batch``, in five arms: (a) serial (no pipeline,
+   Python tokenize, no memo, no dedup), (b) the defaults, (c) the defaults
+   with ``fused_h2d=False``, (d) (b)'s seam re-ingesting the corpus's last
+   8,192 docs, which its default dedup LRU of 8,192 texts still holds, (e)
+   a re-ingest of those docs with a seeded quarter rewritten. (b) and (c)
+   must be byte-equal to (a), (d) all dedup hits with 0 ``flash_attn``
+   launches and (b)'s vectors, (e) exactly the rewritten docs as misses,
+   byte-equal to a serial embed of the same miss batches; every other
+   encode goes through the kernel. Prints docs/s, stage ms per batch and
+   host tokenize ms (Python, native, memo hit; ids equal over the corpus);
+9. checkpoints written in a temporary directory and loaded on the card: a
+   seeded MiniLM-L6 ``model.safetensors`` with a synthetic 30,522-token
+   ``vocab.txt`` through ``load_encoder_checkpoint`` and
+   ``WordPieceTokenizer`` (card vs CPU in f32; native WordPiece ids equal
+   the Python ids over the corpus), and a seeded GPT-2-small
+   ``pytorch_model.bin`` served by ``DecoderChat(checkpoint_path=...)``
+   with phase 6's settings, held against the static path with phase 6's
+   first-token bars.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -67,6 +88,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -1123,6 +1145,392 @@ def run_shared_prompt(gpu: str, tok, common) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- phase 8
+def seam(dev, dedup: bool = True, native: bool = True, memo: bool = True, **model_kw):
+    """The embedder seam over a fresh full-width MiniLM-L6 (bf16, seed 0,
+    max_length 64), with the seam's default dedup LRU."""
+    from pathway_tpu_torch import HashTokenizer
+    from pathway_tpu_torch.models.embedder import SentenceEmbedderModel
+    from pathway_tpu_torch.models.transformer import MINILM_L6
+    from pathway_tpu_torch.xpacks.llm import SentenceTransformerEmbedder
+
+    model = SentenceEmbedderModel(MINILM_L6, max_length=64, device=dev,
+                                  tokenizer=HashTokenizer(max_length=64, native=native,
+                                                          memo=memo),
+                                  **model_kw)
+    return SentenceTransformerEmbedder(model, dedup=dedup)
+
+
+def ingest(emb, docs) -> dict:
+    """One ingest through the engine's two-phase protocol: every batch of
+    INGEST_BATCH through ``submit_batch``, then one ``resolve_batch``; the
+    flash_attn count and the stage timer set to 0 just before, read after."""
+    import torch
+
+    from pathway_tpu_torch.engine import probes
+    from pathway_tpu_torch.models import flash_attention as FA
+
+    n_batches = -(-len(docs) // INGEST_BATCH)
+    s0 = dict(emb.dedup_stats)
+    FA.flash_attn.launches = 0
+    probes.reset_stage_seconds()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [emb.submit_batch(docs[s : s + INGEST_BATCH])
+               for s in range(0, len(docs), INGEST_BATCH)]
+    out = emb.resolve_batch(handles, timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vecs = np.stack([v for batch in out for v in batch])
+    if vecs.shape != (len(docs), emb.get_embedding_dimension()) or not np.all(np.isfinite(vecs)):
+        raise AssertionError("the seam returned vectors of the wrong shape or not finite")
+    return {"vecs": vecs, "n": len(docs), "wall_s": wall, "docs_per_s": len(docs) / wall,
+            "launches": FA.flash_attn.launches,
+            "stage_ms": {k: v / n_batches * 1e3 for k, v in probes.stage_seconds().items()},
+            "hits": emb.dedup_stats["hits"] - s0["hits"],
+            "misses": emb.dedup_stats["misses"] - s0["misses"]}
+
+
+def tokenize_ms(docs) -> dict:
+    """Host tokenize ms per INGEST_BATCH docs on this corpus: the Python
+    path, the native path and native memo hits; native and memo ids must
+    equal the Python ids over every doc."""
+    from pathway_tpu_torch import HashTokenizer
+
+    def run(tok):
+        ids, ms = [], []
+        for s in range(0, len(docs), INGEST_BATCH):
+            t0 = time.perf_counter()
+            ids.append(tok(docs[s : s + INGEST_BATCH], max_length=64)[0])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ids, statistics.mean(ms)
+
+    py_ids, py_ms = run(HashTokenizer(native=False, memo=False))
+    nat_ids, nat_ms = run(HashTokenizer(memo=False))
+    memo = HashTokenizer()
+    run(memo)  # fills the memo
+    hit_ids, hit_ms = run(memo)
+    same = all(np.array_equal(a, b) and np.array_equal(a, c)
+               for a, b, c in zip(py_ids, nat_ids, hit_ids))
+    return {"python": py_ms, "native": nat_ms, "memo_hit": hit_ms, "same": same}
+
+
+def run_ingest_seam(dev, gpu: str, docs) -> int:
+    """Phase 8; returns its flash_attn launches."""
+    import torch
+
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.models.embedder import embed_fn
+    from pathway_tpu_torch.models.tokenizer import pad_to_buckets
+    from pathway_tpu_torch.xpacks.llm.embedders import DEDUP_MAX
+
+    layers, n_batches = 6, N_DOCS // INGEST_BATCH
+    tk = tokenize_ms(docs)
+    info(f"host tokenize per {INGEST_BATCH} docs [{gpu}]: python {tk['python']:.3f} ms, "
+         f"native {tk['native']:.3f} ms, memo hit {tk['memo_hit']:.3f} ms")
+    require(tk["same"], f"native and memo-hit ids equal the Python ids over all {N_DOCS} docs")
+
+    warm = [d + " warm" for d in docs[:INGEST_BATCH]]
+    arms = {}
+    for name, kw in (("a", dict(pipeline=False, native=False, memo=False, dedup=False)),
+                     ("b", {}), ("c", dict(fused_h2d=False))):
+        emb = seam(dev, **kw)
+        emb.resolve_batch([emb.submit_batch(warm)], timeout=600)  # outside the counts
+        emb.dedup_stats = {"hits": 0, "misses": 0}
+        arms[name] = (emb, ingest(emb, docs))
+    # (b)'s dedup LRU keeps DEDUP_MAX texts: the corpus's last ones
+    emb_b, tail = arms["b"][0], N_DOCS - DEDUP_MAX
+    re_docs = docs[tail:]
+    arms["d"] = (emb_b, ingest(emb_b, re_docs))
+    rng = np.random.default_rng(11)
+    edited = set(rng.choice(len(re_docs), len(re_docs) // 4, replace=False).tolist())
+    docs_e = list(re_docs)
+    for i in sorted(edited):
+        words = re_docs[i].split()
+        words[int(rng.integers(len(words)))] = "edited"
+        docs_e[i] = " ".join(words)
+    arms["e"] = (emb_b, ingest(emb_b, docs_e))
+
+    # device busy time of one batch's encode, for the idle shares
+    ids, mask = pad_to_buckets(*emb_b.model.tokenizer(docs[:INGEST_BATCH], max_length=64))
+    ids, mask = (torch.from_numpy(a).to(dev) for a in (ids, mask))
+    busy_ms = cuda_time_ms(lambda: embed_fn(emb_b.model.params, ids, mask,
+                                            emb_b.model.cfg), 3, warmup=1)
+    FA.flash_attn.launches = 0
+    labels = {"a": "serial (pipeline, native, memo, dedup off)", "b": "defaults",
+              "c": "defaults, fused_h2d off",
+              "d": f"re-ingest of the last {DEDUP_MAX}, all dedup hits",
+              "e": f"re-ingest of the last {DEDUP_MAX}, a quarter rewritten"}
+    for name, (_, r) in arms.items():
+        st = r["stage_ms"]
+        # an estimate, not a trace: the busy time of one full batch's encode
+        # times the encodes, over the wall time; (e)'s miss batches are smaller
+        idle = ("not measured" if name == "e" else
+                f"{1.0 - busy_ms * r['launches'] / layers / (r['wall_s'] * 1e3):.3f}")
+        info(f"ingest seam ({name}) {labels[name]} [{gpu}]: {r['docs_per_s']:.1f} docs/s "
+             f"({r['wall_s'] * 1e3:.3f} ms for {r['n']}); stage ms per batch: "
+             + ", ".join(f"{k} {st.get(k, 0.0):.3f}" for k in ("tokenize", "h2d", "dispatch",
+                                                              "drain"))
+             + f"; flash_attn launches {r['launches']}; dedup hits {r['hits']}, misses "
+             f"{r['misses']}; device idle share estimate {idle} (device busy {busy_ms:.3f} ms "
+             f"a batch)")
+    a, b, c, d, e = (arms[k][1] for k in "abcde")
+    for name in "abc":
+        require(arms[name][1]["launches"] >= layers * n_batches,
+                f"({name}): every encode went through flash_attn "
+                f"({arms[name][1]['launches']} >= {layers * n_batches})")
+    require(np.array_equal(b["vecs"], a["vecs"]), "(b) byte-equal to (a)")
+    require(np.array_equal(c["vecs"], a["vecs"]), "(c) byte-equal to (a)")
+    require(b["misses"] == len(set(docs)) and b["hits"] == N_DOCS - len(set(docs)),
+            "(b) embedded every distinct doc once")
+    n_re = len(re_docs)
+    require(d["hits"] == n_re and d["misses"] == 0 and d["launches"] == 0,
+            f"(d) served all {n_re} from the dedup with 0 flash_attn launches")
+    require(np.array_equal(d["vecs"], b["vecs"][tail:]), "(d) vectors equal (b)'s")
+    new = sorted(edited)
+    fresh = {docs_e[i] for i in new} - set(re_docs)
+    require(e["misses"] == len(fresh) and e["hits"] == n_re - len(fresh),
+            f"(e) exactly the {len(fresh)} rewritten docs are misses")
+    kept = np.array(sorted(set(range(n_re)) - edited))
+    require(np.array_equal(e["vecs"][kept], b["vecs"][tail + kept]),
+            "(e) unchanged docs keep (b)'s vectors")
+    serial = arms["a"][0].model
+    same = True
+    for s in range(0, n_re, INGEST_BATCH):
+        rows = [i for i in new if s <= i < s + INGEST_BATCH and docs_e[i] in fresh]
+        miss = list(dict.fromkeys(docs_e[i] for i in rows))  # the batch's miss subset
+        ref = dict(zip(miss, serial.embed_batch(miss)))
+        same &= all(np.array_equal(e["vecs"][i], ref[docs_e[i]]) for i in rows)
+    require(same, "(e) rewritten docs byte-equal to a serial embed of the same miss batches")
+    require(e["launches"] >= layers * (n_re // INGEST_BATCH),
+            "(e) every miss batch went through flash_attn")
+    for emb, _ in arms.values():
+        emb.close()
+    return sum(arms[k][1]["launches"] for k in "abce")
+
+
+# ---------------------------------------------------------------- phase 9
+def write_safetensors(path, tensors: dict) -> None:
+    """numpy f32 arrays -> ``model.safetensors`` (u64 header length, JSON
+    header of dtype / shape / byte offsets, the raw little-endian data)."""
+    header, offset = {}, 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for a in tensors.values():
+            f.write(np.ascontiguousarray(a, dtype="<f4").tobytes())
+
+
+def minilm_checkpoint(path, cfg) -> None:
+    """A seeded random ``BertModel`` of ``cfg``'s widths (MiniLM-L6) under HF
+    names (torch Linear layout, out x in), its ``config.json`` and a
+    synthetic ``vocab.txt`` of ``cfg.vocab_size`` (30,522) tokens: BERT's
+    specials at their ids, single characters, all two- and three-letter
+    words, their ``##`` continuations, filler."""
+    import itertools
+    import os
+
+    rng = np.random.default_rng(5)
+    V, H, L, I = cfg.vocab_size, cfg.hidden, cfg.layers, cfg.intermediate
+
+    def normal(*shape):
+        return rng.normal(0.0, 0.02, shape).astype(np.float32)
+
+    def ln(prefix, sd):
+        sd[prefix + ".weight"] = (1.0 + rng.normal(0, 0.1, H)).astype(np.float32)
+        sd[prefix + ".bias"] = normal(H)
+
+    sd = {"embeddings.word_embeddings.weight": normal(V, H),
+          "embeddings.position_embeddings.weight": normal(512, H),
+          "embeddings.token_type_embeddings.weight": normal(2, H)}
+    ln("embeddings.LayerNorm", sd)
+    for i in range(L):
+        p = f"encoder.layer.{i}."
+        for m in ("query", "key", "value"):
+            sd[p + f"attention.self.{m}.weight"] = normal(H, H)
+            sd[p + f"attention.self.{m}.bias"] = normal(H)
+        sd[p + "attention.output.dense.weight"] = normal(H, H)
+        sd[p + "attention.output.dense.bias"] = normal(H)
+        ln(p + "attention.output.LayerNorm", sd)
+        sd[p + "intermediate.dense.weight"] = normal(I, H)
+        sd[p + "intermediate.dense.bias"] = normal(I)
+        sd[p + "output.dense.weight"] = normal(H, I)
+        sd[p + "output.dense.bias"] = normal(H)
+        ln(p + "output.LayerNorm", sd)
+    sd["pooler.dense.weight"], sd["pooler.dense.bias"] = normal(H, H), normal(H)
+    write_safetensors(os.path.join(path, "model.safetensors"), sd)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "bert", "vocab_size": V, "hidden_size": H,
+                   "num_hidden_layers": L, "num_attention_heads": cfg.heads,
+                   "intermediate_size": I, "max_position_embeddings": 512,
+                   "type_vocab_size": 2, "layer_norm_eps": 1e-12, "hidden_act": "gelu"}, f)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    singles = list(letters + "0123456789") + [chr(c) for c in range(33, 127)
+                                              if not chr(c).isalnum()]
+    words = ["".join(w) for n in (2, 3) for w in itertools.product(letters, repeat=n)]
+    tokens = [f"[unused{i}]" for i in range(100)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    tokens[0] = "[PAD]"
+    tokens += singles + words + ["##" + t for t in list(letters + "0123456789") + words[:676]]
+    tokens += [f"[unused{i}]" for i in range(100, 100 + V - len(tokens))]
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(tokens) + "\n")
+
+
+def gpt2_checkpoint(path, cfg) -> None:
+    """A seeded random GPT-2 state dict of ``cfg``'s widths (GPT-2 small)
+    under HF names (Conv1D layout, in x out) as ``pytorch_model.bin``, its
+    ``config.json`` and phase 6's 256-symbol byte-level ``vocab.json`` /
+    ``merges.txt``."""
+    import os
+
+    import torch
+
+    from pathway_tpu_torch.models.bpe import bytes_to_unicode
+
+    g = torch.Generator().manual_seed(9)
+    H, L, I = cfg.hidden, cfg.layers, cfg.intermediate
+    V, P = cfg.vocab_size, cfg.max_position
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g) * 0.02
+
+    sd = {"transformer.wte.weight": normal(V, H), "transformer.wpe.weight": normal(P, H),
+          "transformer.ln_f.weight": torch.ones(H), "transformer.ln_f.bias": torch.zeros(H)}
+    for i in range(L):
+        p = f"transformer.h.{i}."
+        for n in ("ln_1", "ln_2"):
+            sd[p + n + ".weight"], sd[p + n + ".bias"] = torch.ones(H), normal(H)
+        sd[p + "attn.c_attn.weight"], sd[p + "attn.c_attn.bias"] = normal(H, 3 * H), normal(3 * H)
+        sd[p + "attn.c_proj.weight"], sd[p + "attn.c_proj.bias"] = normal(H, H), normal(H)
+        sd[p + "mlp.c_fc.weight"], sd[p + "mlp.c_fc.bias"] = normal(H, I), normal(I)
+        sd[p + "mlp.c_proj.weight"], sd[p + "mlp.c_proj.bias"] = normal(I, H), normal(H)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "gpt2", "vocab_size": V, "n_positions": P, "n_embd": H,
+                   "n_layer": L, "n_head": cfg.heads}, f)
+    b2u = bytes_to_unicode()
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({b2u[i]: i for i in range(256)}, f)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+
+
+def run_checkpoints(dev, gpu: str, docs) -> dict:
+    """Phase 9; returns the launches of its kernel runs."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+
+    from pathway_tpu_torch import DecoderChat
+    from pathway_tpu_torch.models import decoder as D
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.models.checkpoint import load_encoder_checkpoint
+    from pathway_tpu_torch.models.embedder import SentenceEmbedderModel
+    from pathway_tpu_torch.models.params import from_jax_params
+    from pathway_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from pathway_tpu_torch.models.transformer import MINILM_L6
+    from pathway_tpu_torch.xpacks.llm import SentenceTransformerEmbedder
+
+    total = {n: 0 for n in counters()}
+    with tempfile.TemporaryDirectory() as tmp:
+        enc_dir, dec_dir = os.path.join(tmp, "minilm"), os.path.join(tmp, "gpt2")
+        os.mkdir(enc_dir)
+        os.mkdir(dec_dir)
+        t0 = time.perf_counter()
+        minilm_checkpoint(enc_dir, MINILM_L6)
+        gpt2_checkpoint(dec_dir, D.GPT2_SMALL)
+        info(f"checkpoints written in {time.perf_counter() - t0:.1f} s: MiniLM-L6 "
+             f"model.safetensors {os.path.getsize(os.path.join(enc_dir, 'model.safetensors'))} "
+             f"B, GPT-2 small pytorch_model.bin "
+             f"{os.path.getsize(os.path.join(dec_dir, 'pytorch_model.bin'))} B")
+
+        vocab = os.path.join(enc_dir, "vocab.txt")
+        wp_py = WordPieceTokenizer.from_vocab_file(vocab, max_length=64, native=False,
+                                                   memo=False)
+        wp_nat = WordPieceTokenizer.from_vocab_file(vocab, max_length=64, memo=False)
+        ms = {"python": [], "native": []}
+        same = True
+        for s in range(0, len(docs), INGEST_BATCH):
+            outs = []
+            for name, tok in (("python", wp_py), ("native", wp_nat)):
+                t1 = time.perf_counter()
+                outs.append(tok(docs[s : s + INGEST_BATCH]))
+                ms[name].append((time.perf_counter() - t1) * 1e3)
+            same &= all(np.array_equal(x, y) for x, y in zip(*outs))
+        info(f"WordPiece tokenize per {INGEST_BATCH} docs [{gpu}]: python "
+             f"{statistics.mean(ms['python']):.3f} ms, native {statistics.mean(ms['native']):.3f} ms")
+        require(same, f"native WordPiece ids equal the Python ids over all {len(docs)} docs")
+
+        np_params, cfg, head = load_encoder_checkpoint(enc_dir)
+        require(head is None and cfg == MINILM_L6, "the MiniLM-L6 config loaded from config.json")
+        texts = docs[:64]
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        FA.flash_attn.launches = 0
+        e32 = [SentenceEmbedderModel(f32, params=from_jax_params(np_params),
+                                     tokenizer=WordPieceTokenizer.from_vocab_file(vocab),
+                                     max_length=64, device=d, pipeline=False).embed_batch(texts)
+               for d in (dev, "cpu")]
+        cos = float(np.min(np.sum(e32[0] * e32[1], axis=1)))
+        total["flash_attn"] += FA.flash_attn.launches
+        info(f"checkpoint encoder card vs cpu (f32, WordPiece): min cosine {cos:.7f} "
+             f"(>= 0.99999); flash_attn launches {FA.flash_attn.launches}")
+        require(cos >= 0.99999 and FA.flash_attn.launches >= cfg.layers,
+                "the checkpoint-loaded encoder on the card agrees with the CPU")
+
+        emb = SentenceTransformerEmbedder(SentenceEmbedderModel(
+            cfg, params=from_jax_params(np_params),
+            tokenizer=WordPieceTokenizer.from_vocab_file(vocab), max_length=64, device=dev))
+        emb.resolve_batch([emb.submit_batch([d + " warm" for d in docs[:256]])], timeout=600)
+        part = docs[: 2 * INGEST_BATCH]
+        r = ingest(emb, part)
+        emb.close()
+        total["flash_attn"] += r["launches"]
+        info(f"checkpoint encoder ingest, WordPiece, defaults [{gpu}]: {r['docs_per_s']:.1f} "
+             f"docs/s over {len(part)} docs; flash_attn launches {r['launches']}")
+        require(r["launches"] >= cfg.layers * 2 and r["misses"] == len(set(part))
+                and np.allclose(np.linalg.norm(r["vecs"], axis=1), 1.0, atol=1e-3),
+                "the checkpoint-loaded ingest went through flash_attn, unit vectors")
+
+        t0 = time.perf_counter()
+        chat = DecoderChat(checkpoint_path=dec_dir, continuous=True, n_slots=N_SLOTS,
+                           chunk_steps=16, max_new_tokens=MAX_NEW, max_prompt_tokens=512,
+                           prefill_chunk=PIECE, weight_quant="int8", wq_kernel=True,
+                           paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True,
+                           flash_prefill=True, device=dev)
+        info(f"DecoderChat(checkpoint_path=...): loaded in {time.perf_counter() - t0:.1f} s")
+        require(dataclasses.replace(chat.cfg, wq_kernel=False) == D.GPT2_SMALL
+                and chat.tokenizer.vocab_size == 256,
+                "GPT-2 small and the byte-level tokenizer loaded from the directory")
+        serve(chat, make_prompts(4, 16, 200, seed=98))  # warm-up, outside the counts
+        prompts = make_prompts(8, 16, 480, seed=12)
+        out = serve(chat, prompts)
+        st, ln = out["stats"], out["launches"]
+        info(f"checkpoint decoder [{gpu}]: 8 requests x {MAX_NEW} tokens in "
+             f"{out['wall_s']:.3f} s wall; decode {out['tok_per_s']:.1f} tokens/s; launches {ln}")
+        require(ln["paged_attn_decode"] >= 12 * st["decode_steps"] > 0
+                and ln["flash_chunk_attn_paged"] >= 12 * st["prefill_chunks"] > 0
+                and ln["wq_matmul"] >= 48 * (st["decode_steps"] + st["prefill_chunks"]),
+                "the checkpoint-loaded server went through the paged, chunk and wq kernels")
+        total = {n: total[n] + ln[n] for n in total}
+        chat.close()
+        held = hold_against_static(chat, prompts, out["reqs"])
+        info(f"checkpoint decoder vs the port's static generate (8 requests): first-token "
+             f"logits max diff {held['max_logit_diff']:.4f} (<= {LOGIT_TOL}); first tokens "
+             f"equal {held['first_equal']}/8 (>= {MIN_FIRST_EQUAL}); 64-token streams equal "
+             f"{held['streams_equal']}/8")
+        require(held["max_logit_diff"] <= LOGIT_TOL and held["first_equal"] >= MIN_FIRST_EQUAL,
+                "the checkpoint-loaded server agrees with the static path")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1130,7 +1538,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
-    from pathway_tpu_torch import HashTokenizer, kernels
+    from pathway_tpu_torch import HashTokenizer, kernels, native
     from pathway_tpu_torch.models import flash_attention as FA
     from pathway_tpu_torch.models.tokenizer import pad_to_buckets
     from pathway_tpu_torch.models.transformer import MINILM_L6
@@ -1143,10 +1551,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
 
-    # phase 2: build
+    # phase 2: build (the CUDA kernels and the C++ tokenizers at once)
     t0 = time.perf_counter()
-    kernels.build()
-    info(f"build: {time.perf_counter() - t0:.1f} s for {sorted(kernels.KERNELS)}")
+    with ThreadPoolExecutor(2) as pool:
+        tok_build = pool.submit(native.build)
+        kernels.build()
+        tok_lib = tok_build.result()
+    info(f"build: {time.perf_counter() - t0:.1f} s for {sorted(kernels.KERNELS)} and "
+         f"{tok_lib.name}")
 
     # phase 3: kernel vs plain
     worst = check_flash_attn(dev)
@@ -1206,12 +1618,19 @@ def main() -> int:
     shared = run_shared_prompt(gpu, tok, common)
     dec = {n: dec[n] + shared[n] for n in dec}
 
+    # phase 8: ingest through the embedder seam at full MiniLM-L6 width
+    seam_launches = run_ingest_seam(dev, gpu, docs)
+
+    # phase 9: checkpoints on the card
+    ckpt = run_checkpoints(dev, gpu, docs)
+    dec = {n: dec[n] + ckpt[n] for n in dec}
+
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",
         "source": "pathway_tpu_torch/csrc/flash_attn.cu",
         "replaces": "pathway_tpu/models/flash_attention.py:116",
         "design": DESIGN["flash_attn"],
-        "launches": launches + dec["flash_attn"],
+        "launches": launches + seam_launches + dec["flash_attn"],
         "max_abs_err": max(worst, timing["max_abs_err"]), "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],

@@ -1,10 +1,13 @@
 """pathway_tpu_torch — the PyTorch/CUDA port of pathway_tpu for one
 NVIDIA H100.
 
-It carries the RAG main path: hashing tokenizer -> MiniLM-style encoder
-(attention through a hand-written CUDA flash-attention kernel) -> sentence
-embedder and brute-force KNN index -> cross-encoder rerank, in
-``FusedRAGPipeline``; and the answer LLM: a GPT-2-family decoder served by
+It carries the RAG main path: hashing or WordPiece tokenizer (C++ batch
+loops, an encode memo) -> MiniLM-style encoder (attention through a
+hand-written CUDA flash-attention kernel) -> sentence embedder (a threaded
+ingest pipeline, and a text -> vector dedup in the
+``SentenceTransformerEmbedder`` seam) and brute-force KNN index ->
+cross-encoder rerank, in ``FusedRAGPipeline``; HF checkpoint loaders for
+the encoders and the decoder; and the answer LLM: a GPT-2-family decoder served by
 ``DecoderChat`` (batch-static, or a continuous-batching server over a dense
 or paged KV pool, with a prefix KV cache and its host tier) with CUDA
 kernels for chunked prefill, paged decode and int8-weight products. Entry points run on CUDA unless given

@@ -1,7 +1,8 @@
 """The bounded stage worker (counterpart of ``StageWorker`` in
 ``pathway_tpu/engine/async_runtime.py``): a daemon thread draining a
-bounded work queue. The serving loop's tier-2 prefix cache stages its
-host-to-device promotions on one."""
+bounded work queue. The embedder's ingest pipeline chains two of them
+(tokenize -> dispatch), and the serving loop's tier-2 prefix cache stages
+its host-to-device promotions on one."""
 
 from __future__ import annotations
 
@@ -17,9 +18,9 @@ class StageWorker:
 
     ``submit`` blocks once ``maxsize`` items are in flight; that bound is
     the stage's backpressure. ``fn`` must be total (route failures into the
-    work item): a raising ``fn`` would drop its item, so exceptions are
-    swallowed here only as a last guard that keeps the stage alive for the
-    items after it.
+    work item): a raising ``fn`` would drop its item, so every exception,
+    ``BaseException`` included, is swallowed here only as a last guard that
+    keeps the stage alive for the items after it.
     """
 
     def __init__(self, fn: Callable[[Any], None], maxsize: int, name: str):
@@ -42,7 +43,7 @@ class StageWorker:
                 return
             try:
                 self._fn(item)
-            except Exception:  # noqa: BLE001 - see class docstring
+            except BaseException:  # noqa: BLE001 - see class docstring
                 pass
 
     def close(self, join: bool = True) -> None:

@@ -1,5 +1,5 @@
-"""Models of the port: tokenizer, encoder, flash attention, embedder and
-cross-encoder."""
+"""Models of the port: tokenizers, encoder, flash attention, embedder,
+cross-encoder and the HF checkpoint loaders (``models.checkpoint``)."""
 
 from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
 from pathway_tpu_torch.models.embedder import SentenceEmbedderModel
@@ -8,7 +8,12 @@ from pathway_tpu_torch.models.flash_attention import (
     flash_attn_reference,
 )
 from pathway_tpu_torch.models.params import from_jax_params, to_numpy
-from pathway_tpu_torch.models.tokenizer import HashTokenizer, pad_to_buckets
+from pathway_tpu_torch.models.tokenizer import (
+    HashTokenizer,
+    WordPieceTokenizer,
+    load_tokenizer,
+    pad_to_buckets,
+)
 from pathway_tpu_torch.models.transformer import (
     MINILM_L6,
     TransformerConfig,
@@ -22,11 +27,13 @@ __all__ = [
     "MINILM_L6",
     "SentenceEmbedderModel",
     "TransformerConfig",
+    "WordPieceTokenizer",
     "encode",
     "flash_attn",
     "flash_attn_reference",
     "from_jax_params",
     "init_params",
+    "load_tokenizer",
     "pad_to_buckets",
     "to_numpy",
 ]

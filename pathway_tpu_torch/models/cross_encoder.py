@@ -13,7 +13,11 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch.device import resolve_device
-from pathway_tpu_torch.models.tokenizer import HashTokenizer, pad_to_buckets
+from pathway_tpu_torch.models.tokenizer import (
+    HashTokenizer,
+    load_tokenizer,
+    pad_to_buckets,
+)
 from pathway_tpu_torch.models.transformer import (
     MINILM_L6,
     TransformerConfig,
@@ -64,6 +68,25 @@ class CrossEncoderModel:
             }
         self.params = map_params(lambda p: p.to(self.device), params)
         self.head = map_params(lambda p: p.to(self.device, torch.float32), head)
+
+    @classmethod
+    def from_pretrained(cls, path: str, max_length: int = 256, **kw):
+        """A local HF cross-encoder checkpoint directory (a BERT sequence
+        classifier with a 1-label head, ms-marco-MiniLM style) and its
+        tokenizer (through ``transformers``). Raises without a classifier
+        head."""
+        from pathway_tpu_torch.models.checkpoint import load_encoder_checkpoint
+        from pathway_tpu_torch.models.params import from_jax_params
+
+        params, cfg, head = load_encoder_checkpoint(path)
+        if head is None:
+            raise ValueError(f"{path!r} has no classifier head — not a cross-encoder")
+        init = dict(cfg=cfg, params=from_jax_params(params),
+                    head=from_jax_params(head),
+                    tokenizer=load_tokenizer(path, max_length=max_length),
+                    max_length=max_length)
+        init.update(kw)  # explicit caller overrides win
+        return cls(**init)
 
     def score_batch(self, pairs: list[tuple[str, str]]) -> np.ndarray:
         if not pairs:

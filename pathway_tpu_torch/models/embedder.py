@@ -1,20 +1,41 @@
 """Sentence embedder: encoder + masked mean pooling + L2 normalise
-(counterpart of ``pathway_tpu/models/embedder.py``, serial path).
+(counterpart of ``pathway_tpu/models/embedder.py``).
 
 Batches are padded to pow2 (rows, seq) buckets as in the JAX package, and
 every embed runs the encoder whose attention is the flash kernel on the
-card. ``embed_submit`` enqueues the device work and returns at once; the
-vectors come back in ``embed_resolve``, cast to float16 on the card for
-the device-to-host copy and renormalised on the host.
+card. The vectors are cast to float16 on the card for the device-to-host
+copy and renormalised on the host.
+
+``embed_submit`` is pipelined by default (``pipeline=True``, the JAX
+default): a tokenize worker feeds a bounded queue (``pipeline_queue``) of
+bucket-padded batches to a dispatch worker, which stages each batch on the
+card and enqueues its encode, at most ``pipeline_depth`` batches ahead.
+On the card the dispatch worker runs on a CUDA stream of its own and
+stages through a ring of ``pipeline_depth`` pinned host buffers: under
+``fused_h2d`` one ``(2, B, S)`` int32 buffer of ids and mask, one copy;
+otherwise two buffers and two copies. Each batch's device-to-host copy
+lands in pinned memory and is marked by a CUDA event, which
+``embed_resolve`` waits on for that batch alone. ``pipeline=False`` runs
+the same stages inline in the caller's thread. Stage seconds go to
+``engine/probes.record_stage``: tokenize, h2d, dispatch, drain.
 """
 
 from __future__ import annotations
+
+import threading
+import time
 
 import numpy as np
 import torch
 
 from pathway_tpu_torch.device import resolve_device
-from pathway_tpu_torch.models.tokenizer import HashTokenizer, pad_to_buckets
+from pathway_tpu_torch.engine.async_runtime import StageWorker
+from pathway_tpu_torch.engine.probes import record_stage
+from pathway_tpu_torch.models.tokenizer import (
+    HashTokenizer,
+    load_tokenizer,
+    pad_to_buckets,
+)
 from pathway_tpu_torch.models.transformer import (
     MINILM_L6,
     TransformerConfig,
@@ -55,6 +76,162 @@ def _renorm(v: np.ndarray) -> np.ndarray:
     return v / norms
 
 
+class _PendingEmbed:
+    """Handle of the pipelined ``embed_submit``: tokenize and dispatch run
+    on the stage workers; :meth:`wait` blocks until the batch is dispatched
+    and returns ``(f16 output, rows, CUDA event or None)``. A stage's
+    failure is raised here, at resolve time."""
+
+    __slots__ = ("_event", "_value", "_error")
+
+    def __init__(self) -> None:
+        self._event = threading.Event()
+        self._value = None
+        self._error: BaseException | None = None
+
+    def wait(self, timeout: float | None = None):
+        if not self._event.wait(timeout):
+            raise TimeoutError(f"embed batch not dispatched within {timeout} s")
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+
+class _PinnedRing:
+    """``depth`` pinned host staging slots, used in turn. Each slot keeps
+    the CUDA event of the last copy that read it; a slot is refilled only
+    after that copy has landed, so a later batch never overwrites bytes a
+    non-blocking copy has yet to read."""
+
+    def __init__(self, depth: int, n_buffers: int):
+        self._slots = [[torch.empty(0, dtype=torch.int32) for _ in range(n_buffers)]
+                       for _ in range(max(1, depth))]
+        self._events: list = [None] * len(self._slots)
+        self._next = 0
+
+    def take(self, numel: int) -> tuple[int, list]:
+        """The next slot's buffers, each at least ``numel`` int32 long,
+        once that slot's last copy has finished."""
+        i = self._next
+        self._next = (i + 1) % len(self._slots)
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        bufs = self._slots[i]
+        for j, b in enumerate(bufs):
+            if b.numel() < numel:
+                bufs[j] = torch.empty(numel, dtype=torch.int32, pin_memory=True)
+        return i, bufs
+
+    def release(self, i: int, event) -> None:
+        self._events[i] = event
+
+
+class _IngestPipeline:
+    """tokenize -> h2d -> dispatch behind ``embed_submit``.
+
+    Two chained :class:`StageWorker` threads: the tokenize worker turns
+    text batches (queue bound ``queue_bound``) into bucket-padded id and
+    mask arrays; the dispatch worker stages them on the device and
+    enqueues the encode (queue bound ``depth``). Dispatch only enqueues
+    device work, so batch b+1's tokenization and copy overlap batch b's
+    compute. Single-threaded stages keep dispatch in submit order."""
+
+    def __init__(self, model: "SentenceEmbedderModel", depth: int,
+                 queue_bound: int, fused_h2d: bool):
+        self._model = model
+        self._fused = bool(fused_h2d)
+        dev = model.device
+        self._stream = None
+        if dev.type == "cuda":
+            self._stream = torch.cuda.Stream(device=dev)
+            # the weights were written on the caller's stream
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            self._ring = _PinnedRing(depth, 1 if self._fused else 2)
+        self._dispatch = StageWorker(self._dispatch_one, maxsize=depth,
+                                     name="pathway-torch:embed-dispatch")
+        self._tokenize = StageWorker(self._tokenize_one, maxsize=queue_bound,
+                                     name="pathway-torch:embed-tokenize")
+
+    def submit(self, texts: list[str]) -> _PendingEmbed:
+        handle = _PendingEmbed()
+        self._tokenize.submit((texts, handle))
+        return handle
+
+    def _tokenize_one(self, item) -> None:
+        texts, handle = item
+        try:
+            model = self._model
+            t0 = time.perf_counter()
+            ids, mask = model.tokenizer(texts, max_length=model.max_length)
+            ids, mask = pad_to_buckets(ids, mask)
+            record_stage("tokenize", time.perf_counter() - t0)
+        except BaseException as exc:  # noqa: BLE001 - raised at resolve
+            handle._error = exc
+            handle._event.set()
+            return
+        # blocks while `depth` batches wait for dispatch: the backpressure
+        self._dispatch.submit((ids, mask, len(texts), handle))
+
+    def _dispatch_one(self, item) -> None:
+        ids, mask, n, handle = item
+        try:
+            if self._stream is None:
+                handle._value = self._dispatch_cpu(ids, mask, n)
+            else:
+                with torch.cuda.device(self._stream.device), \
+                        torch.cuda.stream(self._stream):
+                    handle._value = self._dispatch_cuda(ids, mask, n)
+        except BaseException as exc:  # noqa: BLE001 - raised at resolve
+            handle._error = exc
+        handle._event.set()
+
+    def _dispatch_cpu(self, ids, mask, n):
+        model = self._model
+        t0 = time.perf_counter()
+        if self._fused:
+            packed = torch.from_numpy(np.stack((ids, mask)))
+            dev_ids, dev_mask = packed[0], packed[1]
+        else:
+            dev_ids, dev_mask = torch.from_numpy(ids), torch.from_numpy(mask)
+        t1 = time.perf_counter()
+        record_stage("h2d", t1 - t0)
+        out = embed_fn(model.params, dev_ids, dev_mask, model.cfg).half()
+        record_stage("dispatch", time.perf_counter() - t1)
+        return out, n, None
+
+    def _dispatch_cuda(self, ids, mask, n):
+        model, stream = self._model, self._stream
+        t0 = time.perf_counter()
+        B, S = ids.shape
+        slot, bufs = self._ring.take(2 * B * S if self._fused else B * S)
+        if self._fused:
+            host = bufs[0][: 2 * B * S].view(2, B, S)
+            host.numpy()[0], host.numpy()[1] = ids, mask
+            packed = host.to(model.device, non_blocking=True)
+            dev_ids, dev_mask = packed[0], packed[1]
+        else:
+            h_ids, h_mask = (b[: B * S].view(B, S) for b in bufs)
+            h_ids.numpy()[...], h_mask.numpy()[...] = ids, mask
+            dev_ids = h_ids.to(model.device, non_blocking=True)
+            dev_mask = h_mask.to(model.device, non_blocking=True)
+        staged = torch.cuda.Event()
+        staged.record(stream)
+        self._ring.release(slot, staged)
+        t1 = time.perf_counter()
+        record_stage("h2d", t1 - t0)
+        out = embed_fn(model.params, dev_ids, dev_mask, model.cfg).half()
+        host_out = torch.empty(out.shape, dtype=torch.float16, pin_memory=True)
+        host_out.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        record_stage("dispatch", time.perf_counter() - t1)
+        return host_out, n, done
+
+    def close(self) -> None:
+        self._tokenize.close()
+        self._dispatch.close()
+
+
 class SentenceEmbedderModel:
     """Host-facing embedder: str batch -> np.ndarray (B, H) unit vectors.
 
@@ -62,7 +239,10 @@ class SentenceEmbedderModel:
     one; ``device="cpu"`` runs the plain PyTorch path. ``params`` is a
     param dict as ``init_params`` makes (e.g. from
     ``params.from_jax_params``); without it the weights are random from
-    ``seed``."""
+    ``seed``; without a ``tokenizer``, a default ``HashTokenizer`` (C++
+    batches, encode memo). ``pipeline``, ``pipeline_depth``,
+    ``pipeline_queue`` and ``fused_h2d`` set the ingest pipeline; their
+    defaults are the JAX flag defaults."""
 
     def __init__(
         self,
@@ -72,6 +252,11 @@ class SentenceEmbedderModel:
         max_length: int = 128,
         seed: int = 0,
         device=None,
+        *,
+        pipeline: bool = True,
+        pipeline_depth: int = 2,
+        pipeline_queue: int = 8,
+        fused_h2d: bool = True,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -81,10 +266,53 @@ class SentenceEmbedderModel:
             params = init_params(seed, cfg)
         params = map_params(lambda p: p.to(self.device), params)
         self.params = cast_params_for_inference(params, cfg)
+        self.pipeline = bool(pipeline)
+        self.pipeline_depth = int(pipeline_depth)
+        self.pipeline_queue = int(pipeline_queue)
+        self.fused_h2d = bool(fused_h2d)
+        self._pipeline: _IngestPipeline | None = None
+        self._pipeline_lock = threading.Lock()
+
+    @classmethod
+    def from_local(cls, path: str, cfg: TransformerConfig = MINILM_L6, **kw):
+        """Random weights with the local HF tokenizer of ``path``."""
+        return cls(cfg=cfg, tokenizer=load_tokenizer(path), **kw)
+
+    @classmethod
+    def from_pretrained(cls, path: str, max_length: int = 128, **kw):
+        """A local HF checkpoint directory: config, weights and tokenizer
+        files (the tokenizer through ``transformers``)."""
+        from pathway_tpu_torch.models.checkpoint import load_encoder_checkpoint
+        from pathway_tpu_torch.models.params import from_jax_params
+
+        params, cfg, _ = load_encoder_checkpoint(path)
+        init = dict(cfg=cfg, params=from_jax_params(params),
+                    tokenizer=load_tokenizer(path, max_length=max_length),
+                    max_length=max_length)
+        init.update(kw)  # explicit caller overrides win
+        return cls(**init)
 
     @property
     def dim(self) -> int:
         return self.cfg.hidden
+
+    def _maybe_pipeline(self) -> _IngestPipeline | None:
+        """The ingest pipeline, built at first use; None when
+        ``pipeline=False``."""
+        if not self.pipeline:
+            return None
+        with self._pipeline_lock:
+            if self._pipeline is None:
+                self._pipeline = _IngestPipeline(
+                    self, self.pipeline_depth, self.pipeline_queue, self.fused_h2d)
+            return self._pipeline
+
+    def close(self) -> None:
+        """Stop the pipeline workers (queued batches are dispatched first)."""
+        with self._pipeline_lock:
+            pipe, self._pipeline = self._pipeline, None
+        if pipe is not None:
+            pipe.close()
 
     def tokenize(self, texts: list[str]):
         """Bucket-padded (ids, mask) as int32 tensors on the device."""
@@ -106,16 +334,40 @@ class SentenceEmbedderModel:
 
     def embed_submit(self, texts: list[str]):
         """Enqueue one batch; returns a handle for :meth:`embed_resolve`.
-        The vectors are cast to float16 on the device (unit vectors: the
-        ~5e-4 relative error is undone by the host renormalisation)."""
-        out, n = self.embed_device(texts)
-        return out.half(), n
+        Pipelined, this returns once the batch is queued (blocking while
+        ``pipeline_queue`` batches wait); serial, it tokenizes and
+        enqueues the device work here. The vectors are cast to float16 on
+        the device (unit vectors: the ~5e-4 relative error is undone by the
+        host renormalisation)."""
+        pipe = self._maybe_pipeline()
+        if pipe is not None:
+            return pipe.submit(texts)
+        t0 = time.perf_counter()
+        ids, mask = pad_to_buckets(*self.tokenizer(texts, max_length=self.max_length))
+        t1 = time.perf_counter()
+        record_stage("tokenize", t1 - t0)
+        ids, mask = (torch.from_numpy(a).to(self.device) for a in (ids, mask))
+        t2 = time.perf_counter()
+        record_stage("h2d", t2 - t1)
+        out = embed_fn(self.params, ids, mask, self.cfg).half()
+        record_stage("dispatch", time.perf_counter() - t2)
+        return out, len(texts)
 
-    def embed_resolve(self, handles) -> list[np.ndarray]:
-        """Fetch every submitted handle -> [(n_i, dim) float32 array]."""
-        return [
-            _renorm(out[:n].float().cpu().numpy()) for out, n in handles
-        ]
+    def embed_resolve(self, handles, timeout: float | None = None) -> list[np.ndarray]:
+        """Fetch every submitted handle -> [(n_i, dim) float32 array].
+        Takes pipelined and serial handles mixed, in any order. A pipelined
+        handle waits at most ``timeout`` seconds for its dispatch, then on
+        its own batch's copy event only."""
+        resolved = [h.wait(timeout) if isinstance(h, _PendingEmbed) else (*h, None)
+                    for h in handles]
+        t0 = time.perf_counter()
+        out = []
+        for vec, n, done in resolved:
+            if done is not None:
+                done.synchronize()
+            out.append(_renorm(vec[:n].float().cpu().numpy()))
+        record_stage("drain", time.perf_counter() - t0)
+        return out
 
     def __call__(self, texts: list[str]) -> np.ndarray:
         return self.embed_batch(texts)

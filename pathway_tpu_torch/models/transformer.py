@@ -43,6 +43,8 @@ class TransformerConfig:
 
 
 MINILM_L6 = TransformerConfig(layers=6, hidden=384, heads=12, intermediate=1536)
+MINILM_L12 = TransformerConfig(layers=12, hidden=384, heads=12, intermediate=1536)
+BGE_SMALL = TransformerConfig(layers=12, hidden=384, heads=12, intermediate=1536)
 
 
 def _normal(gen: torch.Generator, shape, dtype, scale=0.02) -> torch.Tensor:

@@ -137,15 +137,15 @@ class FusedRAGPipeline:
 
     # ------------------------------------------------------------- ingest
     def _doc_token_rows(self, texts: list[str]):
-        tok = self.embedder.tokenizer
-        ids = np.zeros((len(texts), self.doc_seq), dtype=np.int32)
-        lens = np.zeros((len(texts),), dtype=np.int32)
-        for i, t in enumerate(texts):
-            seq = tok.tokenize_ids(t, self.doc_seq + 2)[1:-1]  # strip specials
-            seq = seq[: self.doc_seq]
-            ids[i, : len(seq)] = seq
-            lens[i] = len(seq)
-        return ids, lens
+        """Each doc's tokens without [CLS] / [SEP], at most ``doc_seq``,
+        zero-padded: one batch encode at ``doc_seq + 2``."""
+        ids, mask = self.embedder.tokenizer(texts, max_length=self.doc_seq + 2)
+        lens = np.maximum(mask.sum(axis=1) - 2, 0).astype(np.int32)
+        body = ids[:, 1 : 1 + self.doc_seq]
+        rows = np.zeros((len(texts), self.doc_seq), dtype=np.int32)
+        live = np.arange(body.shape[1])[None, :] < lens[:, None]
+        rows[:, : body.shape[1]] = np.where(live, body, 0)
+        return rows, lens
 
     def add(self, keys: list, texts: list[str]) -> None:
         """Embed ``texts`` into the corpus and store their tokens, both

@@ -1,5 +1,10 @@
-"""LLM pack of the port: the answer LLM (``DecoderChat``)."""
+"""LLM pack of the port: the answer LLM (``DecoderChat``), the embedder
+seam (``SentenceTransformerEmbedder``) and the reranker seam
+(``CrossEncoderReranker``)."""
 
+from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
 from pathway_tpu_torch.xpacks.llm.llms import DecoderChat, encode_serve_error
+from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
 
-__all__ = ["DecoderChat", "encode_serve_error"]
+__all__ = ["CrossEncoderReranker", "DecoderChat", "SentenceTransformerEmbedder",
+           "encode_serve_error"]

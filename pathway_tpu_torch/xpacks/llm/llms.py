@@ -74,8 +74,11 @@ def _messages_to_list(messages) -> list[dict]:
 class DecoderChat:
     """Local GPT-2-family chat generating on the card.
 
-    Construct from explicit ``params`` (the port's param dict, any device)
-    + ``cfg`` + ``tokenizer`` (``encode``/``decode`` and an ``eos_id``).
+    Construct from ``checkpoint_path`` (a local HF GPT-2-family directory:
+    ``config.json``, weights, and ``vocab.json`` / ``merges.txt`` unless a
+    ``tokenizer`` is given), or from explicit ``params`` (the port's param
+    dict, any device) + ``cfg`` + ``tokenizer`` (``encode``/``decode`` and
+    an ``eos_id``).
     Calls take a list of messages (each a string or a list of
     ``{"role", "content"}`` dicts) and return one completion string each.
     ``device=None`` runs on CUDA and raises without it; ``device="cpu"``
@@ -124,12 +127,17 @@ class DecoderChat:
         device=None,
     ):
         if checkpoint_path is not None:
-            raise NotImplementedError(
-                "DecoderChat cannot load a checkpoint yet: pass params, cfg "
-                "and tokenizer"
-            )
+            from pathway_tpu_torch.models.bpe import BPETokenizer
+            from pathway_tpu_torch.models.checkpoint import load_decoder_checkpoint
+            from pathway_tpu_torch.models.params import from_jax_params
+
+            np_params, cfg = load_decoder_checkpoint(checkpoint_path, cfg)
+            params = from_jax_params(np_params)
+            if tokenizer is None:
+                tokenizer = BPETokenizer.from_dir(checkpoint_path)
         if params is None or cfg is None or tokenizer is None:
-            raise ValueError("DecoderChat needs params + cfg + tokenizer")
+            raise ValueError(
+                "DecoderChat needs checkpoint_path or params + cfg + tokenizer")
         self.device = resolve_device(device)
         self.weight_quant = _parse_quant(weight_quant)
         self.wq_kernel = bool(self.weight_quant) and bool(wq_kernel)
@@ -867,7 +875,9 @@ class _ContinuousServer:
                 event.synchronize()
             record_stage("t2_h2d", time.perf_counter() - t0, len(keys))
             self._promote_ready.append((req, tokens, j, keys, staged, event))
-        except Exception:  # noqa: BLE001 - nothing applied yet: drop the hit
+        except BaseException:  # noqa: BLE001 - nothing applied yet: drop the hit
+            # any failure, BaseException included, releases the request: a
+            # request left in _t2_waiting would hold its last piece forever
             with self.lock:
                 self._t2_pending -= 1
                 self._t2_waiting.discard(req)

@@ -1,10 +1,13 @@
 """The port stands alone: no module of pathway_tpu_torch, nor
 chip_smoke.py or tools/, imports JAX or the JAX package; every CUDA source
-is bound in kernels.py; entry points refuse to run on the CPU unless asked;
-CPU tensors never launch a kernel; the decoder server refuses the JAX
-serving features it does not carry."""
+is bound in kernels.py, and the C++ tokenizer source lives in the port;
+entry points (the embedder and reranker seams and the checkpoint loaders'
+entry points included) refuse to run on the CPU unless asked; CPU tensors
+never launch a kernel; the decoder server refuses the JAX serving features
+it does not carry."""
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -63,7 +66,24 @@ def test_source_scan_sees_the_whole_package():
     assert {"chip_smoke.py", "flash_attention.py", "fused_query.py",
             "knn.py", "kernels.py", "profile_rag_path.py", "decoder.py",
             "paged_attention.py", "wq_matmul.py", "bpe.py", "llms.py",
-            "prefix_cache.py", "probes.py", "async_runtime.py"} <= names
+            "prefix_cache.py", "probes.py", "async_runtime.py",
+            "checkpoint.py", "embedders.py", "rerankers.py", "tokenizer.py",
+            "embedder.py"} <= names
+    assert ROOT / "pathway_tpu_torch" / "native" / "__init__.py" in _sources()
+
+
+def test_native_tokenizer_source_is_the_ports_own():
+    """The C++ tokenizers build from the port's own source into the port's
+    build directory, and name only the tokenizer functions."""
+    from pathway_tpu_torch import native
+
+    assert native._SRC == ROOT / "pathway_tpu_torch" / "native" / "_tokenize.cpp"
+    assert native.BUILD_DIR == ROOT / "build" / "pathway_tpu_torch"
+    text = native._SRC.read_text()
+    table = text[text.index("static PyMethodDef methods[]"):]
+    names = sorted(set(re.findall(r'\{"(\w+)", py_', table)))
+    assert names == ["hash_tokenize", "wordpiece_free", "wordpiece_load",
+                     "wordpiece_tokenize"]
 
 
 def test_every_cuda_source_is_bound():
@@ -94,6 +114,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+    from pathway_tpu_torch.xpacks.llm import CrossEncoderReranker, SentenceTransformerEmbedder
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SentenceTransformerEmbedder()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CrossEncoderReranker(custom_kwargs=dict(cfg=cfg))
     dcfg, params, tok = _tiny_decoder()
     for continuous in (False, True):
         with pytest.raises(RuntimeError, match="CUDA"):
