@@ -74,7 +74,23 @@ without printing a result:
    the Python ids over the corpus), and a seeded GPT-2-small
    ``pytorch_model.bin`` served by ``DecoderChat(checkpoint_path=...)``
    with phase 6's settings, held against the static path with phase 6's
-   first-token bars.
+   first-token bars;
+10. self-speculative decode and chunk-steps autotune, the answer LLM's
+   default decode schedule (phases 6, 7 and 9 pin both off, so their
+   launch bars stay per decode step): (a) f32 at full GPT-2-small width, a
+   dense pool of 16 slots with prompts of 16-480 tokens: ``pool_decode_spec``
+   with the auto draft (3 layers, k = 3) and with a full-depth draft against
+   ``pool_decode_chunk`` greedy, equal streams but where the plain run's
+   top-2 logit gap is under 1e-4; (b) phase 6's 48 requests (bf16, int8
+   weights through ``wq_matmul``, paged pool with the paged kernel) served
+   with spec and autotune off, with the defaults, and with an 11-layer
+   draft (autotune off): all first tokens equal to the spec-off arm, at
+   least 3/8 of the streams equal, and ``wq_matmul`` launched for every
+   draft step and verify layer; (c) spec off, autotune on against off over
+   48 requests in 6 seeded waves of 8 (both branches of the step choice):
+   streams equal token for token. Prints tokens/s, TTFT p50, acceptance,
+   tokens per dispatch, the latch, spec dispatches and the histogram of
+   chunk steps.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -721,18 +737,23 @@ def counters():
             "paged_attn_decode": PA.paged_attn_decode, "wq_matmul": WQ.wq_matmul}
 
 
-def serve(chat, prompts: list[str]) -> dict:
+def serve(chat, prompts: list[str], gaps=()) -> dict:
     """One run of the server through DecoderChat's entry points, with every
-    kernel count set to 0 just before and read just after. A dead loop, a
-    short stream or a dropped tier-2 promotion fails the run."""
+    kernel count set to 0 just before and read just after; with ``gaps``
+    (seconds) the prompts arrive in len(gaps) + 1 equal waves. A dead loop,
+    a short stream or a dropped tier-2 promotion fails the run."""
     import torch
 
     for f in counters().values():
         f.launches = 0
     s0 = dict(chat.server.stats)
+    n_wave = len(prompts) // (len(gaps) + 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reqs = chat.submit_batch(prompts)
+    reqs = chat.submit_batch(prompts[:n_wave])
+    for i, gap in enumerate(gaps, 1):
+        time.sleep(gap)
+        reqs += chat.submit_batch(prompts[i * n_wave:(i + 1) * n_wave])
     texts = chat.resolve_batch([reqs])[0]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -867,10 +888,12 @@ def decoder_setup(dev):
 
     params = D.init_params(torch.Generator().manual_seed(0), D.GPT2_SMALL)
     tok = byte_tokenizer()
+    # plain chunks of fixed size, so the launch bars of phases 6, 7 and 9
+    # count per decode step; phase 10 drives the spec and autotune defaults
     common = dict(params=params, cfg=D.GPT2_SMALL, tokenizer=tok, continuous=True,
                   n_slots=N_SLOTS, chunk_steps=16, max_new_tokens=MAX_NEW,
                   max_prompt_tokens=512, prefill_chunk=PIECE, weight_quant="int8",
-                  wq_kernel=True, device=dev)
+                  wq_kernel=True, spec_decode=False, chunk_autotune=False, device=dev)
     return params, tok, common
 
 
@@ -1504,7 +1527,8 @@ def run_checkpoints(dev, gpu: str, docs) -> dict:
                            chunk_steps=16, max_new_tokens=MAX_NEW, max_prompt_tokens=512,
                            prefill_chunk=PIECE, weight_quant="int8", wq_kernel=True,
                            paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True,
-                           flash_prefill=True, device=dev)
+                           flash_prefill=True, spec_decode=False, chunk_autotune=False,
+                           device=dev)
         info(f"DecoderChat(checkpoint_path=...): loaded in {time.perf_counter() - t0:.1f} s")
         require(dataclasses.replace(chat.cfg, wq_kernel=False) == D.GPT2_SMALL
                 and chat.tokenizer.vocab_size == 256,
@@ -1528,6 +1552,230 @@ def run_checkpoints(dev, gpu: str, docs) -> dict:
              f"{held['streams_equal']}/8")
         require(held["max_logit_diff"] <= LOGIT_TOL and held["first_equal"] >= MIN_FIRST_EQUAL,
                 "the checkpoint-loaded server agrees with the static path")
+    return total
+
+
+# ---------------------------------------------------------------- phase 10
+SPEC_K, TOP2_TIE = 3, 1e-4
+
+
+def plain_greedy_with_gaps(params, pool, cfg, n_new: int):
+    """Plain greedy ``pool_decode_chunk``, one step a call over every lane:
+    each lane's tokens and, for each token, the top-2 gap of the staged
+    logits it was taken from."""
+    import torch
+
+    from pathway_tpu_torch.models import decoder as D
+
+    active = np.ones(pool["logits"].shape[0], bool)
+    toks, gaps = [], []
+    for _ in range(n_new):
+        top2 = pool["logits"].topk(2, dim=-1).values
+        gaps.append(top2[:, 0] - top2[:, 1])
+        pool, t = D.pool_decode_chunk(params, pool, active, None, cfg, 1)
+        toks.append(t[0])
+    return torch.stack(toks, 1).cpu().tolist(), torch.stack(gaps, 1).cpu().tolist()
+
+
+def spec_streams(params, pool, cfg, n_new: int, draft_layers: int):
+    """``pool_decode_spec`` four cycles a call, each lane active until it
+    has ``n_new`` tokens; returns the streams and the acceptance rate."""
+    from pathway_tpu_torch.models import decoder as D
+
+    out = [[] for _ in range(pool["logits"].shape[0])]
+    drafted = accepted = 0
+    while True:
+        need = np.array([len(s) < n_new for s in out])
+        if not need.any():
+            break
+        pool, toks, emit = D.pool_decode_spec(params, pool, need, cfg, 4,
+                                              draft_layers=draft_layers, n_spec=SPEC_K)
+        toks, emit = toks.cpu().numpy(), emit.cpu().numpy()
+        for b in np.nonzero(need)[0]:
+            for c in range(toks.shape[0]):
+                out[b].extend(toks[c, b, :emit[c, b]].tolist())
+        drafted += 4 * int(need.sum()) * SPEC_K
+        accepted += int(emit[:, need].sum()) - 4 * int(need.sum())
+    return [s[:n_new] for s in out], accepted / drafted
+
+
+def check_spec_pool(dev, gpu: str, params, tok) -> None:
+    """Phase 10a: f32 at full GPT-2-small width, 16 prompts of 16-480
+    tokens left-padded to 512 in a dense pool; spec with the auto draft and
+    with a full-depth draft against plain greedy. A divergence is allowed
+    only where the plain run's top-2 logit gap is under TOP2_TIE."""
+    import dataclasses
+
+    import torch
+
+    from pathway_tpu_torch.models import decoder as D
+
+    cfg = dataclasses.replace(D.GPT2_SMALL, dtype=torch.float32)
+    p = D.map_params(lambda t: t.to(dev), params)
+    S, C = 512, 640
+    ids = np.zeros((N_SLOTS, S), np.int32)
+    mask = np.zeros((N_SLOTS, S), np.int32)
+    for r, text in enumerate(make_prompts(N_SLOTS, 16, 480, seed=10)):
+        e = tok.encode(text)
+        ids[r, S - len(e):], mask[r, S - len(e):] = e, 1
+    pool = D.pool_admit_batch(p, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
+                              D.pool_init(p, cfg, N_SLOTS, C), list(range(N_SLOTS)), cfg)
+    plain, gaps = plain_greedy_with_gaps(p, {k: v.clone() for k, v in pool.items()}, cfg,
+                                         MAX_NEW)
+    for name, dl in (("auto draft (3 layers)", max(1, cfg.layers // 4)),
+                     ("full-depth draft (12 layers)", cfg.layers)):
+        got, rate = spec_streams(p, {k: v.clone() for k, v in pool.items()}, cfg, MAX_NEW, dl)
+        div = []
+        for b in range(N_SLOTS):
+            j = next((i for i, (x, y) in enumerate(zip(got[b], plain[b])) if x != y), None)
+            if j is not None:
+                div.append((b, j, gaps[b][j]))
+        info(f"spec vs plain greedy [{gpu}], f32 GPT-2 small, dense pool, {name}, k={SPEC_K}: "
+             f"acceptance {rate:.4f}; {N_SLOTS - len(div)}/{N_SLOTS} streams of {MAX_NEW} "
+             f"equal; divergences (lane, position, plain top-2 gap): {div}")
+        require(all(g < TOP2_TIE for _, _, g in div),
+                f"{name}: every divergence is at a near-tie (top-2 gap < {TOP2_TIE})")
+
+
+def step_histogram(D):
+    """Wrap the decoder's two decode dispatches (the server calls them
+    through the module) to count each dispatch's steps or cycles; returns
+    the histogram and an undo. A paged pool's gathered view re-enters the
+    same function, which is not counted again."""
+    hist: dict = {}
+    depth = [0]
+    chunk, spec = D.pool_decode_chunk, D.pool_decode_spec
+
+    def count(key, fn, *a, **kw):
+        if depth[0] == 0:
+            hist[key] = hist.get(key, 0) + 1
+        depth[0] += 1
+        try:
+            return fn(*a, **kw)
+        finally:
+            depth[0] -= 1
+
+    def plain(params, pool, active, gen, cfg, n_steps, **kw):
+        return count(f"plain {n_steps}", chunk, params, pool, active, gen, cfg, n_steps, **kw)
+
+    def cycles(params, pool, active, cfg, n_cycles, **kw):
+        return count(f"spec {n_cycles}", spec, params, pool, active, cfg, n_cycles, **kw)
+
+    D.pool_decode_chunk, D.pool_decode_spec = plain, cycles
+
+    def undo():
+        D.pool_decode_chunk, D.pool_decode_spec = chunk, spec
+    return hist, undo
+
+
+def run_spec_serving(gpu: str, tok, common) -> dict:
+    """Phases 10b and 10c; returns their summed launches."""
+    from pathway_tpu_torch import DecoderChat
+    from pathway_tpu_torch.engine import probes
+    from pathway_tpu_torch.models import decoder as D
+
+    base = dict(common, paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True,
+                flash_prefill=True)
+    total = {n: 0 for n in counters()}
+    # a throwaway server warms the spec path's shapes (its latch state and
+    # prefix tree must not carry into a measured arm)
+    chat = DecoderChat(**dict(base, spec_decode=None, chunk_autotune=None))
+    serve(chat, make_prompts(4, 16, 200, seed=99))
+    chat.close()
+
+    prompts = make_prompts(N_REQUESTS, 16, 480, seed=1)
+    arms = {"spec and autotune off": dict(spec_decode=False, chunk_autotune=False),
+            "defaults (spec and autotune on)": dict(spec_decode=None, chunk_autotune=None),
+            "11-layer draft, autotune off": dict(spec_decode=None, spec_draft_layers=11,
+                                                 chunk_autotune=False)}
+    runs = {}
+    for name, kw in arms.items():
+        chat = DecoderChat(**dict(base, **kw))
+        srv = chat.server
+        probes.reset_spec_stats()
+        hist, undo = step_histogram(D)
+        try:
+            out = serve(chat, prompts)
+        finally:
+            undo()
+            chat.close()
+        st, ln, L = out["stats"], out["launches"], srv.cfg.layers
+        plain_steps = st["decode_steps"] - st["spec_cycles"]
+        latch = (f"engaged at drain {srv.spec_latched_at}" if srv.spec_latched_at
+                 else "not engaged")
+        info(f"spec serving [{gpu}], {name}: {N_REQUESTS} requests x {MAX_NEW} tokens in "
+             f"{out['wall_s']:.3f} s wall; decode {out['tok_per_s']:.1f} tokens/s; TTFT p50 "
+             f"{out['ttft_p50_s'] * 1e3:.1f} ms; spec {srv.spec_decode} (draft "
+             f"{srv.spec_draft_layers} layers, k {srv.spec_k}); acceptance "
+             f"{srv.spec_acceptance():.4f}, tokens per dispatch {srv.tokens_per_dispatch():.4f}; "
+             f"latch {latch}; {st['spec_dispatches']} spec dispatches ({st['spec_cycles']} "
+             f"cycles), {plain_steps} plain steps in {st['chunks'] - st['spec_dispatches']} "
+             f"chunks; chunk steps histogram {dict(sorted(hist.items()))}; ledger "
+             f"{probes.spec_stats()}; launches {ln}")
+        require(ln["flash_chunk_attn_paged"] >= L * st["prefill_chunks"] > 0,
+                f"{name}: every prefill piece went through flash_chunk_attn_paged")
+        require(ln["paged_attn_decode"] >= L * plain_steps,
+                f"{name}: every plain decode step went through paged_attn_decode")
+        wq_spec = 4 * (srv.spec_draft_layers * srv.spec_k + L) * st["spec_cycles"]
+        wq_need = wq_spec + 4 * L * (plain_steps + st["prefill_chunks"])
+        require(ln["wq_matmul"] >= wq_need,
+                f"{name}: every draft step, verify layer, plain step and piece went "
+                f"through wq_matmul ({ln['wq_matmul']} >= {wq_need}, {wq_spec} of them "
+                f"for the spec cycles)")
+        require((st["spec_dispatches"] > 0) == srv.spec_decode,
+                f"{name}: spec dispatches ran exactly when spec is on")
+        total = {n: total[n] + ln[n] for n in total}
+        runs[name] = out
+    off = [r.tokens for r in runs["spec and autotune off"]["reqs"]]
+    for name in list(arms)[1:]:
+        got = [r.tokens for r in runs[name]["reqs"]]
+        first = sum(a[0] == b[0] for a, b in zip(got, off))
+        same = sum(a == b for a, b in zip(got, off))
+        info(f"  {name} vs spec off: first tokens equal {first}/{N_REQUESTS}; "
+             f"{MAX_NEW}-token streams equal {same}/{N_REQUESTS} (>= {N_REQUESTS * 3 // 8})")
+        require(first == N_REQUESTS and same >= N_REQUESTS * 3 // 8,
+                f"{name}: the spec streams agree with spec off")
+
+    # 10c: autotune on against off, spec off, 6 seeded waves of 8
+    prompts = make_prompts(N_REQUESTS, 16, 480, seed=13)
+    gaps = np.random.default_rng(13).uniform(0.05, 0.5, 5).tolist()
+    waves = {}
+    for on in (True, False):
+        chat = DecoderChat(**dict(base, spec_decode=False, chunk_autotune=on))
+        srv = chat.server
+        pick, branches = srv._pick_steps, {"queue": 0, "arrival gap": 0, "no estimate": 0}
+
+        def counted(q, srv=srv, pick=pick, branches=branches):
+            if q > 0:
+                branches["queue"] += 1
+            elif srv._arrival_ema is None or not srv._step_wall_ema:
+                branches["no estimate"] += 1
+            else:
+                branches["arrival gap"] += 1
+            return pick(q)
+
+        srv._pick_steps = counted
+        hist, undo = step_histogram(D)
+        try:
+            out = serve(chat, prompts, gaps)
+        finally:
+            undo()
+            chat.close()
+        ln = out["launches"]
+        info(f"autotune {'on' if on else 'off'} [{gpu}], spec off, 6 waves of 8 (gaps "
+             f"{[round(g, 3) for g in gaps]} s): {out['wall_s']:.3f} s wall; decode "
+             f"{out['tok_per_s']:.1f} tokens/s; TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms; "
+             f"step choices {branches}; chunk steps histogram {dict(sorted(hist.items()))}; "
+             f"launches {ln}")
+        require(ln["paged_attn_decode"] >= srv.cfg.layers * out["stats"]["decode_steps"] > 0,
+                "every decode step went through paged_attn_decode")
+        total = {n: total[n] + ln[n] for n in total}
+        waves[on] = (out, branches)
+    (on_out, branches), (off_out, _) = waves[True], waves[False]
+    require(branches["queue"] > 0 and branches["arrival gap"] > 0,
+            "autotune chose steps under queue pressure and from the arrival gap")
+    require(streams(on_out) == streams(off_out),
+            "autotune on streams equal autotune off token for token (48)")
     return total
 
 
@@ -1624,6 +1872,11 @@ def main() -> int:
     # phase 9: checkpoints on the card
     ckpt = run_checkpoints(dev, gpu, docs)
     dec = {n: dec[n] + ckpt[n] for n in dec}
+
+    # phase 10: spec decode and chunk autotune, the default decode schedule
+    check_spec_pool(dev, gpu, params, tok)
+    spec = run_spec_serving(gpu, tok, common)
+    dec = {n: dec[n] + spec[n] for n in dec}
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",

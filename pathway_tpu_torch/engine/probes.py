@@ -1,12 +1,14 @@
-"""The port's prefix-cache ledger and pipeline-stage timer (the prefix and
-stage parts of ``pathway_tpu/engine/probes.py``).
+"""The port's prefix-cache ledger, speculative-decode ledger and
+pipeline-stage timer (the prefix, spec and stage parts of
+``pathway_tpu/engine/probes.py``).
 
 Process-wide counters behind one lock, as in the JAX package: the prefix
 cache (``engine/prefix_cache.py``) and the serving loop account hit and
 miss tokens, inserted, evicted, demoted and promoted blocks, and the
-arena's resident bytes; ``record_stage`` accumulates host seconds per
-pipeline stage (the tier-2 export and h2d copies). Recording is always on:
-the port reads no environment variable.
+arena's resident bytes; the serving loop accounts drafted, accepted and
+emitted spec tokens and the int8 pool's saved KV bytes; ``record_stage``
+accumulates host seconds per pipeline stage (the tier-2 export and h2d
+copies). Recording is always on: the port reads no environment variable.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import threading
 _lock = threading.Lock()
 _prefix: dict[str, float] = {}
 _cached_bytes: float | None = None  # gauge; None until first recorded
+_spec: dict[str, float] = {}
 _stage_seconds: dict[str, float] = {}
 _stage_items: dict[str, float] = {}
 
@@ -71,6 +74,46 @@ def reset_prefix_stats() -> None:
     with _lock:
         _prefix.clear()
         _cached_bytes = None
+
+
+def record_spec(kind: str, n: float = 1) -> None:
+    """Account ``n`` of ``kind`` (``drafted`` / ``accepted`` / ``emitted``
+    / ``verify_steps`` / ``draft_steps`` / ``dispatches`` /
+    ``kv_bytes_saved``). ``verify_steps`` counts full-model lane-cycles
+    (the unit one plain decode lane-step also costs), ``emitted`` every
+    token produced (accepted drafts plus one certain token a lane-cycle).
+    Thread-safe."""
+    record_spec_many(**{kind: n})
+
+
+def record_spec_many(**counts: float) -> None:
+    """:func:`record_spec` for several kinds under one lock acquisition
+    (the serving loop flushes a drain's six counters at once)."""
+    with _lock:
+        for kind, n in counts.items():
+            _spec[kind] = _spec.get(kind, 0.0) + n
+
+
+def spec_stats() -> dict:
+    """Snapshot: raw counters plus ``acceptance_rate`` (accepted / drafted;
+    0.0 before any draft ran), ``tokens_per_dispatch`` (emitted /
+    verify_steps; 1.0 is the plain-decode baseline, 0.0 before any verify)
+    and ``kv_bytes_saved``."""
+    with _lock:
+        c = dict(_spec)
+    drafted = c.get("drafted", 0)
+    verify = c.get("verify_steps", 0)
+    return {
+        "counts": {k: int(v) for k, v in c.items()},
+        "acceptance_rate": round(c.get("accepted", 0) / drafted, 4) if drafted else 0.0,
+        "tokens_per_dispatch": round(c.get("emitted", 0) / verify, 4) if verify else 0.0,
+        "kv_bytes_saved": int(c.get("kv_bytes_saved", 0)),
+    }
+
+
+def reset_spec_stats() -> None:
+    with _lock:
+        _spec.clear()
 
 
 def record_stage(stage: str, seconds: float, items: int = 1) -> None:

@@ -19,6 +19,10 @@ its plain PyTorch version for tensors on the CPU:
 * ``wq_matmul`` for the four layer weights when they are int8 and
   ``DecoderConfig.wq_kernel`` is set.
 
+Self-speculative decode (``pool_decode_draft``, ``pool_decode_spec``) is
+plain torch ops around the same weight-product seam: a draft step runs
+its products at M = slots, a verify at M = slots * (k + 1).
+
 The prefix cache's block moves (``kv_extract``, ``kv_insert``,
 ``pool_admit_cached``, ``paged_admit_cached``, ``kv_block_export``,
 ``kv_block_import``) are data movement: indexed reads and writes, no
@@ -700,6 +704,9 @@ def _write_lanes(plane, idx, new, act_b):
     plane[idx] = torch.where(act_b, new.to(plane.dtype), plane[idx])
 
 
+_DENSE_KV = ("k", "v", "k_scale", "v_scale")
+
+
 def _write_kv(pool, names, i, idx, kn, vn, act_b, quant):
     """Write one layer's new K/V (and int8 scales) at ``idx``; returns the
     layer's (k, v, k_scale, v_scale) planes."""
@@ -738,7 +745,6 @@ def pool_decode_chunk(params: dict, pool: dict, active, generator,
     b_idx = torch.arange(B, device=dev)
     act_b = to_device(active, dev).bool()[:, None, None]
     quant = pool_quantized(pool)
-    names = ("k", "v", "k_scale", "v_scale")
 
     def prep(w, slot_mask):
         bias = torch.where(slot_mask[:, None, None, :] > 0, 0.0, -1e9).float()
@@ -747,7 +753,7 @@ def pool_decode_chunk(params: dict, pool: dict, active, generator,
     def attend_layer(i, lp, x, step):
         idx, mask_bias = step
         q, k_new, v_new = _block_qkv(x, lp, cfg)  # (B, nh, 1, hd)
-        kl, vl, ks, vs = _write_kv(pool, names, i, idx, k_new[:, :, 0],
+        kl, vl, ks, vs = _write_kv(pool, _DENSE_KV, i, idx, k_new[:, :, 0],
                                    v_new[:, :, 0], act_b, quant)
         x, _, _ = _block(x, lp, kl, vl, mask_bias, cfg, k_scale=ks,
                          v_scale=vs, qkv=(q, k_new, v_new))
@@ -791,6 +797,157 @@ def _paged_decode_chunk_kernel(params, pool, active, generator, cfg, n_steps,
     return _decode_loop(params, pool, active, generator, cfg, n_steps,
                         _sample_fn(temperature, top_k, top_p), prep,
                         attend_layer)
+
+
+# ---- self-speculative decoding ---------------------------------------------
+#
+# The first D layers of the same model draft k greedy tokens against a
+# depth-prefix of the slot pool's KV; one full-model pass then scores all
+# k+1 positions at once, and the longest draft prefix matching the full
+# model's argmaxes is accepted. Acceptance compares argmaxes, so the
+# emitted stream is plain greedy decode's by construction (greedy only).
+
+def _draft_scan(params, cfg: DecoderConfig, planes: dict, slot_mask, pos, w,
+                t0, active, n_draft: int):
+    """``n_draft`` greedy draft steps over a DEPTH-PREFIX KV stack.
+
+    ``planes`` holds the first D layers' ``k`` / ``v`` (and under int8 KV
+    ``k_scale`` / ``v_scale``), each (D, B, nh, C, d); the steps write them
+    IN PLACE. From certain token ``t0`` at cache column ``w`` / position
+    ``pos``, step j writes the fed token's shallow KV at column
+    ``min(w + j, C - 1)`` (active lanes only), attends the live cache plus
+    this cycle's columns ``w..col``, and predicts the next token from the
+    final LN and tied head over the truncated stack. Returns the drafts
+    d_1..d_k, (B, n_draft) int32."""
+    D_ = planes["k"].shape[0]
+    B, C = t0.shape[0], planes["k"].shape[3]
+    dev = t0.device
+    b_idx = torch.arange(B, device=dev)
+    act_b = active[:, None, None]
+    idxs = torch.arange(C, device=dev)[None, :]
+    quant = "k_scale" in planes
+    lps = _layer_slices(params, D_)
+    drafts = torch.empty((B, n_draft), dtype=torch.int32, device=dev)
+    tok = t0
+    for j in range(n_draft):
+        col = (w + j).clamp(max=C - 1)
+        x = (_tok_embed(params, tok)[:, None, :]
+             + _pos_embed(params, pos + j, cfg)[:, None, :]).to(cfg.dtype)
+        allowed = (slot_mask > 0) | ((idxs >= w[:, None]) & (idxs <= col[:, None]))
+        mask_bias = torch.where(allowed, 0.0, -1e9).float()[:, None, None, :]
+        idx = (b_idx, slice(None), col.long(), slice(None))
+        for i, lp in enumerate(lps):
+            q, k_new, v_new = _block_qkv(x, lp, cfg)  # (B, nh, 1, hd)
+            kl, vl, ks, vs = _write_kv(planes, _DENSE_KV, i, idx, k_new[:, :, 0],
+                                       v_new[:, :, 0], act_b, quant)
+            x, _, _ = _block(x, lp, kl, vl, mask_bias, cfg, k_scale=ks,
+                             v_scale=vs, qkv=(q, k_new, v_new))
+        tok = torch.argmax(_logits(params, x, cfg)[:, 0, :], dim=-1).to(torch.int32)
+        drafts[:, j] = tok
+    return drafts
+
+
+def pool_decode_draft(params: dict, pool: dict, active, cfg: DecoderConfig, *,
+                      draft_layers: int, n_draft: int):
+    """Draft ``n_draft`` greedy tokens per active lane with the first
+    ``draft_layers`` layers; returns (B, n_draft) int32. Pure with respect
+    to the pool: the draft writes into copies of the depth-prefix planes.
+    A standalone probe of draft quality; serving runs the fused
+    :func:`pool_decode_spec`. Paged pools draft over a gathered view."""
+    if pool_paged(pool):
+        return pool_decode_draft(params, _paged_gather(pool), active, cfg,
+                                 draft_layers=draft_layers, n_draft=n_draft)
+    C = pool["k"].shape[3]
+    active = to_device(active, pool["k"].device).bool()
+    t0 = torch.argmax(pool["logits"], dim=-1).to(torch.int32)
+    w = pool["write"].clamp(max=C - n_draft)
+    planes = {n: pool[n][:draft_layers].clone() for n in _DENSE_KV if n in pool}
+    return _draft_scan(params, cfg, planes, pool["slot_mask"], pool["pos"], w,
+                       t0, active, n_draft)
+
+
+def pool_decode_spec(params: dict, pool: dict, active, cfg: DecoderConfig,
+                     n_cycles: int, *, draft_layers: int, n_spec: int):
+    """``n_cycles`` draft / verify / accept cycles over every active lane in
+    one call: the speculative counterpart of :func:`pool_decode_chunk`
+    (greedy only).
+
+    Per cycle: the staged logits' argmax is the certain token t0; the first
+    ``draft_layers`` layers draft ``n_spec`` = k tokens; one full-model
+    pass embeds ``[t0, d_1..d_k]`` at positions ``pos + 0..k``, writes
+    their K/V at columns ``w..w+k`` (``w = min(write, C - 1 - k)``), and
+    query i attends the live cache plus ``w..w+i``. ``acc`` drafts are
+    accepted (the longest prefix equal to the full model's argmaxes); the
+    lane emits ``acc + 1`` tokens, its staged logits become the verify
+    logits at position ``acc``, and columns ``w..w+acc`` turn live. The
+    rejected tail stays masked: the rewind is a mask, not a copy. Inactive
+    lanes compute, write back their old bytes, and do not advance.
+
+    The draft writes the pool's own depth-prefix planes in place: verify
+    rewrites every column a draft wrote (columns ``w..w+k-1``) in every
+    layer for active lanes, and inactive lanes write back the bytes they
+    read, so the pool ends as if the draft had worked on copies.
+
+    Returns ``(pool, toks (n_cycles, B, k+1) int32, n_emit (n_cycles, B)
+    int32)``: a lane's stream is each cycle's first ``n_emit`` tokens.
+    Paged pools gather, run and scatter back; the scatter skips the
+    sentinel and shared prefix blocks, which verify never writes."""
+    if pool_paged(pool):
+        view, toks, n_emit = pool_decode_spec(params, _paged_gather(pool), active,
+                                              cfg, n_cycles,
+                                              draft_layers=draft_layers, n_spec=n_spec)
+        return _paged_scatter(pool, view), toks, n_emit
+    B, C = pool["slot_mask"].shape
+    dev = pool["k"].device
+    k = n_spec
+    active = to_device(active, dev).bool()
+    quant = pool_quantized(pool)
+    b_idx = torch.arange(B, device=dev)
+    idxs = torch.arange(C, device=dev)
+    offs = torch.arange(k + 1, device=dev)
+    act_bt = active[:, None, None, None]
+    lps = _layer_slices(params)
+    draft = {n: pool[n][:draft_layers] for n in _DENSE_KV if n in pool}
+    logits, slot_mask = pool["logits"], pool["slot_mask"]
+    pos, write = pool["pos"], pool["write"]
+    toks = torch.empty((n_cycles, B, k + 1), dtype=torch.int32, device=dev)
+    n_emit = torch.empty((n_cycles, B), dtype=torch.int32, device=dev)
+    for c in range(n_cycles):
+        w = write.clamp(max=C - 1 - k)
+        t0 = torch.argmax(logits, dim=-1).to(torch.int32)
+        drafts = _draft_scan(params, cfg, draft, slot_mask, pos, w, t0, active, k)
+        u = torch.cat([t0[:, None], drafts], dim=1)  # (B, k+1)
+        x = (_tok_embed(params, u)
+             + _pos_embed(params, pos[:, None] + offs[None, :], cfg)).to(cfg.dtype)
+        qcol = w[:, None] + offs[None, :]  # (B, k+1) each query's column
+        allowed = (slot_mask[:, None, :] > 0) | (
+            (idxs[None, None, :] >= w[:, None, None])
+            & (idxs[None, None, :] <= qcol[:, :, None]))
+        mask_bias = torch.where(allowed, 0.0, -1e9).float()[:, None]
+        # (b, column) pairs: each lane's k+1 rows land at its own columns,
+        # (B, k+1, nh, d) as in JAX
+        idx = (b_idx[:, None], slice(None), qcol.long(), slice(None))
+        for i, lp in enumerate(lps):
+            q, k_new, v_new = _block_qkv(x, lp, cfg)  # (B, nh, k+1, hd)
+            kl, vl, ks, vs = _write_kv(pool, _DENSE_KV, i, idx, k_new.transpose(1, 2),
+                                       v_new.transpose(1, 2), act_bt, quant)
+            x, _, _ = _block(x, lp, kl, vl, mask_bias, cfg, k_scale=ks,
+                             v_scale=vs, qkv=(q, k_new, v_new))
+        out_logits = _logits(params, x, cfg)  # (B, k+1, V)
+        g = torch.argmax(out_logits, dim=-1).to(torch.int32)
+        # g[:, i] is the true next token after u_0..u_i
+        acc = torch.cumprod((drafts == g[:, :k]).to(torch.int32), dim=1).sum(dim=1)
+        emit = torch.where(active, acc + 1, 0).to(torch.int32)
+        logits = torch.where(active[:, None], out_logits[b_idx, acc], logits)
+        live = ((idxs[None, :] >= w[:, None]) & (idxs[None, :] <= (w + acc)[:, None])
+                & active[:, None])
+        slot_mask = torch.where(live, 1, slot_mask)
+        pos = pos + emit
+        write = write + emit
+        toks[c] = u
+        n_emit[c] = emit
+    pool.update(logits=logits, slot_mask=slot_mask, pos=pos, write=write)
+    return pool, toks, n_emit
 
 
 # ---- paged block-table KV store --------------------------------------------
@@ -881,6 +1038,17 @@ def pool_paged(pool: dict) -> bool:
 
 def paged_block(pool: dict) -> int:
     return pool["kb"].shape[3]
+
+
+_POOL_KV_KEYS = ("k", "v", "kb", "vb", "k_scale", "v_scale", "kb_scale", "vb_scale",
+                 "block_tbl", "arena_k", "arena_v", "arena_k_scale", "arena_v_scale")
+
+
+def pool_bytes(pool: dict) -> int:
+    """Device bytes of the pool's KV storage: caches, prefix arena and int8
+    scales of a dense pool; block planes, scales and table of a paged one."""
+    return sum(pool[c].numel() * pool[c].element_size()
+               for c in _POOL_KV_KEYS if c in pool)
 
 
 def paged_pool_init(params: dict, cfg: DecoderConfig, n_slots: int,

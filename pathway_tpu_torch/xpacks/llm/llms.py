@@ -20,12 +20,19 @@ prompt head is cached prefills only its suffix; with ``prefix_t2_mb > 0``
 evicted prefixes demote to host RAM and come back by asynchronous
 promotion.
 
+Greedy servers decode speculatively by default, as in JAX: the first
+layers of the model draft a few tokens, one full-model pass verifies them
+all, and the longest agreeing prefix is accepted (the same tokens as plain
+greedy decode); a latch falls back to plain chunks for good when the
+acceptance rate stays low. Chunk-steps autotune, also on by default,
+shrinks the decode chunk under queue pressure and sizes it against the
+observed arrival gap.
+
 Behaviour is set by constructor arguments whose defaults are the JAX flag
 defaults, for every feature the server carries. The JAX server's
-speculative decode, disaggregated lanes, tenant scheduling, the serving
-mesh and chunk autotune are not ported; asking for any of them raises
-``NotImplementedError`` (their defaults here are off). Nothing reads an
-environment variable.
+disaggregated lanes, tenant scheduling and serving mesh are not ported;
+asking for any of them raises ``NotImplementedError`` (their defaults here
+are off). Nothing reads an environment variable.
 """
 
 from __future__ import annotations
@@ -42,7 +49,12 @@ import torch
 from pathway_tpu_torch.device import resolve_device, to_device
 from pathway_tpu_torch.engine.async_runtime import StageWorker
 from pathway_tpu_torch.engine.prefix_cache import PrefixCache
-from pathway_tpu_torch.engine.probes import record_prefix, record_stage
+from pathway_tpu_torch.engine.probes import (
+    record_prefix,
+    record_spec,
+    record_spec_many,
+    record_stage,
+)
 from pathway_tpu_torch.models import decoder as D
 from pathway_tpu_torch.ops import next_pow2
 
@@ -109,6 +121,7 @@ class DecoderChat:
         spec_decode: bool | None = None,
         spec_draft_layers: int | None = None,
         spec_k: int | None = None,
+        chunk_autotune: bool | None = None,
         kv_quant: str | bool | None = None,
         paged_kv: bool | None = None,
         paged_kv_block: int | None = None,
@@ -182,6 +195,7 @@ class DecoderChat:
                 spec_decode=spec_decode,
                 spec_draft_layers=spec_draft_layers,
                 spec_k=spec_k,
+                chunk_autotune=chunk_autotune,
                 kv_quant=kv_quant,
                 paged_kv=paged_kv,
                 paged_kv_block=paged_kv_block,
@@ -324,11 +338,9 @@ class _PendingCompletion:
 
 _UNPORTED = (
     # (argument, asked-for test, what it is)
-    ("spec_decode", lambda v: bool(v), "self-speculative decode"),
     ("disagg", lambda v: bool(v), "disaggregated prefill/decode lanes"),
     ("tenant_sched", lambda v: bool(v), "tenant scheduling and preemption"),
     ("mesh", lambda v: v is not None, "the serving mesh"),
-    ("chunk_autotune", lambda v: bool(v), "chunk-steps autotune"),
 )
 
 
@@ -349,7 +361,14 @@ class _ContinuousServer:
     ``pipeline_depth`` chunks run ahead of the token drain (each chunk's tokens copy to the host as soon as it
     is queued), and eager refill frees a lane whose dispatched steps cover
     its budget at dispatch time. A stream ends at EOS or at its own
-    ``max_new``."""
+    ``max_new``.
+
+    A greedy server (temperature 0, no top-k / top-p, at least 2 layers)
+    dispatches ``pool_decode_spec`` cycles instead of plain chunks until
+    its acceptance latch trips; a chunk of ``steps`` plain steps becomes
+    ``steps // (spec_k + 1)`` cycles, and eager refill counts cycles (each
+    emits at least one token). Chunk autotune picks each dispatch's steps
+    from the halvings of ``chunk_steps`` down to 4."""
 
     def __init__(self, params, cfg, tokenizer, *, n_slots: int,
                  chunk_steps: int, max_prompt_tokens: int,
@@ -378,9 +397,7 @@ class _ContinuousServer:
                  prefix_t2_mb: float | None = None,
                  mesh=None,
                  chunk_autotune: bool | None = None):
-        asked = dict(spec_decode=spec_decode, disagg=disagg,
-                     tenant_sched=tenant_sched, mesh=mesh,
-                     chunk_autotune=chunk_autotune)
+        asked = dict(disagg=disagg, tenant_sched=tenant_sched, mesh=mesh)
         for name, on, what in _UNPORTED:
             if on(asked[name]):
                 raise NotImplementedError(
@@ -392,10 +409,32 @@ class _ContinuousServer:
         self.n_slots = int(n_slots)
         self.chunk_steps = int(chunk_steps)
         self.max_prompt_bucket = next_pow2(max_prompt_tokens, 8)
+        # self-speculative decode: greedy only (acceptance compares
+        # argmaxes), and a 1-layer model has no shallower draft stack, so
+        # either takes the plain chunk path
+        want_spec = True if spec_decode is None else bool(spec_decode)
+        self.spec_decode = bool(want_spec and float(temperature) == 0.0
+                                and top_k is None and top_p is None
+                                and cfg.layers >= 2)
+        d = 0 if spec_draft_layers is None else int(spec_draft_layers)
+        if d <= 0:
+            d = max(1, cfg.layers // 4)
+        self.spec_draft_layers = max(1, min(d, cfg.layers - 1))
+        self.spec_k = max(1, 3 if spec_k is None else int(spec_k))
+        # the acceptance latch: after 4 drains with drafts and the
+        # acceptance EMA below 0.25, plain chunks for good (same tokens)
+        self._spec_off = False
+        self._spec_drains = 0
+        self._accept_ema: float | None = None
+        self.spec_latched_at: int | None = None  # the drain that tripped it
+        # spec counters between ledger flushes (loop thread only)
+        self._spec_accum: dict = {}
         # a lane may overrun its budget until its tokens drain: one chunk of
-        # cache slack per in-flight chunk plus the one being dispatched
+        # cache slack per in-flight chunk plus the one being dispatched; a
+        # spec dispatch writes up to max(chunk_steps, spec_k + 1) columns
         self.pipeline_depth = max(0, int(pipeline_depth))
-        self._slack = self.chunk_steps
+        self._slack = max(self.chunk_steps,
+                          self.spec_k + 1 if self.spec_decode else 0)
         self.cache_len = (self.max_prompt_bucket + int(default_max_new)
                           + (self.pipeline_depth + 1) * self._slack)
         self.kv_quant = _parse_quant(kv_quant)
@@ -469,6 +508,29 @@ class _ContinuousServer:
             self._promote_worker = StageWorker(self._stage_promotion, maxsize=4,
                                                name="prefix-t2-h2d")
         self.pool = self._build_pool()
+        self.kv_bytes_saved = 0
+        if self.kv_quant:
+            # the device bytes the int8 pool does not take against the
+            # same pool in the compute dtype, recorded once
+            it = torch.empty((), dtype=cfg.dtype).element_size()
+            base = sum(self.pool[c].numel() * it
+                       for c in ("k", "v", "kb", "vb", "arena_k", "arena_v")
+                       if c in self.pool)
+            self.kv_bytes_saved = base - D.pool_bytes(self.pool)
+            record_spec("kv_bytes_saved", self.kv_bytes_saved)
+        # chunk-steps autotune: the halvings of chunk_steps down to 4, all
+        # within the slack above
+        self.chunk_autotune = True if chunk_autotune is None else bool(chunk_autotune)
+        cands, c = [], self.chunk_steps
+        while c >= 4:
+            cands.append(c)
+            c //= 2
+        self._step_cands = cands or [self.chunk_steps]
+        self._arrival_ema: float | None = None
+        self._last_submit_t: float | None = None
+        self._step_wall_ema: float | None = None
+        self._last_dispatch_t: float | None = None
+        self._last_dispatch_steps = 0
         self._temperature = float(temperature)
         self._top_k = top_k
         self._top_p = top_p
@@ -489,7 +551,9 @@ class _ContinuousServer:
                       "prefix_hit_tokens": 0, "prefix_miss_tokens": 0,
                       "prefix_hit_requests": 0, "prefix_requests": 0,
                       "t2_hit_requests": 0, "t2_promoted_blocks": 0,
-                      "t2_dropped": 0}
+                      "t2_dropped": 0, "spec_dispatches": 0, "spec_cycles": 0,
+                      "spec_drafted": 0, "spec_accepted": 0, "spec_emitted": 0,
+                      "spec_verify_steps": 0}
         # in-flight chunk records, oldest first
         self._inflight: deque = deque()
         self.thread = threading.Thread(target=self._run_safe, daemon=True,
@@ -574,8 +638,44 @@ class _ContinuousServer:
             if self._stop:
                 raise RuntimeError("decoder serving loop is shut down")
             self.queue.append(req)
+            # the observed arrival gap feeds the chunk-steps autotune
+            now = req.submitted_at
+            if self._last_submit_t is not None:
+                gap = now - self._last_submit_t
+                self._arrival_ema = (gap if self._arrival_ema is None
+                                     else 0.8 * self._arrival_ema + 0.2 * gap)
+            self._last_submit_t = now
         self.wake.set()
         return req
+
+    def spec_acceptance(self) -> float:
+        """Drained draft-token acceptance rate (0.0 before any speculative
+        dispatch drained)."""
+        d = self.stats["spec_drafted"]
+        return self.stats["spec_accepted"] / d if d else 0.0
+
+    def tokens_per_dispatch(self) -> float:
+        """Tokens emitted per full-model lane-cycle (the unit one plain
+        decode lane-step also costs; 1.0 is the plain-decode baseline)."""
+        v = self.stats["spec_verify_steps"]
+        return self.stats["spec_emitted"] / v if v else 1.0
+
+    def _pick_steps(self, queue_len: int) -> int:
+        """This dispatch's decode steps. Under queue pressure the smallest
+        candidate (the next chunk boundary is the next admission and slot
+        release); with no queue, the largest whose wall time fits one
+        observed arrival gap; with no estimate yet, the full chunk."""
+        if not self.chunk_autotune or len(self._step_cands) == 1:
+            return self.chunk_steps
+        if queue_len > 0:
+            return self._step_cands[-1]
+        ia, sw = self._arrival_ema, self._step_wall_ema
+        if ia is None or sw is None or sw <= 0.0:
+            return self._step_cands[0]
+        for c in self._step_cands:
+            if c * sw <= ia:
+                return c
+        return self._step_cands[-1]
 
     def _admit_one(self, slot: int, req, direct: list) -> None:
         """Admission host work for ONE request: match its cached prefix,
@@ -676,8 +776,14 @@ class _ContinuousServer:
         B = self.paged_block
         per_slot = self.cache_len // B
         m_hit, pool_ids, node = self._prefix_match(req, e, n)
+        # decode writes from the end of the right-padded pieces, up to P - 1
+        # columns past the prompt; a column past the allocation maps to the
+        # sentinel, where the paged decode would write and the gathered
+        # view's scatter would drop its K/V
+        P = self.prefill_chunk
+        width = m_hit * B + -(-(n - m_hit * B) // P) * P
         cover = min(self.cache_len,
-                    n + req.max_new + (self.pipeline_depth + 1) * self._slack)
+                    width + req.max_new + (self.pipeline_depth + 1) * self._slack)
         need = min(per_slot, -(-cover // B))
         try:
             fresh = self._allocator.alloc(need - m_hit)
@@ -959,22 +1065,48 @@ class _ContinuousServer:
         return False
 
     def _dispatch_decode(self, active) -> bool:
-        """One decode chunk over the active lanes; False if none."""
+        """One decode chunk (or spec dispatch) over the active lanes; False
+        if none."""
         if not active.any():
             return False
-        steps = self.chunk_steps
-        self.pool, toks = D.pool_decode_chunk(
-            self.params, self.pool, to_device(active.copy(), self.device),
-            self._gen, self.cfg, steps, temperature=self._temperature,
-            top_k=self._top_k, top_p=self._top_p, paged_kernel=self.paged_kernel)
-        self._inflight.append((_HostCopy(toks), active.copy(), list(self.slots)))
+        with self.lock:
+            qlen = len(self.queue)
+        steps = self._pick_steps(qlen)
+        # tick-to-tick wall per dispatched step: in steady state the loop
+        # is paced by the card finishing chunks
+        now = time.perf_counter()
+        if self._last_dispatch_t is not None and self._last_dispatch_steps:
+            per = (now - self._last_dispatch_t) / self._last_dispatch_steps
+            self._step_wall_ema = (per if self._step_wall_ema is None
+                                   else 0.7 * self._step_wall_ema + 0.3 * per)
+        self._last_dispatch_t = now
+        lanes = to_device(active.copy(), self.device)
+        if self.spec_decode and not self._spec_off:
+            # `steps` plain lane-steps become n_cycles cycles; budgets and
+            # the autotune count cycles here
+            lane_steps = max(1, steps // (self.spec_k + 1))
+            self.pool, toks, emit = D.pool_decode_spec(
+                self.params, self.pool, lanes, self.cfg, lane_steps,
+                draft_layers=self.spec_draft_layers, n_spec=self.spec_k)
+            payload = (_HostCopy(toks), _HostCopy(emit))
+            self.stats["spec_dispatches"] += 1
+            self.stats["spec_cycles"] += lane_steps
+        else:
+            lane_steps = steps
+            self.pool, toks = D.pool_decode_chunk(
+                self.params, self.pool, lanes, self._gen, self.cfg, steps,
+                temperature=self._temperature, top_k=self._top_k,
+                top_p=self._top_p, paged_kernel=self.paged_kernel)
+            payload = _HostCopy(toks)
+        self._last_dispatch_steps = lane_steps
+        self._inflight.append((payload, active.copy(), list(self.slots)))
         self.stats["chunks"] += 1
-        self.stats["decode_steps"] += steps
+        self.stats["decode_steps"] += lane_steps
         for slot in np.nonzero(active)[0]:
             req = self.slots[slot]
             if req is None:
                 continue
-            self._sent[slot] += steps
+            self._sent[slot] += lane_steps
             if self.eager_refill and self._sent[slot] >= req.max_new:
                 # no later chunk can add to this answer: free the slot now;
                 # its tokens drain from the snapshots, and stream order
@@ -986,15 +1118,63 @@ class _ContinuousServer:
                     self.free.append(int(slot))
         return True
 
+    def _spec_account(self, emit, lanes) -> None:
+        """Count one drained spec dispatch (``emit`` (n_cycles, B), the
+        lanes active at its dispatch), feed the acceptance EMA and trip the
+        latch."""
+        cyc, n_act, k = emit.shape[0], len(lanes), self.spec_k
+        drafted = cyc * n_act * k
+        emitted = int(emit[:, lanes].sum()) if n_act else 0
+        accepted = emitted - cyc * n_act
+        acc = self._spec_accum
+        for name, v in (("dispatches", 1), ("verify_steps", cyc * n_act),
+                        ("draft_steps", drafted), ("drafted", drafted),
+                        ("accepted", accepted), ("emitted", emitted)):
+            acc[name] = acc.get(name, 0) + v
+        self.stats["spec_verify_steps"] += cyc * n_act
+        self.stats["spec_drafted"] += drafted
+        self.stats["spec_accepted"] += accepted
+        self.stats["spec_emitted"] += emitted
+        if drafted:
+            rate = accepted / drafted
+            self._accept_ema = (rate if self._accept_ema is None
+                                else 0.7 * self._accept_ema + 0.3 * rate)
+            self._spec_drains += 1
+            # below ~1/(k+1) acceptance the drafts are noise
+            if (not self._spec_off and self._spec_drains >= 4
+                    and self._accept_ema < 0.25):
+                self._spec_off = True
+                self.spec_latched_at = self._spec_drains
+
+    def _spec_flush(self) -> None:
+        """Flush the accumulated spec counters to the ledger (at request
+        completions and when the loop goes idle)."""
+        if self._spec_accum:
+            acc, self._spec_accum = self._spec_accum, {}
+            record_spec_many(**acc)
+
     def _drain(self, rec, active) -> None:
-        """Hand one chunk's tokens to the requests it served."""
-        host, was_active, snap_slots = rec
-        toks = host.numpy()
-        for slot in np.nonzero(was_active)[0]:
+        """Hand one chunk's tokens to the requests it served: a plain
+        chunk's steps, or each spec cycle's first ``n_emit`` tokens."""
+        payload, was_active, snap_slots = rec
+        lanes = np.nonzero(was_active)[0]
+        if isinstance(payload, tuple):
+            toks, emit = (h.numpy() for h in payload)
+            self._spec_account(emit, lanes)
+            first = np.arange(toks.shape[2])[None, :] < emit[:, :, None]
+
+            def stream(slot):
+                return toks[:, slot][first[:, slot]].tolist()
+        else:
+            toks = payload.numpy()
+
+            def stream(slot):
+                return toks[:, slot].tolist()
+        for slot in lanes:
             req = snap_slots[slot]
             if req is None or req.done.is_set():
                 continue
-            for t in toks[:, slot].tolist():
+            for t in stream(slot):
                 if self.eos_id is not None and t == self.eos_id:
                     req.max_new = 0  # stream closed
                     break
@@ -1014,6 +1194,8 @@ class _ContinuousServer:
                     with self.lock:
                         self.free.append(int(slot))
                 self._prefix_release(req)
+                # a waiter woken by done finds the ledger flushed
+                self._spec_flush()
                 req.done.set()
 
     def _loop(self):
@@ -1049,6 +1231,7 @@ class _ContinuousServer:
                     continue
                 # idle, or only pieces waiting for a staging promotion
                 # (the stage worker sets wake)
+                self._spec_flush()
                 self.wake.clear()
                 self.wake.wait(timeout=0.002 if held else 0.05)
                 continue

@@ -4,7 +4,7 @@ is bound in kernels.py, and the C++ tokenizer source lives in the port;
 entry points (the embedder and reranker seams and the checkpoint loaders'
 entry points included) refuse to run on the CPU unless asked; CPU tensors
 never launch a kernel; the decoder server refuses the JAX serving features
-it does not carry."""
+it does not carry and constructs the ones it does."""
 
 import ast
 import re
@@ -173,17 +173,31 @@ def test_decoder_kernels_on_cpu_launch_nothing():
 
 
 @pytest.mark.parametrize("feature", [
-    dict(spec_decode=True), dict(disagg=True), dict(tenant_sched=True),
-    dict(mesh=object()),
+    dict(disagg=True), dict(tenant_sched=True), dict(mesh=object()),
 ])
 def test_server_refuses_features_left_out(feature):
     dcfg, params, tok = _tiny_decoder()
     with pytest.raises(NotImplementedError, match="not ported"):
         DecoderChat(params=params, cfg=dcfg, tokenizer=tok, continuous=True,
                     device="cpu", **feature)
-    from pathway_tpu_torch.xpacks.llm.llms import _ContinuousServer
 
-    with pytest.raises(NotImplementedError, match="autotune"):
-        _ContinuousServer(params, dcfg, tok, n_slots=1, chunk_steps=2,
-                          max_prompt_tokens=8, default_max_new=2, temperature=0.0,
-                          top_k=None, top_p=None, seed=0, chunk_autotune=True)
+
+def test_server_constructs_spec_decode_and_chunk_autotune():
+    """Speculative decode and chunk autotune are carried: asked for, a
+    2-layer greedy server constructs with both on and serves."""
+    dcfg, params, tok = _tiny_decoder()
+    dcfg = TD.DecoderConfig(**{**dcfg.__dict__, "layers": 2})
+    params = TD.init_params(torch.Generator().manual_seed(0), dcfg)
+    chat = DecoderChat(params=params, cfg=dcfg, tokenizer=tok, continuous=True,
+                       max_new_tokens=4, max_prompt_tokens=16, n_slots=2,
+                       spec_decode=True, chunk_autotune=True, device="cpu")
+    try:
+        srv = chat.server
+        assert srv.spec_decode and srv.chunk_autotune
+        assert srv._step_cands == [16, 8, 4] and srv.spec_draft_layers == 1
+        req = srv.submit(tok.encode("ab"), 4)
+        assert req.done.wait(60) and len(req.tokens) == 4
+        assert srv.stats["spec_dispatches"] > 0
+    finally:
+        chat.close()
+    assert not srv.thread.is_alive()
