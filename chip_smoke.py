@@ -90,7 +90,23 @@ without printing a result:
    48 requests in 6 seeded waves of 8 (both branches of the step choice):
    streams equal token for token. Prints tokens/s, TTFT p50, acceptance,
    tokens per dispatch, the latch, spec dispatches and the histogram of
-   chunk steps.
+   chunk steps;
+11. telemetry on the card (metrics are on by default, as in JAX, so
+   phases 4-10 ran with them): (a) phase 6's 48-request burst on one
+   server with metrics on, off, off, on: streams equal token for token,
+   no span and an empty registry when off, 48 complete ordered decode
+   spans when on, the registry's TTFT histogram (48 observations, p50
+   within one log-2 bucket of the requests' own), the occupancy gauge
+   equal to ``occupancy()``, the fragmentation in [0, 1); decode tokens/s
+   and TTFT p50 on against off; (b) the HBM ledger of that server: the
+   weights' bytes, the pool components summing to ``pool_bytes``, the total
+   within ``torch.cuda.memory_allocated``; (c) phase 8's defaults seam,
+   fresh each run, on, off, off, on: embeddings byte-identical, 8 embed
+   spans with ordered events, ``embed_dispatch`` and the encoder's
+   attention bytes per batch that reached the device, docs/s on against
+   off; (d) one ``retrieve`` and one ``retrieve_rerank`` on phase 4's
+   pipeline add one dispatch each and 8 dense retrieval queries; (e) the
+   JSONL flight recorder holds a burst's 8 decode spans after ``close()``.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -100,6 +116,7 @@ package.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -129,6 +146,8 @@ LOGIT_TOL, MIN_FIRST_EQUAL, MIN_STREAMS_EQUAL = 0.1, 7, 3
 # tier-2 run holds 3 of them
 KV_BLOCK_BYTES = 2 * 12 * 12 * BLOCK * 64 * 2
 SHARED_HEAD, DENSE_HEAD, T2_HEAD = 256, 128, 192
+# phase 11: MiniLM-L6's layers, and the ingest's batches of INGEST_BATCH
+MINILM_LAYERS, INGEST_BATCHES = 6, N_DOCS // INGEST_BATCH
 # each kernel's current design, as its source describes it
 DESIGN = {
     "flash_attn": "bf16: mma.sync m16n8k16, persistent blocks over 64-row groups, "
@@ -1779,6 +1798,239 @@ def run_spec_serving(gpu: str, tok, common) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- phase 11
+SPAN_ORDER = ("enqueue", "admit", "first_token", "drain")
+INGEST_EVENTS = ["enqueue", "admit", "tokenize", "h2d", "dispatch", "drain"]
+
+
+def first_times(span: dict) -> dict:
+    out: dict = {}
+    for e in span["events"]:
+        out.setdefault(e["name"], e["t_ms"])
+    return out
+
+
+def gauges_caught_up(srv, probes, timeout: float = 10.0) -> bool:
+    """Wait (bounded) until the occupancy gauge holds the server's current
+    occupancy: the loop writes it when it goes idle after a burst."""
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if probes.serving_snapshot()["occupancy"].get(srv._trace_tag) == round(
+                srv.occupancy(), 4):
+            return True
+        time.sleep(0.005)
+    return False
+
+
+def telemetry_arm(chat, prompts, on: bool) -> dict:
+    """One serve() of ``prompts`` with metrics on or off, the registry and
+    the trace ring emptied just before; the prefix tree is dropped after,
+    so every arm admits the same prompts cold."""
+    from pathway_tpu_torch.engine import probes, tracing
+
+    probes.set_metrics(on)
+    probes.REGISTRY.reset()
+    tracing.reset_traces()
+    try:
+        out = serve(chat, prompts)
+        srv = chat.server
+        out["caught_up"] = (not on) or gauges_caught_up(srv, probes)
+        out["spans"] = chat.recent_traces()
+        out["snapshot"] = probes.REGISTRY.snapshot()
+        out["serving"] = probes.serving_snapshot()
+        out["occupancy"] = srv.occupancy()
+        out["frag"] = srv.kv_fragmentation()
+        out["ttft_hist"] = probes.REGISTRY.hist_summary("ttft_seconds", phase="decode")
+    finally:
+        probes.set_metrics(True)
+    srv.prefix_reset()
+    return out
+
+
+def run_telemetry_serving(dev, gpu: str, common) -> dict:
+    """Phase 11 (a), (b) and (e); returns the launches of its runs."""
+    import tempfile
+
+    import torch
+
+    from pathway_tpu_torch import DecoderChat
+    from pathway_tpu_torch.engine import probes, tracing
+    from pathway_tpu_torch.models import decoder as D
+
+    probes.reset_hbm_stats()
+    chat = DecoderChat(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True,
+                       flash_prefill=True, **common)
+    srv = chat.server
+    # (b) the HBM ledger, recorded at weight placement and pool build
+    hbm = probes.hbm_stats()
+    comps = dict(hbm["current_bytes"])
+    weights = sum(t.numel() * t.element_size() for t in D._tensor_leaves(chat.params))
+    allocated = torch.cuda.memory_allocated(dev)
+    info(f"telemetry (b) HBM ledger [{gpu}]: {comps}; total "
+         f"{hbm['current_total_bytes']} bytes, torch.cuda.memory_allocated {allocated}")
+    require(comps.pop("weights.decoder") == weights,
+            f"(b) weights.decoder equals the served params' bytes ({weights})")
+    require(sum(comps.values()) == D.pool_bytes(srv.pool),
+            f"(b) the pool components sum to pool_bytes ({D.pool_bytes(srv.pool)})")
+    require(hbm["current_total_bytes"] <= allocated,
+            "(b) the ledger total is at most torch.cuda.memory_allocated")
+
+    # (a) metrics on against off, phase 6's burst, in turns: on, off, off, on
+    serve(chat, make_prompts(4, 16, 200, seed=99))  # warm-up, outside the counts
+    srv.prefix_reset()
+    prompts = make_prompts(N_REQUESTS, 16, 480, seed=1)
+    runs = [(on, telemetry_arm(chat, prompts, on)) for on in (True, False, False, True)]
+    total = {n: sum(r["launches"][n] for _, r in runs) for n in counters()}
+    streams = [[r.tokens for r in out["reqs"]] for _, out in runs]
+    for i, (on, out) in enumerate(runs):
+        info(f"telemetry (a) run {i + 1}, metrics {'on' if on else 'off'} [{gpu}]: "
+             f"{N_REQUESTS} requests in {out['wall_s']:.3f} s wall; decode "
+             f"{out['tok_per_s']:.1f} tokens/s; TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms; "
+             f"spans {len(out['spans'])}")
+    require(all(s == streams[0] for s in streams),
+            f"(a) the {N_REQUESTS} greedy streams are equal token for token, metrics on and off")
+    for on, out in runs:
+        if not on:
+            require(out["spans"] == [] and out["snapshot"] == {
+                "counters": {}, "gauges": {}, "histograms": {}},
+                "(a) metrics off: no span, an empty registry snapshot")
+            continue
+        spans = out["spans"]
+        ordered = all(
+            all(k in first_times(s) for k in SPAN_ORDER)
+            and [first_times(s)[k] for k in SPAN_ORDER] == sorted(
+                first_times(s)[k] for k in SPAN_ORDER)
+            and s["metrics"]["queue_wait_ms"] <= s["metrics"]["ttft_ms"]
+            <= s["metrics"]["e2e_ms"] and s["attrs"]["tokens"] == MAX_NEW
+            for s in spans)
+        require(len(spans) == N_REQUESTS and ordered,
+                f"(a) {N_REQUESTS} complete decode spans, enqueue <= admit <= first_token "
+                f"<= drain and queue_wait <= ttft <= e2e in each")
+        h = out["ttft_hist"]
+        require(h is not None, "(a) the ttft_seconds histogram has observations")
+        ratio = h["p50"] / out["ttft_p50_s"]
+        info(f"  registry TTFT p50 {h['p50'] * 1e3:.1f} ms over {h['count']} vs "
+             f"first_token_at p50 {out['ttft_p50_s'] * 1e3:.1f} ms (ratio {ratio:.4f}); "
+             f"occupancy {out['occupancy']:.4f}; kv fragmentation {out['frag']}")
+        require(h["count"] == N_REQUESTS and 0.5 <= ratio <= 2.0,
+                f"(a) ttft_seconds counts {N_REQUESTS}, its p50 within one log-2 bucket "
+                f"of serve()'s")
+        require(out["caught_up"] and out["serving"]["occupancy"] == {
+            srv._trace_tag: round(out["occupancy"], 4)},
+            "(a) serving_snapshot()['occupancy'] equals server.occupancy()")
+        require(0.0 <= out["frag"]["current"] < 1.0,
+                "(a) kv_fragmentation()['current'] in [0, 1)")
+    arm = {on: [out for o, out in runs if o == on] for on in (True, False)}
+    tps = {on: statistics.mean(o["tok_per_s"] for o in arm[on]) for on in arm}
+    ttft = {on: statistics.mean(o["ttft_p50_s"] for o in arm[on]) * 1e3 for on in arm}
+    info(f"telemetry (a) cost [{gpu}]: decode tokens/s on {tps[True]:.1f} / off "
+         f"{tps[False]:.1f} (on/off {tps[True] / tps[False]:.4f}); TTFT p50 ms on "
+         f"{ttft[True]:.1f} / off {ttft[False]:.1f} (on/off {ttft[True] / ttft[False]:.4f})")
+
+    # (e) the flight recorder around a burst of 8
+    with tempfile.TemporaryDirectory() as tmp:
+        tracing.configure(trace_dir=tmp)
+        try:
+            out = serve(chat, make_prompts(8, 16, 200, seed=12))
+            total = {n: total[n] + out["launches"][n] for n in total}
+            chat.close()
+        finally:
+            tracing.configure()
+        path = f"{tmp}/trace-{os.getpid()}.jsonl"
+        with open(path, encoding="utf-8") as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+    info(f"telemetry (e) flight recorder: {len(recs)} lines after close()")
+    require(len(recs) == 8 and all(r["kind"] == "decode" and r["server"] == srv._trace_tag
+                                   for r in recs),
+            "(e) the recorder file holds the burst's 8 decode lines after close()")
+    return total
+
+
+def run_telemetry_ingest(dev, gpu: str, docs) -> int:
+    """Phase 11 (c): the defaults seam with metrics on and off, in turns;
+    returns the flash_attn launches of its ingests."""
+    from pathway_tpu_torch.engine import probes
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.models.tokenizer import pad_to_buckets
+
+    warm = [d + " warm" for d in docs[:INGEST_BATCH]]
+    runs, launches = [], 0
+    for on in (True, False, False, True):
+        probes.set_metrics(on)
+        try:
+            emb = seam(dev)
+            model = emb.model
+            emb.resolve_batch([emb.submit_batch(warm)], timeout=600)  # outside the counts
+            sent = []  # the miss batches that reached the device
+            submit = model.embed_submit
+
+            def recording(texts, submit=submit, sent=sent):
+                sent.append(list(texts))
+                return submit(texts)
+
+            model.embed_submit = recording
+            probes.REGISTRY.reset()
+            model_spans0 = len(model.recent_traces())
+            r = ingest(emb, docs)
+            r.update(spans=model.recent_traces()[model_spans0:], sent=sent,
+                     snapshot=probes.REGISTRY.snapshot(), dispatch=probes.dispatch_counts(),
+                     attn=probes.attn_stats())
+            launches += r["launches"]
+            emb.close()
+        finally:
+            probes.set_metrics(True)
+        runs.append((on, r, model))
+    for i, (on, r, _) in enumerate(runs):
+        info(f"telemetry (c) ingest run {i + 1}, metrics {'on' if on else 'off'} [{gpu}]: "
+             f"{r['docs_per_s']:.1f} docs/s ({r['wall_s'] * 1e3:.3f} ms for {r['n']}); "
+             f"{len(r['sent'])} batches to the device, spans {len(r['spans'])}")
+    require(all(np.array_equal(r["vecs"], runs[0][1]["vecs"]) for _, r, _ in runs),
+            "(c) embeddings byte-identical with metrics on and off")
+    for on, r, model in runs:
+        if not on:
+            require(r["spans"] == [] and r["snapshot"] == {
+                "counters": {}, "gauges": {}, "histograms": {}},
+                "(c) metrics off: no span, an empty registry snapshot")
+            continue
+        n_dev = r["launches"] // MINILM_LAYERS
+        require(len(r["spans"]) == INGEST_BATCHES == len(r["sent"]) and all(
+            [e["name"] for e in s["events"]] == INGEST_EVENTS for s in r["spans"]),
+            f"(c) {INGEST_BATCHES} embed spans, events in the order {INGEST_EVENTS}")
+        require(r["dispatch"].get("embed_dispatch") == len(r["sent"]) == n_dev,
+                f"(c) embed_dispatch counts the {n_dev} batches that reached the device")
+        cfg, want = model.cfg, 0
+        for texts in r["sent"]:
+            B, S = pad_to_buckets(*model.tokenizer(texts, max_length=64))[0].shape
+            want += cfg.layers * FA.attn_bytes_flash(S, S, cfg.heads, cfg.head_dim, batch=B)
+        require(r["attn"]["bytes"].get("encoder") == want,
+                f"(c) attn_stats encoder bytes equal the formula over those batches ({want})")
+    dps = {on: statistics.mean(r["docs_per_s"] for o, r, _ in runs if o == on)
+           for on in (True, False)}
+    info(f"telemetry (c) cost [{gpu}]: ingest docs/s on {dps[True]:.1f} / off "
+         f"{dps[False]:.1f} (on/off {dps[True] / dps[False]:.4f})")
+    return launches
+
+
+def check_query_dispatches(pipe, queries) -> int:
+    """Phase 11 (d): one retrieve and one retrieve_rerank on phase 4's
+    pipeline; returns their flash_attn launches."""
+    from pathway_tpu_torch.engine import probes
+    from pathway_tpu_torch.models import flash_attention as FA
+
+    d0, r0 = probes.dispatch_counts(), probes.retrieval_backend_stats().get("dense", 0)
+    FA.flash_attn.launches = 0
+    pipe.retrieve(queries[:8], k=TOP_K)
+    pipe.retrieve_rerank(queries[8], k=RERANK_K)
+    launches = FA.flash_attn.launches
+    d1, r1 = probes.dispatch_counts(), probes.retrieval_backend_stats().get("dense", 0)
+    delta = {k: d1.get(k, 0) - d0.get(k, 0) for k in set(d0) | set(d1)}
+    delta = {k: v for k, v in delta.items() if v}
+    info(f"telemetry (d) queries: dispatch delta {delta}, dense retrieval queries +{r1 - r0}")
+    require(delta == {"fused_retrieve": 1, "fused_retrieve_rerank": 1} and r1 - r0 == 8,
+            "(d) one fused_retrieve and one fused_retrieve_rerank dispatch; dense +8 queries")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1877,6 +2129,12 @@ def main() -> int:
     check_spec_pool(dev, gpu, params, tok)
     spec = run_spec_serving(gpu, tok, common)
     dec = {n: dec[n] + spec[n] for n in dec}
+
+    # phase 11: telemetry on the card, metrics on (the default) against off
+    tele = run_telemetry_serving(dev, gpu, common)
+    dec = {n: dec[n] + tele[n] for n in dec}
+    seam_launches += run_telemetry_ingest(dev, gpu, docs)
+    launches += check_query_dispatches(out["pipe"], queries)
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",

@@ -12,9 +12,17 @@ the encoders and the decoder; and the answer LLM: a GPT-2-family decoder served 
 or paged KV pool, with a prefix KV cache and its host tier) with CUDA
 kernels for chunked prefill, paged decode and int8-weight products. Entry points run on CUDA unless given
 ``device="cpu"``. The package imports neither JAX nor ``pathway_tpu``.
+
+Telemetry is on by default, as in JAX: ``engine.probes`` holds the
+metrics registry and its ledgers (``serving_snapshot()``,
+``set_metrics(False)`` turns every write off), ``engine.tracing`` the
+per-request spans (``recent_traces``, ``configure(trace_dir=...)`` for a
+JSONL flight recorder), and ``internals.http_server`` the registry's
+OpenMetrics text.
 """
 
 from pathway_tpu_torch.device import resolve_device
+from pathway_tpu_torch.engine import probes, tracing
 from pathway_tpu_torch.models import (
     MINILM_L6,
     CrossEncoderModel,
@@ -35,5 +43,7 @@ __all__ = [
     "MINILM_L6",
     "SentenceEmbedderModel",
     "TransformerConfig",
+    "probes",
     "resolve_device",
+    "tracing",
 ]

@@ -1,2 +1,7 @@
 """Host-side engine pieces of the port: the prefix-cache radix tree and
-its host tier, the bounded stage worker, and the prefix ledger."""
+its host tier, the bounded stage worker, the metrics registry and its
+ledgers (``probes``), and the request spans (``tracing``)."""
+
+from pathway_tpu_torch.engine import probes, tracing
+
+__all__ = ["probes", "tracing"]

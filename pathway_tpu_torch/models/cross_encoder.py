@@ -5,6 +5,10 @@ The pair is encoded jointly ([CLS] q [SEP] d [SEP], BERT segment ids);
 the [CLS] hidden state goes through a tanh pooler and a scalar head.
 Unlike the embedder, params stay float32 and each product casts its
 weight to the compute dtype, as in the JAX cross-encoder.
+
+Each scoring dispatch charges the attention-bytes ledger (``encoder``
+path) and construction records the weights in the HBM ledger
+(``engine/probes.py``), as in JAX.
 """
 
 from __future__ import annotations
@@ -13,6 +17,9 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch.device import resolve_device
+from pathway_tpu_torch.engine.probes import record_hbm
+from pathway_tpu_torch.models.decoder import params_device_bytes
+from pathway_tpu_torch.models.embedder import _record_encoder_attn
 from pathway_tpu_torch.models.tokenizer import (
     HashTokenizer,
     load_tokenizer,
@@ -67,6 +74,9 @@ class CrossEncoderModel:
                 "b": torch.zeros((1,)),
             }
         self.params = map_params(lambda p: p.to(self.device), params)
+        # HBM ledger: the reranker's param footprint at construction
+        for dev, nbytes in params_device_bytes(self.params).items():
+            record_hbm("weights.reranker", nbytes, device=dev)
         self.head = map_params(lambda p: p.to(self.device, torch.float32), head)
 
     @classmethod
@@ -102,6 +112,7 @@ class CrossEncoderModel:
         ids, mask, types = pad_to_buckets(ids, mask, types)
         dev = [torch.from_numpy(a).to(self.device) for a in (ids, mask, types)]
         out = score_fn(self.params, self.head, dev[0], dev[1], self.cfg, dev[2])
+        _record_encoder_attn(self.cfg, int(ids.shape[0]), int(ids.shape[1]))
         return out, len(pairs)
 
     def score_resolve(self, handles) -> list[np.ndarray]:

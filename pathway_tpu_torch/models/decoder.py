@@ -1040,15 +1040,65 @@ def paged_block(pool: dict) -> int:
     return pool["kb"].shape[3]
 
 
-_POOL_KV_KEYS = ("k", "v", "kb", "vb", "k_scale", "v_scale", "kb_scale", "vb_scale",
-                 "block_tbl", "arena_k", "arena_v", "arena_k_scale", "arena_v_scale")
+# HBM ledger component -> pool keys it accounts (both layouts; absent keys
+# skip), the JAX package's table
+_HBM_COMPONENT_KEYS = {
+    "slot_pool": ("k", "v"),
+    "kv_blocks": ("kb", "vb"),
+    "kv_scales": ("k_scale", "v_scale", "kb_scale", "vb_scale"),
+    "block_table": ("block_tbl",),
+    "prefix_arena": ("arena_k", "arena_v"),
+    "arena_scales": ("arena_k_scale", "arena_v_scale"),
+}
+
+
+def _device_key(t: torch.Tensor) -> str:
+    """The HBM ledger's device label: the CUDA index, "0" on the CPU (the
+    JAX package's single-device label)."""
+    return str(t.device.index or 0) if t.is_cuda else "0"
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    else:
+        yield tree
+
+
+def params_device_bytes(params: dict) -> dict[str, int]:
+    """Param bytes per device (int8 payloads and their scales included):
+    the ``weights.*`` HBM ledger's source."""
+    out: dict[str, int] = {}
+    for t in _tensor_leaves(params):
+        dev = _device_key(t)
+        out[dev] = out.get(dev, 0) + t.numel() * t.element_size()
+    return out
+
+
+def pool_component_device_bytes(pool: dict) -> dict[str, dict[str, int]]:
+    """Device bytes of the pool's KV storage per ledger component and
+    device: ``{component: {device: bytes}}``. A dense pool reports
+    ``slot_pool``, ``kv_scales`` and ``prefix_arena`` (+ ``arena_scales``);
+    a paged one ``kv_blocks``, ``kv_scales`` and ``block_table``."""
+    out: dict[str, dict[str, int]] = {}
+    for component, keys in _HBM_COMPONENT_KEYS.items():
+        per_dev: dict[str, int] = {}
+        for c in keys:
+            if c in pool:
+                dev = _device_key(pool[c])
+                per_dev[dev] = per_dev.get(dev, 0) + pool[c].numel() * pool[c].element_size()
+        if any(per_dev.values()):
+            out[component] = per_dev
+    return out
 
 
 def pool_bytes(pool: dict) -> int:
     """Device bytes of the pool's KV storage: caches, prefix arena and int8
-    scales of a dense pool; block planes, scales and table of a paged one."""
-    return sum(pool[c].numel() * pool[c].element_size()
-               for c in _POOL_KV_KEYS if c in pool)
+    scales of a dense pool; block planes, scales and table of a paged one
+    (the sum of :func:`pool_component_device_bytes`)."""
+    return sum(sum(per_dev.values())
+               for per_dev in pool_component_device_bytes(pool).values())
 
 
 def paged_pool_init(params: dict, cfg: DecoderConfig, n_slots: int,

@@ -18,6 +18,13 @@ lands in pinned memory and is marked by a CUDA event, which
 ``embed_resolve`` waits on for that batch alone. ``pipeline=False`` runs
 the same stages inline in the caller's thread. Stage seconds go to
 ``engine/probes.record_stage``: tokenize, h2d, dispatch, drain.
+
+Telemetry, on by default as in JAX (``probes.set_metrics``): each
+pipelined batch carries a span (``engine/tracing.py``: admit, tokenize,
+h2d, dispatch, drain; ``recent_traces``), every encode counts an
+``embed_dispatch`` and every resolve an ``embed_drain`` device dispatch,
+each encode charges the attention-bytes ledger, and construction records
+the weights in the HBM ledger.
 """
 
 from __future__ import annotations
@@ -29,8 +36,16 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch.device import resolve_device
+from pathway_tpu_torch.engine import tracing
 from pathway_tpu_torch.engine.async_runtime import StageWorker
-from pathway_tpu_torch.engine.probes import record_stage
+from pathway_tpu_torch.engine.probes import (
+    record_attn,
+    record_device_dispatch,
+    record_hbm,
+    record_stage,
+)
+from pathway_tpu_torch.models import flash_attention as FA
+from pathway_tpu_torch.models.decoder import params_device_bytes
 from pathway_tpu_torch.models.tokenizer import (
     HashTokenizer,
     load_tokenizer,
@@ -69,6 +84,20 @@ def embed_fn(params, input_ids, attention_mask, cfg: TransformerConfig):
     return pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-9)
 
 
+def _record_encoder_attn(cfg: TransformerConfig, batch: int, seq: int,
+                         flash: bool = True) -> None:
+    """Charge one encoder dispatch to the attention-bytes ledger (an
+    accounting model per layer x batch, see ``probes.record_attn``). The
+    port's encoder attention is always the ``flash_attn`` seam."""
+    dense = cfg.layers * FA.attn_bytes_dense(seq, seq, cfg.heads, batch=batch)
+    if flash:
+        paid = cfg.layers * FA.attn_bytes_flash(seq, seq, cfg.heads, cfg.head_dim,
+                                                batch=batch)
+        record_attn("encoder", paid, saved=max(0, dense - paid))
+    else:
+        record_attn("encoder", dense)
+
+
 def _renorm(v: np.ndarray) -> np.ndarray:
     """Restore exact unit norm after the float16 transport quantization."""
     norms = np.linalg.norm(v, axis=-1, keepdims=True)
@@ -82,12 +111,13 @@ class _PendingEmbed:
     and returns ``(f16 output, rows, CUDA event or None)``. A stage's
     failure is raised here, at resolve time."""
 
-    __slots__ = ("_event", "_value", "_error")
+    __slots__ = ("_event", "_value", "_error", "span")
 
     def __init__(self) -> None:
         self._event = threading.Event()
         self._value = None
         self._error: BaseException | None = None
+        self.span = tracing.NULL_SPAN  # replaced by _IngestPipeline.submit
 
     def wait(self, timeout: float | None = None):
         if not self._event.wait(timeout):
@@ -140,6 +170,8 @@ class _IngestPipeline:
                  queue_bound: int, fused_h2d: bool):
         self._model = model
         self._fused = bool(fused_h2d)
+        # tags this pipeline's batch spans in the trace ring
+        self._trace_tag = f"embed:{id(model):x}"
         dev = model.device
         self._stream = None
         if dev.type == "cuda":
@@ -154,6 +186,8 @@ class _IngestPipeline:
 
     def submit(self, texts: list[str]) -> _PendingEmbed:
         handle = _PendingEmbed()
+        handle.span = tracing.start_span("embed", server=self._trace_tag,
+                                         texts=len(texts))
         self._tokenize.submit((texts, handle))
         return handle
 
@@ -162,11 +196,14 @@ class _IngestPipeline:
         try:
             model = self._model
             t0 = time.perf_counter()
+            handle.span.event("admit")
             ids, mask = model.tokenizer(texts, max_length=model.max_length)
             ids, mask = pad_to_buckets(ids, mask)
             record_stage("tokenize", time.perf_counter() - t0)
+            handle.span.event("tokenize", texts=len(texts))
         except BaseException as exc:  # noqa: BLE001 - raised at resolve
             handle._error = exc
+            handle.span.finish(error=True)
             handle._event.set()
             return
         # blocks while `depth` batches wait for dispatch: the backpressure
@@ -176,16 +213,17 @@ class _IngestPipeline:
         ids, mask, n, handle = item
         try:
             if self._stream is None:
-                handle._value = self._dispatch_cpu(ids, mask, n)
+                handle._value = self._dispatch_cpu(ids, mask, n, handle.span)
             else:
                 with torch.cuda.device(self._stream.device), \
                         torch.cuda.stream(self._stream):
-                    handle._value = self._dispatch_cuda(ids, mask, n)
+                    handle._value = self._dispatch_cuda(ids, mask, n, handle.span)
         except BaseException as exc:  # noqa: BLE001 - raised at resolve
             handle._error = exc
+            handle.span.finish(error=True)
         handle._event.set()
 
-    def _dispatch_cpu(self, ids, mask, n):
+    def _dispatch_cpu(self, ids, mask, n, span):
         model = self._model
         t0 = time.perf_counter()
         if self._fused:
@@ -195,11 +233,15 @@ class _IngestPipeline:
             dev_ids, dev_mask = torch.from_numpy(ids), torch.from_numpy(mask)
         t1 = time.perf_counter()
         record_stage("h2d", t1 - t0)
+        span.event("h2d")
         out = embed_fn(model.params, dev_ids, dev_mask, model.cfg).half()
+        record_device_dispatch("embed_dispatch")
+        _record_encoder_attn(model.cfg, int(ids.shape[0]), int(ids.shape[1]))
         record_stage("dispatch", time.perf_counter() - t1)
+        span.event("dispatch", rows=n)
         return out, n, None
 
-    def _dispatch_cuda(self, ids, mask, n):
+    def _dispatch_cuda(self, ids, mask, n, span):
         model, stream = self._model, self._stream
         t0 = time.perf_counter()
         B, S = ids.shape
@@ -219,12 +261,16 @@ class _IngestPipeline:
         self._ring.release(slot, staged)
         t1 = time.perf_counter()
         record_stage("h2d", t1 - t0)
+        span.event("h2d")
         out = embed_fn(model.params, dev_ids, dev_mask, model.cfg).half()
+        record_device_dispatch("embed_dispatch")
+        _record_encoder_attn(model.cfg, B, S)
         host_out = torch.empty(out.shape, dtype=torch.float16, pin_memory=True)
         host_out.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
         done.record(stream)
         record_stage("dispatch", time.perf_counter() - t1)
+        span.event("dispatch", rows=n)
         return host_out, n, done
 
     def close(self) -> None:
@@ -266,6 +312,9 @@ class SentenceEmbedderModel:
             params = init_params(seed, cfg)
         params = map_params(lambda p: p.to(self.device), params)
         self.params = cast_params_for_inference(params, cfg)
+        # HBM ledger: the embedder's param footprint at placement
+        for dev, nbytes in params_device_bytes(self.params).items():
+            record_hbm("weights.embedder", nbytes, device=dev)
         self.pipeline = bool(pipeline)
         self.pipeline_depth = int(pipeline_depth)
         self.pipeline_queue = int(pipeline_queue)
@@ -314,6 +363,11 @@ class SentenceEmbedderModel:
         if pipe is not None:
             pipe.close()
 
+    def recent_traces(self, n: int | None = None) -> list[dict]:
+        """Completed per-batch spans of this model's ingest pipeline (oldest
+        first); empty on the serial path and with metrics off."""
+        return tracing.recent_traces(server=f"embed:{id(self):x}", n=n)
+
     def tokenize(self, texts: list[str]):
         """Bucket-padded (ids, mask) as int32 tensors on the device."""
         ids, mask = self.tokenizer(texts, max_length=self.max_length)
@@ -330,7 +384,10 @@ class SentenceEmbedderModel:
         """Embed without leaving the device: (f32 (B', H) tensor, real row
         count), B' being the row bucket."""
         ids, mask = self.tokenize(texts)
-        return embed_fn(self.params, ids, mask, self.cfg), len(texts)
+        out = embed_fn(self.params, ids, mask, self.cfg)
+        record_device_dispatch("embed_dispatch")
+        _record_encoder_attn(self.cfg, int(ids.shape[0]), int(ids.shape[1]))
+        return out, len(texts)
 
     def embed_submit(self, texts: list[str]):
         """Enqueue one batch; returns a handle for :meth:`embed_resolve`.
@@ -350,6 +407,8 @@ class SentenceEmbedderModel:
         t2 = time.perf_counter()
         record_stage("h2d", t2 - t1)
         out = embed_fn(self.params, ids, mask, self.cfg).half()
+        record_device_dispatch("embed_dispatch")
+        _record_encoder_attn(self.cfg, int(ids.shape[0]), int(ids.shape[1]))
         record_stage("dispatch", time.perf_counter() - t2)
         return out, len(texts)
 
@@ -366,7 +425,12 @@ class SentenceEmbedderModel:
             if done is not None:
                 done.synchronize()
             out.append(_renorm(vec[:n].float().cpu().numpy()))
+        record_device_dispatch("embed_drain")
         record_stage("drain", time.perf_counter() - t0)
+        for h in handles:
+            if isinstance(h, _PendingEmbed):
+                h.span.event("drain")
+                h.span.finish()
         return out
 
     def __call__(self, texts: list[str]) -> np.ndarray:

@@ -11,7 +11,9 @@ brute-force index matrix) and the documents' token ids. A query runs
 PyTorch runs eagerly, so the JAX package's one-executable-per-query
 becomes one stream of launches per query, with no host sync before the
 final copy. The cascade, MaxSim, LLM-rerank and sharded branches of the
-JAX pipeline are not part of this path.
+JAX pipeline are not part of this path. Each query counts its device
+dispatch (``fused_retrieve`` / ``fused_retrieve_rerank``) and ``retrieve``
+the queries its dense index answered, as in JAX (``engine/probes.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pathway_tpu_torch.engine.probes import record_device_dispatch, record_retrieval_backend
 from pathway_tpu_torch.models.cross_encoder import score_fn
 from pathway_tpu_torch.models.embedder import embed_fn
 from pathway_tpu_torch.models.tokenizer import PAD_ID, SEP_ID, pad_to_buckets
@@ -207,6 +210,7 @@ class FusedRAGPipeline:
         """(scores (Qb, k), idx (Qb, k)) on the device; Qb is the row bucket."""
         ids, mask, _ = self._tokenize_queries(texts)
         e = self.embedder
+        record_device_dispatch("fused_retrieve")
         emb = embed_fn(e.params, ids, mask, e.cfg)
         return search_corpus(
             self.index._corpus, self.index._valid, emb,
@@ -217,8 +221,9 @@ class FusedRAGPipeline:
     def retrieve(self, texts: list[str], k: int):
         """[(key, score)] per query, best first."""
         scores, idx = self.retrieve_device(texts, k)
-        return self.index.resolve(scores.cpu().numpy(), idx.cpu().numpy(),
-                                  len(texts), k)
+        scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+        record_retrieval_backend("dense", len(texts))
+        return self.index.resolve(scores, idx, len(texts), k)
 
     def _rerank(self, texts: list[str], k: int):
         if self.reranker is None:
@@ -228,6 +233,7 @@ class FusedRAGPipeline:
             max_length=min(self.embedder.max_length, self._rerank_q_budget),
         )
         e, r = self.embedder, self.reranker
+        record_device_dispatch("fused_retrieve_rerank")
         return _retrieve_rerank(
             e.params, ids, mask, self.index._corpus, self.index._valid,
             self._doc_tokens, self._doc_lens, r.params, r.head, e.cfg, r.cfg,

@@ -15,16 +15,21 @@ top-k (counterpart of ``pathway_tpu/ops/knn.py``).
   (One difference remains: ``lax.top_k`` ranks +0.0 above -0.0, the sort
   treats them as equal.)
 * Deletes are O(1) swaps with the last row (the index is unordered).
+* Appends, searches and drains count device dispatches
+  (``engine/probes.record_device_dispatch``), and the host key bookkeeping
+  of an append is the ``append`` stage, as in JAX.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import numpy as np
 import torch
 
 from pathway_tpu_torch.device import resolve_device
+from pathway_tpu_torch.engine.probes import record_device_dispatch, record_stage
 from pathway_tpu_torch.ops import canonical_metric, next_pow2, prep_host_vectors
 
 _NEG_INF = -1e30
@@ -143,8 +148,10 @@ class BruteForceKnnIndex:
         self.capacity = new_cap
 
     # ------------------------------------------------------------------ update
-    def _append(self, keys: list, v: torch.Tensor, normalize: bool) -> None:
-        """Write ``v`` (m, d) at the cursor, in place, and mark it valid."""
+    def _append(self, keys: list, v: torch.Tensor, normalize: bool,
+                kind: str = "knn_append") -> None:
+        """Write ``v`` (m, d) at the cursor, in place, and mark it valid:
+        one device dispatch of ``kind``."""
         m = len(keys)
         self._grow(self.n + m)
         v = v[:m].float()
@@ -153,12 +160,17 @@ class BruteForceKnnIndex:
         start = self.n
         self._corpus[start : start + m] = v.to(self.dtype)
         self._valid[start : start + m] = True
+        record_device_dispatch(kind)
         self._record_keys(keys, start)
 
     def _record_keys(self, keys: list, start: int) -> None:
+        """The host half of an append (key -> slot), timed as the
+        ``append`` stage."""
+        t0 = time.perf_counter()
         self._slot_of.update(zip(keys, range(start, start + len(keys))))
         self._keys.extend(keys)
         self.n += len(keys)
+        record_stage("append", time.perf_counter() - t0)
 
     def add(self, keys: list, vectors) -> None:
         """Host vectors (unit-normalised here for cosine)."""
@@ -204,7 +216,8 @@ class BruteForceKnnIndex:
         if attention_mask is None:
             attention_mask = (input_ids != pad_id).to(torch.int32)
         emb = embed(params, input_ids, attention_mask, cfg)
-        self._append(keys, emb, normalize=False)
+        self._append(keys, emb, normalize=False,
+                     kind="knn_embed_append_query" if query_rows else "knn_embed_append")
         if not query_rows:
             return emb
         scores, idx = search_corpus(
@@ -238,10 +251,12 @@ class BruteForceKnnIndex:
         q = q.to(self.device)
         if q.dim() == 1:
             q = q[None, :]
-        return search_corpus(
+        out = search_corpus(
             self._corpus, self._valid, q, min(k, self.capacity), self.metric,
             normalize=self.metric == "cos", f32_scores=self.f32_scores,
         )
+        record_device_dispatch("knn_search")
+        return out
 
     def resolve(self, scores, idx, nq: int, k: int) -> list[list[tuple[Any, float]]]:
         """Map fetched (host) score/index arrays back to [(key, score)] rows."""
@@ -268,7 +283,9 @@ class BruteForceKnnIndex:
         if self.n == 0:
             return [[] for _ in range(nq)]
         scores, idx = self.search_device(queries, k)
-        return self.resolve(scores.cpu().numpy(), idx.cpu().numpy(), nq, k)
+        scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+        record_device_dispatch("knn_drain")
+        return self.resolve(scores, idx, nq, k)
 
     def __len__(self) -> int:
         return self.n

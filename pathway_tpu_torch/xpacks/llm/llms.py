@@ -28,6 +28,15 @@ acceptance rate stays low. Chunk-steps autotune, also on by default,
 shrinks the decode chunk under queue pressure and sizes it against the
 observed arrival gap.
 
+Telemetry is on by default, as ``PATHWAY_TPU_METRICS`` is in JAX: each
+request carries a span (``engine/tracing.py``: admit, prefix match,
+prefill, decode chunks, first token, drain) whose finish feeds the TTFT,
+TPOT, queue-wait and e2e histograms of ``engine/probes.py``; the server
+records the HBM ledger at pool build, attention bytes per admission and
+prefill piece, occupancy and lane gauges every 8th chunk, and the KV
+fragmentation gauge at admission and release. ``probes.set_metrics(False)``
+turns it all off; the token streams do not change.
+
 Behaviour is set by constructor arguments whose defaults are the JAX flag
 defaults, for every feature the server carries. The JAX server's
 disaggregated lanes, tenant scheduling and serving mesh are not ported;
@@ -47,6 +56,7 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch.device import resolve_device, to_device
+from pathway_tpu_torch.engine import probes, tracing
 from pathway_tpu_torch.engine.async_runtime import StageWorker
 from pathway_tpu_torch.engine.prefix_cache import PrefixCache
 from pathway_tpu_torch.engine.probes import (
@@ -56,6 +66,7 @@ from pathway_tpu_torch.engine.probes import (
     record_stage,
 )
 from pathway_tpu_torch.models import decoder as D
+from pathway_tpu_torch.models import flash_attention as FA
 from pathway_tpu_torch.ops import next_pow2
 
 # Serving failures travel the string response channel as a reserved-prefix
@@ -161,6 +172,10 @@ class DecoderChat:
             self.params = D.quantize_params(params, cfg)
         else:
             self.params = D.cast_params_for_inference(params, cfg)
+        # HBM ledger: the decoder's param footprint at placement (int8
+        # payloads and scales when quantized)
+        for dev, nbytes in D.params_device_bytes(self.params).items():
+            probes.record_hbm("weights.decoder", nbytes, device=dev)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.max_new_tokens = int(max_new_tokens)
@@ -218,6 +233,13 @@ class DecoderChat:
     def close(self) -> None:
         if self._server is not None:
             self._server.shutdown()
+
+    def recent_traces(self, n: int | None = None) -> list[dict]:
+        """Completed request spans of the continuous server (empty when
+        batch-static, and with metrics off)."""
+        if self._server is None:
+            return []
+        return self._server.recent_traces(n=n)
 
     def _format_prompt(self, messages) -> str:
         if isinstance(messages, str):
@@ -322,7 +344,7 @@ class _PendingCompletion:
     """One in-flight continuous-batching request (host-side record)."""
 
     __slots__ = ("ids", "max_new", "tokens", "done", "text", "submitted_at",
-                 "finished_at", "first_token_at", "error_reason")
+                 "finished_at", "first_token_at", "error_reason", "span")
 
     def __init__(self, ids: list, max_new: int):
         self.ids = ids
@@ -334,6 +356,7 @@ class _PendingCompletion:
         self.finished_at: float | None = None
         self.first_token_at: float | None = None  # first token DRAINED
         self.error_reason: str | None = None
+        self.span = tracing.NULL_SPAN  # replaced by submit()
 
 
 _UNPORTED = (
@@ -405,6 +428,8 @@ class _ContinuousServer:
         self.cfg = cfg
         self.params = params
         self.device = params["wte"].device
+        # tags this server's request spans and gauges
+        self._trace_tag = f"decode:{id(self):x}"
         self.tokenizer = tokenizer
         self.n_slots = int(n_slots)
         self.chunk_steps = int(chunk_steps)
@@ -451,6 +476,12 @@ class _ContinuousServer:
         self._allocator = None
         self._total_blocks = 0
         self._slot_blocks: dict[int, list] = {}
+        # slot -> KV columns its request can reach: the numerator of the
+        # fragmentation gauge, dense and paged
+        self._slot_cover: dict[int, int] = {}
+        self._kv_frag = 0.0
+        self._frag_sum = 0.0
+        self._frag_n = 0
         if self.paged_kv:
             # a pow2 multiple of the prefill chunk; cache_len rounds up to
             # whole blocks (table rows address whole blocks)
@@ -518,6 +549,13 @@ class _ContinuousServer:
                        if c in self.pool)
             self.kv_bytes_saved = base - D.pool_bytes(self.pool)
             record_spec("kv_bytes_saved", self.kv_bytes_saved)
+        # HBM ledger, once at pool build: each pool component and the
+        # weights the server decodes with
+        for comp, per_dev in D.pool_component_device_bytes(self.pool).items():
+            for dev, nbytes in per_dev.items():
+                probes.record_hbm(comp, nbytes, device=dev)
+        for dev, nbytes in D.params_device_bytes(self.params).items():
+            probes.record_hbm("weights.decoder", nbytes, device=dev)
         # chunk-steps autotune: the halvings of chunk_steps down to 4, all
         # within the slack above
         self.chunk_autotune = True if chunk_autotune is None else bool(chunk_autotune)
@@ -546,7 +584,10 @@ class _ContinuousServer:
         self.wake = threading.Event()
         self._stop = False
         self.failed: BaseException | None = None
+        # steps / slot_steps_total: useful lane-steps over dispatched ones
+        # (occupancy())
         self.stats = {"chunks": 0, "admitted": 0, "decode_steps": 0,
+                      "steps": 0, "slot_steps_total": 0,
                       "prefill_chunks": 0, "admit_dispatches": 0,
                       "prefix_hit_tokens": 0, "prefix_miss_tokens": 0,
                       "prefix_hit_requests": 0, "prefix_requests": 0,
@@ -556,6 +597,7 @@ class _ContinuousServer:
                       "spec_verify_steps": 0}
         # in-flight chunk records, oldest first
         self._inflight: deque = deque()
+        self._occ_published = 0  # the chunk count at the last gauge write
         self.thread = threading.Thread(target=self._run_safe, daemon=True,
                                        name="pathway:decoder-serve")
         self.thread.start()
@@ -591,20 +633,76 @@ class _ContinuousServer:
         return PrefixCache(**kw)
 
     def _release_slot_kv(self, slot: int) -> None:
-        """A freed paged slot's table row points at the sentinel BEFORE its
-        blocks return to the allocator, so no stale row ever references a
-        block that a new owner writes. On shared prefix blocks the release
-        drops only the slot's own pin; the tree's pin keeps them."""
+        """Drop a freed slot's fragmentation cover. A freed paged slot's
+        table row points at the sentinel BEFORE its blocks return to the
+        allocator, so no stale row ever references a block that a new owner
+        writes. On shared prefix blocks the release drops only the slot's
+        own pin; the tree's pin keeps them."""
+        self._slot_cover.pop(slot, None)
         if self._allocator is not None:
             row = self._slot_blocks.pop(slot, None)
             if row:
                 M = self.cache_len // self.paged_block
                 self.pool = D.paged_table_set(self.pool, slot, np.zeros((M,), np.int32))
                 self._allocator.release(row)
+        self._update_fragmentation()
+
+    def _update_fragmentation(self) -> None:
+        """Refresh the ``kv_fragmentation`` gauge: 1 - reachable / allocated
+        KV columns over the admitted slots. A dense slot allocates the whole
+        ``cache_len`` row, a paged slot only its table's blocks."""
+        covers = self._slot_cover
+        if not covers:
+            frag = 0.0
+        else:
+            needed = sum(covers.values())
+            if self.paged_kv:
+                alloc = sum(len(self._slot_blocks.get(s, ())) * self.paged_block
+                            for s in covers)
+            else:
+                alloc = len(covers) * self.cache_len
+            frag = max(0.0, 1.0 - needed / alloc) if alloc else 0.0
+            self._frag_sum += frag
+            self._frag_n += 1
+        self._kv_frag = frag
+        probes.record_kv_fragmentation(frag, server=self._trace_tag)
+
+    def kv_fragmentation(self) -> dict:
+        """Current and admission-averaged stranded-KV fraction."""
+        return {"current": float(self._kv_frag),
+                "mean": (self._frag_sum / self._frag_n) if self._frag_n else 0.0}
+
+    def occupancy(self) -> float:
+        """Useful lane-steps over dispatched lane-steps (slots x steps) of
+        every decode chunk so far: the share of the pool's decode compute
+        that served live lanes within their budgets."""
+        return self.stats["steps"] / max(self.stats["slot_steps_total"], 1)
+
+    def recent_traces(self, n: int | None = None) -> list[dict]:
+        """Completed request spans of THIS server (oldest first) from the
+        bounded trace ring; empty with metrics off."""
+        return tracing.recent_traces(server=self._trace_tag, n=n)
+
+    def _record_attn(self, path: str, n_q: int, n_k: int, batch: int = 1,
+                     cached_kv: bool = False) -> None:
+        """Charge the attention-bytes ledger for one prefill dispatch (an
+        accounting model, see ``probes.record_attn``). ``cached_kv=True``
+        bills KV reads at the pool's storage width (int8 under kv_quant)."""
+        cfg = self.cfg
+        dense = cfg.layers * FA.attn_bytes_dense(n_q, n_k, cfg.heads, batch=batch)
+        if self.flash_prefill:
+            item = 1 if (cached_kv and self.kv_quant) else torch.finfo(cfg.dtype).bits // 8
+            fl = cfg.layers * FA.attn_bytes_flash(n_q, n_k, cfg.heads, cfg.head_dim,
+                                                  batch=batch, itemsize=item)
+            probes.record_attn(path, fl, saved=dense - fl)
+        else:
+            probes.record_attn(path, dense)
 
     def _fail_request(self, req, reason: str) -> None:
         req.error_reason = reason
         req.text = None
+        probes.REGISTRY.counter_add("requests_isolated", outcome="failed")
+        req.span.finish(error=True, tokens=len(req.tokens))
         req.done.set()
 
     def _run_safe(self):
@@ -628,10 +726,14 @@ class _ContinuousServer:
             for req in pending:
                 if not req.done.is_set():
                     req.text = None
+                    req.span.finish(error=True, tokens=len(req.tokens))
                     req.done.set()
 
     def submit(self, prompt_ids: list, max_new: int) -> _PendingCompletion:
         req = _PendingCompletion(list(prompt_ids), int(max_new))
+        req.span = tracing.start_span(
+            "decode", server=self._trace_tag, prompt_tokens=len(req.ids),
+            max_new=req.max_new, tenant="default")
         with self.lock:
             if self.failed is not None:
                 raise RuntimeError(f"decoder serving loop died: {self.failed!r}")
@@ -683,9 +785,14 @@ class _ContinuousServer:
         whole-prompt admission."""
         e = req.ids[-self.max_prompt_bucket:]
         n = len(e)
+        req.span.event("admit", slot=int(slot))
         if self.paged_kv:
             self._admit_one_paged(slot, req, e, n)
             return
+        # a dense slot holds the whole cache_len row whatever it reaches
+        self._slot_cover[slot] = min(
+            self.cache_len, n + req.max_new + (self.pipeline_depth + 1) * self._slack)
+        self._update_fragmentation()
         m_hit, arena_ids, node = self._prefix_match(req, e, n)
         if m_hit:
             # seed columns [0, m_hit * B) from the arena (a copy, no
@@ -743,6 +850,8 @@ class _ContinuousServer:
         self.stats["prefix_requests"] += 1
         self.stats["prefix_hit_tokens"] += hit_t
         self.stats["prefix_miss_tokens"] += n - hit_t
+        req.span.event("prefix_match", hit_blocks=int(m_hit), hit_tokens=int(hit_t),
+                       miss_tokens=int(n - hit_t))
         # the tier-2 continuation starts at the true matched depth m
         self._t2_probe(req, e, n, m, node)
         return m_hit, ids, node
@@ -787,13 +896,14 @@ class _ContinuousServer:
         need = min(per_slot, -(-cover // B))
         try:
             fresh = self._allocator.alloc(need - m_hit)
-        except D.PagedPoolOOM:
+        except D.PagedPoolOOM as oom:
             self.slots[slot] = None
             with self.lock:
                 self.free.append(int(slot))
             if need - m_hit > self._total_blocks - 1:
                 self._fail_request(req, "paged_oom")  # can never fit
                 return
+            req.span.event("paged_oom", want=int(oom.want), free=int(oom.free))
             with self.lock:
                 self.queue.appendleft(req)
             return
@@ -804,6 +914,7 @@ class _ContinuousServer:
             self._allocator.pin(shared)
         row = shared + fresh
         self._slot_blocks[slot] = row
+        self._slot_cover[slot] = cover
         row_arr = np.zeros((per_slot,), np.int32)
         row_arr[:len(row)] = row
         n_cached = m_hit * B
@@ -818,6 +929,7 @@ class _ContinuousServer:
             meta["insert"] = (req, e, 0)
         self._pending_prefill[slot] = (pieces, n, meta)
         self.stats["admitted"] += 1
+        self._update_fragmentation()
 
     def _prefill_piece(self, slot: int, active) -> bool:
         """Dispatch one pending prefill piece for ``slot``; False when the
@@ -834,6 +946,11 @@ class _ContinuousServer:
             to_device(p_pos, dev), self.pool, slot, off, n_prompt, self.cfg,
             first=first, last=last, last_col=lc, flash=self.flash_prefill)
         self.stats["prefill_chunks"] += 1
+        self._record_attn("chunk", int(p_ids.shape[1]), self.cache_len, cached_kv=True)
+        req_p = self.slots[slot]
+        if req_p is not None:
+            req_p.span.event("prefill_chunk", offset=int(off), width=int(p_ids.shape[1]),
+                             last=bool(last))
         if last:
             del self._pending_prefill[slot]
             active[slot] = True
@@ -866,10 +983,15 @@ class _ContinuousServer:
             else:
                 self.pool = D.pool_admit_batch(self.params, ids, mask, self.pool,
                                                slots, self.cfg, flash=self.flash_prefill)
+            s = part[0][3]
+            self._record_attn("prefill", s, s, batch=len(part))
             self.stats["admit_dispatches"] += 1
             for slot in slots:
                 active[slot] = True
-        for slot, _, _, _, ins in direct:
+        for slot, _, mask, _, ins in direct:
+            req_d = self.slots[slot]
+            if req_d is not None:
+                req_d.span.event("prefill", tokens=int(mask.sum()))
             if ins is not None:
                 self._prefix_insert(slot, *ins)
 
@@ -894,6 +1016,7 @@ class _ContinuousServer:
             node, first_new, new_ids = self.prefix.insert(e)
             if new_ids:
                 self.pool = D.kv_extract(self.pool, slot, base + first_new * B, new_ids)
+                probes.record_device_dispatch("prefix_extract")
         old = self._prefix_nodes.get(req)
         self.prefix.acquire(node)
         if old is not None:
@@ -1102,10 +1225,18 @@ class _ContinuousServer:
         self._inflight.append((payload, active.copy(), list(self.slots)))
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += lane_steps
+        self.stats["slot_steps_total"] += self.n_slots * lane_steps
+        # the occupancy and lane gauges on the 1st and every 8th chunk: a
+        # gauge write per chunk is overhead on the dispatch path
+        if (self.stats["chunks"] & 7) == 1:
+            self._publish_occupancy(active)
         for slot in np.nonzero(active)[0]:
             req = self.slots[slot]
             if req is None:
                 continue
+            # useful lane-steps only: a lane decoding past its budget while
+            # its tokens drain is busy but wasted
+            self.stats["steps"] += min(lane_steps, max(0, req.max_new - self._sent[slot]))
             self._sent[slot] += lane_steps
             if self.eager_refill and self._sent[slot] >= req.max_new:
                 # no later chunk can add to this answer: free the slot now;
@@ -1117,6 +1248,18 @@ class _ContinuousServer:
                 with self.lock:
                     self.free.append(int(slot))
         return True
+
+    def _publish_occupancy(self, active) -> None:
+        """Write the occupancy and lane gauges. JAX writes them on the 1st
+        and every 8th chunk only; the port also writes them when the loop
+        goes idle, so a reader after a burst sees its final occupancy."""
+        tag = self._trace_tag
+        probes.REGISTRY.gauge_set("serving_occupancy", self.occupancy(), server=tag)
+        probes.REGISTRY.gauge_set("lane_occupancy", float(len(self._pending_prefill)),
+                                  server=tag, lane="prefill")
+        probes.REGISTRY.gauge_set("lane_occupancy", float(active.sum()),
+                                  server=tag, lane="decode")
+        self._occ_published = self.stats["chunks"]
 
     def _spec_account(self, emit, lanes) -> None:
         """Count one drained spec dispatch (``emit`` (n_cycles, B), the
@@ -1158,28 +1301,32 @@ class _ContinuousServer:
         chunk's steps, or each spec cycle's first ``n_emit`` tokens."""
         payload, was_active, snap_slots = rec
         lanes = np.nonzero(was_active)[0]
-        if isinstance(payload, tuple):
+        spec = isinstance(payload, tuple)
+        if spec:
             toks, emit = (h.numpy() for h in payload)
             self._spec_account(emit, lanes)
             first = np.arange(toks.shape[2])[None, :] < emit[:, :, None]
-
-            def stream(slot):
-                return toks[:, slot][first[:, slot]].tolist()
+            cyc = emit.shape[0]
         else:
             toks = payload.numpy()
-
-            def stream(slot):
-                return toks[:, slot].tolist()
         for slot in lanes:
             req = snap_slots[slot]
             if req is None or req.done.is_set():
                 continue
-            for t in stream(slot):
+            if spec:
+                stream = toks[:, slot][first[:, slot]].tolist()
+                req.span.event("spec_cycles", cycles=int(cyc), emitted=len(stream),
+                               accepted=len(stream) - int(cyc))
+            else:
+                stream = toks[:, slot].tolist()
+                req.span.event("decode_chunk", steps=len(stream))
+            for t in stream:
                 if self.eos_id is not None and t == self.eos_id:
                     req.max_new = 0  # stream closed
                     break
                 if not req.tokens:
                     req.first_token_at = time.perf_counter()
+                    req.span.event("first_token")
                 req.tokens.append(int(t))
                 if len(req.tokens) >= req.max_new:
                     break
@@ -1194,8 +1341,11 @@ class _ContinuousServer:
                     with self.lock:
                         self.free.append(int(slot))
                 self._prefix_release(req)
-                # a waiter woken by done finds the ledger flushed
+                # a waiter woken by done finds the ledger flushed and the
+                # span recorded
                 self._spec_flush()
+                req.span.event("drain")
+                req.span.finish(tokens=len(req.tokens))
                 req.done.set()
 
     def _loop(self):
@@ -1232,6 +1382,8 @@ class _ContinuousServer:
                 # idle, or only pieces waiting for a staging promotion
                 # (the stage worker sets wake)
                 self._spec_flush()
+                if self._occ_published != self.stats["chunks"]:
+                    self._publish_occupancy(active)
                 self.wake.clear()
                 self.wake.wait(timeout=0.002 if held else 0.05)
                 continue
@@ -1245,6 +1397,8 @@ class _ContinuousServer:
             t.join(timeout=timeout)
         if self._promote_worker is not None:
             self._promote_worker.close()
+        # the loop thread is down: every span it will write is written
+        tracing.flush_traces()
 
 
 def _host_blob(t: torch.Tensor) -> np.ndarray:

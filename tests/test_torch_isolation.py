@@ -1,5 +1,6 @@
 """The port stands alone: no module of pathway_tpu_torch, nor
-chip_smoke.py or tools/, imports JAX or the JAX package; every CUDA source
+chip_smoke.py or tools/, imports JAX or the JAX package or reads a
+``PATHWAY_TPU_*`` environment variable; every CUDA source
 is bound in kernels.py, and the C++ tokenizer source lives in the port;
 entry points (the embedder and reranker seams and the checkpoint loaders'
 entry points included) refuse to run on the CPU unless asked; CPU tensors
@@ -68,8 +69,52 @@ def test_source_scan_sees_the_whole_package():
             "paged_attention.py", "wq_matmul.py", "bpe.py", "llms.py",
             "prefix_cache.py", "probes.py", "async_runtime.py",
             "checkpoint.py", "embedders.py", "rerankers.py", "tokenizer.py",
-            "embedder.py"} <= names
+            "embedder.py", "tracing.py", "http_server.py"} <= names
     assert ROOT / "pathway_tpu_torch" / "native" / "__init__.py" in _sources()
+    for rel in ("engine/tracing.py", "internals/http_server.py"):
+        assert ROOT / "pathway_tpu_torch" / rel in _sources()
+
+
+def _environ_reads(tree):
+    """Names read from the environment: ``os.environ[...]``,
+    ``os.environ.get(...)`` / ``.setdefault`` / ``.pop``, ``os.getenv(...)``
+    and ``environ`` imported bare, with a constant name."""
+    def is_environ(node):
+        return ((isinstance(node, ast.Attribute) and node.attr == "environ")
+                or (isinstance(node, ast.Name) and node.id == "environ"))
+
+    for node in ast.walk(tree):
+        arg = None
+        if isinstance(node, ast.Subscript) and is_environ(node.value):
+            arg = node.slice
+        elif isinstance(node, ast.Call) and node.args:
+            f = node.func
+            if isinstance(f, ast.Attribute) and is_environ(f.value):
+                arg = node.args[0]
+            elif (isinstance(f, ast.Attribute) and f.attr == "getenv") or (
+                    isinstance(f, ast.Name) and f.id == "getenv"):
+                arg = node.args[0]
+        if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+            yield arg.value
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_port_reads_no_pathway_tpu_environment_variable(path):
+    """The port's switches are constructor arguments and module functions
+    (``probes.set_metrics``, ``tracing.configure``), never a JAX flag."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [n for n in _environ_reads(tree) if n.startswith("PATHWAY_TPU_")]
+    assert not bad, f"{path.name} reads {bad}"
+
+
+def test_environment_scan_sees_every_read_form():
+    src = ("import os\nfrom os import environ, getenv\n"
+           "a = os.environ['PATHWAY_TPU_A']\nb = os.environ.get('PATHWAY_TPU_B')\n"
+           "c = os.getenv('PATHWAY_TPU_C', '1')\nd = environ['PATHWAY_TPU_D']\n"
+           "e = getenv('PATHWAY_TPU_E')\nf = os.environ.get('HOME')\n")
+    assert sorted(_environ_reads(ast.parse(src))) == [
+        "HOME", "PATHWAY_TPU_A", "PATHWAY_TPU_B", "PATHWAY_TPU_C", "PATHWAY_TPU_D",
+        "PATHWAY_TPU_E"]
 
 
 def test_native_tokenizer_source_is_the_ports_own():
