@@ -106,7 +106,33 @@ without printing a result:
    attention bytes per batch that reached the device, docs/s on against
    off; (d) one ``retrieve`` and one ``retrieve_rerank`` on phase 4's
    pipeline add one dispatch each and 8 dense retrieval queries; (e) the
-   JSONL flight recorder holds a burst's 8 decode spans after ``close()``.
+   JSONL flight recorder holds a burst's 8 decode spans after ``close()``;
+12. supervision and the query server (the JAX defaults: the degradation
+   ladder on, chaos off, no restarts): (a) phase 6's burst with the
+   defaults against ``degradation=False``, on, off, off, on: streams equal
+   48/48, tokens/s and TTFT p50 ratios; (b) ``decode`` chaos at rate 0.05
+   (seed 0) with ``serve_restarts=8``, ``serve_retries=3``: the burst, and
+   16 requests on a dense pool (whole-prompt causal ``flash_attn``
+   admissions in distinct buckets, prefix cache off) in three rounds;
+   every request terminal within a bound, every unfailed stream equal to
+   its chaos-off stream, restarts counted by ``serve_restarts``,
+   ``memory_allocated`` within one pool of chaos off, the HBM ledger's
+   ``kv_blocks`` unchanged; (c) ``serve_queue=8`` under the burst (shed
+   requests decode to ``shed:queue_full`` with ``retry_after``, counted by
+   ``requests_shed``), then ``request_deadline_ms`` at half of (a)'s TTFT
+   p50 (deadline sheds, no admission after a deadline); (d) the ladder
+   stepped to 1, 2, 3 by an always-failing objective on an injected clock:
+   ``max_new`` clamped, no spec dispatch at level 2, priority 0 shed at 3;
+   (e) phase 8's defaults seam with ``embed.h2d`` chaos at 0.2, with and
+   without retries: resolved batches byte-equal to chaos off, spent
+   budgets raise ``InjectedFault`` at resolve as the site's schedule says;
+   (f) ``QueryServer`` at its defaults under 256 Poisson queries (half
+   retrieve k=10, half rerank k=32) from 8 threads at twice the per-call
+   path's rate: keys equal the per-call path's but at near-ties, fewer
+   dispatches than requests, latencies of both paths; the rerank cascade
+   (depth 3, 28 of 32) with top-8 overlap >= 0.9 against the full rerank;
+   ``query.tick`` chaos with ``serve_restarts=2``. Phase 12 drives all five
+   kernel entry points.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -199,16 +225,16 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def corpus(seed: int = 7):
+def corpus(seed: int = 7, n_queries: int = N_QUERIES):
     """bench.py's config2 corpus recipe: a seeded 3,000-word pool, 12
-    words a doc, 6 a query."""
+    words a doc, 6 a query (more queries extend the same sequence)."""
     rng = np.random.default_rng(seed)
     letters = list("abcdefghijklmnopqrstuvwxyz")
     words = np.array(sorted({
         "".join(rng.choice(letters, rng.integers(3, 9))) for _ in range(3000)
     }))
     docs = [" ".join(rng.choice(words, 12)) for _ in range(N_DOCS)]
-    queries = [" ".join(rng.choice(words, 6)) for _ in range(N_QUERIES)]
+    queries = [" ".join(rng.choice(words, 6)) for _ in range(n_queries)]
     return docs, queries
 
 
@@ -2031,6 +2057,529 @@ def check_query_dispatches(pipe, queries) -> int:
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+# the query server's keys may swap with the per-call path's only where the
+# per-call scores at that rank lie within one bf16 ulp of 1.0 (an encode
+# at another batch height rounds differently)
+TIE_TOL = 8e-3
+N_QS = 256  # phase 12 (f): half retrieve (k = TOP_K), half rerank (k = RERANK_K)
+
+
+def bounded_serve(chat, prompts, timeout: float = 600.0, **kw) -> dict:
+    """One run of ``prompts`` submitted at once through DecoderChat, every
+    kernel count set to 0 just before and read just after. Failed and shed
+    requests are allowed, but every request must be terminal within
+    ``timeout`` seconds."""
+    import torch
+
+    for f in counters().values():
+        f.launches = 0
+    s0 = dict(chat.server.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = chat.submit_batch(prompts, **kw)
+    end = time.monotonic() + timeout
+    for r in reqs:
+        if not r.done.wait(max(0.0, end - time.monotonic())):
+            raise AssertionError(f"a request was not terminal within {timeout} s")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    texts = chat.resolve_batch([reqs])[0]
+    served = [r for r in reqs if r.text is not None]
+    ttft = [r.first_token_at - r.submitted_at for r in served if r.first_token_at]
+    return {"reqs": reqs, "texts": texts, "wall_s": wall,
+            "launches": {n: f.launches for n, f in counters().items()},
+            "stats": {k: v - s0.get(k, 0) for k, v in chat.server.stats.items()},
+            "served": len(served), "tok_per_s": sum(len(r.tokens) for r in served) / wall,
+            "ttft_p50_s": statistics.median(ttft) if ttft else float("nan")}
+
+
+class TimedLadder:
+    """A degradation controller behind a host timer: counts the serving
+    loop's ladder reads and the seconds they take."""
+
+    def __init__(self, ctl):
+        self.ctl, self.calls, self.seconds = ctl, 0, 0.0
+
+    def maybe_evaluate(self) -> int:
+        t0 = time.perf_counter()
+        try:
+            return self.ctl.maybe_evaluate()
+        finally:
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+
+
+def add_launches(total: dict, out: dict) -> None:
+    for n, v in out["launches"].items():
+        total[n] += v
+
+
+def free_chats(*chats) -> None:
+    """Shut the servers down and release their pools and weights."""
+    import gc
+
+    import torch
+
+    for chat in chats:
+        chat.close()
+    del chats
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def dense_prompts() -> list[str]:
+    """16 prompts for the dense pool: four whole-prompt admissions in four
+    distinct pow2 buckets (so no admission is ever batched with another,
+    and a stream does not depend on which requests share a tick), twelve
+    of 65-200 tokens prefilled in pieces."""
+    short = [make_prompts(1, n, n, seed=30 + i)[0] for i, n in enumerate((6, 12, 30, 60))]
+    return short + make_prompts(12, 65, 200, seed=34)
+
+
+def run_supervision_serving(dev, gpu: str, common) -> dict:
+    """Phase 12 (a)-(d); returns the launches of its runs."""
+    import gc
+
+    import torch
+
+    from pathway_tpu_torch import DecoderChat
+    from pathway_tpu_torch.engine import chaos, probes, slo
+    from pathway_tpu_torch.models import decoder as D
+    from pathway_tpu_torch.xpacks.llm import decode_serve_error
+
+    paged = dict(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True, flash_prefill=True)
+    total = {n: 0 for n in counters()}
+    prompts = make_prompts(N_REQUESTS, 16, 480, seed=1)
+
+    # (a) the defaults (degradation on, no objective) against degradation off
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    on = DecoderChat(**paged, **common)
+    serve(on, make_prompts(4, 16, 200, seed=99))  # warm-up, outside the counts
+    on.server.prefix_reset()
+    mem_off = torch.cuda.memory_allocated(dev) - base  # one server, chaos off
+    require(on.server._degrade is slo.get_degradation_controller()
+            and not on.server._degrade.watchdog.objectives,
+            "(a) the default server reads the shared ladder, with no objective declared")
+    off = DecoderChat(degradation=False, **paged, **common)
+    serve(off, make_prompts(4, 16, 200, seed=99))
+    off.server.prefix_reset()
+    chats = {True: on, False: off}
+    runs = []
+    for arm in (True, False, False, True):
+        out = serve(chats[arm], prompts)
+        chats[arm].server.prefix_reset()
+        runs.append((arm, out))
+        add_launches(total, out)
+        info(f"supervision (a) degradation {'on' if arm else 'off'} [{gpu}]: {N_REQUESTS} "
+             f"requests in {out['wall_s']:.3f} s wall; decode {out['tok_per_s']:.1f} "
+             f"tokens/s; TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms; level "
+             f"{chats[arm].server._degradation_level}")
+    ref = [r.tokens for r in runs[0][1]["reqs"]]
+    require(all([r.tokens for r in out["reqs"]] == ref for _, out in runs),
+            f"(a) the {N_REQUESTS} streams are equal token for token, degradation on and off")
+    tps = {a: statistics.mean(o["tok_per_s"] for x, o in runs if x == a) for a in chats}
+    ttft = {a: statistics.mean(o["ttft_p50_s"] for x, o in runs if x == a) * 1e3 for a in chats}
+    info(f"supervision (a) cost [{gpu}]: decode tokens/s on {tps[True]:.1f} / off "
+         f"{tps[False]:.1f} (on/off {tps[True] / tps[False]:.4f}); TTFT p50 ms on "
+         f"{ttft[True]:.1f} / off {ttft[False]:.1f} (on/off {ttft[True] / ttft[False]:.4f})")
+    # the ladder's own host time: one more burst with every read timed
+    timed = TimedLadder(on.server._degrade)
+    on.server._degrade = timed
+    out = serve(on, prompts)
+    add_launches(total, out)
+    info(f"supervision (a) ladder reads timed [{gpu}]: {timed.calls} reads, "
+         f"{timed.seconds * 1e3:.3f} ms host time in a {out['wall_s']:.3f} s burst "
+         f"({100 * timed.seconds / out['wall_s']:.4f}% of wall, "
+         f"{timed.seconds / max(timed.calls, 1) * 1e6:.2f} us a read)")
+    require([r.tokens for r in out["reqs"]] == ref, "(a) the timed run's streams are equal")
+    free_chats(on, off)
+    del on, off, chats
+    ttft_p50_ms = ttft[True]
+
+    # (b) decode chaos: the burst on the paged pool, then 16 requests on a
+    # dense pool (prefix cache off: a dense hit admits right-padded, so a
+    # restart that empties the tree would change a stream's rounding)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    chaos.configure(rate=0.05, seed=0, sites="decode")
+    try:
+        chat = DecoderChat(serve_restarts=8, serve_retries=3, **paged, **common)
+    finally:
+        chaos.configure()
+    srv = chat.server
+    kv0 = probes.hbm_stats()["current_bytes"]["kv_blocks"]
+    probes.REGISTRY.remove("serve_restarts")
+    out = bounded_serve(chat, prompts)
+    add_launches(total, out)
+    st = out["stats"]
+    mem_chaos = torch.cuda.memory_allocated(dev) - base
+    unfailed = [(r, w) for r, w in zip(out["reqs"], ref) if r.text is not None]
+    counted = probes.REGISTRY.labelled("serve_restarts", "server").get(srv._trace_tag, 0)
+    info(f"supervision (b) decode chaos, paged burst [{gpu}]: {out['served']}/{N_REQUESTS} "
+         f"served in {out['wall_s']:.3f} s wall; restarts {st['restarts']} (counter "
+         f"{counted:g}), request retries {st['request_retries']}, failures "
+         f"{st['request_failures']}; memory_allocated {mem_chaos} vs {mem_off} chaos off "
+         f"(pool_bytes {D.pool_bytes(srv.pool)}); launches {out['launches']}")
+    require(all(r.tokens == w for r, w in unfailed),
+            "(b) every unfailed stream equals its chaos-off stream token for token")
+    require(st["restarts"] >= 1 and st["restarts"] == counted,
+            "(b) the burst restarted the loop, and serve_restarts counts every restart")
+    require(abs(mem_chaos - mem_off) <= D.pool_bytes(srv.pool),
+            "(b) memory_allocated after the restarts within one pool's bytes of chaos off")
+    require(probes.hbm_stats()["current_bytes"]["kv_blocks"] == kv0
+            == D.pool_component_device_bytes(srv.pool)["kv_blocks"]["0"],
+            "(b) the HBM ledger's kv_blocks unchanged, equal to the rebuilt pool's")
+    free_chats(chat)
+    del chat, srv
+
+    dense = dict(paged_kv=False, flash_prefill=True, prefix_cache=False)
+    d_prompts = dense_prompts()
+    ref_chat = DecoderChat(**dense, **common)
+    d_ref = bounded_serve(ref_chat, d_prompts)
+    add_launches(total, d_ref)
+    require(d_ref["served"] == len(d_prompts), "(b) the dense chaos-off run served all 16")
+    d_ref = [r.tokens for r in d_ref["reqs"]]
+    free_chats(ref_chat)
+    del ref_chat
+    chaos.configure(rate=0.05, seed=0, sites="decode")
+    try:
+        chat = DecoderChat(serve_restarts=8, serve_retries=3, **dense, **common)
+    finally:
+        chaos.configure()
+    d_st, equal, served = {}, True, 0
+    for _ in range(3):  # three rounds: a 16-request round makes ~6 dispatches
+        out = bounded_serve(chat, d_prompts)
+        add_launches(total, out)
+        for k, v in out["stats"].items():
+            d_st[k] = d_st.get(k, 0) + v
+        equal &= all(r.tokens == w for r, w in zip(out["reqs"], d_ref) if r.text is not None)
+        served += out["served"]
+    info(f"supervision (b) decode chaos, dense pool, 3 rounds of 16 [{gpu}]: {served}/48 "
+         f"served; restarts {d_st['restarts']}, request retries {d_st['request_retries']}, "
+         f"failures {d_st['request_failures']}; {d_st['admit_dispatches']} whole-prompt "
+         f"admissions, {d_st['prefill_chunks']} pieces")
+    require(equal, "(b) every unfailed dense stream equals its chaos-off stream")
+    require(d_st["restarts"] + d_st["request_retries"] + d_st["request_failures"] >= 1,
+            "(b) chaos hit the dense run")
+    free_chats(chat)
+    del chat
+
+    # (c) shedding: a queue bound of 8 under the burst, then deadlines
+    probes.REGISTRY.remove("requests_shed")
+    chat = DecoderChat(serve_queue=8, **paged, **common)
+    out = bounded_serve(chat, prompts)
+    add_launches(total, out)
+    shed = [(r, t) for r, t in zip(out["reqs"], out["texts"]) if r.text is None]
+    shed_counted = probes.REGISTRY.labelled("requests_shed", "reason")
+    info(f"supervision (c) serve_queue=8 [{gpu}]: {out['served']} served, {len(shed)} shed "
+         f"in {out['wall_s']:.3f} s wall; requests_shed {shed_counted}")
+    require(shed and all(decode_serve_error(t) == {"reason": "shed:queue_full",
+                                                   "retry_after": 1.0} for _, t in shed),
+            "(c) shed requests decode to shed:queue_full with retry_after 1.0")
+    require(shed_counted == {"queue_full": float(out["stats"]["shed"])}
+            and out["stats"]["shed"] == len(shed),
+            "(c) requests_shed{reason=queue_full} equals stats['shed']")
+    require(all(r.tokens == w for r, w in zip(out["reqs"], ref) if r.text is not None),
+            "(c) served requests equal their streams in (a)")
+    free_chats(chat)
+    del chat
+    deadline_ms = ttft_p50_ms / 2
+    chat = DecoderChat(request_deadline_ms=deadline_ms, **paged, **common)
+    out = bounded_serve(chat, prompts)
+    add_launches(total, out)
+    reasons: dict = {}
+    for r in out["reqs"]:
+        reasons[r.error_reason] = reasons.get(r.error_reason, 0) + 1
+    ids = {r.span.request_id for r in out["reqs"]}
+    late = [s for s in chat.recent_traces() if s["id"] in ids and any(
+        e["name"] == "admit" and e["t_ms"] > deadline_ms + 1.0 for e in s["events"])]
+    info(f"supervision (c) request_deadline_ms={deadline_ms:.1f} [{gpu}]: outcomes "
+         f"{reasons}; admissions after their deadline {len(late)}")
+    require(reasons.get("shed:deadline", 0) >= 1, "(c) some requests shed as deadline")
+    require(not late, "(c) no request admitted after its deadline")
+    require(all(r.tokens == w for r, w in zip(out["reqs"], ref) if r.text is not None),
+            "(c) served requests equal their streams in (a)")
+    free_chats(chat)
+    del chat
+
+    # (d) the ladder, stepped by an objective that always fails on an
+    # injected clock; spec decode on, as the JAX default
+    clock = [1000.0]
+    wd = slo.SloWatchdog([slo.Objective("ttft_p95", "ceiling", 1.0, sample=lambda: 1e9,
+                                        unit="ms")], clock=lambda: clock[0])
+    ctl = slo.DegradationController(wd, step_s=5.0)
+    spec = dict(common, spec_decode=True)
+    half = MAX_NEW // 2
+    for level in (1, 2, 3):
+        wd.tick()
+        ctl.evaluate()
+        require(ctl.level() == level, f"(d) the controller stepped to level {level}")
+        chat = DecoderChat(**paged, **spec)  # fresh: its spec latch is not tripped
+        chat.server._degrade = ctl
+        # the idle loop reads the ladder every tick; admit only after it has
+        end = time.monotonic() + 10.0
+        while chat.server._degradation_level != level and time.monotonic() < end:
+            time.sleep(0.005)
+        require(chat.server._degradation_level == level,
+                f"(d) the server reads level {level} from the controller")
+        if level < 3:
+            out = bounded_serve(chat, make_prompts(16, 16, 200, seed=40 + level))
+            add_launches(total, out)
+            st, ln = out["stats"], out["launches"]
+            lens = {len(r.tokens) for r in out["reqs"]}
+            info(f"supervision (d) level {level} [{gpu}]: {out['served']}/16 served, "
+                 f"stream lengths {sorted(lens)}; spec dispatches {st['spec_dispatches']}, "
+                 f"{st['decode_steps']} decode steps in {st['chunks']} chunks; launches {ln}")
+            require(out["served"] == 16 and lens == {half}
+                    and all(r.max_new == half for r in out["reqs"]),
+                    f"(d) level {level}: every admitted max_new clamped to {half}")
+            if level == 2:
+                require(st["spec_dispatches"] == 0
+                        and ln["paged_attn_decode"] >= 12 * st["decode_steps"] > 0,
+                        "(d) level 2: only plain chunks, no spec dispatch")
+                chat.server._degrade = None
+                chat.server._degradation_level = 0
+                out = bounded_serve(chat, make_prompts(8, 16, 200, seed=45))
+                add_launches(total, out)
+                require(out["stats"]["spec_dispatches"] > 0,
+                        "(d) the same server dispatches spec again at level 0")
+        else:
+            out = bounded_serve(chat, make_prompts(8, 16, 200, seed=46), priority=0)
+            high = bounded_serve(chat, make_prompts(8, 16, 200, seed=47), priority=1)
+            add_launches(total, out)
+            add_launches(total, high)
+            lows = {r.error_reason for r in out["reqs"]}
+            info(f"supervision (d) level 3 [{gpu}]: priority 0 outcomes {lows}; priority 1 "
+                 f"{high['served']}/8 served")
+            require(lows == {"shed:degraded"}, "(d) level 3: priority-0 requests shed")
+            require(high["served"] == 8 and all(len(r.tokens) == half for r in high["reqs"]),
+                    "(d) level 3: priority-1 requests served (clamped)")
+        free_chats(chat)
+        del chat
+        clock[0] += 5.0
+    return total
+
+
+def run_ingest_chaos(dev, gpu: str, docs) -> int:
+    """Phase 12 (e): phase 8's defaults seam with ``embed.h2d`` at rate 0.2;
+    returns the flash_attn launches of its ingests."""
+    from pathway_tpu_torch.engine import chaos
+    from pathway_tpu_torch.models import flash_attention as FA
+
+    warm = [d + " warm" for d in docs[:INGEST_BATCH]]
+    emb = seam(dev)
+    emb.resolve_batch([emb.submit_batch(warm)], timeout=600)
+    off = ingest(emb, docs)
+    emb.close()
+    launches = off["launches"]
+    batches = [docs[s:s + INGEST_BATCH] for s in range(0, N_DOCS, INGEST_BATCH)]
+    for restarts in (1, 0):
+        chaos.configure(rate=0.2, seed=0, sites="embed.h2d")
+        try:
+            emb = seam(dev, serve_restarts=restarts, serve_retries=3)
+            # the pipeline, and its site, is built at the first submit
+            emb.resolve_batch([emb.submit_batch(warm)], timeout=600)
+        finally:
+            chaos.configure()
+        retries = emb.model.h2d_retries
+        site, expect = chaos.ChaosSite("embed.h2d", 0.2, 0), []
+        for _ in range(1 + len(batches)):  # the warm batch, then the corpus
+            ok = False
+            for _ in range(retries + 1):
+                try:
+                    site.maybe_fail()
+                    ok = True
+                    break
+                except chaos.InjectedFault:
+                    pass
+            expect.append(ok)
+        FA.flash_attn.launches = 0
+        handles = [emb.submit_batch(b) for b in batches]
+        got, equal, raised = [], True, 0
+        for i, h in enumerate(handles):
+            try:
+                vecs = np.stack(emb.resolve_batch([h], timeout=600)[0])
+                equal &= np.array_equal(vecs, off["vecs"][i * INGEST_BATCH:(i + 1) * INGEST_BATCH])
+                got.append(True)
+            except chaos.InjectedFault as exc:
+                raised += int(exc.site == "embed.h2d")
+                got.append(False)
+        launches += FA.flash_attn.launches
+        ops = emb.model._pipeline._chaos_h2d._seq
+        emb.close()
+        info(f"supervision (e) ingest chaos, serve_restarts={restarts} (h2d retries "
+             f"{retries}) [{gpu}]: {sum(got)}/{len(batches)} batches resolved, {raised} raised "
+             f"InjectedFault; site operations {ops}")
+        require(got == expect[1:] and raised == got.count(False),
+                "(e) the batches that spent their budget raise InjectedFault at resolve, "
+                "as the site's schedule says; none is dropped")
+        require(equal, "(e) every resolved batch is byte-equal to chaos off")
+        if restarts:
+            require(all(got) and ops > 1 + len(batches),
+                    "(e) with retries every fault was retried away")
+        else:
+            require(not all(got), "(e) without retries a fault reaches resolve")
+    return launches
+
+
+def ranks_agree(want, got, tol: float = TIE_TOL) -> bool:
+    """``got``'s keys equal ``want``'s wherever the per-call score at that
+    rank is not within ``tol`` of a neighbour's. At the last rank the
+    neighbour below is not in the row: there the two rows' own scores at
+    that rank must be within ``tol``."""
+    if len(want) != len(got):
+        return False
+    ws, gs = [s for _, s in want], [s for _, s in got]
+    for j, ((wk, _), (gk, _)) in enumerate(zip(want, got)):
+        if wk != gk:
+            near = [abs(ws[j] - ws[i]) for i in (j - 1, j + 1) if 0 <= i < len(ws)]
+            if j == len(ws) - 1:
+                near.append(abs(gs[j] - ws[j]))
+            if min(near) > tol:
+                return False
+    return True
+
+
+def poisson_submit(srv, items, rate: float, threads: int = 8, seed: int = 0):
+    """Submit ``items`` ((text, k, rerank)) from ``threads`` threads, each
+    with exponential gaps at ``rate / threads`` a second; returns the
+    handles in ``items`` order."""
+    handles = [None] * len(items)
+
+    def worker(t):
+        rng = np.random.default_rng(seed + t)
+        for i in range(t, len(items), threads):
+            time.sleep(float(rng.exponential(threads / rate)))
+            text, k, rerank = items[i]
+            handles[i] = srv.submit(text, k, rerank=rerank)
+
+    with ThreadPoolExecutor(threads) as ex:
+        list(ex.map(worker, range(threads)))
+    return handles
+
+
+def wait_all(handles, timeout: float = 300.0):
+    """(results, errors), every handle terminal within ``timeout``."""
+    end = time.monotonic() + timeout
+    results, errors = [], []
+    for h in handles:
+        if not h.done.wait(max(0.0, end - time.monotonic())):
+            raise AssertionError(f"a query was not terminal within {timeout} s")
+        results.append(h.result)
+        errors.append(h.error)
+    return results, errors
+
+
+def run_query_server(pipe, gpu: str) -> int:
+    """Phase 12 (f); returns its flash_attn launches."""
+    from pathway_tpu_torch import QueryServer
+    from pathway_tpu_torch.engine import chaos, probes
+    from pathway_tpu_torch.models import flash_attention as FA
+
+    _, qs = corpus(n_queries=N_QS)
+    items = [(q, RERANK_K if i % 2 else TOP_K, bool(i % 2)) for i, q in enumerate(qs)]
+    FA.flash_attn.launches = 0
+    # the per-call path, one query at a time
+    per_call, lat = [], {False: [], True: []}
+    t0 = time.perf_counter()
+    for text, k, rerank in items:
+        t1 = time.perf_counter()
+        per_call.append(pipe.retrieve_rerank(text, k) if rerank else pipe.retrieve([text], k)[0])
+        lat[rerank].append(time.perf_counter() - t1)
+    rate = len(items) / (time.perf_counter() - t0)
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+    d0 = probes.dispatch_counts()
+    with QueryServer(pipe) as srv:
+        t0 = time.perf_counter()
+        handles = poisson_submit(srv, items, 2 * rate)
+        results, errors = wait_all(handles)
+        wall = time.perf_counter() - t0
+        st = srv.stats()
+    d1 = probes.dispatch_counts()
+    agree = [ranks_agree(w, g) for w, g in zip(per_call, results)]
+    swaps = sum(sum(a[0] != b[0] for a, b in zip(w, g)) for w, g in zip(per_call, results))
+    slat = {r: [h.latency_s for h, (_, _, rr) in zip(handles, items) if rr == r]
+            for r in (False, True)}
+    info(f"supervision (f) per-call path [{gpu}]: {rate:.1f} queries/s sustained; retrieve "
+         f"p50 {pct(lat[False], 50):.3f} / p99 {pct(lat[False], 99):.3f} ms, rerank p50 "
+         f"{pct(lat[True], 50):.3f} / p99 {pct(lat[True], 99):.3f} ms")
+    info(f"supervision (f) QueryServer defaults, {N_QS} Poisson arrivals at {2 * rate:.1f}/s "
+         f"from 8 threads [{gpu}]: {wall:.3f} s wall; mean batch {st['mean_batch']}, "
+         f"{st['dispatches']} dispatches / {st['requests']} requests = "
+         f"{st['dispatches'] / st['requests']:.4f}; retrieve p50 {pct(slat[False], 50):.3f} / "
+         f"p99 {pct(slat[False], 99):.3f} ms, rerank p50 {pct(slat[True], 50):.3f} / p99 "
+         f"{pct(slat[True], 99):.3f} ms; batch sizes {st['batch_hist']}; {sum(agree)}/{N_QS} "
+         f"rows agree with the per-call path ({swaps} positions differ)")
+    require(not any(errors) and not st["failed"], "(f) every query answered")
+    require(all(agree), f"(f) keys equal the per-call path's but at per-call near-ties "
+                        f"(within {TIE_TOL})")
+    require(st["dispatches"] < st["requests"] and st["requests"] == N_QS,
+            "(f) concurrent queries coalesced: fewer dispatches than requests")
+    delta = {k: d1.get(k, 0) - d0.get(k, 0) for k in ("fused_retrieve", "fused_retrieve_rerank")}
+    require(sum(delta.values()) == st["dispatches"],
+            f"(f) one fused dispatch per (kind, k) group a tick ({delta})")
+
+    # the cascade, 28 of 32 surviving depth 3, over the first 64 rerank queries
+    rr = [(i, it) for i, it in enumerate(items) if it[2]][:64]
+    pipe.rerank_cascade, pipe.rerank_cascade_depth = True, 3
+    pipe.rerank_cascade_survivors, pipe.rerank_seed_weight = 28, 0.25
+    try:
+        c0 = probes.dispatch_counts().get("fused_rerank_cascade", 0)
+        with QueryServer(pipe) as srv:
+            casc, cerr = wait_all(poisson_submit(srv, [it for _, it in rr], 2 * rate))
+            cst = srv.stats()
+        counted = probes.dispatch_counts().get("fused_rerank_cascade", 0) - c0
+        _, _, _, order = pipe.retrieve_rerank_batch_device([it[0] for _, it in rr], RERANK_K)
+        perm = all(sorted(row) == list(range(RERANK_K)) for row in order.cpu().tolist())
+    finally:
+        pipe.rerank_cascade = False
+        pipe.rerank_cascade_depth = pipe.rerank_cascade_survivors = 0
+    overlap = statistics.mean(
+        len({k for k, _ in c[:8]} & {k for k, _ in per_call[i][:8]}) / 8
+        for c, (i, _) in zip(casc, rr))
+    info(f"supervision (f) cascade (depth 3, 28 of {RERANK_K}, seed weight 0.25) [{gpu}]: "
+         f"mean top-8 overlap with the full rerank {overlap:.4f} over {len(rr)} queries; "
+         f"fused_rerank_cascade dispatches {counted} ({cst['dispatches']} server dispatches, "
+         f"mean batch {cst['mean_batch']})")
+    require(not any(cerr) and all(len({k for k, _ in c}) == RERANK_K for c in casc) and perm,
+            "(f) cascade rows answered, order a permutation in every row")
+    require(overlap >= 0.9, "(f) cascade top-8 overlap >= 0.9 against the full rerank")
+    require(counted == cst["dispatches"] > 0,
+            "(f) fused_rerank_cascade counted once per server dispatch")
+
+    # query.tick chaos, supervised
+    chaos.configure(rate=0.2, seed=0, sites="query.tick")
+    try:
+        srv = QueryServer(pipe, serve_restarts=2)
+    finally:
+        chaos.configure()
+    with srv:
+        sub = items[:64]
+        results, errors = wait_all(poisson_submit(srv, sub, 2 * rate))
+        faults = [e for e in errors if e is not None]
+        ok = all(isinstance(e, chaos.InjectedFault) and e.site == "query.tick" for e in faults)
+        agree = all(ranks_agree(per_call[i], r) for i, (r, e) in enumerate(zip(results, errors))
+                    if e is None)
+        after, after_err = wait_all([srv.submit(t, k, rerank=r) for t, k, r in items[:16]])
+        cst = srv.stats()
+    info(f"supervision (f) query.tick chaos at 0.2, serve_restarts=2 [{gpu}]: "
+         f"{len(faults)}/{len(sub)} "
+         f"failed with the injected fault, {cst['group_failures']} group failures, failed "
+         f"{cst['failed']}; afterwards {sum(e is None for e in after_err)}/16 served")
+    require(ok and faults and agree, "(f) chaos: every query terminal, faults isolated with "
+                                     "provenance, the rest equal the per-call path")
+    require(not cst["failed"] and any(e is None for e in after_err),
+            "(f) the server still serves after the chaos")
+    return FA.flash_attn.launches
+
+
 def main() -> int:
     import torch
 
@@ -2135,6 +2684,13 @@ def main() -> int:
     dec = {n: dec[n] + tele[n] for n in dec}
     seam_launches += run_telemetry_ingest(dev, gpu, docs)
     launches += check_query_dispatches(out["pipe"], queries)
+
+    # phase 12: supervision and the query server
+    sup = run_supervision_serving(dev, gpu, common)
+    sup["flash_attn"] += run_ingest_chaos(dev, gpu, docs) + run_query_server(out["pipe"], gpu)
+    info(f"supervision: phase 12 launches {sup}")
+    require(all(v > 0 for v in sup.values()), "phase 12 drove all five kernel entry points")
+    dec = {n: dec[n] + sup[n] for n in dec}
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",

@@ -421,9 +421,11 @@ def serving_snapshot() -> dict:
 
 
 def unified_snapshot(scheduler_stats=None) -> dict:
-    """Serving, device memory and the raw registry in one dict. The port
-    has no dataflow scheduler, so ``scheduler`` is what the caller passes
-    (None by default)."""
+    """Serving, device memory, the SLO watchdog's state and the raw
+    registry in one dict. The port has no dataflow scheduler, so
+    ``scheduler`` is what the caller passes (None by default)."""
+    from pathway_tpu_torch.engine import slo
+
     sched = scheduler_stats
     if sched is not None and hasattr(sched, "snapshot"):
         sched = sched.snapshot()
@@ -431,6 +433,7 @@ def unified_snapshot(scheduler_stats=None) -> dict:
         "scheduler": sched,
         "serving": serving_snapshot(),
         "hbm": hbm_stats(),
+        "slo": slo.slo_snapshot(),
         "registry": REGISTRY.snapshot(),
     }
 
@@ -571,8 +574,7 @@ def reset_retrieval_backend_stats() -> None:
 
 
 # --------------------------------------------------------------------- #
-# cascade-rerank ledger (the cascade itself is not ported yet; the ledger
-# is part of the serving snapshot)
+# cascade-rerank ledger (fed by ``ops/fused_query.py``'s rerank cascade)
 
 def record_cascade(stage: str, pairs: int, flops: float = 0.0) -> None:
     """Account ``pairs`` scored (and model ``flops`` paid) by cascade

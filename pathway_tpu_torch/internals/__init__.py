@@ -1,2 +1,2 @@
 """Host-side internals of the port: the OpenMetrics text of the metrics
-registry."""
+registry, the global error log and the backoff retry strategy."""

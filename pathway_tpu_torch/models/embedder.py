@@ -19,6 +19,12 @@ lands in pinned memory and is marked by a CUDA event, which
 the same stages inline in the caller's thread. Stage seconds go to
 ``engine/probes.record_stage``: tokenize, h2d, dispatch, drain.
 
+The staging step is the ``embed.h2d`` chaos site (``engine/chaos.py``).
+With ``serve_restarts > 0`` a failed stage-and-dispatch is retried up to
+``serve_retries`` times with backoff before its error surfaces at
+resolve; with the defaults (``serve_restarts=0``) it surfaces at once, as
+in JAX.
+
 Telemetry, on by default as in JAX (``probes.set_metrics``): each
 pipelined batch carries a span (``engine/tracing.py``: admit, tokenize,
 h2d, dispatch, drain; ``recent_traces``), every encode counts an
@@ -36,7 +42,7 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch.device import resolve_device
-from pathway_tpu_torch.engine import tracing
+from pathway_tpu_torch.engine import chaos, tracing
 from pathway_tpu_torch.engine.async_runtime import StageWorker
 from pathway_tpu_torch.engine.probes import (
     record_attn,
@@ -44,6 +50,7 @@ from pathway_tpu_torch.engine.probes import (
     record_hbm,
     record_stage,
 )
+from pathway_tpu_torch.internals.retries import ExponentialBackoffRetryStrategy
 from pathway_tpu_torch.models import flash_attention as FA
 from pathway_tpu_torch.models.decoder import params_device_bytes
 from pathway_tpu_torch.models.tokenizer import (
@@ -167,9 +174,13 @@ class _IngestPipeline:
     compute. Single-threaded stages keep dispatch in submit order."""
 
     def __init__(self, model: "SentenceEmbedderModel", depth: int,
-                 queue_bound: int, fused_h2d: bool):
+                 queue_bound: int, fused_h2d: bool, retries: int = 0):
         self._model = model
         self._fused = bool(fused_h2d)
+        # a failed stage-and-dispatch is retried (bounded, backoff) before
+        # it surfaces at resolve
+        self._chaos_h2d = chaos.site("embed.h2d")
+        self._retries = max(0, int(retries))
         # tags this pipeline's batch spans in the trace ring
         self._trace_tag = f"embed:{id(model):x}"
         dev = model.device
@@ -212,16 +223,26 @@ class _IngestPipeline:
     def _dispatch_one(self, item) -> None:
         ids, mask, n, handle = item
         try:
-            if self._stream is None:
-                handle._value = self._dispatch_cpu(ids, mask, n, handle.span)
+            if self._retries > 0:
+                ExponentialBackoffRetryStrategy(
+                    max_retries=self._retries, initial_delay=20, backoff_factor=2,
+                    jitter_ms=10, max_delay_ms=1000,
+                ).invoke_sync(lambda: self._stage_and_dispatch(ids, mask, n, handle))
             else:
-                with torch.cuda.device(self._stream.device), \
-                        torch.cuda.stream(self._stream):
-                    handle._value = self._dispatch_cuda(ids, mask, n, handle.span)
+                self._stage_and_dispatch(ids, mask, n, handle)
         except BaseException as exc:  # noqa: BLE001 - raised at resolve
             handle._error = exc
             handle.span.finish(error=True)
         handle._event.set()
+
+    def _stage_and_dispatch(self, ids, mask, n, handle) -> None:
+        if self._chaos_h2d is not None:
+            self._chaos_h2d.maybe_fail()
+        if self._stream is None:
+            handle._value = self._dispatch_cpu(ids, mask, n, handle.span)
+        else:
+            with torch.cuda.device(self._stream.device), torch.cuda.stream(self._stream):
+                handle._value = self._dispatch_cuda(ids, mask, n, handle.span)
 
     def _dispatch_cpu(self, ids, mask, n, span):
         model = self._model
@@ -287,8 +308,10 @@ class SentenceEmbedderModel:
     ``params.from_jax_params``); without it the weights are random from
     ``seed``; without a ``tokenizer``, a default ``HashTokenizer`` (C++
     batches, encode memo). ``pipeline``, ``pipeline_depth``,
-    ``pipeline_queue`` and ``fused_h2d`` set the ingest pipeline; their
-    defaults are the JAX flag defaults."""
+    ``pipeline_queue`` and ``fused_h2d`` set the ingest pipeline, and
+    ``serve_restarts`` / ``serve_retries`` its retry budget (``serve_retries``
+    retries when ``serve_restarts > 0``, else none); their defaults are the
+    JAX flag defaults."""
 
     def __init__(
         self,
@@ -303,6 +326,8 @@ class SentenceEmbedderModel:
         pipeline_depth: int = 2,
         pipeline_queue: int = 8,
         fused_h2d: bool = True,
+        serve_restarts: int = 0,
+        serve_retries: int = 1,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -319,6 +344,7 @@ class SentenceEmbedderModel:
         self.pipeline_depth = int(pipeline_depth)
         self.pipeline_queue = int(pipeline_queue)
         self.fused_h2d = bool(fused_h2d)
+        self.h2d_retries = int(serve_retries) if int(serve_restarts) > 0 else 0
         self._pipeline: _IngestPipeline | None = None
         self._pipeline_lock = threading.Lock()
 
@@ -353,7 +379,8 @@ class SentenceEmbedderModel:
         with self._pipeline_lock:
             if self._pipeline is None:
                 self._pipeline = _IngestPipeline(
-                    self, self.pipeline_depth, self.pipeline_queue, self.fused_h2d)
+                    self, self.pipeline_depth, self.pipeline_queue, self.fused_h2d,
+                    self.h2d_retries)
             return self._pipeline
 
     def close(self) -> None:

@@ -10,10 +10,18 @@ brute-force index matrix) and the documents' token ids. A query runs
 
 PyTorch runs eagerly, so the JAX package's one-executable-per-query
 becomes one stream of launches per query, with no host sync before the
-final copy. The cascade, MaxSim, LLM-rerank and sharded branches of the
-JAX pipeline are not part of this path. Each query counts its device
-dispatch (``fused_retrieve`` / ``fused_retrieve_rerank``) and ``retrieve``
-the queries its dense index answered, as in JAX (``engine/probes.py``).
+final copy.
+
+With ``rerank_cascade`` (off by default, as JAX's flag) the rerank is
+cascaded, still one stream of launches: a cheap pass through the first
+``depth`` cross-encoder layers, seeded with the retrieval score, ranks
+all k candidates, and only the top ``keep`` survivors pay the full
+cross-encoder. The MaxSim, LLM-rerank and sharded branches of the JAX
+pipeline are not part of this path. Each query counts its device dispatch
+(``fused_retrieve`` / ``fused_retrieve_rerank`` / ``fused_rerank_cascade``)
+and ``retrieve`` the queries its dense index answered, as in JAX
+(``engine/probes.py``); the cascade charges its stages' pairs and FLOPs to
+the cascade ledger.
 """
 
 from __future__ import annotations
@@ -21,15 +29,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pathway_tpu_torch.engine.probes import record_device_dispatch, record_retrieval_backend
+from pathway_tpu_torch.engine.probes import (
+    record_cascade,
+    record_device_dispatch,
+    record_retrieval_backend,
+)
 from pathway_tpu_torch.models.cross_encoder import score_fn
 from pathway_tpu_torch.models.embedder import embed_fn
 from pathway_tpu_torch.models.tokenizer import PAD_ID, SEP_ID, pad_to_buckets
 from pathway_tpu_torch.models.transformer import TransformerConfig
 from pathway_tpu_torch.ops import next_pow2
-from pathway_tpu_torch.ops.knn import BruteForceKnnIndex, search_corpus
+from pathway_tpu_torch.ops.knn import BruteForceKnnIndex, search_corpus, topk_scores
 
 _NEG_INF = -1e30
+
+
+def _encoder_flops(cfg: TransformerConfig, seq: int, n_layers: int,
+                   pairs: int) -> float:
+    """Model FLOPs of ``pairs`` sequences of length ``seq`` through
+    ``n_layers`` encoder layers: the qkv, attention-out and MLP products
+    plus the two S^2 attention products."""
+    h, i = cfg.hidden, cfg.intermediate
+    per_layer = 2 * seq * h * (3 * h + h + 2 * i) + 4 * seq * seq * h
+    return float(pairs) * n_layers * per_layer
 
 
 def _assemble_pairs(q_ids, q_len, doc_tokens, doc_lens, pair_seq: int):
@@ -69,19 +91,31 @@ def _pair_scores(r_params, r_head, pair, mask, ttype,
                     n_layers=n_layers)
 
 
-def _retrieve_rerank(e_params, q_ids, q_mask, corpus, valid, doc_tokens,
-                     doc_lens, r_params, r_head, e_cfg: TransformerConfig,
-                     r_cfg: TransformerConfig, k: int, metric: str,
-                     pair_seq: int):
+def _retrieve_and_assemble(e_params, q_ids, q_mask, corpus, valid, doc_tokens,
+                           doc_lens, e_cfg: TransformerConfig, k: int,
+                           metric: str, pair_seq: int):
     """Embed queries -> top-k over the corpus -> gather the hit documents'
-    tokens -> cross-encode the (Qb * k) pairs as one flat batch. Returns
-    (knn_scores, idx, rerank_scores, order), each (Qb, k)."""
+    tokens -> assemble the (Qb, k, pair_seq) pair inputs: the front half
+    of the plain and the cascaded rerank."""
     emb = embed_fn(e_params, q_ids, q_mask, e_cfg)                  # (Qb, H)
     scores, idx = search_corpus(corpus, valid, emb, k, metric)      # (Qb, k)
     d_tok = doc_tokens[idx]                                          # (Qb,k,dseq)
     d_len = doc_lens[idx]                                            # (Qb, k)
     q_len = q_mask.sum(dim=1).to(torch.int32)
     pair, mask, ttype = _assemble_pairs(q_ids, q_len, d_tok, d_len, pair_seq)
+    return scores, idx, pair, mask, ttype
+
+
+def _retrieve_rerank(e_params, q_ids, q_mask, corpus, valid, doc_tokens,
+                     doc_lens, r_params, r_head, e_cfg: TransformerConfig,
+                     r_cfg: TransformerConfig, k: int, metric: str,
+                     pair_seq: int):
+    """Retrieve and assemble, then cross-encode the (Qb * k) pairs as one
+    flat batch. Returns (knn_scores, idx, rerank_scores, order), each
+    (Qb, k)."""
+    scores, idx, pair, mask, ttype = _retrieve_and_assemble(
+        e_params, q_ids, q_mask, corpus, valid, doc_tokens, doc_lens, e_cfg,
+        k, metric, pair_seq)
     qb = q_ids.shape[0]
     r_scores = _pair_scores(
         r_params, r_head, pair.reshape(qb * k, pair_seq),
@@ -94,6 +128,53 @@ def _retrieve_rerank(e_params, q_ids, q_mask, corpus, valid, doc_tokens,
     return scores, idx, r_scores, order
 
 
+def _retrieve_rerank_cascade(e_params, q_ids, q_mask, corpus, valid,
+                             doc_tokens, doc_lens, r_params, r_head,
+                             e_cfg: TransformerConfig, r_cfg: TransformerConfig,
+                             k: int, metric: str, pair_seq: int, depth: int,
+                             keep: int, seed_weight: float):
+    """Cascaded rerank: the first ``depth`` cross-encoder layers plus the
+    score head, seeded with the retrieval score, rank all k candidates;
+    the top ``keep`` survivors pay the full cross-encoder.
+
+    Returns (knn_scores, idx, rerank_scores, order), each (Qb, k).
+    ``order`` lists the survivors first (by full-depth score), then the
+    rest (by cheap score); ``rerank_scores`` holds full-depth scores at
+    survivor positions and cheap scores elsewhere, two ranges each ordered
+    but not calibrated against each other."""
+    scores, idx, pair, mask, ttype = _retrieve_and_assemble(
+        e_params, q_ids, q_mask, corpus, valid, doc_tokens, doc_lens, e_cfg,
+        k, metric, pair_seq)
+    qb = q_ids.shape[0]
+
+    def flat(a, n):
+        return a.reshape(qb * n, pair_seq)
+
+    cheap = _pair_scores(r_params, r_head, flat(pair, k), flat(mask, k),
+                         flat(ttype, k), r_cfg, n_layers=depth).reshape(qb, k)
+    # seed with the ranking signal retrieval already paid for
+    cheap = cheap + float(seed_weight) * scores.float()
+    cheap = torch.where(scores <= _NEG_INF / 2, _NEG_INF, cheap)
+    _, surv = topk_scores(cheap, keep)                              # (Qb, keep)
+
+    def gather(a):
+        return torch.gather(a, 1, surv[:, :, None].expand(-1, -1, pair_seq))
+
+    full = _pair_scores(r_params, r_head, flat(gather(pair), keep),
+                        flat(gather(mask), keep), flat(gather(ttype), keep),
+                        r_cfg).reshape(qb, keep)
+    full = torch.where(torch.gather(scores, 1, surv) <= _NEG_INF / 2, _NEG_INF, full)
+    r_scores = cheap.scatter(1, surv, full)
+    surv_sorted = torch.gather(surv, 1, torch.argsort(-full, dim=1, stable=True))
+    # survivor slots drop to -inf, strictly below the _NEG_INF of padded
+    # candidates: otherwise (live docs < keep) they tie, the sort takes
+    # survivors again and ``order`` stops being a permutation
+    rest = cheap.scatter(1, surv, torch.full_like(full, float("-inf")))
+    rest_order = torch.argsort(-rest, dim=1, stable=True)
+    order = torch.cat([surv_sorted, rest_order[:, : k - keep]], dim=1)
+    return scores, idx, r_scores, order
+
+
 class FusedRAGPipeline:
     """Device-resident retrieval (+ optional rerank).
 
@@ -102,18 +183,30 @@ class FusedRAGPipeline:
     ``retrieve_rerank`` then run on the card up to one final copy.
     ``*_device`` variants return device tensors without a host sync.
     ``pair_buckets`` pads rerank pairs to the pow2 bucket of the longest
-    real pair instead of ``pair_seq``."""
+    real pair instead of ``pair_seq``. ``rerank_cascade`` turns the
+    cascaded rerank on, with ``rerank_cascade_depth`` cheap layers (0:
+    half the reranker's), ``rerank_cascade_survivors`` (0: ``max(8, k //
+    2)``) and ``rerank_seed_weight``; these four are read per call and may
+    change between calls, as JAX reads its flags. Every default is the
+    JAX flag default."""
 
     def __init__(self, embedder, reranker=None, *,
                  reserved_space: int = 1024, metric: str = "cos",
                  doc_seq: int = 96, pair_seq: int = 160,
-                 pair_buckets: bool = True):
+                 pair_buckets: bool = True, rerank_cascade: bool = False,
+                 rerank_cascade_depth: int = 0,
+                 rerank_cascade_survivors: int = 0,
+                 rerank_seed_weight: float = 0.25):
         self.embedder = embedder          # SentenceEmbedderModel
         self.reranker = reranker          # CrossEncoderModel | None
         self.metric = metric
         self.doc_seq = doc_seq
         self.pair_seq = pair_seq
         self.pair_buckets = pair_buckets
+        self.rerank_cascade = rerank_cascade
+        self.rerank_cascade_depth = rerank_cascade_depth
+        self.rerank_cascade_survivors = rerank_cascade_survivors
+        self.rerank_seed_weight = rerank_seed_weight
         # the rerank pair is [CLS] q [SEP] d [SEP]: rerank queries truncate
         # to this budget so they never crowd the document out
         self._rerank_q_budget = pair_seq - doc_seq - 1
@@ -225,6 +318,24 @@ class FusedRAGPipeline:
         record_retrieval_backend("dense", len(texts))
         return self.index.resolve(scores, idx, len(texts), k)
 
+    def _cascade_plan(self, k: int):
+        """(depth, survivors, seed_weight) of a cascade over k candidates:
+        the attributes, or half the reranker's depth and half the
+        candidates (at least 8) where they are 0."""
+        layers = self.reranker.cfg.layers
+        depth = self.rerank_cascade_depth or max(1, layers // 2)
+        depth = max(1, min(depth, layers))
+        keep = self.rerank_cascade_survivors or max(8, k // 2)
+        keep = max(1, min(keep, k))
+        return depth, keep, float(self.rerank_seed_weight)
+
+    def _record_cascade(self, qb: int, k: int, keep: int, depth: int,
+                        pair_seq: int) -> None:
+        r_cfg = self.reranker.cfg
+        record_cascade("cheap", qb * k, _encoder_flops(r_cfg, pair_seq, depth, qb * k))
+        record_cascade("full", qb * keep,
+                       _encoder_flops(r_cfg, pair_seq, r_cfg.layers, qb * keep))
+
     def _rerank(self, texts: list[str], k: int):
         if self.reranker is None:
             raise ValueError("construct FusedRAGPipeline with a reranker")
@@ -233,12 +344,17 @@ class FusedRAGPipeline:
             max_length=min(self.embedder.max_length, self._rerank_q_budget),
         )
         e, r = self.embedder, self.reranker
+        k_eff, pair_seq = min(k, self.index.capacity), self._pair_bucket(q_max)
+        args = (e.params, ids, mask, self.index._corpus, self.index._valid,
+                self._doc_tokens, self._doc_lens, r.params, r.head, e.cfg, r.cfg,
+                k_eff, self.metric, pair_seq)
+        if self.rerank_cascade:
+            depth, keep, seed_w = self._cascade_plan(k_eff)
+            record_device_dispatch("fused_rerank_cascade")
+            self._record_cascade(len(texts), k_eff, keep, depth, pair_seq)
+            return _retrieve_rerank_cascade(*args, depth, keep, seed_w)
         record_device_dispatch("fused_retrieve_rerank")
-        return _retrieve_rerank(
-            e.params, ids, mask, self.index._corpus, self.index._valid,
-            self._doc_tokens, self._doc_lens, r.params, r.head, e.cfg, r.cfg,
-            min(k, self.index.capacity), self.metric, self._pair_bucket(q_max),
-        )
+        return _retrieve_rerank(*args)
 
     def retrieve_rerank_device(self, text: str, k: int):
         """One query: (knn_scores (k,), idx (k,), rerank_scores (k,),

@@ -37,6 +37,25 @@ prefill piece, occupancy and lane gauges every 8th chunk, and the KV
 fragmentation gauge at admission and release. ``probes.set_metrics(False)``
 turns it all off; the token streams do not change.
 
+Supervision follows the JAX server, with its defaults. The SLO
+degradation ladder (``engine/slo.py``, ``degradation=True``) is read every
+loop tick: level 1 halves each admission's ``max_new``, level 2 turns
+speculative decode off, level 3 sheds priority-0 requests; with no
+objective declared (``slo.configure``'s default) it never leaves level 0.
+``serve_restarts > 0`` supervises the loop: a request-scoped failure
+(admission, a prefill piece) fails or re-queues that request alone
+within ``serve_retries``, and a loop-scoped one (a decode dispatch)
+rebuilds the pool and re-enters the loop with exponential backoff, up to
+``serve_restarts`` times, before the failure latches. A CUDA error that
+poisons the context cannot be recovered this way: every restart fails
+again until the budget is spent and the last error latches.
+``request_deadline_ms`` sheds requests whose deadline passes while
+queued or decoding, ``serve_queue`` sheds submits past a queue bound.
+A failed or shed request resolves to ``encode_serve_error``'s marker with
+its reason (and ``retry_after`` for a shed). The chaos sites
+``decode.admit`` and ``decode.dispatch`` (``engine/chaos.py``) inject
+faults on those paths when chaos is configured.
+
 Behaviour is set by constructor arguments whose defaults are the JAX flag
 defaults, for every feature the server carries. The JAX server's
 disaggregated lanes, tenant scheduling and serving mesh are not ported;
@@ -56,7 +75,7 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch.device import resolve_device, to_device
-from pathway_tpu_torch.engine import probes, tracing
+from pathway_tpu_torch.engine import chaos, probes, slo, tracing
 from pathway_tpu_torch.engine.async_runtime import StageWorker
 from pathway_tpu_torch.engine.prefix_cache import PrefixCache
 from pathway_tpu_torch.engine.probes import (
@@ -65,6 +84,8 @@ from pathway_tpu_torch.engine.probes import (
     record_spec_many,
     record_stage,
 )
+from pathway_tpu_torch.internals.errors import get_global_error_log
+from pathway_tpu_torch.internals.retries import ExponentialBackoffRetryStrategy
 from pathway_tpu_torch.models import decoder as D
 from pathway_tpu_torch.models import flash_attention as FA
 from pathway_tpu_torch.ops import next_pow2
@@ -74,8 +95,22 @@ from pathway_tpu_torch.ops import next_pow2
 SERVE_ERROR_MARKER = "\x00pathway_tpu:serve_error\x00"
 
 
-def encode_serve_error(reason: str) -> str:
-    return SERVE_ERROR_MARKER + json.dumps({"reason": reason})
+def encode_serve_error(reason: str, retry_after: float | None = None) -> str:
+    payload: dict = {"reason": reason}
+    if retry_after is not None:
+        payload["retry_after"] = retry_after
+    return SERVE_ERROR_MARKER + json.dumps(payload)
+
+
+def decode_serve_error(text) -> dict | None:
+    """The structured error a serving response string carries, or None
+    for ordinary responses."""
+    if not isinstance(text, str) or not text.startswith(SERVE_ERROR_MARKER):
+        return None
+    try:
+        return json.loads(text[len(SERVE_ERROR_MARKER):])
+    except ValueError:
+        return {"reason": "serve_failed"}
 
 
 def _parse_quant(raw) -> str:
@@ -105,7 +140,9 @@ class DecoderChat:
     Calls take a list of messages (each a string or a list of
     ``{"role", "content"}`` dicts) and return one completion string each.
     ``device=None`` runs on CUDA and raises without it; ``device="cpu"``
-    runs the plain PyTorch path."""
+    runs the plain PyTorch path. ``serve_restarts``, ``serve_retries``,
+    ``request_deadline_ms``, ``serve_queue`` and ``degradation`` set the
+    continuous server's supervision (defaults: the JAX flag defaults)."""
 
     def __init__(
         self,
@@ -148,6 +185,11 @@ class DecoderChat:
         mesh=None,
         weight_quant: str | bool | None = None,
         wq_kernel: bool | None = None,
+        serve_restarts: int = 0,
+        serve_retries: int = 1,
+        request_deadline_ms: float = 0.0,
+        serve_queue: int = 0,
+        degradation: bool = True,
         device=None,
     ):
         if checkpoint_path is not None:
@@ -224,6 +266,11 @@ class DecoderChat:
                 tenant_weights=tenant_weights,
                 prefix_t2_mb=prefix_t2_mb,
                 mesh=mesh,
+                serve_restarts=serve_restarts,
+                serve_retries=serve_retries,
+                request_deadline_ms=request_deadline_ms,
+                serve_queue=serve_queue,
+                degradation=degradation,
             )
 
     @property
@@ -263,9 +310,9 @@ class DecoderChat:
         if self._server is None:
             raise TypeError("submit_batch requires continuous=True")
         max_new = int(kwargs.pop("max_new_tokens", self.max_new_tokens))
-        # priority and tenant only steer the degradation ladder and the
-        # tenant scheduler, neither of which is ported
-        kwargs.pop("priority", None)
+        # level 3 of the degradation ladder sheds priority <= 0; the
+        # tenant only steers the tenant scheduler, which is not ported
+        priority = int(kwargs.pop("priority", 1))
         kwargs.pop("tenant", None)
         if kwargs:
             raise TypeError(
@@ -279,7 +326,8 @@ class DecoderChat:
             )
         cap = self._prompt_cap(max_new)
         return [self._server.submit(
-            self.tokenizer.encode(self._format_prompt(m))[-cap:], max_new)
+            self.tokenizer.encode(self._format_prompt(m))[-cap:], max_new,
+            priority=priority)
             for m in messages]
 
     def resolve_batch(self, handles) -> list:
@@ -289,7 +337,9 @@ class DecoderChat:
             for req in reqs:
                 req.done.wait()
                 if req.text is None:
-                    texts.append(encode_serve_error(req.error_reason or "serve_failed"))
+                    # failed or shed: the reason travels the string channel
+                    texts.append(encode_serve_error(req.error_reason or "serve_failed",
+                                                    retry_after=req.retry_after))
                 else:
                     texts.append(req.text)
             out.append(texts)
@@ -344,7 +394,8 @@ class _PendingCompletion:
     """One in-flight continuous-batching request (host-side record)."""
 
     __slots__ = ("ids", "max_new", "tokens", "done", "text", "submitted_at",
-                 "finished_at", "first_token_at", "error_reason", "span")
+                 "finished_at", "first_token_at", "error_reason", "span",
+                 "retries", "retry_after", "deadline", "priority")
 
     def __init__(self, ids: list, max_new: int):
         self.ids = ids
@@ -357,6 +408,12 @@ class _PendingCompletion:
         self.first_token_at: float | None = None  # first token DRAINED
         self.error_reason: str | None = None
         self.span = tracing.NULL_SPAN  # replaced by submit()
+        # supervision: isolation and restart attempts, the shed's hint,
+        # the time.monotonic() deadline, the admission priority class
+        self.retries = 0
+        self.retry_after: float | None = None
+        self.deadline: float | None = None
+        self.priority = 1
 
 
 _UNPORTED = (
@@ -391,7 +448,14 @@ class _ContinuousServer:
     its acceptance latch trips; a chunk of ``steps`` plain steps becomes
     ``steps // (spec_k + 1)`` cycles, and eager refill counts cycles (each
     emits at least one token). Chunk autotune picks each dispatch's steps
-    from the halvings of ``chunk_steps`` down to 4."""
+    from the halvings of ``chunk_steps`` down to 4.
+
+    Supervision (``serve_restarts > 0``): an admission or prefill-piece
+    failure rewinds that request alone (``_isolate_admission_failure``);
+    a failure anywhere else in the loop rebuilds the pool and re-queues
+    every interrupted request (``_recover_after_crash``), then re-enters
+    the loop after a backoff. Each request has ``serve_retries`` retries
+    across both."""
 
     def __init__(self, params, cfg, tokenizer, *, n_slots: int,
                  chunk_steps: int, max_prompt_tokens: int,
@@ -419,7 +483,12 @@ class _ContinuousServer:
                  tenant_weights: str | None = None,
                  prefix_t2_mb: float | None = None,
                  mesh=None,
-                 chunk_autotune: bool | None = None):
+                 chunk_autotune: bool | None = None,
+                 serve_restarts: int = 0,
+                 serve_retries: int = 1,
+                 request_deadline_ms: float = 0.0,
+                 serve_queue: int = 0,
+                 degradation: bool = True):
         asked = dict(disagg=disagg, tenant_sched=tenant_sched, mesh=mesh)
         for name, on, what in _UNPORTED:
             if on(asked[name]):
@@ -584,6 +653,19 @@ class _ContinuousServer:
         self.wake = threading.Event()
         self._stop = False
         self.failed: BaseException | None = None
+        # supervision, all read once here: restarts and per-request
+        # isolation only when supervised; deadlines and the queue bound
+        # shed instead of blocking; the ladder follows the SLO watchdog
+        self._restart_budget = max(0, int(serve_restarts))
+        self._supervised = self._restart_budget > 0
+        self._retry_budget = max(0, int(serve_retries))
+        self._deadline_s = float(request_deadline_ms) / 1e3
+        self._queue_bound = max(0, int(serve_queue))
+        self._default_max_new = int(default_max_new)
+        self._degradation_level = 0
+        self._degrade = slo.get_degradation_controller() if degradation else None
+        self._chaos_admit = chaos.site("decode.admit")
+        self._chaos_dispatch = chaos.site("decode.dispatch")
         # steps / slot_steps_total: useful lane-steps over dispatched ones
         # (occupancy())
         self.stats = {"chunks": 0, "admitted": 0, "decode_steps": 0,
@@ -594,7 +676,9 @@ class _ContinuousServer:
                       "t2_hit_requests": 0, "t2_promoted_blocks": 0,
                       "t2_dropped": 0, "spec_dispatches": 0, "spec_cycles": 0,
                       "spec_drafted": 0, "spec_accepted": 0, "spec_emitted": 0,
-                      "spec_verify_steps": 0}
+                      "spec_verify_steps": 0, "restarts": 0,
+                      "request_failures": 0, "request_retries": 0, "shed": 0,
+                      "leaked_thread": 0}
         # in-flight chunk records, oldest first
         self._inflight: deque = deque()
         self._occ_published = 0  # the chunk count at the last gauge write
@@ -699,21 +783,121 @@ class _ContinuousServer:
             probes.record_attn(path, dense)
 
     def _fail_request(self, req, reason: str) -> None:
+        """Terminal failure of ONE request (the server keeps serving): the
+        text=None sentinel and a structured reason."""
         req.error_reason = reason
         req.text = None
         probes.REGISTRY.counter_add("requests_isolated", outcome="failed")
+        with self.lock:
+            self.stats["request_failures"] += 1
         req.span.finish(error=True, tokens=len(req.tokens))
         req.done.set()
+
+    def _shed_request(self, req, reason: str) -> None:
+        """Admission-control shed (deadline / queue_full / degraded):
+        terminal, structured, counted, with a retry hint."""
+        req.error_reason = f"shed:{reason}"
+        req.retry_after = 1.0
+        req.text = None
+        probes.REGISTRY.counter_add("requests_shed", reason=reason)
+        with self.lock:
+            self.stats["shed"] += 1
+        req.span.finish(error=True, tokens=len(req.tokens))
+        req.done.set()
+
+    def _retry_or_fail(self, req, exc: BaseException, event: str, **attrs) -> bool:
+        """Count one more attempt of ``req``: True when it is still within
+        the retry budget (the caller re-queues it), else fail it."""
+        req.retries += 1
+        if req.retries <= self._retry_budget:
+            req.span.event(event, **attrs)
+            probes.REGISTRY.counter_add("requests_isolated", outcome="retried")
+            with self.lock:
+                self.stats["request_retries"] += 1
+            return True
+        get_global_error_log().log(
+            f"request failed after {req.retries - 1} retries: "
+            f"{type(exc).__name__}: {exc}")
+        self._fail_request(req, "failed")
+        return False
+
+    def _isolate_admission_failure(self, slot: int, req, exc: Exception, active) -> None:
+        """Rewind ONE request's admission (slot record, pending pieces,
+        prefix pins, KV blocks, lane) and re-queue it within its retry
+        budget; past the budget it fails alone. The rest keeps serving."""
+        self.slots[slot] = None
+        self._pending_prefill.pop(slot, None)
+        active[slot] = False
+        self._prefix_release(req)
+        self._release_slot_kv(slot)
+        with self.lock:
+            self.free.append(int(slot))
+        if self._retry_or_fail(req, exc, "retry", error=type(exc).__name__):
+            with self.lock:
+                self.queue.appendleft(req)
+
+    def _recover_after_crash(self, exc: BaseException) -> None:
+        """Reset the server to an admittable state after a loop-scoped
+        crash: fence the card, rebuild the pool, clear the slot, prefill
+        and in-flight bookkeeping, drop the (now unbacked) prefix tree and
+        staged promotions, and re-queue every interrupted request within
+        its retry budget."""
+        get_global_error_log().log(
+            f"decoder serving loop crashed ({type(exc).__name__}: {exc}); "
+            f"supervised restart")
+        probes.REGISTRY.counter_add("serve_restarts", server=self._trace_tag)
+        if self.device.type == "cuda":
+            # copies still queued against the old pool or the in-flight
+            # chunk records must land before the caching allocator hands
+            # their memory to the rebuilt pool
+            torch.cuda.synchronize(self.device)
+        victims: list = []
+        with self.lock:
+            for rec in self._inflight:
+                victims.extend(r for r in rec[2] if r is not None)
+            self._inflight.clear()
+            victims.extend(r for r in self.slots if r is not None)
+            for i in range(self.n_slots):
+                self.slots[i] = None
+            self.free = list(range(self.n_slots))
+            self.stats["restarts"] += 1
+            # no request may hold its last piece for a promotion that
+            # targets the tree dropped below
+            self._t2_waiting.clear()
+        self._pending_prefill.clear()
+        self._sent = [0] * self.n_slots
+        self._slot_cover.clear()
+        self._slot_blocks.clear()
+        self.pool = None  # one pool's worth of memory at a time
+        self.pool = self._build_pool()
+        # the old tree's pins died with the allocator just replaced: they
+        # must not release into the new one
+        self.prefix_reset(unpin=False)
+        self._update_fragmentation()
+        requeue, seen = [], set()
+        for req in victims:
+            if id(req) in seen or req.done.is_set():
+                continue
+            seen.add(id(req))
+            if self._retry_or_fail(req, exc, "restart_requeue", attempt=req.retries + 1):
+                # a restart re-decodes from the prompt
+                req.tokens = []
+                req.first_token_at = None
+                requeue.append(req)
+        with self.lock:
+            self.queue.extendleft(reversed(requeue))
 
     def _run_safe(self):
         try:
             if self.device.type == "cuda":
                 with torch.cuda.device(self.device):
-                    self._loop()
+                    self._supervise()
             else:
-                self._loop()
+                self._supervise()
         except BaseException as exc:  # noqa: BLE001 - never hang waiters
             self.failed = exc
+            get_global_error_log().log(
+                f"decoder serving loop died: {type(exc).__name__}: {exc}")
         finally:
             # every request still in a slot, queued, or waiting in the
             # in-flight snapshots completes with the error sentinel
@@ -729,24 +913,59 @@ class _ContinuousServer:
                     req.span.finish(error=True, tokens=len(req.tokens))
                     req.done.set()
 
-    def submit(self, prompt_ids: list, max_new: int) -> _PendingCompletion:
+    def _supervise(self):
+        """The loop, re-entered after a recovered crash with exponential
+        backoff (20, 40, 80 ... ms, capped at 2 s) up to the restart
+        budget; unsupervised, the first failure propagates."""
+        if not self._supervised:
+            self._loop()
+            return
+
+        def cycle():
+            try:
+                self._loop()
+            except Exception as exc:
+                self._recover_after_crash(exc)
+                raise
+
+        ExponentialBackoffRetryStrategy(
+            max_retries=self._restart_budget, initial_delay=20, backoff_factor=2,
+            jitter_ms=10, max_delay_ms=2000).invoke_sync(cycle)
+
+    def submit(self, prompt_ids: list, max_new: int, *,
+               priority: int = 1) -> _PendingCompletion:
         req = _PendingCompletion(list(prompt_ids), int(max_new))
+        req.priority = int(priority)
         req.span = tracing.start_span(
             "decode", server=self._trace_tag, prompt_tokens=len(req.ids),
             max_new=req.max_new, tenant="default")
+        if self._deadline_s > 0:
+            # monotonic, the clock of the loop's deadline sweep
+            req.deadline = time.monotonic() + self._deadline_s
+        shed_reason = None
         with self.lock:
             if self.failed is not None:
                 raise RuntimeError(f"decoder serving loop died: {self.failed!r}")
             if self._stop:
                 raise RuntimeError("decoder serving loop is shut down")
-            self.queue.append(req)
-            # the observed arrival gap feeds the chunk-steps autotune
-            now = req.submitted_at
-            if self._last_submit_t is not None:
-                gap = now - self._last_submit_t
-                self._arrival_ema = (gap if self._arrival_ema is None
-                                     else 0.8 * self._arrival_ema + 0.2 * gap)
-            self._last_submit_t = now
+            if self._queue_bound > 0 and len(self.queue) >= self._queue_bound:
+                # over the bound: shed now instead of queueing what the
+                # deadlines could never drain
+                shed_reason = "queue_full"
+            elif self._degradation_level >= 3 and req.priority <= 0:
+                shed_reason = "degraded"
+            else:
+                self.queue.append(req)
+                # the observed arrival gap feeds the chunk-steps autotune
+                now = req.submitted_at
+                if self._last_submit_t is not None:
+                    gap = now - self._last_submit_t
+                    self._arrival_ema = (gap if self._arrival_ema is None
+                                         else 0.8 * self._arrival_ema + 0.2 * gap)
+                self._last_submit_t = now
+        if shed_reason is not None:
+            self._shed_request(req, shed_reason)
+            return req
         self.wake.set()
         return req
 
@@ -786,6 +1005,10 @@ class _ContinuousServer:
         e = req.ids[-self.max_prompt_bucket:]
         n = len(e)
         req.span.event("admit", slot=int(slot))
+        if self._degradation_level >= 1:
+            # ladder level 1+: a shorter answer recycles the slot sooner;
+            # before the paged cover below is sized from max_new
+            req.max_new = min(req.max_new, max(1, self._default_max_new // 2))
         if self.paged_kv:
             self._admit_one_paged(slot, req, e, n)
             return
@@ -1028,15 +1251,17 @@ class _ContinuousServer:
         if node is not None:
             self.prefix.release(node)
 
-    def prefix_reset(self) -> None:
+    def prefix_reset(self, *, unpin: bool = True) -> None:
         """Drop every cached prefix and zero the server's prefix counters.
         Call only while no request is in flight: a paged pool's cached
         blocks unpin back to the allocator, a dense arena starts empty, and
-        staged promotions are dropped with the tree they targeted."""
+        staged promotions are dropped with the tree they targeted. A
+        supervised restart passes ``unpin=False``: its pool rebuild already
+        replaced the allocator the old pins lived in."""
         if self.prefix is None:
             return
         self._prefix_nodes.clear()
-        if self.paged_kv:
+        if self.paged_kv and unpin:
             self.prefix.reset()
         else:
             self.prefix = self._make_prefix_cache()
@@ -1192,6 +1417,10 @@ class _ContinuousServer:
         if none."""
         if not active.any():
             return False
+        if self._chaos_dispatch is not None:
+            # loop-scoped: every in-flight lane is affected, so recovery is
+            # a supervised restart, not a per-request rewind
+            self._chaos_dispatch.maybe_fail()
         with self.lock:
             qlen = len(self.queue)
         steps = self._pick_steps(qlen)
@@ -1204,7 +1433,7 @@ class _ContinuousServer:
                                    else 0.7 * self._step_wall_ema + 0.3 * per)
         self._last_dispatch_t = now
         lanes = to_device(active.copy(), self.device)
-        if self.spec_decode and not self._spec_off:
+        if self.spec_decode and not self._spec_off and self._degradation_level < 2:
             # `steps` plain lane-steps become n_cycles cycles; budgets and
             # the autotune count cycles here
             lane_steps = max(1, steps // (self.spec_k + 1))
@@ -1313,6 +1542,19 @@ class _ContinuousServer:
             req = snap_slots[slot]
             if req is None or req.done.is_set():
                 continue
+            if (self._deadline_s > 0.0 and req.deadline is not None
+                    and req.deadline <= time.monotonic()):
+                # an admitted request past its deadline frees its slot now
+                # instead of decoding an answer its caller gave up on
+                if self.slots[slot] is req:
+                    self.slots[slot] = None
+                    active[slot] = False
+                    self._release_slot_kv(slot)
+                    with self.lock:
+                        self.free.append(int(slot))
+                self._prefix_release(req)
+                self._shed_request(req, "deadline_inflight")
+                continue
             if spec:
                 stream = toks[:, slot][first[:, slot]].tolist()
                 req.span.event("spec_cycles", cycles=int(cyc), emitted=len(stream),
@@ -1348,29 +1590,74 @@ class _ContinuousServer:
                 req.span.finish(tokens=len(req.tokens))
                 req.done.set()
 
+    def _take_admissions(self) -> list:
+        """Pop the queue into free slots, shedding what the deadline sweep
+        and the ladder refuse; returns ``(slot, request)`` pairs."""
+        admissions, shed = [], []
+        with self.lock:
+            if self._deadline_s > 0.0 and self.queue:
+                # requests whose deadline lapsed while queued: running them
+                # spends the card on answers their callers gave up on
+                now = time.monotonic()
+                kept = []
+                for r in self.queue:
+                    if r.deadline is not None and r.deadline <= now:
+                        shed.append((r, "deadline"))
+                    else:
+                        kept.append(r)
+                if shed:
+                    self.queue.clear()
+                    self.queue.extend(kept)
+            now = time.monotonic()
+            while self.queue and self.free:
+                req = self.queue.popleft()
+                if self._degradation_level >= 3 and req.priority <= 0:
+                    shed.append((req, "degraded"))
+                elif req.deadline is not None and req.deadline <= now:
+                    # a deadline can lapse between the sweep and the pop
+                    shed.append((req, "deadline"))
+                else:
+                    admissions.append((self.free.pop(), req))
+        for req, reason in shed:
+            self._shed_request(req, reason)
+        return admissions
+
     def _loop(self):
         active = np.zeros(self.n_slots, dtype=bool)
         inflight = self._inflight
         while not self._stop:
             # decode FIRST: newcomer admission overlaps the in-flight chunk
             dispatched = self._dispatch_decode(active)
+            if self._degrade is not None:
+                # one rate-limited watchdog read per tick
+                self._degradation_level = self._degrade.maybe_evaluate()
             # adopt staged tier-2 promotions before admissions
             self._drain_promotions()
-            admissions = []
-            with self.lock:
-                while self.queue and self.free:
-                    admissions.append((self.free.pop(), self.queue.popleft()))
             direct: list = []
-            for slot, req in admissions:
+            for slot, req in self._take_admissions():
                 # the slot record goes in first, so a failing admission
                 # still finds (and fails) this request
                 self.slots[slot] = req
                 self._sent[slot] = 0
-                self._admit_one(slot, req, direct)
+                try:
+                    if self._chaos_admit is not None:
+                        # request-scoped: only this request's host state
+                        self._chaos_admit.maybe_fail()
+                    self._admit_one(slot, req, direct)
+                except Exception as exc:
+                    if not self._supervised:
+                        raise
+                    self._isolate_admission_failure(slot, req, exc, active)
             self._admit_direct(direct, active)
             held = False
             for slot in list(self._pending_prefill):
-                held |= not self._prefill_piece(slot, active)
+                try:
+                    held |= not self._prefill_piece(slot, active)
+                except Exception as exc:
+                    req_p = self.slots[slot]
+                    if not self._supervised or req_p is None:
+                        raise
+                    self._isolate_admission_failure(slot, req_p, exc, active)
             if not dispatched:  # the pool was empty: decode the newcomers
                 dispatched = self._dispatch_decode(active)
             if dispatched:
@@ -1395,8 +1682,18 @@ class _ContinuousServer:
         t = self.thread
         if t is not None and t.is_alive():
             t.join(timeout=timeout)
-        if self._promote_worker is not None:
-            self._promote_worker.close()
+            if t.is_alive():
+                # a wedged device call or a stuck lock: record it instead
+                # of returning as if the shutdown were clean
+                with self.lock:
+                    self.stats["leaked_thread"] += 1
+                get_global_error_log().log(
+                    f"serving loop thread {t.name!r} still alive {timeout}s "
+                    f"after shutdown join")
+        # getattr: shutdown also runs on a partly constructed server
+        promote = getattr(self, "_promote_worker", None)
+        if promote is not None:
+            promote.close()
         # the loop thread is down: every span it will write is written
         tracing.flush_traces()
 

@@ -11,6 +11,12 @@ Tolerances, each with its reason:
 * port against JAX: cosine >= 0.9999 (f32 encoder; summation order and the
   float16 device-to-host cast on both sides, as tests/test_torch_rag.py).
 
+The ``embed.h2d`` chaos site (after tests/test_chaos.py): a faulted
+stage-and-dispatch is retried within ``serve_retries`` when
+``serve_restarts > 0``, so every batch that resolves is byte-equal to
+chaos off, and a batch whose budget ran out raises its ``InjectedFault``
+at resolve; none is dropped.
+
 Every wait is bounded (``WAIT`` seconds), so a lost batch fails its test
 instead of hanging the run.
 """
@@ -20,7 +26,12 @@ import pytest
 
 from pathway_tpu.models.embedder import SentenceEmbedderModel as JEmbed
 from pathway_tpu.models.tokenizer import HashTokenizer as JTok
-from pathway_tpu_torch.models.embedder import SentenceEmbedderModel, _PendingEmbed
+from pathway_tpu_torch.engine import chaos
+from pathway_tpu_torch.models.embedder import (
+    SentenceEmbedderModel,
+    _IngestPipeline,
+    _PendingEmbed,
+)
 from pathway_tpu_torch.models.params import from_jax_params
 from pathway_tpu_torch.models.tokenizer import HashTokenizer
 from pathway_tpu_torch.xpacks.llm import SentenceTransformerEmbedder
@@ -378,3 +389,78 @@ def test_shared_tokenizer_and_pipeline_under_thread_stress():
     assert sorted(got) == list(range(len(batches)))
     _equal([got[j] for j in range(len(batches))], want)
     assert len(m.tokenizer._memo) == len({t for b in batches for t in b})
+
+
+# ------------------------------------------------------------ embed.h2d chaos
+def test_embed_h2d_chaos_provenance_and_retry():
+    """The h2d site faults with provenance; the bounded retry re-attempts
+    the stage (the site counts both tries) before the error surfaces."""
+    pipe = _IngestPipeline.__new__(_IngestPipeline)
+    pipe._chaos_h2d = chaos.ChaosSite("embed.h2d", 1.0, 0)
+    pipe._retries = 1
+    handle = _PendingEmbed()
+    pipe._dispatch_one((None, None, 1, handle))
+    assert handle._event.is_set()
+    assert isinstance(handle._error, chaos.InjectedFault)
+    assert handle._error.site == "embed.h2d" and handle._error.seq == 2
+
+
+def _surviving(seed: int, rate: float, retries: int, n_batches: int):
+    """Which batches resolve, and the site's operation count, replaying
+    its schedule: the dispatch worker is one thread, so its operations run
+    in submit order."""
+    site, out = chaos.ChaosSite("embed.h2d", rate, seed), []
+    for _ in range(n_batches):
+        ok = False
+        for _ in range(retries + 1):
+            try:
+                site.maybe_fail()
+                ok = True
+                break
+            except chaos.InjectedFault:
+                pass
+        out.append(ok)
+    return out, site._seq
+
+
+@pytest.mark.parametrize("seed,serve_restarts,serve_retries", [
+    (0, 1, 3),   # faults, every batch recovered by its retries
+    (0, 0, 3),   # retries off (the default restarts): first faults surface
+    (1, 1, 3),   # some batches spend their whole budget
+])
+def test_embed_h2d_chaos_batches_byte_equal_or_raise(seed, serve_restarts, serve_retries):
+    batches = TEXTS + _SMALL_BATCHES
+    want = [_serial().embed_batch(t) for t in batches]
+    retries = serve_retries if serve_restarts > 0 else 0
+    ok, ops = _surviving(seed, 0.4, retries, len(batches))
+    m = _model(serve_restarts=serve_restarts, serve_retries=serve_retries)
+    assert m.h2d_retries == retries
+    # the pipeline, and with it the site, is built at the first submit
+    chaos.configure(rate=0.4, seed=seed, sites="embed.h2d")
+    try:
+        handles = [m.embed_submit(t) for t in batches]
+        chaos.configure()
+        for h, w, good in zip(handles, want, ok):
+            if good:
+                np.testing.assert_array_equal(m.embed_resolve([h], WAIT)[0], w)
+            else:
+                with pytest.raises(chaos.InjectedFault) as ei:
+                    m.embed_resolve([h], WAIT)
+                assert ei.value.site == "embed.h2d"
+        assert m._pipeline._chaos_h2d._seq == ops
+    finally:
+        chaos.configure()
+        m.close()
+    if serve_restarts and seed == 0:
+        assert all(ok) and ops > len(batches)  # every fault was retried away
+    else:
+        assert not all(ok)
+
+
+def test_embed_h2d_site_off_by_default():
+    m = _model()
+    try:
+        m.embed_resolve([m.embed_submit(TEXTS[0])], WAIT)
+        assert m._pipeline._chaos_h2d is None and m._pipeline._retries == 0
+    finally:
+        m.close()
