@@ -132,7 +132,26 @@ without printing a result:
    dispatches than requests, latencies of both paths; the rerank cascade
    (depth 3, 28 of 32) with top-8 overlap >= 0.9 against the full rerank;
    ``query.tick`` chaos with ``serve_restarts=2``. Phase 12 drives all five
-   kernel entry points.
+   kernel entry points;
+13. the serving features JAX keeps off by default, at phase 6's settings:
+   (a) phase 6's burst with ``disagg`` off, on (budget 1), on, off:
+   streams equal 48/48, ``kv_migrated_blocks`` the sum of the handed-off
+   rows' block counts, ``lane_stats()`` back to zero; decode tokens/s, TTFT
+   p50 and TPOT p99 from the request spans; (b) ``tenant_sched`` with one
+   tenant and no budget (streams equal), then tenants ``a:3,b:1``, 24
+   requests each at once, under a budget of 12 answers' tokens: every
+   request terminal, streams equal to scheduling off, preemptions and an
+   unpark onto the parked row, ``kv_parked_bytes`` 0, every block back in
+   the allocator, ``memory_allocated`` equal to the scheduling-off
+   server's, the a:b ratio of the first 16 admissions; a dense pool of 8
+   slots under 16 requests (phase 12 (b)'s prompts) preempts with streams
+   equal; (c) two ``InProcessReplica`` behind a ``FleetRouter`` at
+   affinity 4: 48 requests behind 4 heads of 256 tokens (each head on one
+   replica, every later request a prefix hit, streams equal a single
+   server's), ``router.forward`` chaos at 0.2 (every request terminal,
+   answered streams equal), one ``FleetManager.tick()`` under
+   ``replica.health`` chaos (one drain, one respawn, 8/8 answered after),
+   and ``memory_allocated`` back within one pool after the shutdown.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -2065,11 +2084,13 @@ TIE_TOL = 8e-3
 N_QS = 256  # phase 12 (f): half retrieve (k = TOP_K), half rerank (k = RERANK_K)
 
 
-def bounded_serve(chat, prompts, timeout: float = 600.0, **kw) -> dict:
+def bounded_serve(chat, prompts, timeout: float = 600.0, groups=None, **kw) -> dict:
     """One run of ``prompts`` submitted at once through DecoderChat, every
-    kernel count set to 0 just before and read just after. Failed and shed
-    requests are allowed, but every request must be terminal within
-    ``timeout`` seconds."""
+    kernel count set to 0 just before and read just after; ``groups``
+    (``(tenant, prompts)`` pairs) submits each group with its tenant
+    instead, one right after another. Failed and shed requests are
+    allowed, but every request must be terminal within ``timeout``
+    seconds."""
     import torch
 
     for f in counters().values():
@@ -2077,7 +2098,9 @@ def bounded_serve(chat, prompts, timeout: float = 600.0, **kw) -> dict:
     s0 = dict(chat.server.stats)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reqs = chat.submit_batch(prompts, **kw)
+    reqs = []
+    for tenant, batch in groups or [("default", prompts)]:
+        reqs += chat.submit_batch(batch, tenant=tenant, **kw)
     end = time.monotonic() + timeout
     for r in reqs:
         if not r.done.wait(max(0.0, end - time.monotonic())):
@@ -2580,6 +2603,334 @@ def run_query_server(pipe, gpu: str) -> int:
     return FA.flash_attn.launches
 
 
+# ---------------------------------------------------------------- phase 13
+TENANT_W = "a:3,b:1"
+# tenant a's weighted share of the 16 slots, in decode tokens: a reaches
+# its budget at 12 admissions, while b still waits
+TENANT_BUDGET = 12 * MAX_NEW
+FLEET_HEADS = 4
+
+
+def span_latency(spans) -> dict:
+    """TTFT p50 and TPOT p99 (ms) over finished decode spans."""
+    ttft = [s["metrics"]["ttft_ms"] for s in spans if "ttft_ms" in s["metrics"]]
+    tpot = sorted(s["metrics"]["tpot_ms"] for s in spans if "tpot_ms" in s["metrics"])
+    return {"ttft_p50_ms": statistics.median(ttft),
+            "tpot_p99_ms": tpot[min(len(tpot) - 1, int(0.99 * len(tpot)))]}
+
+
+def row_blocks(srv, n: int) -> int:
+    """Blocks of a paged request's row: its prompt right-padded to whole
+    pieces, its answer and the in-flight slack, in blocks of BLOCK."""
+    width = -(-n // PIECE) * PIECE
+    cover = min(CACHE_LEN, width + MAX_NEW + (srv.pipeline_depth + 1) * srv._slack)
+    return -(-cover // BLOCK)
+
+
+def wait_until(cond, what: str, timeout: float = 30.0) -> None:
+    end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > end:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def fleet_serve(router, prompts, timeout: float = 600.0) -> dict:
+    """Route ``prompts`` through the fleet at once, the kernel counts set
+    to 0 just before; every request must be terminal within ``timeout``."""
+    import torch
+
+    for f in counters().values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    fcs = [router.submit(p) for p in prompts]
+    end = time.monotonic() + timeout
+    for fc in fcs:
+        if not fc.wait(timeout=max(0.0, end - time.monotonic())):
+            raise AssertionError(f"a fleet request was not terminal within {timeout} s")
+    torch.cuda.synchronize()
+    return {"fcs": fcs, "wall_s": time.perf_counter() - t0,
+            "launches": {n: f.launches for n, f in counters().items()}}
+
+
+def run_lanes_tenants_fleet(dev, gpu: str, common) -> dict:
+    """Phase 13; returns the launches of its runs."""
+    import gc
+
+    import torch
+
+    from pathway_tpu_torch import DecoderChat, serving
+    from pathway_tpu_torch.engine import chaos, probes, tracing
+    from pathway_tpu_torch.models import decoder as D
+
+    paged = dict(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True, flash_prefill=True)
+    total = {n: 0 for n in counters()}
+    prompts = make_prompts(N_REQUESTS, 16, 480, seed=1)
+    n_tok = [len(common["tokenizer"].encode(p)) for p in prompts]
+
+    # (a) disaggregated lanes against interleaved prefill: off, on, on, off
+    off = DecoderChat(disagg=False, **paged, **common)
+    serve(off, make_prompts(4, 16, 200, seed=99))  # warm-up, outside the counts
+    off.server.prefix_reset()
+    on = DecoderChat(disagg=True, disagg_prefill_budget=1, **paged, **common)
+    serve(on, make_prompts(4, 16, 200, seed=99))
+    on.server.prefix_reset()
+    chats, runs = {False: off, True: on}, []
+    for arm in (False, True, True, False):
+        tracing.reset_traces()
+        out = serve(chats[arm], prompts)
+        srv = chats[arm].server
+        out.update(span_latency(chats[arm].recent_traces()))
+        srv.prefix_reset()
+        add_launches(total, out)
+        runs.append((arm, out))
+        st = out["stats"]
+        info(f"lanes (a) disagg {'on' if arm else 'off'} [{gpu}]: {N_REQUESTS} requests in "
+             f"{out['wall_s']:.3f} s wall; decode {out['tok_per_s']:.1f} tokens/s; TTFT p50 "
+             f"{out['ttft_p50_ms']:.1f} ms; TPOT p99 {out['tpot_p99_ms']:.2f} ms; "
+             f"kv_migrated_blocks {st['kv_migrated_blocks']}; launches {out['launches']}")
+        want = sum(row_blocks(srv, n) for n in n_tok) if arm else 0
+        require(st["kv_migrated_blocks"] == want,
+                f"(a) kv_migrated_blocks is the sum of the handed-off rows ({want})")
+        wait_until(lambda: srv.lane_stats() == {"prefill": 0, "decode": 0}, "idle lanes")
+    ref = [r.tokens for r in runs[0][1]["reqs"]]
+    require(all([r.tokens for r in o["reqs"]] == ref for _, o in runs),
+            f"(a) the {N_REQUESTS} streams are equal token for token, disagg on and off")
+    info("  check: (a) lane_stats() back to {prefill: 0, decode: 0} after each burst: ok")
+    for key, fmt in (("tok_per_s", "{:.1f}"), ("ttft_p50_ms", "{:.1f}"),
+                     ("tpot_p99_ms", "{:.2f}")):
+        v = {a: statistics.mean(o[key] for x, o in runs if x == a) for a in chats}
+        info(f"lanes (a) {key} [{gpu}]: on {fmt.format(v[True])} / off "
+             f"{fmt.format(v[False])} (on/off {v[True] / v[False]:.4f})")
+    free_chats(on, off)
+    del on, off, chats, srv  # srv would keep the last server's pool alive
+
+    # (b) tenants: one tenant and no budget (idle), then a:3,b:1 under a
+    # budget that preempts, then a dense pool
+    sched = DecoderChat(tenant_sched=True, **paged, **common)
+    out = serve(sched, prompts)
+    add_launches(total, out)
+    require([r.tokens for r in out["reqs"]] == ref and out["stats"]["preemptions"] == 0,
+            f"(b) idle scheduler: the {N_REQUESTS} streams equal scheduling off")
+    free_chats(sched)
+    del sched
+    # the contended arm and scheduling off, each a fresh server measured
+    # alike: memory_allocated over the baseline after its burst
+    half = N_REQUESTS // 2
+    groups = [("a", prompts[:half]), ("b", prompts[half:])]
+    mems = {}
+    for arm in (False, True):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        kw = dict(tenant_sched=True, tenant_budget=TENANT_BUDGET,
+                  tenant_weights=TENANT_W) if arm else {}
+        chat = DecoderChat(**kw, **paged, **common)
+        srv = chat.server
+        serve(chat, make_prompts(4, 16, 200, seed=99))
+        srv.prefix_reset()
+        order = []
+        if arm:
+            charge = srv._tenants.charge
+            srv._tenants.charge = lambda t, n: (order.append(t), charge(t, n))
+        out = bounded_serve(chat, None, groups=groups)
+        add_launches(total, out)
+        st = out["stats"]
+        first = order[:N_SLOTS]
+        label = f"{TENANT_W}, budget {TENANT_BUDGET} tokens" if arm else "scheduling off"
+        info(f"tenants (b) {label} [{gpu}]: {N_REQUESTS} requests in {out['wall_s']:.3f} s "
+             f"wall; decode {out['tok_per_s']:.1f} tokens/s; preemptions "
+             f"{st['preemptions']}, unparked {st['unparked']}, admissions "
+             f"{st['admitted']}; first {N_SLOTS} admissions "
+             f"a:b = {first.count('a')}:{first.count('b')}; launches {out['launches']}")
+        require([r.tokens for r in out["reqs"]] == ref,
+                f"(b) the {N_REQUESTS} streams equal (a)'s token for token")
+        wait_until(lambda: srv.lane_stats() == {"prefill": 0, "decode": 0}, "idle lanes")
+        parked = probes.kv_parked_value(server=srv._trace_tag)
+        srv.prefix_reset()
+        if arm:
+            require(st["preemptions"] > 0 and st["unparked"] >= 1,
+                    "(b) budget preemption parked a row and an unpark took it back")
+            require(parked == 0.0 and not srv._parked,
+                    "(b) the kv_parked_bytes gauge is 0 after the burst")
+            require(srv._tenants.stats()["inflight"] == {}, "(b) every charge was credited back")
+        require(srv._allocator.n_free == srv._total_blocks - 1,
+                "(b) every block is back in the allocator")
+        del out, srv
+        gc.collect()
+        torch.cuda.synchronize()
+        ms = torch.cuda.memory_stats(dev)
+        mems[arm] = (torch.cuda.memory_allocated(dev) - base,
+                     ms["allocated_bytes.small_pool.current"],
+                     ms["allocated_bytes.large_pool.current"])
+        free_chats(chat)
+        del chat
+    info(f"  memory_allocated over the baseline (small pool, large pool): scheduling on "
+         f"{mems[True]}, off {mems[False]}")
+    require(mems[True][0] == mems[False][0],
+            "(b) memory_allocated equals the scheduling-off server's")
+
+    dense = dict(paged_kv=False, flash_prefill=True, prefix_cache=False, n_slots=8)
+    d_common = {k: v for k, v in common.items() if k != "n_slots"}
+    d_prompts = dense_prompts()
+    d_groups = [("a", d_prompts[0::2]), ("b", d_prompts[1::2])]
+    d_out = {}
+    for on_ in (False, True):
+        kw = dict(tenant_sched=True, tenant_budget=6 * MAX_NEW, tenant_weights=TENANT_W) \
+            if on_ else {}
+        chat = DecoderChat(**dense, **kw, **d_common)
+        d_out[on_] = bounded_serve(chat, None, groups=d_groups)
+        add_launches(total, d_out[on_])
+        free_chats(chat)
+        del chat
+    st = d_out[True]["stats"]
+    info(f"tenants (b) dense pool, 8 slots, 16 requests [{gpu}]: preemptions "
+         f"{st['preemptions']}, {st['admit_dispatches']} whole-prompt admissions, "
+         f"{st['prefill_chunks']} pieces; launches {d_out[True]['launches']}")
+    require([r.tokens for r in d_out[True]["reqs"]] == [r.tokens for r in d_out[False]["reqs"]],
+            "(b) dense pool: the 16 streams equal scheduling off")
+    require(st["preemptions"] > 0, "(b) the dense pool preempted")
+
+    # (c) two replicas on the one card behind the router at affinity 4
+    # 4 heads, two owned by each replica of the ring the router will
+    # build; each head's questions are under one block, so a replica's
+    # tree holds only its heads' blocks (phase 7's 64 MB budget, no
+    # eviction)
+    tok = common["tokenizer"]
+    ring = serving.HashRing()
+    for rid in ("replica-0", "replica-1"):
+        ring.add(rid)
+    rng = np.random.default_rng(131)
+    heads, owners, seed = [], [], 130
+    while len(heads) < FLEET_HEADS:
+        group = shared_prompts(SHARED_HEAD, rng.integers(1, BLOCK, N_REQUESTS // FLEET_HEADS)
+                               .tolist(), seed=seed)
+        seed += 1
+        owner = ring.lookup(serving.head_block_key(tok.encode(group[0]), block=BLOCK, blocks=4))
+        if owners.count(owner) < FLEET_HEADS // 2:
+            heads.append(group)
+            owners.append(owner)
+    firsts = [g[0] for g in heads]
+    rest = [p for g in heads for p in g[1:]]
+    single = DecoderChat(**paged, **common)
+    w = serve(single, firsts)
+    o = serve(single, rest)
+    fleet_ref = streams(w) + streams(o)
+    free_chats(single)
+    del single
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    replicas = {}
+
+    def factory(rid):
+        replicas[rid] = DecoderChat(**paged, **common)
+        return serving.InProcessReplica(rid, replicas[rid])
+
+    def probe_faults(seed: int) -> list:
+        site = chaos.ChaosSite("replica.health", 0.5, seed)
+        out = []
+        for _ in range(2):
+            try:
+                site.maybe_fail()
+                out.append(False)
+            except chaos.InjectedFault:
+                out.append(True)
+        return out
+
+    # the manager's health site is armed at construction and probes only
+    # in tick(): a seed whose first two probes pass, then fault, drains one
+    seed = next(s for s in range(1000) if probe_faults(s) == [False, True])
+    serving.configure(enabled=True)
+    chaos.configure(rate=0.5, seed=seed, sites="replica.health")
+    try:
+        manager = serving.build_fleet(factory, router=serving.FleetRouter(
+            affinity_blocks=4, block=BLOCK, tokenize=tok.encode), replicas=2,
+            min_replicas=2, max_replicas=2)
+    finally:
+        chaos.configure()
+        serving.configure()
+    pool_bytes = D.pool_bytes(replicas["replica-0"].server.pool)
+    one = pool_bytes + sum(t.numel() * t.element_size()
+                           for t in D._tensor_leaves(replicas["replica-0"].params))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - base
+    info(f"fleet (c) memory_allocated with 2 replicas: {held} bytes over the baseline "
+         f"(one replica's weights and pool: {one})")
+    require(held >= 2 * one, "(c) memory_allocated holds both replicas' weights and pools")
+    router = manager.router
+    f1 = fleet_serve(router, firsts)
+    f2 = fleet_serve(router, rest)
+    add_launches(total, f1)
+    add_launches(total, f2)
+    fcs = f1["fcs"] + f2["fcs"]
+    per = N_REQUESTS // FLEET_HEADS - 1
+    by_head = [{fc.replica_id for fc in [f1["fcs"][h]] + f2["fcs"][h * per:(h + 1) * per]}
+               for h in range(FLEET_HEADS)]
+    hits = sum(c.server.stats["prefix_hit_requests"] for c in replicas.values())
+    hit_tok = sum(c.server.stats["prefix_hit_tokens"] for c in replicas.values())
+    info(f"fleet (c) 2 replicas, {N_REQUESTS} requests behind {FLEET_HEADS} heads of "
+         f"{SHARED_HEAD} tokens [{gpu}]: {f1['wall_s']:.3f} + {f2['wall_s']:.3f} s wall "
+         f"(one server: {w['wall_s']:.3f} + {o['wall_s']:.3f} s); "
+         f"heads on {[sorted(s) for s in by_head]}; prefix hits {hits} ({hit_tok} tokens); "
+         f"launches {f2['launches']}")
+    require([sorted(s) for s in by_head] == [[o] for o in owners],
+            "(c) each head's requests landed on its ring owner, two heads a replica")
+    require(hits == len(rest) and hit_tok == len(rest) * SHARED_HEAD,
+            "(c) every request after a head's first hit the prefix cache")
+    bad = [i for i, (fc, w_) in enumerate(zip(fcs, fleet_ref)) if fc.tokens != w_]
+
+    def first_diff(a, b) -> int:
+        return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), -1)
+
+    info(f"  streams equal to one server's: {N_REQUESTS - len(bad)}/{N_REQUESTS}; differing: "
+         + (", ".join(f"#{i} on {fcs[i].replica_id} ({len(fcs[i].tokens)} tokens, from "
+                      f"{first_diff(fcs[i].tokens, fleet_ref[i])}, {fcs[i].error_reason})"
+                      for i in bad) or "none"))
+    require(not bad and all(fc.text is not None for fc in fcs),
+            f"(c) the fleet's {N_REQUESTS} streams equal a single server's")
+
+    chaos.configure(rate=0.2, seed=0, sites="router.forward")
+    try:
+        c_router = serving.FleetRouter(affinity_blocks=4, block=BLOCK, tokenize=tok.encode)
+    finally:
+        chaos.configure()
+    for rep in router.replicas().values():
+        c_router.add_replica(rep)
+    cf = fleet_serve(c_router, firsts + rest)
+    add_launches(total, cf)
+    answered = [(fc, w_) for fc, w_ in zip(cf["fcs"], fleet_ref) if fc.text is not None]
+    moved = sum(len(fc.attempts) > 1 for fc in cf["fcs"])
+    info(f"fleet (c) router.forward chaos 0.2 seed 0 [{gpu}]: {len(answered)}/{N_REQUESTS} "
+         f"answered, {moved} failed over, "
+         f"{sum(fc.error_reason == 'fleet:no_replica' for fc in cf['fcs'])} with no replica")
+    require(all(fc.done.is_set() for fc in cf["fcs"]), "(c) every request is terminal under chaos")
+    require(all(fc.tokens == w_ for fc, w_ in answered),
+            "(c) every answered stream equals the single server's")
+
+    tick = manager.tick()
+    st = manager.state()
+    drains = [e for e in st["events"] if e[0] == "drain"]
+    info(f"fleet (c) replica.health chaos 0.5 seed {seed}, one tick [{gpu}]: {tick}; "
+         f"events {st['events']}")
+    require(len(drains) == 1 and st["respawns"] == 1 and len(router) == 2,
+            "(c) one drain and one respawn")
+    after = fleet_serve(router, rest[:8])
+    add_launches(total, after)
+    require(all(fc.text is not None for fc in after["fcs"])
+            and [fc.tokens for fc in after["fcs"]] == fleet_ref[FLEET_HEADS:FLEET_HEADS + 8],
+            "(c) the fleet answers 8/8 after the respawn, equal to the single server")
+    manager.shutdown()
+    del manager, router, c_router, rep, replicas, cf, f1, f2, after, fcs, answered
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated(dev) - base
+    info(f"  memory_allocated after the fleet's shutdown: {left} bytes over the baseline "
+         f"(one pool: {pool_bytes})")
+    require(abs(left) <= pool_bytes, "(c) memory_allocated back within one pool of the baseline")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2691,6 +3042,14 @@ def main() -> int:
     info(f"supervision: phase 12 launches {sup}")
     require(all(v > 0 for v in sup.values()), "phase 12 drove all five kernel entry points")
     dec = {n: dec[n] + sup[n] for n in dec}
+
+    # phase 13: disaggregated lanes, tenant scheduling, the serving fleet
+    lanes = run_lanes_tenants_fleet(dev, gpu, common)
+    info(f"lanes, tenants and fleet: phase 13 launches {lanes}")
+    require(all(lanes[n] > 0 for n in ("flash_chunk_attn_paged", "paged_attn_decode",
+                                       "wq_matmul")),
+            "phase 13 drove flash_chunk_attn_paged, paged_attn_decode and wq_matmul")
+    dec = {n: dec[n] + lanes[n] for n in dec}
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",

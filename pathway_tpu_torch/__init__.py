@@ -27,6 +27,11 @@ the degradation ladder the decode server reads, ``slo.configure``),
 ``engine.chaos`` (fault injection sites, off until ``chaos.configure``),
 and the servers' ``serve_restarts`` / ``serve_retries`` /
 ``request_deadline_ms`` / ``serve_queue`` / ``degradation`` arguments.
+
+The serving features JAX keeps off by default are off here too: the
+decode server's prefill lane (``disagg``) and tenant scheduling with
+preemption (``tenant_sched``), and ``serving``, a fleet of in-process
+replicas behind a prefix-affinity router (``serving.build_fleet``).
 """
 
 from pathway_tpu_torch.device import resolve_device

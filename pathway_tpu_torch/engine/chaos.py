@@ -19,6 +19,12 @@ Sites in the port (grep for ``chaos.site(``):
                         supervision restarts the serving loop)
 * ``embed.h2d``       — the ingest pipeline's host-to-device staging
 * ``query.tick``      — one ``QueryServer`` tick's group dispatch
+* ``router.forward``  — the fleet router's dispatch to a replica
+                        (request-scoped: the router fails over to the
+                        next candidate)
+* ``replica.health``  — the fleet manager's health probe (probe-scoped:
+                        enough faults in a row drain and respawn the
+                        replica)
 
 :func:`configure` takes the place of ``PATHWAY_TPU_CHAOS``,
 ``PATHWAY_TPU_CHAOS_SEED`` and ``PATHWAY_TPU_CHAOS_SITES``: a fault rate

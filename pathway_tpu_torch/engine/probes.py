@@ -529,6 +529,20 @@ def kv_fragmentation_value(server: str = "decoder"):
     return REGISTRY.labelled("kv_fragmentation", "server", kind="gauge").get(server)
 
 
+def record_kv_parked(nbytes: float, server: str = "decoder") -> None:
+    """Set the ``kv_parked_bytes{server=}`` gauge: device KV bytes held by
+    preempted requests' parked block rows. They are held on purpose (the
+    re-admission reuses their prompt KV by a table edit), so they count
+    apart from ``kv_fragmentation``."""
+    REGISTRY.gauge_set("kv_parked_bytes", nbytes, server=server)
+
+
+def kv_parked_value(server: str = "decoder"):
+    """Current ``kv_parked_bytes`` gauge of ``server`` (None before the
+    first preemption)."""
+    return REGISTRY.labelled("kv_parked_bytes", "server", kind="gauge").get(server)
+
+
 # --------------------------------------------------------------------- #
 # device-dispatch counters
 

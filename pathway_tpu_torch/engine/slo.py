@@ -1,5 +1,5 @@
-"""SLO burn-rate watchdog and the degradation ladder (counterpart of
-``pathway_tpu/engine/slo.py`` without its ``TenantScheduler``).
+"""SLO burn-rate watchdog, the degradation ladder and the tenant scheduler
+(counterpart of ``pathway_tpu/engine/slo.py``).
 
 An :class:`Objective` declares a promise (``ttft_p95_ms <= 500``,
 ``occupancy >= 0.4``); the :class:`SloWatchdog` samples each objective on
@@ -15,6 +15,12 @@ The :class:`DegradationController` climbs one level per ``step_s`` while
 any objective alerts and walks back down at the same cadence; the decode
 server reads its level every loop tick (level 1 clamps ``max_new``, 2
 turns speculative decode off, 3 sheds priority-0 admissions).
+
+The :class:`TenantScheduler` is the ladder's peer for a multi-tenant
+server (``DecoderChat(tenant_sched=True)``): it picks which tenant's
+queued request admits next (stride scheduling over per-tenant weights)
+and holds each tenant to an in-flight token budget, which the server
+enforces by preemption.
 
 :func:`configure` takes the place of the ``PATHWAY_TPU_SLO_*`` flags with
 their defaults: every threshold 0, so no objective is declared and the
@@ -273,6 +279,127 @@ class DegradationController:
                 return self._level
             self._last_eval = now
         return self.evaluate(now)
+
+
+class TenantScheduler:
+    """Weighted-fair multi-tenant admission (stride scheduling) with
+    per-tenant in-flight token budgets.
+
+    The scheduler holds no requests: the server keeps its one queue and
+    asks :meth:`select` which entry to pop. Each tenant carries a virtual
+    time that advances by ``cost / weight`` per selection; the pop takes
+    the FIFO-oldest entry of the waiting tenant with the smallest virtual
+    time, so service is proportional to weight and every tenant with a
+    positive weight is served eventually. A tenant seen for the first time
+    (or back from idle) enters at the floor, the virtual time of the last
+    selection: idle history grants no burst credit.
+
+    ``budget_tokens > 0`` makes a tenant holding that many decode tokens
+    in flight ineligible; a tenant with nothing in flight is always
+    eligible, so the budget cannot deadlock admission. The server escalates
+    to preemption when an eligible tenant waits with no free slot while an
+    over-budget tenant holds one."""
+
+    def __init__(self, *, weights: dict[str, float] | None = None,
+                 budget_tokens: int = 0,
+                 clock: Callable[[], float] | None = None):
+        self.budget_tokens = int(budget_tokens)
+        self.clock = clock if clock is not None else time.monotonic
+        self._lock = threading.Lock()
+        self._weights = {str(k): float(v)
+                         for k, v in (weights or {}).items() if float(v) > 0}
+        self._vtime: dict[str, float] = {}
+        self._floor = 0.0
+        self._inflight: dict[str, int] = {}
+        self._last_served: dict[str, float] = {}
+
+    @staticmethod
+    def parse_weights(spec: str) -> dict[str, float]:
+        """``"prod:4,batch:1"`` -> ``{"prod": 4.0, "batch": 1.0}``; malformed
+        or non-positive pairs are skipped, never raised on."""
+        out: dict[str, float] = {}
+        for part in (spec or "").split(","):
+            name, _, w = part.strip().partition(":")
+            name = name.strip()
+            if not name or not w:
+                continue
+            try:
+                val = float(w)
+            except ValueError:
+                continue
+            if val > 0:
+                out[name] = val
+        return out
+
+    def weight(self, tenant: str) -> float:
+        return self._weights.get(tenant, 1.0)
+
+    def charge(self, tenant: str, tokens: int) -> None:
+        """A request of ``tenant`` entered a slot with ``tokens`` of decode
+        budget."""
+        with self._lock:
+            self._inflight[tenant] = self._inflight.get(tenant, 0) + int(tokens)
+
+    def credit(self, tenant: str, tokens: int) -> None:
+        """The request left its slot (drained, failed, shed or preempted)."""
+        with self._lock:
+            left = self._inflight.get(tenant, 0) - int(tokens)
+            if left > 0:
+                self._inflight[tenant] = left
+            else:
+                self._inflight.pop(tenant, None)
+
+    def inflight(self, tenant: str) -> int:
+        with self._lock:
+            return self._inflight.get(tenant, 0)
+
+    def _over(self, tenant: str) -> bool:
+        held = self._inflight.get(tenant, 0)
+        return self.budget_tokens > 0 and held > 0 and held >= self.budget_tokens
+
+    def over_budget(self, tenant: str) -> bool:
+        """At or over the in-flight budget (and holding tokens)."""
+        with self._lock:
+            return self._over(tenant)
+
+    def select(self, entries, charge: bool = True) -> int | None:
+        """The index of the next entry to admit from ``entries``
+        (FIFO-ordered ``(tenant, cost)`` pairs), or None when every waiting
+        tenant is over budget. ``charge=False`` peeks without advancing
+        virtual time (the preemption check)."""
+        first: dict[str, int] = {}
+        cost: dict[str, int] = {}
+        for i, (tenant, c) in enumerate(entries):
+            if tenant not in first:
+                first[tenant] = i
+                cost[tenant] = int(c)
+        if not first:
+            return None
+        with self._lock:
+            best = None
+            for tenant in first:
+                if self._over(tenant):
+                    continue
+                vt = max(self._vtime.get(tenant, self._floor), self._floor)
+                if best is None or (vt, tenant) < best[:2]:
+                    best = (vt, tenant, first[tenant])
+            if best is None:
+                return None
+            vt, tenant, idx = best
+            if charge:
+                self._floor = max(self._floor, vt)
+                self._vtime[tenant] = vt + max(cost[tenant], 1) / self.weight(tenant)
+                self._last_served[tenant] = self.clock()
+        return idx
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "budget_tokens": self.budget_tokens,
+                "weights": dict(self._weights),
+                "inflight": dict(self._inflight),
+                "vtime": {k: round(v, 4) for k, v in self._vtime.items()},
+            }
 
 
 # --------------------------------------------------------------------- #

@@ -56,11 +56,24 @@ its reason (and ``retry_after`` for a shed). The chaos sites
 ``decode.admit`` and ``decode.dispatch`` (``engine/chaos.py``) inject
 faults on those paths when chaos is configured.
 
+The features JAX keeps off by default are here too, off by default.
+``disagg=True`` splits pending prompts into a prefill lane: while any
+slot decodes, at most ``disagg_prefill_budget`` prompts advance one piece
+a tick, round-robin, and a finished prompt's KV hands over to the decode
+lane where it lies (one card: no copy; the handoff is counted in
+``kv_migrated_blocks``). ``tenant_sched=True`` admits by
+``engine.slo.TenantScheduler`` (weighted-fair over ``submit(...,
+tenant=)``, ``tenant_weights`` such as ``"a:3,b:1"``) and, with
+``tenant_budget > 0``, preempts the newest decode-lane request of an
+over-budget tenant when an eligible tenant waits and no slot is free: a
+paged request's block row parks with its references kept and its
+re-admission is a table edit plus a re-prefill of the final partial
+block. Greedy streams do not depend on either schedule.
+
 Behaviour is set by constructor arguments whose defaults are the JAX flag
-defaults, for every feature the server carries. The JAX server's
-disaggregated lanes, tenant scheduling and serving mesh are not ported;
-asking for any of them raises ``NotImplementedError`` (their defaults here
-are off). Nothing reads an environment variable.
+defaults, for every feature the server carries. The JAX server's serving
+mesh is not ported; asking for it raises ``NotImplementedError``. Nothing
+reads an environment variable.
 """
 
 from __future__ import annotations
@@ -142,7 +155,10 @@ class DecoderChat:
     ``device=None`` runs on CUDA and raises without it; ``device="cpu"``
     runs the plain PyTorch path. ``serve_restarts``, ``serve_retries``,
     ``request_deadline_ms``, ``serve_queue`` and ``degradation`` set the
-    continuous server's supervision (defaults: the JAX flag defaults)."""
+    continuous server's supervision, ``disagg`` / ``disagg_prefill_budget``
+    its prefill lane and ``tenant_sched`` / ``tenant_budget`` /
+    ``tenant_weights`` its tenant scheduler (defaults: the JAX flag
+    defaults, all off)."""
 
     def __init__(
         self,
@@ -311,9 +327,9 @@ class DecoderChat:
             raise TypeError("submit_batch requires continuous=True")
         max_new = int(kwargs.pop("max_new_tokens", self.max_new_tokens))
         # level 3 of the degradation ladder sheds priority <= 0; the
-        # tenant only steers the tenant scheduler, which is not ported
+        # tenant steers the tenant scheduler (one FIFO when it is off)
         priority = int(kwargs.pop("priority", 1))
-        kwargs.pop("tenant", None)
+        tenant = str(kwargs.pop("tenant", "default")) or "default"
         if kwargs:
             raise TypeError(
                 f"continuous DecoderChat cannot vary {sorted(kwargs)} per "
@@ -327,7 +343,7 @@ class DecoderChat:
         cap = self._prompt_cap(max_new)
         return [self._server.submit(
             self.tokenizer.encode(self._format_prompt(m))[-cap:], max_new,
-            priority=priority)
+            priority=priority, tenant=tenant)
             for m in messages]
 
     def resolve_batch(self, handles) -> list:
@@ -395,7 +411,8 @@ class _PendingCompletion:
 
     __slots__ = ("ids", "max_new", "tokens", "done", "text", "submitted_at",
                  "finished_at", "first_token_at", "error_reason", "span",
-                 "retries", "retry_after", "deadline", "priority")
+                 "retries", "retry_after", "deadline", "priority", "tenant",
+                 "seq")
 
     def __init__(self, ids: list, max_new: int):
         self.ids = ids
@@ -414,13 +431,16 @@ class _PendingCompletion:
         self.retry_after: float | None = None
         self.deadline: float | None = None
         self.priority = 1
+        # the tenant scheduler's admission class, and the server's
+        # admission order (preemption takes the newest)
+        self.tenant = "default"
+        self.seq = 0
 
 
 _UNPORTED = (
     # (argument, asked-for test, what it is)
-    ("disagg", lambda v: bool(v), "disaggregated prefill/decode lanes"),
-    ("tenant_sched", lambda v: bool(v), "tenant scheduling and preemption"),
-    ("mesh", lambda v: v is not None, "the serving mesh"),
+    ("mesh", lambda v: v is not None,
+     "the serving mesh (queued with parallel/, ROADMAP A11)"),
 )
 
 
@@ -455,7 +475,16 @@ class _ContinuousServer:
     a failure anywhere else in the loop rebuilds the pool and re-queues
     every interrupted request (``_recover_after_crash``), then re-enters
     the loop after a backoff. Each request has ``serve_retries`` retries
-    across both."""
+    across both.
+
+    Disaggregated lanes (``disagg``): while any lane decodes and more than
+    ``disagg_prefill_budget`` prompts are pending, only that many advance
+    a piece per tick (``_prefill_lane``). Tenant scheduling
+    (``tenant_sched``): the queue pop asks ``TenantScheduler.select``;
+    admission charges a request's ``max_new`` to its tenant and every exit
+    from a slot credits the same amount back; ``_maybe_preempt`` parks an
+    over-budget tenant's newest decode-lane request and ``_unpark``
+    re-admits it onto its own row."""
 
     def __init__(self, params, cfg, tokenizer, *, n_slots: int,
                  chunk_steps: int, max_prompt_tokens: int,
@@ -489,7 +518,7 @@ class _ContinuousServer:
                  request_deadline_ms: float = 0.0,
                  serve_queue: int = 0,
                  degradation: bool = True):
-        asked = dict(disagg=disagg, tenant_sched=tenant_sched, mesh=mesh)
+        asked = dict(mesh=mesh)
         for name, on, what in _UNPORTED:
             if on(asked[name]):
                 raise NotImplementedError(
@@ -666,6 +695,33 @@ class _ContinuousServer:
         self._degrade = slo.get_degradation_controller() if degradation else None
         self._chaos_admit = chaos.site("decode.admit")
         self._chaos_dispatch = chaos.site("decode.dispatch")
+        # disaggregated lanes: the prefill lane's per-tick budget and its
+        # round-robin cursor; lane_stats() reads the counts of the last tick
+        self.disagg = bool(disagg)
+        self._prefill_budget = max(1, 1 if disagg_prefill_budget is None
+                                   else int(disagg_prefill_budget))
+        self._prefill_rr = 0
+        self._lane_counts = {"prefill": 0, "decode": 0}
+        # tenant scheduling: a pop policy over the one queue, and budgets
+        # enforced by preemption
+        self._tenants = None
+        if tenant_sched:
+            self._tenants = slo.TenantScheduler(
+                weights=slo.TenantScheduler.parse_weights(tenant_weights or ""),
+                budget_tokens=int(tenant_budget or 0))
+        self._tenants_seen: set = set()  # tenants that queued (under lock)
+        # preempted paged requests' rows, refs kept: req -> block row
+        self._parked: dict = {}
+        self._parked_blocks = 0
+        self._admit_seq = 0
+        # id(req) -> (tenant, tokens charged): EOS and the level-1 clamp
+        # change req.max_new, and the credit must match the charge
+        self._charged: dict[int, tuple[str, int]] = {}
+        # one paged block's K+V bytes, the kv_parked_bytes multiplier
+        it = torch.empty((), dtype=cfg.dtype).element_size()
+        per_tok = cfg.head_dim + 4 if self.kv_quant else cfg.head_dim * it
+        self._block_kv_bytes = (2 * cfg.layers * cfg.heads * self.paged_block * per_tok
+                                if self.paged_kv else 0)
         # steps / slot_steps_total: useful lane-steps over dispatched ones
         # (occupancy())
         self.stats = {"chunks": 0, "admitted": 0, "decode_steps": 0,
@@ -678,7 +734,8 @@ class _ContinuousServer:
                       "spec_drafted": 0, "spec_accepted": 0, "spec_emitted": 0,
                       "spec_verify_steps": 0, "restarts": 0,
                       "request_failures": 0, "request_retries": 0, "shed": 0,
-                      "leaked_thread": 0}
+                      "leaked_thread": 0, "preemptions": 0, "unparked": 0,
+                      "kv_migrated_blocks": 0}
         # in-flight chunk records, oldest first
         self._inflight: deque = deque()
         self._occ_published = 0  # the chunk count at the last gauge write
@@ -785,6 +842,8 @@ class _ContinuousServer:
     def _fail_request(self, req, reason: str) -> None:
         """Terminal failure of ONE request (the server keeps serving): the
         text=None sentinel and a structured reason."""
+        self._discard_parked(req)
+        self._tenant_credit(req)
         req.error_reason = reason
         req.text = None
         probes.REGISTRY.counter_add("requests_isolated", outcome="failed")
@@ -796,6 +855,8 @@ class _ContinuousServer:
     def _shed_request(self, req, reason: str) -> None:
         """Admission-control shed (deadline / queue_full / degraded):
         terminal, structured, counted, with a retry hint."""
+        self._discard_parked(req)
+        self._tenant_credit(req)
         req.error_reason = f"shed:{reason}"
         req.retry_after = 1.0
         req.text = None
@@ -830,6 +891,7 @@ class _ContinuousServer:
         active[slot] = False
         self._prefix_release(req)
         self._release_slot_kv(slot)
+        self._tenant_credit(req)  # charged again if the re-queue admits
         with self.lock:
             self.free.append(int(slot))
         if self._retry_or_fail(req, exc, "retry", error=type(exc).__name__):
@@ -868,6 +930,9 @@ class _ContinuousServer:
         self._sent = [0] * self.n_slots
         self._slot_cover.clear()
         self._slot_blocks.clear()
+        # parked rows live in the allocator replaced below: their queued
+        # requests re-admit from the prompt
+        self._release_parked()
         self.pool = None  # one pool's worth of memory at a time
         self.pool = self._build_pool()
         # the old tree's pins died with the allocator just replaced: they
@@ -879,6 +944,7 @@ class _ContinuousServer:
             if id(req) in seen or req.done.is_set():
                 continue
             seen.add(id(req))
+            self._tenant_credit(req)  # charged again at re-admission
             if self._retry_or_fail(req, exc, "restart_requeue", attempt=req.retries + 1):
                 # a restart re-decodes from the prompt
                 req.tokens = []
@@ -908,10 +974,13 @@ class _ContinuousServer:
             for rec in list(self._inflight):
                 pending.extend(r for r in rec[2] if r is not None)
             for req in pending:
+                self._tenant_credit(req)
                 if not req.done.is_set():
                     req.text = None
                     req.span.finish(error=True, tokens=len(req.tokens))
                     req.done.set()
+            # no parked request will re-admit: their rows go back
+            self._release_parked()
 
     def _supervise(self):
         """The loop, re-entered after a recovered crash with exponential
@@ -932,13 +1001,14 @@ class _ContinuousServer:
             max_retries=self._restart_budget, initial_delay=20, backoff_factor=2,
             jitter_ms=10, max_delay_ms=2000).invoke_sync(cycle)
 
-    def submit(self, prompt_ids: list, max_new: int, *,
-               priority: int = 1) -> _PendingCompletion:
+    def submit(self, prompt_ids: list, max_new: int, *, priority: int = 1,
+               tenant: str = "default") -> _PendingCompletion:
         req = _PendingCompletion(list(prompt_ids), int(max_new))
         req.priority = int(priority)
+        req.tenant = str(tenant) or "default"
         req.span = tracing.start_span(
             "decode", server=self._trace_tag, prompt_tokens=len(req.ids),
-            max_new=req.max_new, tenant="default")
+            max_new=req.max_new, tenant=req.tenant)
         if self._deadline_s > 0:
             # monotonic, the clock of the loop's deadline sweep
             req.deadline = time.monotonic() + self._deadline_s
@@ -956,6 +1026,8 @@ class _ContinuousServer:
                 shed_reason = "degraded"
             else:
                 self.queue.append(req)
+                if self._tenants is not None:
+                    self._tenants_seen.add(req.tenant)
                 # the observed arrival gap feeds the chunk-steps autotune
                 now = req.submitted_at
                 if self._last_submit_t is not None:
@@ -1107,16 +1179,17 @@ class _ContinuousServer:
             e, n = [0], 1  # one pad token at column 0
         B = self.paged_block
         per_slot = self.cache_len // B
+        parked = self._parked.pop(req, None)
+        if parked is not None:
+            self._parked_blocks -= len(parked)
+            self._record_parked()
+            if self._unpark(slot, req, e, n, parked):
+                return
+            # the row no longer fits the (clamped) budget: a fresh
+            # admission re-prefills the whole prompt
+            self._allocator.release(parked)
         m_hit, pool_ids, node = self._prefix_match(req, e, n)
-        # decode writes from the end of the right-padded pieces, up to P - 1
-        # columns past the prompt; a column past the allocation maps to the
-        # sentinel, where the paged decode would write and the gathered
-        # view's scatter would drop its K/V
-        P = self.prefill_chunk
-        width = m_hit * B + -(-(n - m_hit * B) // P) * P
-        cover = min(self.cache_len,
-                    width + req.max_new + (self.pipeline_depth + 1) * self._slack)
-        need = min(per_slot, -(-cover // B))
+        cover, need = self._paged_cover(m_hit * B, n, req.max_new)
         try:
             fresh = self._allocator.alloc(need - m_hit)
         except D.PagedPoolOOM as oom:
@@ -1127,6 +1200,7 @@ class _ContinuousServer:
                 self._fail_request(req, "paged_oom")  # can never fit
                 return
             req.span.event("paged_oom", want=int(oom.want), free=int(oom.free))
+            self._tenant_credit(req)  # charged again when it admits
             with self.lock:
                 self.queue.appendleft(req)
             return
@@ -1154,6 +1228,47 @@ class _ContinuousServer:
         self.stats["admitted"] += 1
         self._update_fragmentation()
 
+    def _paged_cover(self, n_cached: int, n: int, max_new: int) -> tuple[int, int]:
+        """(KV columns a paged request can reach, blocks its row needs) for a
+        prompt of ``n`` tokens prefilled right-padded from column
+        ``n_cached`` (a multiple of the piece). Decode writes from the end
+        of the last piece, up to P - 1 columns past the prompt: the cover
+        counts from that padded width, so no decode column falls past the
+        row onto the sentinel block."""
+        P, B = self.prefill_chunk, self.paged_block
+        width = n_cached + -(-(n - n_cached) // P) * P
+        cover = min(self.cache_len,
+                    width + max_new + (self.pipeline_depth + 1) * self._slack)
+        return cover, min(self.cache_len // B, -(-cover // B))
+
+    def _unpark(self, slot: int, req, e: list, n: int, row: list) -> bool:
+        """Re-admit a preempted request onto its own parked row: the blocks
+        before the final partial one still hold its prompt's KV (their refs
+        never dropped), so admission is one table edit plus a re-prefill of
+        the pieces from that block on, which regenerates the first-token
+        logits. The pieces start on a block boundary, a multiple of the
+        piece, so they line up with the original ones. False when the row
+        is not the size the request now needs (a clamped ``max_new``)."""
+        B = self.paged_block
+        n_cached = ((n - 1) // B) * B
+        cover, need = self._paged_cover(n_cached, n, req.max_new)
+        if len(row) != need:
+            return False
+        self._slot_blocks[slot] = row
+        self._slot_cover[slot] = cover
+        row_arr = np.zeros((self.cache_len // B,), np.int32)
+        row_arr[:len(row)] = row
+        self.pool = D.paged_admit_cached(self.pool, slot, row_arr, n_cached)
+        req.span.event("unpark", blocks=len(row), cached=int(n_cached))
+        pieces, meta = self._right_pieces(e, n, n_cached)
+        if self.prefix is not None and n >= B:
+            meta["insert"] = (req, e, 0)
+        self._pending_prefill[slot] = (pieces, n, meta)
+        self.stats["admitted"] += 1
+        self.stats["unparked"] += 1
+        self._update_fragmentation()
+        return True
+
     def _prefill_piece(self, slot: int, active) -> bool:
         """Dispatch one pending prefill piece for ``slot``; False when the
         last piece is held for the request's own tier-2 promotion."""
@@ -1177,6 +1292,16 @@ class _ContinuousServer:
         if last:
             del self._pending_prefill[slot]
             active[slot] = True
+            if self.disagg:
+                # the lane handoff: the finished prompt's KV joins the
+                # decode lane where it lies (one card: the slot's row, no
+                # copy); counted only under the flag
+                nb = (len(self._slot_blocks.get(slot, ())) if self.paged_kv
+                      else -(-int(n_prompt) // self.prefill_chunk))
+                self.stats["kv_migrated_blocks"] += nb
+                probes.REGISTRY.counter_add("kv_migrated_blocks", nb, server=self._trace_tag)
+                if req_p is not None:
+                    req_p.span.event("migrate", blocks=int(nb))
             if meta and meta.get("insert") is not None:
                 self._prefix_insert(slot, *meta["insert"])
         return True
@@ -1217,6 +1342,141 @@ class _ContinuousServer:
                 req_d.span.event("prefill", tokens=int(mask.sum()))
             if ins is not None:
                 self._prefix_insert(slot, *ins)
+
+    # -- lanes, tenants and preemption ---------------------------------
+
+    def _prefill_lane(self, active) -> list:
+        """The pending prompts that advance a piece this tick: all of them,
+        or under ``disagg`` with a decode lane active, ``_prefill_budget``
+        of them taken round-robin, so every pending prompt advances within
+        ``ceil(pending / budget)`` ticks."""
+        pend = list(self._pending_prefill)
+        if self.disagg and active.any() and len(pend) > self._prefill_budget:
+            start = self._prefill_rr % len(pend)
+            pend = [pend[(start + k) % len(pend)] for k in range(self._prefill_budget)]
+            self._prefill_rr += self._prefill_budget
+        return pend
+
+    def _count_lanes(self, active) -> dict:
+        self._lane_counts = {"prefill": len(self._pending_prefill),
+                             "decode": int(active.sum())}
+        return self._lane_counts
+
+    def lane_stats(self) -> dict:
+        """Slots mid-prompt (prefill lane) and slots decoding (decode lane)
+        at the last loop tick; the counts the ``lane_occupancy`` gauges
+        carry."""
+        return dict(self._lane_counts)
+
+    def tenant_depths(self) -> dict:
+        """Queued requests per tenant."""
+        depth: dict[str, int] = {}
+        with self.lock:
+            for r in self.queue:
+                depth[r.tenant] = depth.get(r.tenant, 0) + 1
+        return depth
+
+    def _tenant_charge(self, req) -> None:
+        """Admission charges the request's decode budget to its tenant."""
+        if self._tenants is None:
+            return
+        amt = int(req.max_new)
+        self._tenants.charge(req.tenant, amt)
+        self._charged[id(req)] = (req.tenant, amt)
+
+    def _tenant_credit(self, req) -> None:
+        """Credit back what the request's admission charged (nothing twice)."""
+        if self._tenants is None:
+            return
+        rec = self._charged.pop(id(req), None)
+        if rec is not None:
+            self._tenants.credit(*rec)
+
+    def _record_parked(self) -> None:
+        """The ``kv_parked_bytes`` gauge: parked rows are held on purpose,
+        so they count apart from the fragmentation gauge."""
+        probes.record_kv_parked(self._parked_blocks * self._block_kv_bytes,
+                                server=self._trace_tag)
+
+    def _discard_parked(self, req) -> None:
+        """Release a parked request's row (it will never re-admit)."""
+        row = self._parked.pop(req, None)
+        if row is None:
+            return
+        self._parked_blocks -= len(row)
+        if self._allocator is not None:
+            self._allocator.release(row)
+        self._record_parked()
+
+    def _release_parked(self) -> None:
+        """Release every parked row (a restart, the loop's end)."""
+        parked, self._parked = self._parked, {}
+        if self._allocator is not None:
+            for row in parked.values():
+                self._allocator.release(row)
+        self._parked_blocks = 0
+        if parked:
+            self._record_parked()
+
+    def _preempt_request(self, slot: int, req, active) -> None:
+        """Take ``slot`` from an over-budget request: park its paged row with
+        the allocator refs kept (its table row goes back to the sentinel),
+        null it out of every dispatched chunk record so no old token drains
+        into the rewound stream, and re-queue it at the head. A scheduling
+        decision, not a failure: no retry is spent and nothing is shed."""
+        req.span.event("preempt", slot=int(slot), tenant=req.tenant)
+        self.slots[slot] = None
+        self._pending_prefill.pop(slot, None)
+        active[slot] = False
+        self._sent[slot] = 0
+        self._prefix_release(req)
+        self._slot_cover.pop(slot, None)
+        if self._allocator is not None:
+            row = self._slot_blocks.pop(slot, None)
+            if row:
+                M = self.cache_len // self.paged_block
+                self.pool = D.paged_table_set(self.pool, slot, np.zeros((M,), np.int32))
+                self._parked[req] = row
+                self._parked_blocks += len(row)
+                self._record_parked()
+        self._update_fragmentation()
+        for rec in self._inflight:
+            snap = rec[2]
+            for i, r in enumerate(snap):
+                if r is req:
+                    snap[i] = None
+        req.tokens = []
+        req.first_token_at = None
+        self._tenant_credit(req)
+        probes.REGISTRY.counter_add("preemptions", tenant=req.tenant)
+        with self.lock:
+            self.stats["preemptions"] += 1
+            self.free.append(int(slot))
+            self.queue.appendleft(req)
+
+    def _maybe_preempt(self, active) -> None:
+        """Budget enforcement past skipping: when an eligible tenant waits,
+        no slot is free and a tenant is over its budget, preempt that
+        tenant's newest-admitted decode-lane request. A slot still
+        mid-prefill is never a victim: its row holds uncomputed KV."""
+        if self._tenants is None or self._tenants.budget_tokens <= 0:
+            return
+        with self.lock:
+            if not self.queue or self.free:
+                return
+            entries = [(r.tenant, r.max_new) for r in self.queue]
+        if self._tenants.select(entries, charge=False) is None:
+            return  # every waiter is over budget itself: hold
+        victim = None
+        for slot, req in enumerate(self.slots):
+            if (req is None or req.done.is_set() or not active[slot]
+                    or slot in self._pending_prefill
+                    or not self._tenants.over_budget(req.tenant)):
+                continue
+            if victim is None or req.seq > self.slots[victim].seq:
+                victim = slot
+        if victim is not None:
+            self._preempt_request(victim, self.slots[victim], active)
 
     # -- prefix cache --------------------------------------------------
 
@@ -1484,10 +1744,17 @@ class _ContinuousServer:
         goes idle, so a reader after a burst sees its final occupancy."""
         tag = self._trace_tag
         probes.REGISTRY.gauge_set("serving_occupancy", self.occupancy(), server=tag)
-        probes.REGISTRY.gauge_set("lane_occupancy", float(len(self._pending_prefill)),
-                                  server=tag, lane="prefill")
-        probes.REGISTRY.gauge_set("lane_occupancy", float(active.sum()),
-                                  server=tag, lane="decode")
+        for lane, count in self._count_lanes(active).items():
+            probes.REGISTRY.gauge_set("lane_occupancy", float(count), server=tag, lane=lane)
+        if self._tenants is not None:
+            # every tenant that ever queued: an empty queue reads 0, not
+            # its last depth
+            depths = self.tenant_depths()
+            with self.lock:
+                seen = sorted(self._tenants_seen)
+            for t in seen:
+                probes.REGISTRY.gauge_set("tenant_queue_depth", float(depths.get(t, 0)),
+                                          server=tag, tenant=t)
         self._occ_published = self.stats["chunks"]
 
     def _spec_account(self, emit, lanes) -> None:
@@ -1583,6 +1850,7 @@ class _ContinuousServer:
                     with self.lock:
                         self.free.append(int(slot))
                 self._prefix_release(req)
+                self._tenant_credit(req)
                 # a waiter woken by done finds the ledger flushed and the
                 # span recorded
                 self._spec_flush()
@@ -1610,13 +1878,26 @@ class _ContinuousServer:
                     self.queue.extend(kept)
             now = time.monotonic()
             while self.queue and self.free:
-                req = self.queue.popleft()
+                if self._tenants is not None:
+                    # the weighted-fair pop: the oldest entry of the tenant
+                    # the scheduler picks; None while every waiter is over
+                    # its budget
+                    i = self._tenants.select([(r.tenant, r.max_new) for r in self.queue])
+                    if i is None:
+                        break
+                    req = self.queue[i]
+                    del self.queue[i]
+                else:
+                    req = self.queue.popleft()
                 if self._degradation_level >= 3 and req.priority <= 0:
                     shed.append((req, "degraded"))
                 elif req.deadline is not None and req.deadline <= now:
                     # a deadline can lapse between the sweep and the pop
                     shed.append((req, "deadline"))
                 else:
+                    self._admit_seq += 1
+                    req.seq = self._admit_seq
+                    self._tenant_charge(req)
                     admissions.append((self.free.pop(), req))
         for req, reason in shed:
             self._shed_request(req, reason)
@@ -1650,7 +1931,7 @@ class _ContinuousServer:
                     self._isolate_admission_failure(slot, req, exc, active)
             self._admit_direct(direct, active)
             held = False
-            for slot in list(self._pending_prefill):
+            for slot in self._prefill_lane(active):
                 try:
                     held |= not self._prefill_piece(slot, active)
                 except Exception as exc:
@@ -1658,6 +1939,8 @@ class _ContinuousServer:
                     if not self._supervised or req_p is None:
                         raise
                     self._isolate_admission_failure(slot, req_p, exc, active)
+            self._maybe_preempt(active)
+            self._count_lanes(active)
             if not dispatched:  # the pool was empty: decode the newcomers
                 dispatched = self._dispatch_decode(active)
             if dispatched:
