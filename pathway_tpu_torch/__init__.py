@@ -15,6 +15,13 @@ kernels for chunked prefill, paged decode and int8-weight products;
 tick. Entry points run on CUDA unless given ``device="cpu"``. The package
 imports neither JAX nor ``pathway_tpu``.
 
+The RAG retrieval variants JAX keeps off by default are off here too:
+int8 encoder weights (``weight_quant="int8"``), the IVF-Flat index on the
+card (``IvfFlatIndex``) and the host-side HNSW graph (``HnswIndex``), the
+late-interaction doc-token bank with its MaxSim cascade
+(``FusedRAGPipeline(late_interaction=True)``) and the listwise LLM rerank
+(``llm_reranker=ListwiseLLMReranker(chat), llm_rerank=True``).
+
 Telemetry is on by default, as in JAX: ``engine.probes`` holds the
 metrics registry and its ledgers (``serving_snapshot()``,
 ``set_metrics(False)`` turns every write off), ``engine.tracing`` the
@@ -44,6 +51,8 @@ from pathway_tpu_torch.models import (
     TransformerConfig,
 )
 from pathway_tpu_torch.ops.fused_query import FusedRAGPipeline
+from pathway_tpu_torch.ops.hnsw import HnswIndex
+from pathway_tpu_torch.ops.ivf import IvfFlatIndex
 from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
 from pathway_tpu_torch.ops.query_server import QueryServer
 from pathway_tpu_torch.xpacks.llm import DecoderChat
@@ -54,6 +63,8 @@ __all__ = [
     "DecoderChat",
     "FusedRAGPipeline",
     "HashTokenizer",
+    "HnswIndex",
+    "IvfFlatIndex",
     "MINILM_L6",
     "QueryServer",
     "SentenceEmbedderModel",

@@ -26,8 +26,10 @@ environment variable; the switch is this module's function.
 from __future__ import annotations
 
 import bisect
+import collections
 import dataclasses
 import threading
+import weakref
 
 # H100 SXM5 80 GB, NVIDIA's data sheet: dense bf16 tensor-core peak and
 # HBM3 bandwidth (at the full 700 W power limit)
@@ -441,57 +443,128 @@ def unified_snapshot(scheduler_stats=None) -> dict:
 # --------------------------------------------------------------------- #
 # HBM ledger
 #
-# Per-(component, device) current bytes, per-component high-water, a
-# `total` high-water across components and a per-device total high-water.
-# Components re-record freely (a rebuilt pool overwrites current; high-
-# water is monotone). Single-device callers land on device "0".
+# Current bytes per (component, device, owner), per-component high-water,
+# a `total` high-water across components and a per-device total
+# high-water. The gauges and `hbm_stats` sum over owners, so a process
+# with one owner per component reads as JAX's (component, device) ledger;
+# two servers on one card (an in-process fleet) each record under their
+# own owner instead of overwriting each other. Components re-record
+# freely (a rebuilt pool overwrites current; high-water is monotone).
+# Single-device callers land on device "0", ownerless callers on "".
 
 _hbm_lock = threading.RLock()
-_hbm_current: dict[tuple[str, str], int] = {}  # (component, device)
-_hbm_high_water: dict[str, int] = {}           # component (+ "total")
-_hbm_dev_high_water: dict[str, int] = {}       # device total
+_hbm_current: dict[tuple[str, str, str], int] = {}  # (component, device, owner)
+_hbm_high_water: dict[str, int] = {}                # component (+ "total")
+_hbm_dev_high_water: dict[str, int] = {}            # device total
+# owners whose holder was garbage-collected, dropped at the next ledger call
+_hbm_collected: collections.deque = collections.deque()
 
 
-def record_hbm(component: str, nbytes: int, device: str = "0") -> None:
-    """Record ``component``'s current device footprint (bytes) on
-    ``device`` (the CUDA index as a string; "0" on the CPU). Called at
-    weight placement and pool build, never on the per-token path."""
-    if not REGISTRY.enabled:
-        return
-    n = int(nbytes)
-    dev = str(device)
-    with _hbm_lock:
-        _hbm_current[(component, dev)] = n
-        comp_total = sum(v for (c, _), v in _hbm_current.items() if c == component)
-        if comp_total > _hbm_high_water.get(component, -1):
-            _hbm_high_water[component] = comp_total
-        total = sum(_hbm_current.values())
-        if total > _hbm_high_water.get("total", -1):
-            _hbm_high_water["total"] = total
-        dev_total = sum(v for (_, d), v in _hbm_current.items() if d == dev)
-        if dev_total > _hbm_dev_high_water.get(dev, -1):
-            _hbm_dev_high_water[dev] = dev_total
-        high = dict(_hbm_high_water)
-        dev_high = dict(_hbm_dev_high_water)
-    REGISTRY.gauge_set("hbm_bytes", n, component=component, device=dev)
-    REGISTRY.gauge_set("hbm_bytes", comp_total, component=component)
+def _hbm_publish(touched: set) -> None:
+    """Update the high-waters and the gauges of the ``(component,
+    device)`` pairs in ``touched`` from ``_hbm_current`` (under the lock)."""
+    comp_sums: dict[str, int] = {}
+    pair_sums: dict[tuple[str, str], int] = {}
+    dev_sums: dict[str, int] = {}
+    for (c, d, _), v in _hbm_current.items():
+        comp_sums[c] = comp_sums.get(c, 0) + v
+        pair_sums[(c, d)] = pair_sums.get((c, d), 0) + v
+        dev_sums[d] = dev_sums.get(d, 0) + v
+    for c, _ in touched:
+        if comp_sums.get(c, 0) > _hbm_high_water.get(c, -1):
+            _hbm_high_water[c] = comp_sums.get(c, 0)
+    total = sum(comp_sums.values())
+    if total > _hbm_high_water.get("total", -1):
+        _hbm_high_water["total"] = total
+    for _, d in touched:
+        if dev_sums.get(d, 0) > _hbm_dev_high_water.get(d, -1):
+            _hbm_dev_high_water[d] = dev_sums.get(d, 0)
+    high = dict(_hbm_high_water)
+    dev_high = dict(_hbm_dev_high_water)
+    for c, d in sorted(touched):
+        REGISTRY.gauge_set("hbm_bytes", pair_sums.get((c, d), 0), component=c, device=d)
+        REGISTRY.gauge_set("hbm_bytes", comp_sums.get(c, 0), component=c)
     for comp, hw in high.items():
         REGISTRY.gauge_max("hbm_high_water_bytes", hw, component=comp)
     for d, hw in dev_high.items():
         REGISTRY.gauge_max("hbm_high_water_bytes", hw, component="total", device=d)
 
 
-def hbm_stats() -> dict:
-    """Current bytes per component (summed over devices), per-component
-    high-water, the totals, and the per-device breakdown."""
+def drop_hbm_owner_at_collect(holder, owner: str) -> None:
+    """Drop ``owner``'s entries once ``holder`` is garbage-collected (a
+    model or pipeline let go without ``close()``). The drop waits for the
+    next ledger call, which makes it before anything else: a collection
+    may run inside one, and a new holder may reuse the owner's id."""
+    weakref.finalize(holder, _hbm_collected.append, str(owner))
+
+
+def _drop_collected() -> None:
+    """Apply the drops :func:`drop_hbm_owner_at_collect` queued (under the
+    lock)."""
+    touched = set()
+    while _hbm_collected:
+        owner = _hbm_collected.popleft()
+        for key in [k for k in _hbm_current if k[2] == owner]:
+            del _hbm_current[key]
+            touched.add(key[:2])
+    if touched and REGISTRY.enabled:
+        _hbm_publish(touched)
+
+
+def record_hbm(component: str, nbytes: int, device: str = "0", owner: str = "") -> None:
+    """Record ``component``'s current device footprint (bytes) on
+    ``device`` (the CUDA index as a string; "0" on the CPU) for ``owner``
+    (a server's or pipeline's tag; "" for the process). Called at weight
+    placement and pool build, never on the per-token path."""
+    if not REGISTRY.enabled:
+        return
+    dev = str(device)
     with _hbm_lock:
+        _drop_collected()
+        _hbm_current[(component, dev, str(owner))] = int(nbytes)
+        _hbm_publish({(component, dev)})
+
+
+def drop_hbm_owner(owner: str) -> None:
+    """Forget every entry ``owner`` recorded (a server shut down, a
+    pipeline let go): its components' gauges fall by its bytes; the
+    high-waters stay. Nothing in JAX drops entries (a replica's bytes
+    outlive it there)."""
+    with _hbm_lock:
+        _drop_collected()
+        gone = [key for key in _hbm_current if key[2] == str(owner)]
+        for key in gone:
+            del _hbm_current[key]
+        # like the resets, the drop applies with metrics off; only the
+        # gauges wait for metrics on
+        if gone and REGISTRY.enabled:
+            _hbm_publish({(c, d) for c, d, _ in gone})
+
+
+def hbm_owner_bytes(owner: str) -> dict[str, int]:
+    """Current bytes ``owner`` holds per component (summed over devices);
+    empty once the owner was dropped."""
+    out: dict[str, int] = {}
+    with _hbm_lock:
+        _drop_collected()
+        for (c, _, o), v in _hbm_current.items():
+            if o == str(owner):
+                out[c] = out.get(c, 0) + v
+    return {c: out[c] for c in sorted(out)}
+
+
+def hbm_stats() -> dict:
+    """Current bytes per component (summed over devices and owners),
+    per-component high-water, the totals, and the per-device breakdown."""
+    with _hbm_lock:
+        _drop_collected()
         current = dict(_hbm_current)
         high = dict(_hbm_high_water)
         dev_high = dict(_hbm_dev_high_water)
     comp_cur: dict[str, int] = {}
     dev_cur: dict[str, int] = {}
     dev_comp: dict[str, dict[str, int]] = {}
-    for (c, d), v in current.items():
+    for (c, d, _), v in current.items():
         comp_cur[c] = comp_cur.get(c, 0) + v
         dev_cur[d] = dev_cur.get(d, 0) + v
         dev_comp.setdefault(d, {})[c] = dev_comp.get(d, {}).get(c, 0) + v
@@ -510,6 +583,7 @@ def hbm_stats() -> dict:
 
 def reset_hbm_stats() -> None:
     with _hbm_lock:
+        _hbm_collected.clear()
         _hbm_current.clear()
         _hbm_high_water.clear()
         _hbm_dev_high_water.clear()

@@ -6,6 +6,10 @@ the [CLS] hidden state goes through a tanh pooler and a scalar head.
 Unlike the embedder, params stay float32 and each product casts its
 weight to the compute dtype, as in the JAX cross-encoder.
 
+``weight_quant="int8"`` (JAX's ``PATHWAY_TPU_WEIGHT_QUANT``, off by
+default) stores the word table and the layer weights int8 with f32
+scales; the pooler and the head stay f32.
+
 Each scoring dispatch charges the attention-bytes ledger (``encoder``
 path) and construction records the weights in the HBM ledger
 (``engine/probes.py``), as in JAX.
@@ -17,7 +21,11 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch.device import resolve_device
-from pathway_tpu_torch.engine.probes import record_hbm
+from pathway_tpu_torch.engine.probes import (
+    drop_hbm_owner,
+    drop_hbm_owner_at_collect,
+    record_hbm,
+)
 from pathway_tpu_torch.models.decoder import params_device_bytes
 from pathway_tpu_torch.models.embedder import _record_encoder_attn
 from pathway_tpu_torch.models.tokenizer import (
@@ -31,6 +39,8 @@ from pathway_tpu_torch.models.transformer import (
     encode,
     init_params,
     map_params,
+    parse_weight_quant,
+    quantize_encoder_params,
 )
 
 
@@ -49,7 +59,8 @@ class CrossEncoderModel:
     """Host-facing reranker: [(query, doc)] -> np.ndarray scores.
 
     ``device=None`` runs on the current CUDA device and raises without
-    one; ``device="cpu"`` runs the plain PyTorch path."""
+    one; ``device="cpu"`` runs the plain PyTorch path. ``weight_quant``
+    is ``"int8"`` or None (full precision, the default)."""
 
     def __init__(
         self,
@@ -60,6 +71,7 @@ class CrossEncoderModel:
         max_length: int = 256,
         seed: int = 1,
         device=None,
+        weight_quant: str | None = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -74,9 +86,17 @@ class CrossEncoderModel:
                 "b": torch.zeros((1,)),
             }
         self.params = map_params(lambda p: p.to(self.device), params)
-        # HBM ledger: the reranker's param footprint at construction
+        self.weight_quant = parse_weight_quant(weight_quant)
+        if self.weight_quant:
+            self.params = quantize_encoder_params(self.params)
+        # HBM ledger: the reranker's param footprint at construction (int8
+        # payloads and their scales when quantized), under this model's
+        # owner so that two live rerankers each keep their entry; close(), or
+        # the model's collection, drops it
+        self.hbm_owner = f"rerank:{id(self):x}"
+        drop_hbm_owner_at_collect(self, self.hbm_owner)
         for dev, nbytes in params_device_bytes(self.params).items():
-            record_hbm("weights.reranker", nbytes, device=dev)
+            record_hbm("weights.reranker", nbytes, device=dev, owner=self.hbm_owner)
         self.head = map_params(lambda p: p.to(self.device, torch.float32), head)
 
     @classmethod
@@ -97,6 +117,10 @@ class CrossEncoderModel:
                     max_length=max_length)
         init.update(kw)  # explicit caller overrides win
         return cls(**init)
+
+    def close(self) -> None:
+        """Drop this model's weights from the HBM ledger."""
+        drop_hbm_owner(self.hbm_owner)
 
     def score_batch(self, pairs: list[tuple[str, str]]) -> np.ndarray:
         if not pairs:

@@ -25,6 +25,15 @@ With ``serve_restarts > 0`` a failed stage-and-dispatch is retried up to
 resolve; with the defaults (``serve_restarts=0``) it surfaces at once, as
 in JAX.
 
+``weight_quant="int8"`` (JAX's ``PATHWAY_TPU_WEIGHT_QUANT``, off by
+default) stores the word table and the layer weights int8 with f32
+scales, quantized from the full-precision params (``transformer.py``).
+
+The token-level path (``token_bank_submit`` / ``token_bank_resolve``)
+feeds the late-interaction doc bank (``ops/late_bank.py``): the same
+stages, but the dispatch keeps per-token states, projected to ``dc``
+dims, normalised and int8-quantized, instead of pooling.
+
 Telemetry, on by default as in JAX (``probes.set_metrics``): each
 pipelined batch carries a span (``engine/tracing.py``: admit, tokenize,
 h2d, dispatch, drain; ``recent_traces``), every encode counts an
@@ -45,6 +54,8 @@ from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.engine import chaos, tracing
 from pathway_tpu_torch.engine.async_runtime import StageWorker
 from pathway_tpu_torch.engine.probes import (
+    drop_hbm_owner,
+    drop_hbm_owner_at_collect,
     record_attn,
     record_device_dispatch,
     record_hbm,
@@ -64,7 +75,10 @@ from pathway_tpu_torch.models.transformer import (
     encode,
     init_params,
     map_params,
+    parse_weight_quant,
+    quantize_encoder_params,
 )
+from pathway_tpu_torch.ops.late_bank import LATE_DIM, doc_token_states, late_projection
 
 
 def mean_pool(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -113,10 +127,11 @@ def _renorm(v: np.ndarray) -> np.ndarray:
 
 
 class _PendingEmbed:
-    """Handle of the pipelined ``embed_submit``: tokenize and dispatch run
-    on the stage workers; :meth:`wait` blocks until the batch is dispatched
-    and returns ``(f16 output, rows, CUDA event or None)``. A stage's
-    failure is raised here, at resolve time."""
+    """Handle of the pipelined ``embed_submit`` / ``token_bank_submit``:
+    tokenize and dispatch run on the stage workers; :meth:`wait` blocks
+    until the batch is dispatched and returns ``(output, rows, CUDA event
+    or None)``, the output an f16 tensor or, for token states, an (int8,
+    f32) pair. A stage's failure is raised here, at resolve time."""
 
     __slots__ = ("_event", "_value", "_error", "span")
 
@@ -132,6 +147,14 @@ class _PendingEmbed:
         if self._error is not None:
             raise self._error
         return self._value
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A non-blocking copy of device tensor ``t`` into pinned host memory,
+    on the current stream."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
 
 
 class _PinnedRing:
@@ -195,15 +218,20 @@ class _IngestPipeline:
         self._tokenize = StageWorker(self._tokenize_one, maxsize=queue_bound,
                                      name="pathway-torch:embed-tokenize")
 
-    def submit(self, texts: list[str]) -> _PendingEmbed:
+    def submit(self, texts: list[str], kind: str = "embed",
+               proj=None) -> _PendingEmbed:
+        """Queue a batch. ``kind="embed"`` is the pooled-vector path;
+        ``kind="tokens"`` keeps per-token states for the late-interaction
+        bank, projected by ``proj`` (hidden, dc): the same workers, another
+        computation at the dispatch stage."""
         handle = _PendingEmbed()
         handle.span = tracing.start_span("embed", server=self._trace_tag,
                                          texts=len(texts))
-        self._tokenize.submit((texts, handle))
+        self._tokenize.submit((texts, handle, kind, proj))
         return handle
 
     def _tokenize_one(self, item) -> None:
-        texts, handle = item
+        texts, handle, kind, proj = item
         try:
             model = self._model
             t0 = time.perf_counter()
@@ -218,33 +246,50 @@ class _IngestPipeline:
             handle._event.set()
             return
         # blocks while `depth` batches wait for dispatch: the backpressure
-        self._dispatch.submit((ids, mask, len(texts), handle))
+        self._dispatch.submit((ids, mask, len(texts), handle, kind, proj))
 
     def _dispatch_one(self, item) -> None:
-        ids, mask, n, handle = item
+        # (ids, mask, rows, handle[, kind, proj]): an embed batch may omit the last two
+        ids, mask, n, handle = item[:4]
+        kind, proj = item[4:] or ("embed", None)
         try:
             if self._retries > 0:
                 ExponentialBackoffRetryStrategy(
                     max_retries=self._retries, initial_delay=20, backoff_factor=2,
                     jitter_ms=10, max_delay_ms=1000,
-                ).invoke_sync(lambda: self._stage_and_dispatch(ids, mask, n, handle))
+                ).invoke_sync(lambda: self._stage_and_dispatch(ids, mask, n, handle,
+                                                               kind, proj))
             else:
-                self._stage_and_dispatch(ids, mask, n, handle)
+                self._stage_and_dispatch(ids, mask, n, handle, kind, proj)
         except BaseException as exc:  # noqa: BLE001 - raised at resolve
             handle._error = exc
             handle.span.finish(error=True)
         handle._event.set()
 
-    def _stage_and_dispatch(self, ids, mask, n, handle) -> None:
+    def _stage_and_dispatch(self, ids, mask, n, handle, kind, proj) -> None:
         if self._chaos_h2d is not None:
             self._chaos_h2d.maybe_fail()
         if self._stream is None:
-            handle._value = self._dispatch_cpu(ids, mask, n, handle.span)
+            handle._value = self._dispatch_cpu(ids, mask, n, handle.span, kind, proj)
         else:
             with torch.cuda.device(self._stream.device), torch.cuda.stream(self._stream):
-                handle._value = self._dispatch_cuda(ids, mask, n, handle.span)
+                handle._value = self._dispatch_cuda(ids, mask, n, handle.span, kind, proj)
 
-    def _dispatch_cpu(self, ids, mask, n, span):
+    def _compute(self, dev_ids, dev_mask, kind, proj):
+        """The dispatch stage's device work: the f16 pooled vectors, or the
+        (int8, f32) token states of the late-interaction bank (already
+        compact, so no transport cast)."""
+        model = self._model
+        if kind == "tokens":
+            out = doc_token_states(model.params, dev_ids, dev_mask, proj, model.cfg)
+            record_device_dispatch("token_bank_dispatch")
+        else:
+            out = embed_fn(model.params, dev_ids, dev_mask, model.cfg).half()
+            record_device_dispatch("embed_dispatch")
+        _record_encoder_attn(model.cfg, int(dev_ids.shape[0]), int(dev_ids.shape[1]))
+        return out
+
+    def _dispatch_cpu(self, ids, mask, n, span, kind, proj):
         model = self._model
         t0 = time.perf_counter()
         if self._fused:
@@ -255,14 +300,12 @@ class _IngestPipeline:
         t1 = time.perf_counter()
         record_stage("h2d", t1 - t0)
         span.event("h2d")
-        out = embed_fn(model.params, dev_ids, dev_mask, model.cfg).half()
-        record_device_dispatch("embed_dispatch")
-        _record_encoder_attn(model.cfg, int(ids.shape[0]), int(ids.shape[1]))
+        out = self._compute(dev_ids, dev_mask, kind, proj)
         record_stage("dispatch", time.perf_counter() - t1)
         span.event("dispatch", rows=n)
         return out, n, None
 
-    def _dispatch_cuda(self, ids, mask, n, span):
+    def _dispatch_cuda(self, ids, mask, n, span, kind, proj):
         model, stream = self._model, self._stream
         t0 = time.perf_counter()
         B, S = ids.shape
@@ -283,11 +326,9 @@ class _IngestPipeline:
         t1 = time.perf_counter()
         record_stage("h2d", t1 - t0)
         span.event("h2d")
-        out = embed_fn(model.params, dev_ids, dev_mask, model.cfg).half()
-        record_device_dispatch("embed_dispatch")
-        _record_encoder_attn(model.cfg, B, S)
-        host_out = torch.empty(out.shape, dtype=torch.float16, pin_memory=True)
-        host_out.copy_(out, non_blocking=True)
+        out = self._compute(dev_ids, dev_mask, kind, proj)
+        host_out = tuple(_pinned_copy(t) for t in out) if kind == "tokens" \
+            else _pinned_copy(out)
         done = torch.cuda.Event()
         done.record(stream)
         record_stage("dispatch", time.perf_counter() - t1)
@@ -311,7 +352,10 @@ class SentenceEmbedderModel:
     ``pipeline_queue`` and ``fused_h2d`` set the ingest pipeline, and
     ``serve_restarts`` / ``serve_retries`` its retry budget (``serve_retries``
     retries when ``serve_restarts > 0``, else none); their defaults are the
-    JAX flag defaults."""
+    JAX flag defaults. ``weight_quant="int8"`` stores int8 weights (None,
+    the default, full precision); ``late_proj`` fixes the ``(hidden, dc)``
+    projection of the token path and of its pipelines' late-interaction
+    bank (by default the port's seeded ``late_projection``)."""
 
     def __init__(
         self,
@@ -328,6 +372,8 @@ class SentenceEmbedderModel:
         fused_h2d: bool = True,
         serve_restarts: int = 0,
         serve_retries: int = 1,
+        weight_quant: str | None = None,
+        late_proj: torch.Tensor | None = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -336,10 +382,22 @@ class SentenceEmbedderModel:
         if params is None:
             params = init_params(seed, cfg)
         params = map_params(lambda p: p.to(self.device), params)
-        self.params = cast_params_for_inference(params, cfg)
-        # HBM ledger: the embedder's param footprint at placement
+        self.weight_quant = parse_weight_quant(weight_quant)
+        if self.weight_quant:
+            # scales from the full-precision params; the compute-dtype cast
+            # supplies every other leaf
+            self.params = quantize_encoder_params(
+                params, out=cast_params_for_inference(params, cfg))
+        else:
+            self.params = cast_params_for_inference(params, cfg)
+        # HBM ledger: the embedder's param footprint at placement (int8
+        # payloads and their scales when quantized), under this model's
+        # owner so that two live embedders each keep their entry; close(), or
+        # the model's collection, drops it
+        self.hbm_owner = f"embed:{id(self):x}"
+        drop_hbm_owner_at_collect(self, self.hbm_owner)
         for dev, nbytes in params_device_bytes(self.params).items():
-            record_hbm("weights.embedder", nbytes, device=dev)
+            record_hbm("weights.embedder", nbytes, device=dev, owner=self.hbm_owner)
         self.pipeline = bool(pipeline)
         self.pipeline_depth = int(pipeline_depth)
         self.pipeline_queue = int(pipeline_queue)
@@ -347,6 +405,10 @@ class SentenceEmbedderModel:
         self.h2d_retries = int(serve_retries) if int(serve_restarts) > 0 else 0
         self._pipeline: _IngestPipeline | None = None
         self._pipeline_lock = threading.Lock()
+        # (hidden, dc) f32 on the device: the constructor's, else built at
+        # the first token submit (and cached per width)
+        self._late_proj_arg = None if late_proj is None else late_proj.float().to(self.device)
+        self._late_proj = self._late_proj_arg
 
     @classmethod
     def from_local(cls, path: str, cfg: TransformerConfig = MINILM_L6, **kw):
@@ -384,11 +446,13 @@ class SentenceEmbedderModel:
             return self._pipeline
 
     def close(self) -> None:
-        """Stop the pipeline workers (queued batches are dispatched first)."""
+        """Stop the pipeline workers (queued batches are dispatched first)
+        and drop this model's weights from the HBM ledger."""
         with self._pipeline_lock:
             pipe, self._pipeline = self._pipeline, None
         if pipe is not None:
             pipe.close()
+        drop_hbm_owner(self.hbm_owner)
 
     def recent_traces(self, n: int | None = None) -> list[dict]:
         """Completed per-batch spans of this model's ingest pipeline (oldest
@@ -453,6 +517,55 @@ class SentenceEmbedderModel:
                 done.synchronize()
             out.append(_renorm(vec[:n].float().cpu().numpy()))
         record_device_dispatch("embed_drain")
+        record_stage("drain", time.perf_counter() - t0)
+        for h in handles:
+            if isinstance(h, _PendingEmbed):
+                h.span.event("drain")
+                h.span.finish()
+        return out
+
+    # -- token-level path: per-token states for the late-interaction bank --
+    def late_projection_matrix(self, dc: int | None = None) -> torch.Tensor:
+        """The ``(hidden, dc)`` down-projection shared by ingest-time bank
+        rows and query-time token states, cached per width. ``dc`` defaults
+        to the constructor's ``late_proj`` width, else to ``LATE_DIM``
+        (JAX's ``PATHWAY_TPU_LATE_DIM`` default)."""
+        arg = self._late_proj_arg
+        dc = int(dc) if dc else (arg.shape[1] if arg is not None else LATE_DIM)
+        if self._late_proj is None or self._late_proj.shape[1] != dc:
+            self._late_proj = (arg if arg is not None and arg.shape[1] == dc
+                               else late_projection(self.cfg.hidden, dc).to(self.device))
+        return self._late_proj
+
+    def token_bank_submit(self, texts: list[str], dc: int | None = None):
+        """Enqueue a token-state encode for the late-interaction bank:
+        full-depth encode -> project to ``dc`` -> normalise -> int8 a
+        token. Pipelined like :meth:`embed_submit` (the same stage workers);
+        resolve with :meth:`token_bank_resolve`."""
+        proj = self.late_projection_matrix(dc)
+        pipe = self._maybe_pipeline()
+        if pipe is not None:
+            return pipe.submit(texts, kind="tokens", proj=proj)
+        ids, mask = self.tokenize(texts)
+        out = doc_token_states(self.params, ids, mask, proj, self.cfg)
+        record_device_dispatch("token_bank_dispatch")
+        _record_encoder_attn(self.cfg, int(ids.shape[0]), int(ids.shape[1]))
+        return out, len(texts)
+
+    def token_bank_resolve(self, handles, timeout: float | None = None
+                           ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Fetch submitted token-bank handles -> ``[(payload int8 (n, S,
+        dc), scale f32 (n, S, 1))]``, cut to the real row counts. Takes
+        pipelined and serial handles mixed, like :meth:`embed_resolve`."""
+        resolved = [h.wait(timeout) if isinstance(h, _PendingEmbed) else (*h, None)
+                    for h in handles]
+        t0 = time.perf_counter()
+        out = []
+        for (q, sc), n, done in resolved:
+            if done is not None:
+                done.synchronize()
+            out.append((q[:n].cpu().numpy(), sc[:n].cpu().numpy()))
+        record_device_dispatch("token_bank_drain")
         record_stage("drain", time.perf_counter() - t0)
         for h in handles:
             if isinstance(h, _PendingEmbed):

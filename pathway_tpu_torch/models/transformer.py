@@ -11,6 +11,16 @@ Attention goes through the ``core(q, k, v)`` seam. By default the core is
 the card, its plain version for tensors on the CPU. The other products
 (QKV, attention out, MLP) are ``torch.matmul``, as the JAX package left
 them to XLA.
+
+Weight-only int8 (``quantize_encoder_params``, JAX's
+``PATHWAY_TPU_WEIGHT_QUANT=int8`` encoder seam): the four stacked layer
+weights store int8 with one f32 scale per output channel, the word table
+int8 with one f32 scale per vocab row. A ``word_scale`` key under
+``embeddings`` marks the format. The four products dequantize in the read
+as JAX's ``_wq_einsum`` does: the int8 payload widened to the compute
+dtype, an f32 product, the scale on the output, then the cast; the
+embedding gather scales only the gathered rows. Without the marker every
+expression is the unquantized one.
 """
 
 from __future__ import annotations
@@ -144,9 +154,67 @@ def _layer_norm(x, scale, bias, eps):
     return y * scale.float() + bias.float()
 
 
-def _dense(x, w, cfg: TransformerConfig):
-    """Weight product in the compute dtype (inputs and output)."""
-    return torch.matmul(x, w.to(cfg.dtype))
+# ---- weight-only int8 (JAX transformer.py:128-194) -------------------------
+
+_WQ_QMAX = 127.0
+_WQ_SCALE_FLOOR = 1e-8
+_WQ_ENC_LAYER_WEIGHTS = ("qkv_w", "attn_out_w", "mlp_in_w", "mlp_out_w")
+
+
+def _wq_quant(w: torch.Tensor, axis: int):
+    """Symmetric int8 over the contracted ``axis``; the f32 scale keeps a
+    size-1 dim there (one scale per output channel). Never clips."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp(amax / _WQ_QMAX, min=_WQ_SCALE_FLOOR)
+    return torch.round(wf / scale).to(torch.int8), scale
+
+
+def parse_weight_quant(raw) -> str:
+    """A ``weight_quant=`` argument: ``"int8"`` turns int8 on, ``None``
+    leaves full precision; any other value raises."""
+    if raw is None:
+        return ""
+    if isinstance(raw, str) and raw == "int8":
+        return "int8"
+    raise ValueError(f"weight_quant must be 'int8' or None, got {raw!r}")
+
+
+def encoder_params_quantized(params: dict) -> bool:
+    """True when ``params`` store int8 weights (:func:`quantize_encoder_params`)."""
+    return "word_scale" in params["embeddings"]
+
+
+def quantize_encoder_params(params: dict, out: dict | None = None) -> dict:
+    """int8-quantize the word table (per vocab row) and the four stacked
+    layer weights (per output channel). Quantize from the full-precision
+    ``params``: a copy already cast to bf16 would bake the cast's mantissa
+    loss into the scales. ``out`` is the tree the other leaves come from
+    (the embedder passes its compute-dtype cast), so payloads stay int8
+    and scales f32 while everything else keeps the caller's storage."""
+    out = dict(out if out is not None else params)
+    emb = dict(out["embeddings"])
+    emb["word"], emb["word_scale"] = _wq_quant(params["embeddings"]["word"], axis=-1)
+    out["embeddings"] = emb
+    layers = dict(out["layers"])
+    for name in _WQ_ENC_LAYER_WEIGHTS:
+        layers[name], layers[name + "_scale"] = _wq_quant(params["layers"][name], axis=-2)
+    out["layers"] = layers
+    return out
+
+
+def _dense(x, lp: dict, name: str, cfg: TransformerConfig):
+    """The weight-product seam: in the compute dtype (inputs and output)
+    when ``lp`` has no ``{name}_scale``; otherwise the int8 payload
+    widened, an f32 product (every product of two bf16 values is exact in
+    f32, as in JAX's f32-accumulating einsum), the per-channel scale, then
+    the cast."""
+    w = lp[name]
+    scale = lp.get(name + "_scale")
+    if scale is None:
+        return torch.matmul(x, w.to(cfg.dtype))
+    out = torch.matmul(x.float(), w.float())
+    return (out * scale).to(cfg.dtype)
 
 
 def _attention(x, lp, cfg: TransformerConfig, core):
@@ -154,23 +222,23 @@ def _attention(x, lp, cfg: TransformerConfig, core):
     ``core(q, k, v) -> (B, nh, S, hd) f32`` owns scaling and masking."""
     B, S, H = x.shape
     nh, hd = cfg.heads, cfg.head_dim
-    qkv = _dense(x, lp["qkv_w"], cfg) + lp["qkv_b"].to(cfg.dtype)
+    qkv = _dense(x, lp, "qkv_w", cfg) + lp["qkv_b"].to(cfg.dtype)
     q, k, v = (
         t.reshape(B, S, nh, hd).transpose(1, 2).contiguous()
         for t in qkv.split(H, dim=-1)
     )
     ctx = core(q, k, v).to(cfg.dtype)
     ctx = ctx.transpose(1, 2).reshape(B, S, H)
-    return _dense(ctx, lp["attn_out_w"], cfg) + lp["attn_out_b"].to(cfg.dtype)
+    return _dense(ctx, lp, "attn_out_w", cfg) + lp["attn_out_b"].to(cfg.dtype)
 
 
 def _layer(x, lp, cfg: TransformerConfig, core):
     attn = _attention(x, lp, cfg, core)
     x = _layer_norm(x + attn, lp["ln1_scale"], lp["ln1_bias"],
                     cfg.layer_norm_eps).to(cfg.dtype)
-    h = _dense(x, lp["mlp_in_w"], cfg)
+    h = _dense(x, lp, "mlp_in_w", cfg)
     h = _gelu(h + lp["mlp_in_b"].to(cfg.dtype), cfg)
-    h = _dense(h, lp["mlp_out_w"], cfg) + lp["mlp_out_b"].to(cfg.dtype)
+    h = _dense(h, lp, "mlp_out_w", cfg) + lp["mlp_out_b"].to(cfg.dtype)
     return _layer_norm(x + h, lp["ln2_scale"], lp["ln2_bias"],
                        cfg.layer_norm_eps).to(cfg.dtype)
 
@@ -181,7 +249,14 @@ def embed_inputs(params: dict, input_ids, cfg: TransformerConfig,
     ``token_type_ids`` defaults to all zeros (single segment)."""
     S = input_ids.shape[1]
     emb = params["embeddings"]
-    x = emb["word"][input_ids.long()] + emb["position"][:S][None, :, :]
+    ids = input_ids.long()
+    rows = emb["word"][ids]
+    ws = emb.get("word_scale")
+    if ws is not None:
+        # dequant in the gather: the gathered rows, never the table; the
+        # f32 rows promote the residual sum to f32, as in JAX
+        rows = rows.float() * ws[ids]
+    x = rows + emb["position"][:S][None, :, :]
     if token_type_ids is None:
         x = x + emb["type"][0]
     else:

@@ -1,5 +1,7 @@
-"""pathway_tpu_torch.ops — brute-force KNN and the fused RAG query path,
-plus the shared padding helpers (copied from ``pathway_tpu.ops``).
+"""pathway_tpu_torch.ops — brute-force KNN, the IVF-Flat and HNSW indexes,
+the late-interaction doc-token bank, the fused RAG query path and the
+query server, plus the shared padding helpers (copied from
+``pathway_tpu.ops``).
 
 PyTorch runs eagerly, so padding to power-of-two buckets no longer buys
 executable reuse; the port keeps the same buckets so its shapes, and with

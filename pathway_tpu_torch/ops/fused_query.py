@@ -16,12 +16,27 @@ With ``rerank_cascade`` (off by default, as JAX's flag) the rerank is
 cascaded, still one stream of launches: a cheap pass through the first
 ``depth`` cross-encoder layers, seeded with the retrieval score, ranks
 all k candidates, and only the top ``keep`` survivors pay the full
-cross-encoder. The MaxSim, LLM-rerank and sharded branches of the JAX
-pipeline are not part of this path. Each query counts its device dispatch
-(``fused_retrieve`` / ``fused_retrieve_rerank`` / ``fused_rerank_cascade``)
-and ``retrieve`` the queries its dense index answered, as in JAX
-(``engine/probes.py``); the cascade charges its stages' pairs and FLOPs to
-the cascade ledger.
+cross-encoder.
+
+With ``late_interaction`` as well (off by default, as JAX's flag) the
+cheap stage is MaxSim over an ingest-time doc-token bank
+(``ops/late_bank.py``): every document's token states, projected to
+``late_dim`` dims and stored int8 beside the corpus, slot for slot. The
+query encodes once; its pooled embedding retrieves and its projected
+tokens score the candidates' bank rows, with no encoder pass a candidate.
+The bank is allocated at first use, grows with the index, follows its
+swap-with-last removals, and backfills rows ingested while the flag was
+off at the next MaxSim query. Its live bytes are the ``late_bank``
+component of the HBM ledger.
+
+An optional listwise LLM stage (``llm_reranker`` with ``llm_rerank``, off
+by default) reorders each resolved rerank row on the host, every document
+keeping its cross-encoder score. The sharded (mesh) branch of the JAX
+pipeline is not part of the port yet. Each query counts its device
+dispatch (``fused_retrieve`` / ``fused_retrieve_rerank`` /
+``fused_rerank_cascade`` / ``fused_rerank_maxsim``) and ``retrieve`` the
+queries its dense index answered, as in JAX (``engine/probes.py``); the
+cascade charges its stages' pairs and FLOPs to the cascade ledger.
 """
 
 from __future__ import annotations
@@ -30,16 +45,28 @@ import numpy as np
 import torch
 
 from pathway_tpu_torch.engine.probes import (
+    drop_hbm_owner,
+    drop_hbm_owner_at_collect,
     record_cascade,
     record_device_dispatch,
+    record_hbm,
     record_retrieval_backend,
 )
 from pathway_tpu_torch.models.cross_encoder import score_fn
-from pathway_tpu_torch.models.embedder import embed_fn
+from pathway_tpu_torch.models.decoder import _device_key
+from pathway_tpu_torch.models.embedder import embed_fn, mean_pool
 from pathway_tpu_torch.models.tokenizer import PAD_ID, SEP_ID, pad_to_buckets
-from pathway_tpu_torch.models.transformer import TransformerConfig
+from pathway_tpu_torch.models.transformer import TransformerConfig, encode
 from pathway_tpu_torch.ops import next_pow2
 from pathway_tpu_torch.ops.knn import BruteForceKnnIndex, search_corpus, topk_scores
+from pathway_tpu_torch.ops.late_bank import (
+    LATE_DIM,
+    doc_token_states,
+    maxsim_flops,
+    maxsim_scores,
+    projection_flops,
+    query_token_states,
+)
 
 _NEG_INF = -1e30
 
@@ -152,17 +179,31 @@ def _retrieve_rerank_cascade(e_params, q_ids, q_mask, corpus, valid,
 
     cheap = _pair_scores(r_params, r_head, flat(pair, k), flat(mask, k),
                          flat(ttype, k), r_cfg, n_layers=depth).reshape(qb, k)
+    return (scores, idx) + _cascade_finish(
+        scores, cheap, pair, mask, ttype, r_params, r_head, r_cfg, k, pair_seq,
+        keep, seed_weight)
+
+
+def _cascade_finish(scores, cheap, pair, mask, ttype, r_params, r_head,
+                    r_cfg: TransformerConfig, k: int, pair_seq: int, keep: int,
+                    seed_weight: float):
+    """The shared back half of both cascades, from the cheap stage's (Qb,
+    k) scores: seed them with the retrieval score, keep the top ``keep``,
+    cross-encode the survivors at full depth, and order survivors first.
+    Returns (rerank_scores, order), each (Qb, k)."""
+    qb = cheap.shape[0]
     # seed with the ranking signal retrieval already paid for
     cheap = cheap + float(seed_weight) * scores.float()
     cheap = torch.where(scores <= _NEG_INF / 2, _NEG_INF, cheap)
     _, surv = topk_scores(cheap, keep)                              # (Qb, keep)
 
-    def gather(a):
-        return torch.gather(a, 1, surv[:, :, None].expand(-1, -1, pair_seq))
+    def survivors(a):
+        """The survivors' rows of a (Qb, k, P) pair input, flat."""
+        rows = torch.gather(a, 1, surv[:, :, None].expand(-1, -1, pair_seq))
+        return rows.reshape(qb * keep, pair_seq)
 
-    full = _pair_scores(r_params, r_head, flat(gather(pair), keep),
-                        flat(gather(mask), keep), flat(gather(ttype), keep),
-                        r_cfg).reshape(qb, keep)
+    full = _pair_scores(r_params, r_head, survivors(pair), survivors(mask),
+                        survivors(ttype), r_cfg).reshape(qb, keep)
     full = torch.where(torch.gather(scores, 1, surv) <= _NEG_INF / 2, _NEG_INF, full)
     r_scores = cheap.scatter(1, surv, full)
     surv_sorted = torch.gather(surv, 1, torch.argsort(-full, dim=1, stable=True))
@@ -172,7 +213,34 @@ def _retrieve_rerank_cascade(e_params, q_ids, q_mask, corpus, valid,
     rest = cheap.scatter(1, surv, torch.full_like(full, float("-inf")))
     rest_order = torch.argsort(-rest, dim=1, stable=True)
     order = torch.cat([surv_sorted, rest_order[:, : k - keep]], dim=1)
-    return scores, idx, r_scores, order
+    return r_scores, order
+
+
+def _retrieve_maxsim_cascade(e_params, q_ids, q_mask, corpus, valid, doc_tokens,
+                             doc_lens, bank_q, bank_scale, late_proj, r_params,
+                             r_head, e_cfg: TransformerConfig,
+                             r_cfg: TransformerConfig, k: int, metric: str,
+                             pair_seq: int, keep: int, seed_weight: float):
+    """The late-interaction cascade: the cheap stage is MaxSim over the
+    candidates' bank rows, one (S, dc) x (dc, T) product a candidate and
+    no encoder pass. The query encodes once: its token states give both
+    the pooled retrieval embedding and the projected query tokens.
+    Survivor selection, the full-depth pass and the order are those of
+    :func:`_retrieve_rerank_cascade`.
+
+    Returns (knn_scores, idx, rerank_scores, order), each (Qb, k)."""
+    hidden = encode(e_params, q_ids, q_mask, e_cfg)                 # (Qb, S, H)
+    pooled = mean_pool(hidden, q_mask)
+    emb = pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-9)
+    scores, idx = search_corpus(corpus, valid, emb, k, metric)      # (Qb, k)
+    d_len = doc_lens[idx]                                            # (Qb, k)
+    q_len = q_mask.sum(dim=1).to(torch.int32)
+    pair, mask, ttype = _assemble_pairs(q_ids, q_len, doc_tokens[idx], d_len, pair_seq)
+    q_tok = query_token_states(hidden, q_mask, late_proj)           # (Qb, S, dc)
+    cheap = maxsim_scores(q_tok, q_mask, bank_q[idx], bank_scale[idx], d_len)
+    return (scores, idx) + _cascade_finish(
+        scores, cheap, pair, mask, ttype, r_params, r_head, r_cfg, k, pair_seq,
+        keep, seed_weight)
 
 
 class FusedRAGPipeline:
@@ -187,8 +255,15 @@ class FusedRAGPipeline:
     cascaded rerank on, with ``rerank_cascade_depth`` cheap layers (0:
     half the reranker's), ``rerank_cascade_survivors`` (0: ``max(8, k //
     2)``) and ``rerank_seed_weight``; these four are read per call and may
-    change between calls, as JAX reads its flags. Every default is the
-    JAX flag default."""
+    change between calls, as JAX reads its flags. ``late_interaction``
+    (read per call) makes the cascade's cheap stage MaxSim over the
+    doc-token bank, whose width ``late_dim`` is read once, at the bank's
+    first allocation; its projection is the embedder's
+    (``late_projection_matrix``), so bank rows built here and through
+    ``token_bank_submit`` agree. ``close()`` drops the bank and its ledger
+    entry (a later late query builds it again). ``llm_reranker`` (a :class:`ListwiseLLMReranker`)
+    with ``llm_rerank`` (read per call) reorders every resolved rerank row.
+    Every default is the JAX flag default."""
 
     def __init__(self, embedder, reranker=None, *,
                  reserved_space: int = 1024, metric: str = "cos",
@@ -196,9 +271,18 @@ class FusedRAGPipeline:
                  pair_buckets: bool = True, rerank_cascade: bool = False,
                  rerank_cascade_depth: int = 0,
                  rerank_cascade_survivors: int = 0,
-                 rerank_seed_weight: float = 0.25):
+                 rerank_seed_weight: float = 0.25,
+                 late_interaction: bool = False, late_dim: int = LATE_DIM,
+                 llm_reranker=None, llm_rerank: bool = False):
         self.embedder = embedder          # SentenceEmbedderModel
         self.reranker = reranker          # CrossEncoderModel | None
+        # the listwise LLM final stage; doc texts are kept on the host for
+        # its prompts only when it is attached
+        self.llm_reranker = llm_reranker  # ListwiseLLMReranker | None
+        self.llm_rerank = llm_rerank
+        self._text_by_key: dict = {}
+        self.late_interaction = late_interaction
+        self.late_dim = late_dim
         self.metric = metric
         self.doc_seq = doc_seq
         self.pair_seq = pair_seq
@@ -230,6 +314,20 @@ class FusedRAGPipeline:
         # bucket needs no device round trip; never lowered on remove, so it
         # stays a safe upper bound
         self._max_doc_len = 0
+        # the late-interaction bank: int8 token states and f32 scales on the
+        # device, slot-aligned with the corpus, allocated at the first add
+        # or query with late_interaction on (a pipeline without it holds
+        # none). `_bank_valid` (host) marks the slots whose row is current,
+        # so rows ingested with the flag off backfill at query time.
+        self._bank_q = None       # (cap, doc_seq, dc) int8
+        self._bank_scale = None   # (cap, doc_seq, 1) f32
+        self._bank_valid = None   # (cap,) bool, host
+        self._late_proj = None    # (H, dc) f32, shared by ingest and query
+        self._late_dim = 0
+        # the HBM ledger's owner of the bank's bytes (dropped by close() or
+        # at the pipeline's collection)
+        self.hbm_owner = f"rag:{id(self):x}"
+        drop_hbm_owner_at_collect(self, self.hbm_owner)
 
     # ------------------------------------------------------------- ingest
     def _doc_token_rows(self, texts: list[str]):
@@ -259,15 +357,31 @@ class FusedRAGPipeline:
                 self._doc_tokens, (0, 0, 0, grow))
             self._doc_lens = torch.nn.functional.pad(self._doc_lens, (0, grow))
         ids, lens = self._doc_token_rows(list(texts))
+        if self.llm_reranker is not None:
+            self._text_by_key.update(zip(keys, texts))
         if lens.size:
             self._max_doc_len = max(self._max_doc_len, int(lens.max()))
         n = len(lens)
         self._doc_tokens[start : start + n] = torch.from_numpy(ids).to(self.device)
         self._doc_lens[start : start + n] = torch.from_numpy(lens).to(self.device)
+        if self.late_interaction or self._bank_q is not None:
+            self._late_alloc()
+            if self.late_interaction:
+                # the ingest-time bank build: one full-depth encode a batch
+                bq, bs = self._late_bank_rows(ids, lens)
+                self._bank_q[start : start + n] = bq
+                self._bank_scale[start : start + n] = bs
+                self._bank_valid[start : start + n] = True
+            else:
+                # the flag went off: these rows backfill at the next MaxSim query
+                self._bank_valid[start : start + n] = False
+            self._record_late_bank()
 
     def remove(self, keys: list) -> None:
-        """Remove documents, keeping the token store aligned with the
-        index's swap-with-last slot moves (in place)."""
+        """Remove documents, keeping the token store and the bank aligned
+        with the index's swap-with-last slot moves (in place). Use this,
+        not ``index.remove``: the raw index call would leave another
+        document's tokens and bank row in the vacated slot."""
         for key in keys:
             slot = self.index._slot_of.get(key)
             if slot is None:
@@ -277,7 +391,109 @@ class FusedRAGPipeline:
                 self._doc_tokens[slot] = self._doc_tokens[last]
                 self._doc_lens[slot] = self._doc_lens[last]
             self._doc_lens[last] = 0
+            if self._bank_q is not None:
+                # the bank row moves with its document; the vacated tail
+                # slot loses validity (and its bytes leave the gauge)
+                if slot != last:
+                    self._bank_q[slot] = self._bank_q[last]
+                    self._bank_scale[slot] = self._bank_scale[last]
+                    self._bank_valid[slot] = self._bank_valid[last]
+                self._bank_valid[last] = False
             self.index.remove([key])
+            self._text_by_key.pop(key, None)
+        if self._bank_q is not None:
+            self._record_late_bank()
+
+    def close(self) -> None:
+        """Let the late-interaction bank go and drop this pipeline's HBM
+        ledger entry. The corpus stays; a later query with
+        ``late_interaction`` on allocates and backfills the bank again
+        (``late_dim`` is read anew)."""
+        self._bank_q = self._bank_scale = self._bank_valid = None
+        self._late_proj, self._late_dim = None, 0
+        drop_hbm_owner(self.hbm_owner)
+
+    # ------------------------------------------- late-interaction bank
+    def _late_alloc(self) -> None:
+        """Allocate the bank (first use; ``late_dim`` freezes here) or grow
+        it with the index's capacity doublings, slot-aligned with
+        ``_doc_tokens``."""
+        cap = self.index.capacity
+        if self._bank_q is None:
+            self._late_proj = self.embedder.late_projection_matrix(int(self.late_dim))
+            self._late_dim = int(self._late_proj.shape[1])
+            self._bank_q = torch.zeros((cap, self.doc_seq, self._late_dim),
+                                       dtype=torch.int8, device=self.device)
+            self._bank_scale = torch.zeros((cap, self.doc_seq, 1), dtype=torch.float32,
+                                           device=self.device)
+            self._bank_valid = np.zeros((cap,), dtype=bool)
+            return
+        if cap != self._bank_q.shape[0]:
+            grow = cap - self._bank_q.shape[0]
+            self._bank_q = torch.nn.functional.pad(self._bank_q, (0, 0, 0, 0, 0, grow))
+            self._bank_scale = torch.nn.functional.pad(self._bank_scale,
+                                                       (0, 0, 0, 0, 0, grow))
+            self._bank_valid = np.pad(self._bank_valid, (0, grow))
+
+    def _late_bank_rows(self, ids: np.ndarray, lens: np.ndarray):
+        """Bank rows of a batch of tokenized docs, one encode: rows padded
+        to their pow2 bucket, the width exactly ``doc_seq`` (the bank's).
+        An empty doc keeps one live (pad) position, since an all-masked row
+        has nothing to attend; its length 0 hides it from MaxSim."""
+        rows = ids.shape[0]
+        rb = next_pow2(max(rows, 1), 1)
+        ids_p = np.zeros((rb, self.doc_seq), dtype=np.int32)
+        ids_p[:rows] = ids
+        live = np.maximum(lens, 1)
+        mask_p = np.zeros((rb, self.doc_seq), dtype=np.int32)
+        mask_p[:rows] = (np.arange(self.doc_seq)[None, :] < live[:, None]).astype(np.int32)
+        record_device_dispatch("late_bank_build")
+        bq, bs = doc_token_states(
+            self.embedder.params, torch.from_numpy(ids_p).to(self.device),
+            torch.from_numpy(mask_p).to(self.device), self._late_proj,
+            self.embedder.cfg)
+        return bq[:rows], bs[:rows]
+
+    def _ensure_late_bank(self) -> None:
+        """Backfill the rows of live slots ingested while the flag was off,
+        in batches of 256, one encode each. After this every live slot's
+        row is current."""
+        self._late_alloc()
+        missing = np.flatnonzero(~self._bank_valid[: self.index.n])
+        if not missing.size:
+            return
+        for i in range(0, missing.size, 256):
+            sl = missing[i : i + 256]
+            dev_sl = torch.from_numpy(sl).to(self.device)
+            bq, bs = self._late_bank_rows(self._doc_tokens[dev_sl].cpu().numpy(),
+                                          self._doc_lens[dev_sl].cpu().numpy())
+            self._bank_q[dev_sl] = bq
+            self._bank_scale[dev_sl] = bs
+            self._bank_valid[sl] = True
+        self._record_late_bank()
+
+    def _record_late_bank(self) -> None:
+        """The bank's live bytes (valid rows, not the allocated capacity)
+        as the ``late_bank`` component of the HBM ledger, under this
+        pipeline's owner: a retraction lowers the gauge."""
+        cap = self._bank_q.shape[0]
+        live = int(self._bank_valid.sum())
+        nb = sum(t.numel() * t.element_size() for t in (self._bank_q, self._bank_scale))
+        record_hbm("late_bank", nb * live // cap if cap else 0,
+                   device=_device_key(self._bank_q), owner=self.hbm_owner)
+
+    def _record_maxsim(self, qb: int, k: int, keep: int, pair_seq: int) -> None:
+        """The MaxSim cascade on the cascade ledger: the per-pair
+        similarity product plus the per-query projection, then the
+        full-depth pass over the survivors."""
+        r_cfg = self.reranker.cfg
+        q_seq = min(self.embedder.max_length, self._rerank_q_budget)
+        record_cascade(
+            "maxsim", qb * k,
+            maxsim_flops(q_seq, self.doc_seq, self._late_dim, qb * k)
+            + projection_flops(q_seq, self.embedder.cfg.hidden, self._late_dim, qb))
+        record_cascade("full", qb * keep,
+                       _encoder_flops(r_cfg, pair_seq, r_cfg.layers, qb * keep))
 
     # ------------------------------------------------------------ queries
     def _tokenize_queries(self, texts: list[str], max_length: int | None = None):
@@ -350,6 +566,13 @@ class FusedRAGPipeline:
                 k_eff, self.metric, pair_seq)
         if self.rerank_cascade:
             depth, keep, seed_w = self._cascade_plan(k_eff)
+            if self.late_interaction:
+                record_device_dispatch("fused_rerank_maxsim")
+                self._ensure_late_bank()
+                self._record_maxsim(len(texts), k_eff, keep, pair_seq)
+                return _retrieve_maxsim_cascade(
+                    *args[:7], self._bank_q, self._bank_scale, self._late_proj,
+                    *args[7:], keep, seed_w)
             record_device_dispatch("fused_rerank_cascade")
             self._record_cascade(len(texts), k_eff, keep, depth, pair_seq)
             return _retrieve_rerank_cascade(*args, depth, keep, seed_w)
@@ -364,7 +587,7 @@ class FusedRAGPipeline:
     def retrieve_rerank(self, text: str, k: int):
         """[(key, rerank_score)] best-first for one query."""
         out = [t.cpu().numpy() for t in self.retrieve_rerank_device(text, k)]
-        return self._resolve_rerank_row(*out)
+        return self._llm_rerank_rows([text], [self._resolve_rerank_row(*out)])[0]
 
     def retrieve_rerank_batch_device(self, texts: list[str], k: int):
         """Batched retrieve + rerank: (knn_scores, idx, rerank_scores,
@@ -377,10 +600,24 @@ class FusedRAGPipeline:
         scores, idx, r_scores, order = (
             t.cpu().numpy() for t in self.retrieve_rerank_batch_device(texts, k)
         )
-        return [
+        rows = [
             self._resolve_rerank_row(scores[i], idx[i], r_scores[i], order[i])
             for i in range(len(texts))
         ]
+        return self._llm_rerank_rows(texts, rows)
+
+    def _llm_rerank_rows(self, texts: list[str], rows: list[list]):
+        """The optional listwise LLM final stage over resolved rows. Each
+        row is ``[(key, score)]`` best-first from the cross-encoder; the
+        LLM permutes the order and every document keeps its cross-encoder
+        score (the listwise pass ranks, it does not score). A no-op unless
+        a reranker is attached and ``llm_rerank`` is on."""
+        if self.llm_reranker is None or not self.llm_rerank:
+            return rows
+        docs_lists = [[self._text_by_key.get(key, "") for key, _ in row] for row in rows]
+        record_cascade("llm_rerank", sum(len(r) for r in rows))
+        perms = self.llm_reranker.rerank_batch(list(texts), docs_lists)
+        return [[row[j] for j in perm] for row, perm in zip(rows, perms)]
 
     def _resolve_rerank_row(self, scores, idx, r_scores, order):
         out = []

@@ -128,6 +128,17 @@ class SentenceTransformerEmbedder:
             out.append(self._dedup_fill(plan, miss_texts, miss_vecs))
         return out
 
+    # the token-level path of the late-interaction bank (no dedup: token
+    # states are not pooled vectors)
+    def embed_tokens_submit(self, input: list[str], dc: int | None = None):
+        texts = [t if t is not None else "" for t in input]
+        return self.model.token_bank_submit(texts, dc=dc)
+
+    def embed_tokens_resolve(self, handles, timeout: float | None = None):
+        """-> ``[(payload int8 (n, S, dc), scale f32 (n, S, 1))]`` per
+        submitted handle."""
+        return self.model.token_bank_resolve(handles, timeout)
+
     def get_embedding_dimension(self) -> int:
         return self.model.dim
 

@@ -231,9 +231,11 @@ class DecoderChat:
         else:
             self.params = D.cast_params_for_inference(params, cfg)
         # HBM ledger: the decoder's param footprint at placement (int8
-        # payloads and scales when quantized)
+        # payloads and scales when quantized), under this chat's owner tag,
+        # which its continuous server records its pool under too
+        self.hbm_owner = f"chat:{id(self):x}"
         for dev, nbytes in D.params_device_bytes(self.params).items():
-            probes.record_hbm("weights.decoder", nbytes, device=dev)
+            probes.record_hbm("weights.decoder", nbytes, device=dev, owner=self.hbm_owner)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.max_new_tokens = int(max_new_tokens)
@@ -287,6 +289,7 @@ class DecoderChat:
                 request_deadline_ms=request_deadline_ms,
                 serve_queue=serve_queue,
                 degradation=degradation,
+                hbm_owner=self.hbm_owner,
             )
 
     @property
@@ -296,6 +299,7 @@ class DecoderChat:
     def close(self) -> None:
         if self._server is not None:
             self._server.shutdown()
+        probes.drop_hbm_owner(self.hbm_owner)
 
     def recent_traces(self, n: int | None = None) -> list[dict]:
         """Completed request spans of the continuous server (empty when
@@ -517,7 +521,8 @@ class _ContinuousServer:
                  serve_retries: int = 1,
                  request_deadline_ms: float = 0.0,
                  serve_queue: int = 0,
-                 degradation: bool = True):
+                 degradation: bool = True,
+                 hbm_owner: str | None = None):
         asked = dict(mesh=mesh)
         for name, on, what in _UNPORTED:
             if on(asked[name]):
@@ -528,6 +533,9 @@ class _ContinuousServer:
         self.device = params["wte"].device
         # tags this server's request spans and gauges
         self._trace_tag = f"decode:{id(self):x}"
+        # the HBM ledger's owner of this server's pool and weights (its
+        # chat's tag when a DecoderChat built it), dropped at shutdown
+        self.hbm_owner = hbm_owner or self._trace_tag
         self.tokenizer = tokenizer
         self.n_slots = int(n_slots)
         self.chunk_steps = int(chunk_steps)
@@ -651,9 +659,9 @@ class _ContinuousServer:
         # weights the server decodes with
         for comp, per_dev in D.pool_component_device_bytes(self.pool).items():
             for dev, nbytes in per_dev.items():
-                probes.record_hbm(comp, nbytes, device=dev)
+                probes.record_hbm(comp, nbytes, device=dev, owner=self.hbm_owner)
         for dev, nbytes in D.params_device_bytes(self.params).items():
-            probes.record_hbm("weights.decoder", nbytes, device=dev)
+            probes.record_hbm("weights.decoder", nbytes, device=dev, owner=self.hbm_owner)
         # chunk-steps autotune: the halvings of chunk_steps down to 4, all
         # within the slack above
         self.chunk_autotune = True if chunk_autotune is None else bool(chunk_autotune)
@@ -1979,6 +1987,10 @@ class _ContinuousServer:
             promote.close()
         # the loop thread is down: every span it will write is written
         tracing.flush_traces()
+        # its pool and weights leave the HBM ledger
+        owner = getattr(self, "hbm_owner", None)
+        if owner is not None:
+            probes.drop_hbm_owner(owner)
 
 
 def _host_blob(t: torch.Tensor) -> np.ndarray:

@@ -75,6 +75,30 @@ def test_source_scan_sees_the_whole_package():
         assert ROOT / "pathway_tpu_torch" / rel in _sources()
 
 
+def test_source_scan_sees_the_retrieval_variants():
+    names = {p.name for p in _sources()}
+    assert {"ivf.py", "hnsw.py", "late_bank.py", "transformer.py", "cross_encoder.py",
+            "query_server.py"} <= names
+
+
+def test_retrieval_variants_raise_without_cuda(monkeypatch):
+    """The IVF index and the int8 encoders run on the card unless asked;
+    the host-side HNSW index has no device to refuse."""
+    from pathway_tpu_torch.ops.hnsw import HnswIndex
+    from pathway_tpu_torch.ops.ivf import IvfFlatIndex
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(vocab_size=64, hidden=16, layers=1, heads=2, intermediate=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IvfFlatIndex(8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SentenceEmbedderModel(cfg, weight_quant="int8")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CrossEncoderModel(cfg, weight_quant="int8")
+    assert IvfFlatIndex(8, device="cpu")._cells.device.type == "cpu"
+    assert len(HnswIndex(8)) == 0
+
+
 def _environ_reads(tree):
     """Names read from the environment: ``os.environ[...]``,
     ``os.environ.get(...)`` / ``.setdefault`` / ``.pop``, ``os.getenv(...)``

@@ -551,3 +551,171 @@ def test_rag_dispatch_counts_match_jax():
     finally:
         jemb.close()
         temb.close()
+
+
+# ------------------------------------------------ the HBM ledger's owners
+
+def _hbm_owned(p, rng, owners):
+    for _ in range(16):
+        p.record_hbm(str(rng.choice(["kv_blocks", "weights.decoder", "late_bank"])),
+                     int(rng.integers(0, 10**6)), device=str(rng.choice(["0", "1"])),
+                     **({"owner": str(rng.choice(owners))} if owners else {}))
+
+
+def test_hbm_ledger_sums_over_owners_and_drops_an_owner():
+    """Entries keyed (component, device, owner): the ledger and its gauges
+    are sums over owners; one owner (the default "") reads as JAX's
+    (component, device) ledger; a dropped owner's bytes leave the current
+    sums and the gauges, the high-waters stay."""
+    _hbm_owned(TP, np.random.default_rng(5), None)
+    _hbm_owned(JP, np.random.default_rng(5), None)
+    assert TP.hbm_stats() == JP.hbm_stats()
+    assert TP.REGISTRY.snapshot() == JP.REGISTRY.snapshot()
+    for p in (TP, JP):
+        _reset_all(p)
+    TP.record_hbm("kv_blocks", 100, owner="a")
+    TP.record_hbm("kv_blocks", 40, owner="b")
+    TP.record_hbm("kv_blocks", 7, device="1", owner="b")
+    TP.record_hbm("weights.decoder", 10, owner="a")
+    st = TP.hbm_stats()
+    assert st["current_bytes"] == {"kv_blocks": 147, "weights.decoder": 10}
+    assert st["device_bytes"] == {"0": {"kv_blocks": 140, "weights.decoder": 10},
+                                  "1": {"kv_blocks": 7}}
+    assert TP.REGISTRY.gauge_value("hbm_bytes", component="kv_blocks", device="0") == 140
+    assert TP.REGISTRY.gauge_value("hbm_bytes", component="kv_blocks") == 147
+    TP.record_hbm("kv_blocks", 60, owner="a")  # an owner re-records its own entry
+    assert TP.hbm_stats()["current_bytes"]["kv_blocks"] == 107
+    TP.drop_hbm_owner("a")
+    st = TP.hbm_stats()
+    assert st["current_bytes"] == {"kv_blocks": 47}
+    assert st["high_water_bytes"] == {"kv_blocks": 147, "weights.decoder": 10}
+    assert st["high_water_total_bytes"] == 157
+    assert TP.REGISTRY.gauge_value("hbm_bytes", component="kv_blocks", device="0") == 40
+    assert TP.REGISTRY.gauge_value("hbm_bytes", component="weights.decoder") == 0
+    TP.drop_hbm_owner("nobody")
+    TP.set_metrics(False)
+    TP.drop_hbm_owner("b")  # applies with metrics off, like the resets
+    TP.set_metrics(True)
+    assert TP.hbm_stats()["current_total_bytes"] == 0
+
+
+def test_hbm_owner_is_dropped_when_its_holder_is_collected():
+    """A holder let go without ``close()``: its entries leave at the next
+    ledger call after its collection, before anything else, so a new
+    holder recording under the same tag keeps its entry."""
+    import gc
+
+    class Holder:
+        pass
+
+    h = Holder()
+    TP.drop_hbm_owner_at_collect(h, "h")
+    TP.record_hbm("late_bank", 30, owner="h")
+    TP.record_hbm("late_bank", 5, device="1", owner="h")
+    TP.record_hbm("weights.embedder", 7, owner="k")
+    assert TP.hbm_owner_bytes("h") == {"late_bank": 35}
+    del h
+    gc.collect()
+    TP.record_hbm("late_bank", 9, owner="h")  # a new holder under the same tag
+    assert TP.hbm_owner_bytes("h") == {"late_bank": 9}
+    assert TP.hbm_stats()["current_bytes"] == {"late_bank": 9, "weights.embedder": 7}
+    assert TP.REGISTRY.gauge_value("hbm_bytes", component="late_bank", device="1") == 0
+
+
+def test_collected_encoders_and_pipeline_leave_the_ledger():
+    import gc
+
+    from pathway_tpu_torch import (CrossEncoderModel, FusedRAGPipeline, HashTokenizer,
+                                   SentenceEmbedderModel)
+
+    _, tcfg = configs("float32")
+    tok = HashTokenizer(vocab_size=1000)
+    emb = SentenceEmbedderModel(tcfg, params=from_jax_params(np_encoder_params(40)),
+                                tokenizer=tok, max_length=32, device="cpu", pipeline=False)
+    ce = CrossEncoderModel(tcfg, params=from_jax_params(np_encoder_params(41)),
+                           tokenizer=tok, device="cpu")
+    pipe = FusedRAGPipeline(emb, ce, reserved_space=32, doc_seq=16, pair_seq=48,
+                            late_interaction=True, rerank_cascade=True)
+    pipe.add(["a", "b"], ["alpha beta", "gamma"])
+    owners = [emb.hbm_owner, ce.hbm_owner, pipe.hbm_owner]
+    assert [set(TP.hbm_owner_bytes(o)) for o in owners] == [
+        {"weights.embedder"}, {"weights.reranker"}, {"late_bank"}]
+    del emb, ce, pipe
+    gc.collect()
+    assert [TP.hbm_owner_bytes(o) for o in owners] == [{}, {}, {}]
+    assert TP.hbm_stats()["current_bytes"] == {}
+
+
+def _ledger_chat(params, **kw):
+    return TL.DecoderChat(params=params, cfg=TCFG, tokenizer=_TOK, max_new_tokens=8,
+                          max_prompt_tokens=48, continuous=True, n_slots=2, chunk_steps=4,
+                          pipeline_depth=2, prefill_chunk=8, device="cpu", **kw)
+
+
+_TOK = types.SimpleNamespace(encode=lambda s: [ord(c) % 96 + 1 for c in s][:48],
+                             decode=lambda ids: "".join(chr(int(i) % 96 + 32) for i in ids),
+                             eos_id=None)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(paged_kv=True, paged_kv_block=8),
+                                dict(weight_quant="int8", kv_quant=True)])
+def test_one_servers_hbm_stats_are_jaxs_ledger(decoder_params, kw, monkeypatch):
+    """A single server's ledger is unchanged by the owner keys: replaying
+    its records into JAX's (component, device) ledger gives the same
+    ``hbm_stats()`` and gauges, before and after a burst."""
+    _, tparams = decoder_params
+    real = TP.record_hbm
+
+    def both(component, nbytes, device="0", owner=""):
+        real(component, nbytes, device=device, owner=owner)
+        JP.record_hbm(component, nbytes, device=device)
+
+    monkeypatch.setattr(TP, "record_hbm", both)
+    chat = _ledger_chat(tparams, **kw)
+    try:
+        assert TP.hbm_stats() == JP.hbm_stats()
+        want = TD.pool_component_device_bytes(chat.server.pool)
+        got = TP.hbm_stats()["device_bytes"]["0"]
+        assert {c: v for c, v in got.items() if c != "weights.decoder"} == {
+            c: d["0"] for c, d in want.items()}
+        reqs = chat.submit_batch(["hello world", "abc"])
+        for r in reqs:
+            assert r.done.wait(60.0)
+        assert TP.hbm_stats() == JP.hbm_stats()
+        assert TP.REGISTRY.labelled("hbm_bytes", "component") == JP.REGISTRY.labelled(
+            "hbm_bytes", "component")
+    finally:
+        chat.close()
+    assert TP.hbm_stats()["current_total_bytes"] == 0
+
+
+def test_two_replicas_hold_twice_one_servers_bytes(decoder_params):
+    """Two in-process replicas on one device: the ledger holds both pools
+    and both weights (before the owner keys it held one), and nothing
+    after both stop."""
+    from pathway_tpu_torch.serving import InProcessReplica
+
+    _, tparams = decoder_params
+    one = _ledger_chat(tparams, paged_kv=True, paged_kv_block=8)
+    single = dict(TP.hbm_stats()["current_bytes"])
+    pool = TD.pool_component_device_bytes(one.server.pool)
+    weights = TD.params_device_bytes(one.params)["0"]
+    one.close()
+    assert TP.hbm_stats()["current_total_bytes"] == 0
+    assert single == {**{c: d["0"] for c, d in pool.items()}, "weights.decoder": weights}
+    reps = [InProcessReplica(f"r{i}", _ledger_chat(tparams, paged_kv=True, paged_kv_block=8))
+            for i in range(2)]
+    try:
+        st = TP.hbm_stats()
+        assert st["current_bytes"] == {c: 2 * v for c, v in single.items()}
+        assert st["current_total_bytes"] == 2 * sum(single.values())
+        reqs = [r.submit("fleet ledger") for r in reps]
+        for q in reqs:
+            assert q.done.wait(60.0)
+        reps[0].stop()
+        assert TP.hbm_stats()["current_bytes"] == single
+    finally:
+        for r in reps:
+            r.stop()
+    assert TP.hbm_stats()["current_total_bytes"] == 0
+    assert TP.hbm_stats()["high_water_total_bytes"] == 2 * sum(single.values())

@@ -13,12 +13,18 @@ traces one decode chunk (16 steps over 16 active slots, paged decode
 kernel) and one 64-token prefill piece at offset 192 (flash chunk kernel),
 the serving loop's two device calls, without the loop's thread.
 
+Retrieval variants (``--path variants``, ``chip_smoke.py`` phase 14's
+settings): one 4,096-doc embed through the bf16 and the int8 MiniLM-L6;
+IVF-Flat search of 64 queries over the 32,768 embeddings (64 cells, bf16
+cells) at nprobe 8 and 64; one query (k=32) through the encoder cascade
+and through the MaxSim cascade over the doc-token bank (doc_seq 96, dc 32).
+
 Each phase is traced with ``torch.profiler``; the tool prints the host
 wall time, the device busy time (sum of kernel times on the one stream),
 the device idle share, and the kernels with the most device time. Run from
 the repository root:
 
-    python3 tools/profile_rag_path.py [--path rag|decoder|all]
+    python3 tools/profile_rag_path.py [--path rag|decoder|variants|all]
                                       [--out build/profile.json]
 """
 
@@ -125,11 +131,52 @@ def rag_phases() -> dict:
     }
 
 
+def variants_phases() -> dict:
+    import numpy as np
+    import torch
+
+    import chip_smoke as C
+    from pathway_tpu_torch import CrossEncoderModel, FusedRAGPipeline, SentenceEmbedderModel
+    from pathway_tpu_torch.models.transformer import MINILM_L6
+    from pathway_tpu_torch.ops.ivf import IvfFlatIndex
+
+    dev = torch.device("cuda", 0)
+    docs, queries = C.corpus()
+    batch = docs[: C.INGEST_BATCH]
+    emb = SentenceEmbedderModel(MINILM_L6, max_length=64, device=dev)
+    q8 = SentenceEmbedderModel(MINILM_L6, max_length=64, device=dev, weight_quant="int8")
+    out = {"embed_4096_bf16": traced(lambda: emb.embed_batch(batch), 3),
+           "embed_4096_int8": traced(lambda: q8.embed_batch(batch), 3)}
+    q8.close()
+    vecs = np.concatenate([emb.embed_batch(docs[s : s + C.INGEST_BATCH])
+                           for s in range(0, len(docs), C.INGEST_BATCH)])
+    qv = emb.embed_batch(queries)
+    ivf = IvfFlatIndex(MINILM_L6.hidden, device=dev)
+    for s in range(0, len(docs), C.INGEST_BATCH):
+        ivf.add(list(range(s, s + C.INGEST_BATCH)), vecs[s : s + C.INGEST_BATCH])
+    for nprobe in (8, ivf.n_cells):
+        ivf.nprobe = nprobe
+        out[f"ivf_search_64q_nprobe{nprobe}"] = traced(lambda: ivf.search(qv, C.TOP_K), 5)
+    del ivf
+    ce = CrossEncoderModel(MINILM_L6, device=dev)
+    pipe = FusedRAGPipeline(emb, ce, reserved_space=len(docs), doc_seq=C.LATE_SEQ,
+                            pair_seq=160, late_interaction=True, late_dim=C.LATE_DC,
+                            rerank_cascade=True)
+    for s in range(0, len(docs), C.INGEST_BATCH):
+        pipe.add([f"k{i}" for i in range(s, s + C.INGEST_BATCH)], docs[s : s + C.INGEST_BATCH])
+    out["maxsim_cascade_k32"] = traced(lambda: pipe.retrieve_rerank(queries[0], C.RERANK_K), 5)
+    pipe.late_interaction = False
+    out["encoder_cascade_k32"] = traced(lambda: pipe.retrieve_rerank(queries[0], C.RERANK_K), 5)
+    for holder in (pipe, emb, ce):
+        holder.close()
+    return out
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("rag", "decoder", "all"), default="all")
+    ap.add_argument("--path", choices=("rag", "decoder", "variants", "all"), default="all")
     ap.add_argument("--out", default="build/profile.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -145,6 +192,8 @@ def main() -> int:
         phases.update(rag_phases())
     if args.path in ("decoder", "all"):
         phases.update(decoder_phases())
+    if args.path in ("variants", "all"):
+        phases.update(variants_phases())
     result = {"gpu": gpu, "torch": torch.__version__, "phases": phases}
     for name, ph in phases.items():
         print(f"{name} [{gpu}]: wall {ph['wall_ms']:.3f} ms, device busy "
