@@ -186,7 +186,30 @@ without printing a result:
    cross-encoder's with the scores kept, ``llm_rerank`` pairs counted,
    replies that parsed reported. Phase 14's launches of ``flash_attn``
    ((a)'s int8 arms only, (c), (d)) and of the decoder's three kernels ((d)) must be
-   positive.
+   positive;
+15. the parallel layer and the serving mesh (``pathway_tpu_torch.parallel``;
+   virtual mesh positions on the one card): (a) phase 6's server (bf16, int8
+   weights, paged pool, the paged, chunk and wq kernels; spec and autotune
+   pinned off as in phases 6-13) serves 16 requests with a 1x1x1 mesh and
+   without, on / off / off / on: streams equal token for token; (b) tensor-parallel serving at
+   the JAX bench's full mesh config (f32, vocab 256, hidden 64, 4 layers, 8
+   heads, ffn 128, 8 slots, chunks of 8, 16 requests x 24 tokens) on
+   (data=1, fsdp=2, tp=4) over 8 positions, a paged pool with f32 and int8
+   weights and a dense pool (f32), each against its no-mesh arm: streams
+   equal, every decode chunk, prefill piece and whole-prompt admission
+   launching ``paged_attn_decode``, ``flash_chunk_attn(_paged)`` or the
+   causal ``flash_attn`` (and ``wq_matmul``) once per layer, step and tp
+   shard, KV bytes per position = total / tp, the HBM ledger over the 8
+   positions, tokens/s on and off;
+   (c) phase 4's 32,768 embeddings in ``ShardedKnnIndex`` and an exhaustive
+   ``ShardedIvfIndex`` at dp=4 against the brute-force index (keys equal but
+   at near-ties, search ms beside it), and ``FusedRAGPipeline(
+   mesh_retrieval=...)`` through ``QueryServer`` against its per-call path;
+   (d) ``encode_sequence_parallel`` at MiniLM-L6 width (f32) on 4 x 64-token
+   shards against the ``flash_attn`` encode, within 2e-3 at live positions;
+   (e) GPT-2 small (int8) saved from the 1x1x1 mesh and (b)'s int8 config
+   from the tp=4 mesh (``save_checkpoint``), each loaded back bitwise on the
+   host and on its mesh. Prints the script's wall.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -204,6 +227,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+T_START = time.perf_counter()
 
 # tolerances of the kernel against its plain version: the kernel keeps
 # scores and probabilities in f32; it differs from the dense f32 plain
@@ -3400,6 +3425,315 @@ def run_llm_rerank(dev, gpu: str, common, emb, ce, docs, queries) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 15
+# the parallel layer and the serving mesh. (b) runs JAX's bench config for
+# mesh serving (bench.py's config6_mesh_serving, full mode): f32, vocab 256,
+# hidden 64, 4 layers, 8 heads, ffn 128, 8 slots, chunks of 8, 16 requests of
+# 24 tokens, on (data=1, fsdp=2, tp=4) over 8 virtual positions of the card
+# (GPT-2 small's vocab of 50,257 divides no tp > 1)
+TP_REQUESTS, TP_NEW, TP_SLOTS, TP_CHUNK, TP_PIECE = 16, 24, 8, 8, 16
+N_TRIVIAL, RING_SP, RING_SHARD, RING_TOL = 16, 4, 64, 2e-3
+
+
+def tp_config():
+    import torch
+
+    from pathway_tpu_torch.models import decoder as D
+
+    return D.DecoderConfig(vocab_size=256, hidden=64, layers=4, heads=8, intermediate=128,
+                           max_position=256, dtype=torch.float32)
+
+
+def run_mesh_trivial(dev, gpu: str, common) -> dict:
+    """Phase 15 (a); returns its launches. Spec and autotune stay pinned off
+    as in phases 6-13: with them a bf16 stream depends on the schedule
+    (verify and plain steps differ in their products' M), and the two arms
+    must run the same code to be compared byte for byte."""
+    from pathway_tpu_torch import DecoderChat
+    from pathway_tpu_torch.parallel import make_serving_mesh
+
+    prompts = make_prompts(N_TRIVIAL, 16, 480, seed=15)
+    total, outs = {n: 0 for n in counters()}, {True: [], False: []}
+    mesh1 = make_serving_mesh([dev])
+    for on in (True, False, False, True):  # in turns: the host clock drifts
+        chat = DecoderChat(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True,
+                           flash_prefill=True, mesh=mesh1 if on else None, **common)
+        out = serve(chat, prompts)
+        add_launches(total, out)
+        outs[on].append(out)
+        info(f"mesh (a) {'1x1x1 mesh' if on else 'no mesh'} [{gpu}]: {N_TRIVIAL} requests "
+             f"in {out['wall_s']:.3f} s wall; decode {out['tok_per_s']:.1f} tokens/s; "
+             f"launches {out['launches']}")
+        free_chats(chat)
+    ref = streams(outs[False][0])
+    same = min(sum(a == b for a, b in zip(streams(o), ref)) for o in outs[True] + outs[False])
+    ratio = (statistics.mean(o["tok_per_s"] for o in outs[True])
+             / statistics.mean(o["tok_per_s"] for o in outs[False]))
+    info(f"mesh (a) [{gpu}]: tokens/s 1x1x1 mesh / no mesh {ratio:.4f} (means of 2)")
+    require(same == N_TRIVIAL, f"(a) the 1x1x1 mesh serves the mesh-off streams token for "
+                               f"token ({same}/{N_TRIVIAL}, every arm)")
+    return total
+
+
+def per_dispatch(D):
+    """Wrap the decode chunk, the prefill piece and the whole-prompt
+    admissions: each call records its name, its steps (1 for the others)
+    and the launches it made."""
+    names = ("pool_decode_chunk", "pool_prefill_chunk", "pool_admit", "pool_admit_batch")
+    orig = {n: getattr(D, n) for n in names}
+    rec = []
+
+    def wrap(n):
+        def f(*a, **k):
+            before = {m: c.launches for m, c in counters().items()}
+            out = orig[n](*a, **k)
+            rec.append((n, a[5] if n == "pool_decode_chunk" else 1,
+                        {m: c.launches - before[m] for m, c in counters().items()}))
+            return out
+        return f
+
+    for n in names:
+        setattr(D, n, wrap(n))
+    return rec, lambda: [setattr(D, n, f) for n, f in orig.items()]
+
+
+def run_mesh_tp(dev, gpu: str, tok) -> tuple[dict, dict]:
+    """Phase 15 (b); returns its launches and the int8 arm's sharded params."""
+    import torch
+
+    from pathway_tpu_torch import DecoderChat
+    from pathway_tpu_torch.engine import probes
+    from pathway_tpu_torch.models import decoder as D
+    from pathway_tpu_torch.parallel import ShardedTensor, make_serving_mesh
+
+    cfg = tp_config()
+    params = D.init_params(torch.Generator().manual_seed(0), cfg)
+    mesh = make_serving_mesh([dev] * 8, data=1, fsdp=2, tp=4)
+    tp, L = 4, cfg.layers
+    prompts = make_prompts(TP_REQUESTS, 8, 60, seed=16)
+    total, kept = {n: 0 for n in counters()}, None
+    for quant, paged in ((None, True), ("int8", True), (None, False)):
+        texts, tps = {}, {}
+        what = f"{'paged' if paged else 'dense'} pool, weights {quant or 'f32'}"
+        for arm in (mesh, None):
+            probes.reset_hbm_stats()
+            chat = DecoderChat(params=params, cfg=cfg, tokenizer=tok, continuous=True,
+                               n_slots=TP_SLOTS, chunk_steps=TP_CHUNK, max_new_tokens=TP_NEW,
+                               max_prompt_tokens=64, prefill_chunk=TP_PIECE, pipeline_depth=2,
+                               paged_kv=paged, paged_kernel=paged, flash_prefill=True,
+                               weight_quant=quant, wq_kernel=bool(quant), spec_decode=False,
+                               chunk_autotune=False, device=dev, mesh=arm)
+            chat.resolve_batch([chat.submit_batch(prompts[:1])])  # warm-up
+            rec, undo = per_dispatch(D)
+            for c in counters().values():
+                c.launches = 0
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                reqs = chat.submit_batch(prompts)
+                out = chat.resolve_batch([reqs])[0]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                undo()
+            launches = {n: c.launches for n, c in counters().items()}
+            require(chat.server.failed is None and all(
+                t is not None and len(r.tokens) == TP_NEW for r, t in zip(reqs, out)),
+                f"(b) every request of the {'tp=4' if arm else 'no-mesh'} arm served "
+                f"{TP_NEW} tokens")
+            texts[arm is not None] = [r.tokens for r in reqs]
+            tps[arm is not None] = TP_REQUESTS * TP_NEW / wall
+            k = tp if arm is not None else 1
+            piece, dec_ = "pool_prefill_chunk", "pool_decode_chunk"
+            bad = [(n, s, d) for n, s, d in rec if d != {
+                "flash_attn": L * k if n.startswith("pool_admit") else 0,
+                "flash_chunk_attn": L * k if n == piece and not paged else 0,
+                "flash_chunk_attn_paged": L * k if n == piece and paged else 0,
+                "paged_attn_decode": s * L * k if n == dec_ and paged else 0,
+                "wq_matmul": s * L * 4 * k if quant else 0}]
+            n_dec = sum(n == dec_ for n, _, _ in rec)
+            require(not bad and n_dec > 0 and len(rec) > n_dec,
+                    f"(b) {'tp=4' if arm else 'no mesh'}, {what}: every one of {n_dec} decode "
+                    f"chunks and {len(rec) - n_dec} prefill dispatches launched each kernel "
+                    f"once per layer (per step) and per tp shard ({k}){bad[:1]}")
+            add_launches(total, {"launches": launches})
+            if arm is not None:
+                srv = chat.server
+                comp = "kv_blocks" if paged else "slot_pool"
+                per_pos = D.pool_component_device_bytes(srv.pool)[comp]
+                whole = D.pool_component_bytes(srv.pool)[comp]
+                require(isinstance(srv.pool["kb" if paged else "k"], ShardedTensor)
+                        and sorted(per_pos) == [str(i) for i in range(8)]
+                        and all(v * tp == whole for v in per_pos.values()),
+                        f"(b) KV bytes per mesh position {sorted(set(per_pos.values()))} = "
+                        f"total {whole} / tp")
+                ledger = probes.hbm_stats()["per_device_bytes"]
+                require(set(ledger) >= {str(i) for i in range(8)},
+                        "(b) the HBM ledger holds all 8 mesh positions")
+                if quant and paged:
+                    kept = srv.params
+            info(f"mesh (b) {'tp=4 (data=1, fsdp=2)' if arm else 'no mesh'}, {what} "
+                 f"[{gpu}]: {TP_REQUESTS} x {TP_NEW} tokens in {wall:.3f} s; "
+                 f"{tps[arm is not None]:.1f} tokens/s; launches {launches}")
+            free_chats(chat)
+        same = sum(a == b for a, b in zip(texts[True], texts[False]))
+        info(f"mesh (b) {what} [{gpu}]: tokens/s tp=4 / no mesh {tps[True] / tps[False]:.3f}")
+        require(same == TP_REQUESTS, f"(b) {what}: tp=4 streams equal the no-mesh streams "
+                                     f"({same}/{TP_REQUESTS})")
+    require(all(v > 0 for v in total.values()), "(b) drove all five kernel entry points")
+    return total, kept
+
+
+def run_mesh_retrieval(dev, gpu: str, out, docs, queries) -> int:
+    """Phase 15 (c); returns its flash_attn launches."""
+    from pathway_tpu_torch import FusedRAGPipeline, QueryServer
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.parallel import ShardedIvfIndex, ShardedKnnIndex, make_mesh
+
+    pipe, emb = out["pipe"], out["emb"]
+    n = pipe.index.n
+    keys = list(pipe.index._keys[:n])
+    vecs = pipe.index._corpus[:n].float().cpu().numpy()
+    FA.flash_attn.launches = 0
+    qv = emb.embed_batch(queries)
+    mesh = make_mesh([dev] * 4, dp=4)
+    exact, bf_ms = time_fn(lambda: pipe.index.search(qv, TOP_K))
+    want = [[k for k, _ in r] for r in exact]
+    scores = [[s for _, s in r] for r in exact]
+    knn = ShardedKnnIndex(mesh, emb.cfg.hidden, reserved_space=n)
+    for k_, v in zip(keys, vecs):
+        knn.add(k_, v)
+    ivf = ShardedIvfIndex(mesh, emb.cfg.hidden, n_cells=16, nprobe=16)
+    t0 = time.perf_counter()
+    ivf.add_bulk(keys, vecs)
+    build_s = time.perf_counter() - t0
+    for name, ix in (("ShardedKnnIndex", knn), ("ShardedIvfIndex nprobe=n_cells", ivf)):
+        got, ms = time_fn(lambda ix=ix: ix.search(qv, TOP_K))
+        missing, ties = near_tie_swaps([[k for k, _ in r] for r in got], want, scores)
+        info(f"mesh (c) {name} dp=4 over {n} docs [{gpu}]: search {ms:.3f} ms for "
+             f"{len(queries)} queries (brute force {bf_ms:.3f} ms); keys missing {missing}")
+        require(ties, f"(c) {name}: keys equal brute force's but at near-ties")
+    info(f"mesh (c) ShardedIvfIndex add_bulk of {n} docs: {build_s:.2f} s")
+    mpipe = FusedRAGPipeline(emb, None, reserved_space=n, doc_seq=32, pair_seq=160,
+                             mesh_retrieval=mesh)
+    for s in range(0, len(docs), INGEST_BATCH):
+        mpipe.add([f"k{i}" for i in range(s, s + INGEST_BATCH)], docs[s:s + INGEST_BATCH])
+    require(len(mpipe.sharded_index) == len(docs), "(c) the pipeline mirrors every doc")
+    per_call = [mpipe.retrieve([q], TOP_K)[0] for q in queries]
+    with QueryServer(mpipe) as srv:
+        handles = [srv.submit(q, TOP_K) for q in queries]
+        served = [h.wait(120) for h in handles]
+    agree = all(ranks_agree(w, g) for w, g in zip(per_call, served))
+    info(f"mesh (c) FusedRAGPipeline(mesh_retrieval) through QueryServer: {len(queries)} "
+         f"queries, ranks agree with the per-call path: {agree}")
+    require(agree, "(c) QueryServer over the sharded mirror equals the per-call path but "
+                   "at near-ties")
+    mpipe.close()
+    return FA.flash_attn.launches
+
+
+def run_ring_attention(dev, gpu: str) -> int:
+    """Phase 15 (d); returns the baseline encode's flash_attn launches."""
+    import dataclasses
+
+    import torch
+
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.models import transformer as T
+    from pathway_tpu_torch.parallel import Mesh, encode_sequence_parallel
+
+    cfg = dataclasses.replace(T.MINILM_L6, dtype=torch.float32)
+    params = T.map_params(lambda t: t.to(dev), T.init_params(15, cfg))
+    S = RING_SP * RING_SHARD
+    rng = np.random.default_rng(15)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, S)).astype(np.int32)).to(dev)
+    mask = torch.ones((2, S), dtype=torch.int32, device=dev)
+    mask[1, S - 40:] = 0
+    mesh = Mesh([dev] * RING_SP, (RING_SP,), ("sp",))
+    FA.flash_attn.launches = 0
+    ref = T.encode(params, ids, mask, cfg)
+    launches = FA.flash_attn.launches
+    got = encode_sequence_parallel(params, ids, mask, cfg, mesh)
+    live = mask.bool()[:, :, None].expand_as(ref)
+    err = (got - ref).abs()[live].max().item()
+    _, ring_ms = time_fn(lambda: encode_sequence_parallel(params, ids, mask, cfg, mesh))
+    _, flash_ms = time_fn(lambda: T.encode(params, ids, mask, cfg))
+    info(f"mesh (d) ring attention, MiniLM-L6 f32, sp={RING_SP} x {RING_SHARD} tokens, "
+         f"batch 2 [{gpu}]: max abs diff at live positions vs the flash_attn encode "
+         f"{err:.3e} (<= {RING_TOL}); {ring_ms:.3f} ms vs {flash_ms:.3f} ms")
+    require(err <= RING_TOL and launches == cfg.layers,
+            "(d) the sequence-parallel encode equals the flash_attn encode")
+    return launches
+
+
+def time_fn(fn, reps: int = 5):
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / reps * 1e3
+
+
+def same_tree(a: dict, b: dict) -> bool:
+    """Leaf for leaf bitwise equal (sharded leaves gathered)."""
+    import torch
+
+    from pathway_tpu_torch.parallel import ShardedTensor
+
+    def flat(t, p=""):
+        for k in sorted(t):
+            v = t[k]
+            if isinstance(v, dict):
+                yield from flat(v, p + k + "/")
+            else:
+                v = v.gather() if isinstance(v, ShardedTensor) else v
+                v = v.cpu()
+                yield p + k, v.view(torch.int16) if v.dtype == torch.bfloat16 else v
+
+    fa, fb = dict(flat(a)), dict(flat(b))
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def run_mesh_checkpoints(dev, gpu: str, params, tp_params) -> None:
+    """Phase 15 (e): GPT-2 small saved from the one-position mesh, (b)'s
+    config saved from the tp=4 mesh; each back bitwise on the host and on
+    its mesh."""
+    import tempfile
+
+    from pathway_tpu_torch.models import checkpoint as C
+    from pathway_tpu_torch.models import decoder as D
+    from pathway_tpu_torch.parallel import ShardedTensor, make_serving_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh1 = make_serving_mesh([dev])
+        qp = D.quantize_params(D.map_params(lambda t: t.to(dev), params), D.GPT2_SMALL)
+        placed = D.shard_decoder_params(qp, D.GPT2_SMALL, mesh1)
+        t0 = time.perf_counter()
+        C.save_checkpoint(f"{tmp}/gpt2", placed, mesh=mesh1)
+        save_s = time.perf_counter() - t0
+        host = C.load_checkpoint(f"{tmp}/gpt2", weight_quant="int8")
+        on1 = C.load_checkpoint(f"{tmp}/gpt2", mesh=mesh1, weight_quant="int8")
+        require(same_tree(host, qp) and same_tree(on1, qp)
+                and on1["wte"].device.type == "cuda",
+                f"(e) GPT-2 small (int8) from the 1x1x1 mesh back bitwise on the host and "
+                f"the mesh (save {save_s:.1f} s)")
+        mesh8 = make_serving_mesh([dev] * 8, data=1, fsdp=2, tp=4)
+        C.save_checkpoint(f"{tmp}/tp", tp_params, mesh=mesh8)
+        layout = C.checkpoint_layout(f"{tmp}/tp")
+        host = C.load_checkpoint(f"{tmp}/tp", weight_quant="int8")
+        on8 = C.load_checkpoint(f"{tmp}/tp", mesh=mesh8, weight_quant="int8")
+        require(layout["mesh"]["shape"] == [1, 2, 4] and same_tree(host, tp_params)
+                and same_tree(on8, tp_params)
+                and isinstance(on8["layers"]["qkv_w"], ShardedTensor),
+                "(e) (b)'s int8 config from the tp=4 mesh back bitwise on the host and "
+                "resharded on the mesh")
+
+
 def main() -> int:
     import torch
 
@@ -3535,6 +3869,18 @@ def main() -> int:
     launches += variants + late
     dec = {n: dec[n] + listwise[n] for n in dec}
 
+    # phase 15: the parallel layer and the serving mesh
+    t15 = time.perf_counter()
+    trivial = run_mesh_trivial(dev, gpu, common)
+    tp_launches, tp_params = run_mesh_tp(dev, gpu, tok)
+    launches += run_mesh_retrieval(dev, gpu, out, docs, queries)
+    launches += run_ring_attention(dev, gpu)
+    run_mesh_checkpoints(dev, gpu, params, tp_params)
+    mesh_launches = {n: trivial[n] + tp_launches[n] for n in dec}
+    info(f"mesh: phase 15 serving launches {mesh_launches}; "
+         f"{time.perf_counter() - t15:.1f} s")
+    dec = {n: dec[n] + mesh_launches[n] for n in dec}
+
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",
         "source": "pathway_tpu_torch/csrc/flash_attn.cu",
@@ -3560,6 +3906,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             **{k: r[k] for k in ("ms_l2_cold", "ms_m64", "split_ms") if k in r},
         })
+    info(f"chip_smoke: {time.perf_counter() - T_START:.1f} s wall")
     print(gpu, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,16 @@ The serving features JAX keeps off by default are off here too: the
 decode server's prefill lane (``disagg``) and tenant scheduling with
 preemption (``tenant_sched``), and ``serving``, a fleet of in-process
 replicas behind a prefix-affinity router (``serving.build_fleet``).
+
+``parallel`` is the single-controller mesh layer (device meshes whose
+positions may be virtual shards of one card, sharded tensors and their
+collectives, sharded KNN and IVF, ring attention, the multi-process
+bootstrap). It carries the serving mesh (``DecoderChat(mesh=...)``:
+tensor-parallel blocks and a head-sharded KV pool), the embedder's
+``mesh=``, ``FusedRAGPipeline(mesh_retrieval=...)``, the MoE block and the
+pipelined encoder (``models/moe.py``, ``models/pipeline.py``) and the
+checkpoint format both packages read (``models/checkpoint.py``
+``save_checkpoint`` / ``load_checkpoint``).
 """
 
 from pathway_tpu_torch.device import resolve_device

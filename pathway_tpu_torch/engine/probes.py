@@ -513,7 +513,8 @@ def _drop_collected() -> None:
 
 def record_hbm(component: str, nbytes: int, device: str = "0", owner: str = "") -> None:
     """Record ``component``'s current device footprint (bytes) on
-    ``device`` (the CUDA index as a string; "0" on the CPU) for ``owner``
+    ``device`` (the CUDA index as a string, "0" on the CPU, the mesh position
+    for sharded weights and pools) for ``owner``
     (a server's or pipeline's tag; "" for the process). Called at weight
     placement and pool build, never on the per-token path."""
     if not REGISTRY.enabled:

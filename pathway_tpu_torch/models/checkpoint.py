@@ -358,3 +358,154 @@ def load_decoder_checkpoint(path: str, cfg=None) -> tuple[dict, DecoderConfig]:
     if cfg is None:
         cfg = decoder_config_from_hf(path)
     return params_from_hf_gpt2(load_hf_state_dict(path), cfg), cfg
+
+
+# ---- the native checkpoint format ------------------------------------------
+#
+# A directory of ``params.npz`` (every leaf fully gathered, keys "a/b"
+# joined) and ``layout.json`` (the mesh's axes and lengths, each sharded
+# leaf's spec axis names, and ``weight_quant`` for int8 artifacts): the
+# files JAX's ``save_checkpoint`` writes, so a checkpoint crosses the two
+# packages in both directions bit for bit. bf16 leaves are stored as JAX
+# stores them, 2-byte void records holding the bit patterns.
+
+_CKPT_ARRAYS = "params.npz"
+_CKPT_LAYOUT = "layout.json"
+_KEY_SEP = "/"
+# flat keys whose presence marks a weight-quantized artifact (the decoder's
+# and the encoder's int8 format markers)
+_WQ_MARKER_KEYS = ("wte_scale", "embeddings/word_scale")
+
+
+class QuantizedCheckpointError(RuntimeError):
+    """A weight-quantized checkpoint loaded without ``weight_quant="int8"``:
+    an unquantized forward cannot read its int8 payloads, and a silent
+    dequant would give up the quality pin."""
+
+
+def _flatten_tree(tree: dict, prefix: str = "") -> dict[str, Any]:
+    flat: dict[str, Any] = {}
+    for k in sorted(tree):
+        v = tree[k]
+        name = f"{prefix}{_KEY_SEP}{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            flat.update(_flatten_tree(v, name))
+        else:
+            flat[name] = v
+    return flat
+
+
+def _unflatten_tree(flat: dict[str, Any]) -> dict:
+    tree: dict = {}
+    for name, v in flat.items():
+        parts = name.split(_KEY_SEP)
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def _leaf_spec_names(leaf) -> list | None:
+    """A sharded leaf's spec axis names as a JSON row, None when it has
+    none (host, plain or fully replicated tensors)."""
+    from pathway_tpu_torch.parallel.mesh import ShardedTensor
+
+    if not isinstance(leaf, ShardedTensor) or leaf.spec is None:
+        return None
+    names = [list(p) if isinstance(p, tuple) else p for p in leaf.spec]
+    return names if any(n is not None for n in names) else None
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2 or a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def save_checkpoint(path: str, params: dict, *, mesh=None) -> None:
+    """Write ``params`` (a nested dict of tensors, sharded or not) as a
+    checkpoint directory: gathered arrays in ``params.npz`` and
+    ``layout.json`` with the mesh and each sharded leaf's spec names.
+    Saving from a mesh gathers, so the bytes never depend on the topology."""
+    from pathway_tpu_torch.engine.state import host_state_pytree
+
+    os.makedirs(path, exist_ok=True)
+    flat = _flatten_tree(params)
+    arrays = {k: _to_numpy(v) for k, v in _flatten_tree(host_state_pytree(params)).items()}
+    layout: dict[str, Any] = {
+        "format": 1,
+        "mesh": None,
+        "specs": {k: names for k, v in flat.items()
+                  if (names := _leaf_spec_names(v)) is not None},
+    }
+    if any(k in flat for k in _WQ_MARKER_KEYS):
+        layout["weight_quant"] = "int8"
+    if mesh is not None:
+        layout["mesh"] = {"axes": [str(a) for a in mesh.axis_names],
+                          "shape": [int(mesh.shape[a]) for a in mesh.axis_names]}
+    with open(os.path.join(path, _CKPT_ARRAYS), "wb") as fh:
+        np.savez(fh, **arrays)
+    with open(os.path.join(path, _CKPT_LAYOUT), "w") as fh:
+        json.dump(layout, fh, indent=1, sort_keys=True)
+
+
+def checkpoint_layout(path: str) -> dict:
+    """The saved layout (mesh axes and lengths, per-leaf spec names)."""
+    with open(os.path.join(path, _CKPT_LAYOUT)) as fh:
+        return json.load(fh)
+
+
+def load_checkpoint(path: str, *, mesh=None, specs=None, weight_quant=None) -> dict:
+    """A checkpoint back as a nested dict of tensors.
+
+    ``mesh=None`` gives host (CPU) tensors. With a mesh each leaf is placed
+    by ``specs`` (a nested spec dict, or ``{flat_key: spec}``) when it names
+    the leaf, else by replaying the saved spec names on the target mesh: an
+    axis the mesh lacks, or whose length does not divide the dim, drops to
+    replicated. A quantized artifact raises
+    :class:`QuantizedCheckpointError` unless ``weight_quant="int8"``."""
+    from pathway_tpu_torch.models.transformer import parse_weight_quant
+    from pathway_tpu_torch.parallel.mesh import P, place_pytree
+
+    with np.load(os.path.join(path, _CKPT_ARRAYS)) as z:
+        flat = {k: _from_numpy(z[k]) for k in z.files}
+    layout = checkpoint_layout(path)
+    if (layout.get("weight_quant") or any(k in flat for k in _WQ_MARKER_KEYS)) \
+            and not parse_weight_quant(weight_quant):
+        raise QuantizedCheckpointError(
+            f"{path!r} holds int8-quantized weights (layout weight_quant="
+            f"{layout.get('weight_quant')!r}) but weight_quant is off: refusing "
+            "to load int8 payloads into an unquantized config. Pass "
+            "weight_quant='int8', or save an unquantized checkpoint.")
+    if mesh is None:
+        return _unflatten_tree(flat)
+    saved = layout.get("specs", {})
+    if specs is not None and any(isinstance(v, dict) for v in specs.values()):
+        specs = _flatten_tree(specs)
+
+    def keep(axes, dim: int):
+        kept = tuple(a for a in axes if a in mesh.shape)
+        size = 1
+        for a in kept:
+            size *= mesh.shape[a]
+        return kept if kept and dim % size == 0 else None
+
+    def spec_for(key: str, shape):
+        if specs is not None and key in specs:
+            return specs[key]
+        parts = []
+        for i, n in enumerate((saved.get(key) or [])[:len(shape)]):
+            kept = keep(n if isinstance(n, list) else ([n] if n else []), int(shape[i]))
+            parts.append(kept if kept and len(kept) > 1 else (kept[0] if kept else None))
+        return P(*parts)
+
+    placed = place_pytree(flat, mesh, {k: spec_for(k, v.shape) for k, v in flat.items()})
+    return _unflatten_tree(placed)

@@ -28,6 +28,18 @@ The prefix cache's block moves (``kv_extract``, ``kv_insert``,
 ``kv_block_import``) are data movement: indexed reads and writes, no
 kernel.
 
+Under a serving mesh (``shard_decoder_params``, ``shard_pool``) the blocks
+are Megatron tensor-parallel over the ``tp`` axis: ``qkv`` and ``mlp_in``
+column-sharded, ``attn_out`` and ``mlp_out`` row-sharded with an
+``all_reduce_sum`` after each, the tied LM head vocab-sharded with its
+logits all-gathered. The KV planes (int8 scales and arena included) are
+head-sharded ``ShardedTensor`` planes, each shard its own contiguous
+tensor, so every pool op runs its KV code once per shard and each
+attention kernel launches once per tp shard on that shard's heads (JAX's
+``shard_map``, no collective). ``fsdp`` shards are stored and gathered at
+each pool op (ZeRO-3); ``data`` replicates. No mesh, or a one-position
+mesh, runs the single-device code.
+
 Unlike JAX, the pool functions update the pool dict IN PLACE (the KV
 planes are the dominant device object; JAX donated them for the same
 reason) and return it. Where JAX clamps a slice start
@@ -53,6 +65,26 @@ from pathway_tpu_torch.models.flash_attention import (
 from pathway_tpu_torch.models.paged_attention import gather_rows, paged_attn_decode
 from pathway_tpu_torch.models.transformer import map_params
 from pathway_tpu_torch.models.wq_matmul import wq_matmul
+from pathway_tpu_torch.parallel.mesh import (
+    SERVE_FSDP_AXIS,
+    SERVE_TP_AXIS,
+    P,
+    ShardedTensor,
+    all_gather,
+    all_reduce_sum,
+    axis_shards,
+    mesh_is_trivial,
+    mesh_shape_error,
+    place_pytree,
+    spec_dropping_nondividing,
+    spec_with_fsdp,
+    split,
+    tree_mesh,
+    tree_position_bytes,
+)
+
+# the kernel seams: once per shard on head-sharded operands, else once
+_per_shard = ShardedTensor.map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,11 +144,266 @@ def init_params(gen: torch.Generator, cfg: DecoderConfig) -> dict:
     }
 
 
+def param_partition_specs(cfg: DecoderConfig, tp_axis: str = "tp") -> dict:
+    """Megatron TP: QKV / MLP-in shard their output features, attn-out /
+    MLP-out their input features (one all-reduce each); the tied ``wte``
+    shards the vocab, which shards the LM head's logits."""
+    t = tp_axis
+    return {
+        "wte": P(t, None),
+        "wpe": P(None, None),
+        "layers": {
+            "ln1_scale": P(None, None),
+            "ln1_bias": P(None, None),
+            "qkv_w": P(None, None, t),
+            "qkv_b": P(None, t),
+            "attn_out_w": P(None, t, None),
+            "attn_out_b": P(None, None),
+            "ln2_scale": P(None, None),
+            "ln2_bias": P(None, None),
+            "mlp_in_w": P(None, None, t),
+            "mlp_in_b": P(None, t),
+            "mlp_out_w": P(None, t, None),
+            "mlp_out_b": P(None, None),
+        },
+        "ln_f_scale": P(None),
+        "ln_f_bias": P(None),
+    }
+
+
+# ---- serving-mesh placement ------------------------------------------------
+#
+# The specs above say WHAT shards over tp; the helpers below bind them to a
+# ``(data, fsdp, tp)`` serving mesh (``parallel/mesh.make_serving_mesh``):
+# params get the Megatron layout plus an fsdp overlay on whatever tp left
+# replicated, and the KV pool (dense or paged, arena included) shards its
+# head axis over tp. Divisibility is checked on the host (``MeshShapeError``).
+
+
+def validate_decoder_mesh(cfg: DecoderConfig, mesh) -> None:
+    """Raise a typed ``MeshShapeError`` when ``cfg`` cannot shard over
+    ``mesh``'s tp axis: heads, ffn features and vocab must all divide."""
+    tp = int(mesh.shape.get(SERVE_TP_AXIS, 1))
+    bad = [f"{name}={v}" for name, v in (("heads", cfg.heads),
+                                         ("intermediate", cfg.intermediate),
+                                         ("vocab_size", cfg.vocab_size)) if v % tp]
+    if bad:
+        raise mesh_shape_error(
+            f"decoder config does not divide the tp axis: {', '.join(bad)} "
+            f"% tp={tp} != 0", mesh)
+
+
+def param_mesh_specs(params: dict, cfg: DecoderConfig, mesh) -> dict:
+    """Per-param spec dict for the serving mesh: the Megatron layout with
+    the fsdp axis overlaid on each param's first unsharded divisible dim.
+    An int8 ``*_scale`` plane takes its payload's spec with the axes it
+    does not divide dropped (the size-1 contracted dim replicates, the
+    output channels stay with their int8 columns)."""
+    fsdp = int(mesh.shape.get(SERVE_FSDP_AXIS, 1))
+    specs = param_partition_specs(cfg, tp_axis=SERVE_TP_AXIS)
+
+    def walk(node, sp):
+        out = {}
+        for name, leaf in node.items():
+            if isinstance(leaf, dict):
+                out[name] = walk(leaf, sp[name])
+                continue
+            if name in sp:
+                s = sp[name]
+            elif name.endswith("_scale") and name[:-len("_scale")] in sp:
+                s = spec_dropping_nondividing(sp[name[:-len("_scale")]], leaf.shape, mesh)
+            else:
+                raise KeyError(f"no partition spec for decoder param {name!r}")
+            out[name] = spec_with_fsdp(s, tuple(leaf.shape), fsdp)
+        return out
+
+    return walk(params, specs)
+
+
+_HEAD_SHARDED = ("k", "v", "k_scale", "v_scale", "kb", "vb", "kb_scale",
+                 "vb_scale", "arena_k", "arena_v", "arena_k_scale",
+                 "arena_v_scale")
+
+
+def pool_partition_specs(pool: dict) -> dict:
+    """Per-plane specs of a serving pool (dense or paged): the KV planes,
+    their int8 scales and the arena shard the head axis over tp; every
+    other plane replicates. (JAX's takes the mesh to shard the staged
+    logits over the vocab; the port all-gathers the LM head's logits, so
+    they replicate.)"""
+    head = P(None, None, SERVE_TP_AXIS, None, None)  # (L|A, S|NB|L, nh, ., .)
+    return {key: head if key in _HEAD_SHARDED else P() for key in pool}
+
+
+def shard_decoder_params(params: dict, cfg: DecoderConfig, mesh) -> dict:
+    """``params`` placed on the serving mesh with the Megatron + fsdp layout
+    (validated first). No-op without a mesh; a one-position mesh moves the
+    plain tensors to its device."""
+    if mesh is None:
+        return params
+    validate_decoder_mesh(cfg, mesh)
+    return place_pytree(params, mesh, param_mesh_specs(params, cfg, mesh))
+
+
+def shard_pool(pool: dict, cfg: DecoderConfig, mesh) -> dict:
+    """A fresh serving pool placed on the mesh: KV planes head-sharded over
+    tp, one contiguous tensor per shard; the other planes stay plain
+    (replicated) on the mesh's first device. Pool ops then run per shard.
+    The port keeps one copy of each tp shard, so every ``data`` / ``fsdp``
+    replica of a tp coordinate must sit on the same device (virtual
+    shards); replicas on distinct devices raise ``MeshShapeError``."""
+    if mesh is None:
+        return pool
+    validate_decoder_mesh(cfg, mesh)
+    if mesh_is_trivial(mesh):
+        return place_pytree(pool, mesh)
+    devs = {}
+    for p, dev in enumerate(mesh.devices):
+        if devs.setdefault(mesh.coords(p)[SERVE_TP_AXIS], dev) != dev:
+            raise mesh_shape_error(
+                "the serving pool replicates each tp shard over data and fsdp "
+                "on one device; replicas on distinct devices are not ported", mesh)
+    specs = pool_partition_specs(pool)
+    return {key: (ShardedTensor.place(t, mesh, specs[key]) if any(specs[key])
+                  else t.to(mesh.devices[0]))
+            for key, t in pool.items()}
+
+
+class _TPParams:
+    """Sharded decoder params as one plain dict per tp shard (its column,
+    row or vocab slice, every fsdp piece gathered: ZeRO-3's gather on use),
+    built once per pool op. Item access reads shard 0 (replicated leaves)."""
+
+    def __init__(self, params: dict):
+        self.mesh = tree_mesh(params)
+        tp = self.mesh.shape[SERVE_TP_AXIS]
+        self.shards = [map_params(
+            lambda t, i=i: t.local(SERVE_TP_AXIS, i) if isinstance(t, ShardedTensor) else t,
+            params) for i in range(tp)]
+
+    def __getitem__(self, key):
+        return self.shards[0][key]
+
+    def __contains__(self, key) -> bool:
+        return key in self.shards[0]
+
+    def get(self, key, default=None):
+        return self.shards[0].get(key, default)
+
+
+class _TPLayer(_TPParams):
+    """One layer's slices of a :class:`_TPParams`."""
+
+    def __init__(self, shards: list, mesh):
+        self.shards, self.mesh = shards, mesh
+
+
+def _tp(params):
+    """The per-tp-shard view of sharded params; anything else unchanged."""
+    if isinstance(params, dict) and isinstance(params.get("wte"), ShardedTensor):
+        return _TPParams(params)
+    return params
+
+
+def _check_mesh(pool: dict, mesh) -> None:
+    """A pool op's ``mesh=`` must be the mesh the pool is sharded on."""
+    if not mesh_is_trivial(mesh) and tree_mesh(pool) != mesh:
+        raise ValueError("the pool is not sharded on this mesh (shard_pool first)")
+
+
+def _tp_embed(params: _TPParams, ids):
+    """Vocab-parallel embedding: each shard gathers the ids in its vocab
+    range (zeros elsewhere), then an all-reduce (exact: one nonzero term)."""
+    ids = ids.long()
+    parts = []
+    for i, sh in enumerate(params.shards):
+        w = sh["wte"]
+        n = w.shape[0]
+        loc = ids.to(w.device) - i * n
+        hit = ((loc >= 0) & (loc < n))[..., None]
+        loc = loc.clamp(0, n - 1)
+        rows = w[loc]
+        s = sh.get("wte_scale")
+        if s is not None:
+            rows = rows.float() * s[loc]
+        parts.append(torch.where(hit, rows, torch.zeros((), dtype=rows.dtype, device=rows.device)))
+    return all_reduce_sum(parts)
+
+
+def _tp_row_parallel(parts, lp: _TPLayer, name: str, cfg: DecoderConfig):
+    """A row-sharded product: f32 partials per shard, their all-reduce,
+    then the int8 per-channel scale once, then the compute dtype."""
+    outs = []
+    scale = lp.get(name + "_scale")
+    for x, sh in zip(parts, lp.shards):
+        w = sh[name]
+        if scale is None:
+            outs.append(torch.matmul(x.float(), w.to(cfg.dtype).float()))
+        elif cfg.wq_kernel and x.dim() == 3:
+            B, S, K = x.shape
+            ones = torch.ones((1, w.shape[-1]), dtype=torch.float32, device=w.device)
+            outs.append(wq_matmul(x.reshape(B * S, K).contiguous(), w, ones)
+                        .reshape(B, S, w.shape[-1]))
+        else:
+            outs.append(torch.matmul(x.float(), w.float()))
+    out = all_reduce_sum(outs)
+    if scale is not None:
+        out = out * scale
+    return out.to(cfg.dtype)
+
+
+def _tp_block_qkv(x, lp: _TPLayer, cfg: DecoderConfig):
+    """Column-parallel QKV, all-gathered, then split into head-sharded
+    (B, nh/tp, S, hd) shards."""
+    nh, hd = cfg.heads, cfg.head_dim
+    h1 = _ln(x, lp["ln1_scale"], lp["ln1_bias"], cfg.layer_norm_eps).to(cfg.dtype)
+    qkv = all_gather([_wq_matmul(h1.to(sh["qkv_w"].device), sh, "qkv_w", cfg)
+                      + sh["qkv_b"].to(cfg.dtype) for sh in lp.shards], dim=-1)
+    return tuple(split(_split_heads(t, nh, hd), 1, lp.mesh)
+                 for t in qkv.split(cfg.hidden, dim=-1))
+
+
+def _tp_block_finish(x, lp: _TPLayer, ctx: ShardedTensor, cfg: DecoderConfig):
+    """:func:`_block_finish` over head-sharded ``ctx``: row-parallel
+    attn-out, column-parallel MLP-in, row-parallel MLP-out."""
+    B, S, _ = x.shape
+    ctx_parts = [c.transpose(1, 2).reshape(B, S, -1) for c in axis_shards(ctx)]
+    x = x + _tp_row_parallel(ctx_parts, lp, "attn_out_w", cfg) + lp["attn_out_b"].to(cfg.dtype)
+    h2 = _ln(x, lp["ln2_scale"], lp["ln2_bias"], cfg.layer_norm_eps).to(cfg.dtype)
+    m_parts = [F.gelu(_wq_matmul(h2.to(sh["mlp_in_w"].device), sh, "mlp_in_w", cfg)
+                      + sh["mlp_in_b"].to(cfg.dtype), approximate="tanh")
+               for sh in lp.shards]
+    x = x + _tp_row_parallel(m_parts, lp, "mlp_out_w", cfg) + lp["mlp_out_b"].to(cfg.dtype)
+    return x.to(cfg.dtype)
+
+
+def _tp_logits(params: _TPParams, h, cfg: DecoderConfig):
+    """The vocab-sharded tied LM head over final-LN'd ``h``, logits
+    all-gathered."""
+    parts = []
+    for sh in params.shards:
+        w = sh["wte"]
+        w = w.float() if w.dtype == torch.int8 else w.to(cfg.dtype).float()
+        out = torch.matmul(h.to(cfg.dtype).float().to(w.device), w.t())
+        s = sh.get("wte_scale")
+        parts.append(out if s is None else out * s[:, 0])
+    return all_gather(parts, dim=-1)
+
+
+def _kv_zeros(params, shape: tuple, dtype, device):
+    """Zero KV planes with the head axis at dim 2, head-sharded under TP."""
+    z = torch.zeros(shape, dtype=dtype, device=device)
+    return split(z, 2, params.mesh) if isinstance(params, _TPParams) else z
+
+
 def _layer_slices(params: dict, n_layers: int | None = None) -> list[dict]:
     layers = params["layers"]
     n = next(iter(layers.values())).shape[0]
     if n_layers is not None:
         n = min(n, n_layers)
+    if isinstance(params, _TPParams):
+        return [_TPLayer([{k: v[i] for k, v in sh["layers"].items()}
+                          for sh in params.shards], params.mesh) for i in range(n)]
     return [{k: v[i] for k, v in layers.items()} for i in range(n)]
 
 
@@ -216,6 +503,8 @@ def _wq_matmul(x, lp: dict, name: str, cfg: DecoderConfig):
 
 def _tok_embed(params: dict, ids):
     """Token-embedding gather; int8 tables dequantize the gathered rows."""
+    if isinstance(params, _TPParams):
+        return _tp_embed(params, ids)
     ids = ids.long()
     rows = params["wte"][ids]
     s = params.get("wte_scale")
@@ -231,7 +520,9 @@ def _pos_embed(params: dict, pos, cfg: DecoderConfig):
 
 def _block_qkv(x, lp, cfg: DecoderConfig):
     """Pre-LN + fused QKV projection, head-split: ``(q, k_new, v_new)``
-    each (B, nh, S, hd)."""
+    each (B, nh, S, hd) (head-sharded under TP)."""
+    if isinstance(lp, _TPLayer):
+        return _tp_block_qkv(x, lp, cfg)
     nh, hd = cfg.heads, cfg.head_dim
     h1 = _ln(x, lp["ln1_scale"], lp["ln1_bias"], cfg.layer_norm_eps)
     qkv = _wq_matmul(h1.to(cfg.dtype), lp, "qkv_w", cfg)
@@ -257,6 +548,8 @@ def _attn_ctx(q, k, v, mask_bias, cfg: DecoderConfig, k_scale=None,
 
 def _block_finish(x, lp, ctx, cfg: DecoderConfig):
     """Output projection, residual, MLP. ``ctx`` is (B, nh, S, hd)."""
+    if isinstance(lp, _TPLayer):
+        return _tp_block_finish(x, lp, ctx, cfg)
     B, S, H = x.shape
     ctx = ctx.transpose(1, 2).reshape(B, S, H)
     attn = _wq_matmul(ctx, lp, "attn_out_w", cfg)
@@ -289,8 +582,8 @@ def _block(x, lp, k, v, mask_bias, cfg: DecoderConfig, k_scale=None,
 def _flash_self_ctx(mask):
     """``ctx_fn`` for whole-sequence causal flash attention."""
     mask = mask.to(torch.int32).contiguous()
-    return lambda q, k, v, ks, vs: flash_attn(
-        q.contiguous(), k.contiguous(), v.contiguous(), mask, causal=True)
+    return lambda q, k, v, ks, vs: _per_shard(
+        flash_attn, q.contiguous(), k.contiguous(), v.contiguous(), mask, causal=True)
 
 
 def _causal_bias(mask):
@@ -303,6 +596,8 @@ def _causal_bias(mask):
 def _logits(params, x, cfg):
     """Final LN and the tied LM head; f32 logits."""
     h = _ln(x, params["ln_f_scale"], params["ln_f_bias"], cfg.layer_norm_eps)
+    if isinstance(params, _TPParams):
+        return _tp_logits(params, h, cfg)
     w = params["wte"]
     # int8 values are exact in f32: widen directly, without a bf16 copy
     w = w.float() if w.dtype == torch.int8 else w.to(cfg.dtype).float()
@@ -323,6 +618,7 @@ def forward(params: dict, input_ids, attention_mask, cfg: DecoderConfig, *,
     (B, S, V) float32. Positions are ``cumsum(mask) - 1`` (clipped).
     ``flash`` runs attention through ``flash_attn(causal=True)``; fully
     masked query rows then differ (zeros) but never reach live ones."""
+    params = _tp(params)
     x = (_tok_embed(params, input_ids)
          + _pos_embed(params, _prompt_pos(attention_mask, cfg), cfg)).to(cfg.dtype)
     ctx_fn = mask_bias = None
@@ -342,6 +638,7 @@ def prefill(params: dict, input_ids, attention_mask, cfg: DecoderConfig,
     """Causal forward over the (left-padded) prompt. Returns
     ``(last_logits (B, V), cache)`` with K/V (L, B, nh, cache_len, hd) in
     the compute dtype, zero past the prompt."""
+    params = _tp(params)
     B, S = input_ids.shape
     assert cache_len >= S
     x = (_tok_embed(params, input_ids)
@@ -353,8 +650,8 @@ def prefill(params: dict, input_ids, attention_mask, cfg: DecoderConfig,
         mask_bias = _causal_bias(attention_mask)
     lps = _layer_slices(params)
     shape = (len(lps), B, cfg.heads, cache_len, cfg.head_dim)
-    cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=x.device),
-             "v": torch.zeros(shape, dtype=cfg.dtype, device=x.device)}
+    cache = {"k": _kv_zeros(params, shape, cfg.dtype, x.device),
+             "v": _kv_zeros(params, shape, cfg.dtype, x.device)}
     for i, lp in enumerate(lps):
         qkv = _block_qkv(x, lp, cfg)
         cache["k"][i, :, :, :S] = qkv[1]
@@ -371,6 +668,7 @@ def decode_step(params: dict, token, step_pos, slot: int, slot_mask,
     columns INCLUDING the one written. Returns ``(logits (B, V), cache)``;
     the cache is updated in place. ``n_layers`` runs only the first N
     blocks (plus the final LN and head); deeper layers' KV is untouched."""
+    params = _tp(params)
     C = cache["k"].shape[3]
     slot = _clamp_start(slot, 1, C)
     x = (_tok_embed(params, token)[:, None, :]
@@ -430,6 +728,7 @@ def generate(params: dict, prompt_ids, attention_mask, cfg: DecoderConfig,
             f"prompt ({S}) + max_new ({max_new}) exceeds max_position "
             f"({cfg.max_position})"
         )
+    params = _tp(params)
     dev = prompt_ids.device
     logits, cache = prefill(params, prompt_ids, attention_mask, cfg, S + max_new)
     n_prompt = attention_mask.long().sum(dim=1)
@@ -536,10 +835,13 @@ def _store_kv(pool, cache, rows, quant):
 
 
 def pool_admit(params: dict, ids, mask, pool: dict, slot: int,
-               cfg: DecoderConfig, *, flash: bool = False) -> dict:
+               cfg: DecoderConfig, *, flash: bool = False, mesh=None) -> dict:
     """Prefill ONE left-padded prompt (``ids``/``mask`` (1, S)) into
     ``slot``: KV written, cursors set, first-token logits staged. Paged
-    pools run the same over a gathered dense view and scatter it back."""
+    pools run the same over a gathered dense view and scatter it back.
+    ``mesh`` names the mesh a sharded pool lives on (checked)."""
+    _check_mesh(pool, mesh)
+    params = _tp(params)
     if pool_paged(pool):
         view = _paged_gather(pool)
         return _paged_scatter(pool, pool_admit(params, ids, mask, view, slot,
@@ -548,9 +850,11 @@ def pool_admit(params: dict, ids, mask, pool: dict, slot: int,
 
 
 def pool_admit_batch(params: dict, ids, mask, pool: dict, slots,
-                     cfg: DecoderConfig, *, flash: bool = False) -> dict:
+                     cfg: DecoderConfig, *, flash: bool = False, mesh=None) -> dict:
     """Prefill M left-padded prompts (M, S) into M distinct ``slots`` in one
     batched forward; row-wise identical to M :func:`pool_admit` calls."""
+    _check_mesh(pool, mesh)
+    params = _tp(params)
     if pool_paged(pool):
         view = _paged_gather(pool)
         return _paged_scatter(pool, pool_admit_batch(params, ids, mask, view,
@@ -573,7 +877,7 @@ def pool_admit_batch(params: dict, ids, mask, pool: dict, slots,
 def pool_prefill_chunk(params: dict, ids, mask, pos, pool: dict, slot: int,
                        start: int, n_prompt, cfg: DecoderConfig, *,
                        first: bool, last: bool, last_col: int | None = None,
-                       flash: bool = False) -> dict:
+                       flash: bool = False, mesh=None) -> dict:
     """CHUNKED prefill: write one piece (``ids``/``mask``/``pos`` (1, T)) of
     a prompt into ``slot``'s cache at ``[start, start + T)`` and attend it
     against the row (query t sees ``live & (col <= start + t)``).
@@ -586,6 +890,8 @@ def pool_prefill_chunk(params: dict, ids, mask, pos, pool: dict, slot: int,
     piece straight into the slot's blocks and reads the slot's table row
     (``flash_chunk_attn_paged``, or a gather of that one row), never the
     whole pool; the sentinel block is never written."""
+    _check_mesh(pool, mesh)
+    params = _tp(params)
     paged = pool_paged(pool)
     C = pool["slot_mask"].shape[1]
     T = ids.shape[1]
@@ -630,15 +936,14 @@ def pool_prefill_chunk(params: dict, ids, mask, pos, pool: dict, slot: int,
             kbs = pool["kb_scale"][i] if quant else None
             vbs = pool["vb_scale"][i] if quant else None
             if flash:
-                ctx = flash_chunk_attn_paged(
-                    q[0].contiguous(), kb, vb, kbs, vbs, tbl_row, row_mask,
-                    start)[None]
+                ctx = _per_shard(flash_chunk_attn_paged, q[0].contiguous(), kb, vb,
+                                 kbs, vbs, tbl_row, row_mask, start)[None]
             else:
                 row = tbl_row[None]
-                ctx = _attn_ctx(q, gather_rows(kb, row), gather_rows(vb, row),
-                                mask_bias, cfg,
-                                gather_rows(kbs, row) if quant else None,
-                                gather_rows(vbs, row) if quant else None)
+                ctx = _attn_ctx(q, _per_shard(gather_rows, kb, row),
+                                _per_shard(gather_rows, vb, row), mask_bias, cfg,
+                                _per_shard(gather_rows, kbs, row) if quant else None,
+                                _per_shard(gather_rows, vbs, row) if quant else None)
         else:
             k_row, v_row = pool["k"][i, slot], pool["v"][i, slot]
             k_row[:, st:st + T] = kn.to(k_row.dtype)
@@ -649,8 +954,8 @@ def pool_prefill_chunk(params: dict, ids, mask, pos, pool: dict, slot: int,
                 ks_row[:, st:st + T] = sk
                 vs_row[:, st:st + T] = sv
             if flash:
-                ctx = flash_chunk_attn(q[0].contiguous(), k_row, v_row, row_mask,
-                                       start, k_scale=ks_row, v_scale=vs_row)[None]
+                ctx = _per_shard(flash_chunk_attn, q[0].contiguous(), k_row, v_row,
+                                 row_mask, start, k_scale=ks_row, v_scale=vs_row)[None]
             else:
                 ctx = _attn_ctx(q, k_row[None], v_row[None], mask_bias, cfg,
                                 None if ks_row is None else ks_row[None],
@@ -725,12 +1030,15 @@ def pool_decode_chunk(params: dict, pool: dict, active, generator,
                       cfg: DecoderConfig, n_steps: int,
                       temperature: float = 0.0, top_k: int | None = None,
                       top_p: float | None = None,
-                      paged_kernel: bool = False):
+                      paged_kernel: bool = False, mesh=None):
     """Advance every ``active`` slot ``n_steps`` decode steps. Returns
     ``(pool, tokens (n_steps, n_slots) int32)`` on the pool's device;
     inactive lanes compute but do not advance. Paged pools gather, run the
     dense chunk and scatter back, unless ``paged_kernel`` is set: then the
-    chunk runs on the block planes through ``paged_attn_decode``."""
+    chunk runs on the block planes through ``paged_attn_decode`` (once per
+    tp shard on a sharded pool)."""
+    _check_mesh(pool, mesh)
+    params = _tp(params)
     if pool_paged(pool):
         if paged_kernel:
             return _paged_decode_chunk_kernel(params, pool, active, generator,
@@ -790,8 +1098,8 @@ def _paged_decode_chunk_kernel(params, pool, active, generator, cfg, n_steps,
         q, k_new, v_new = _block_qkv(x, lp, cfg)
         kbl, vbl, kbs, vbs = _write_kv(pool, names, i, idx, k_new[:, :, 0],
                                        v_new[:, :, 0], act_b, quant)
-        ctx = paged_attn_decode(q[:, :, 0, :].contiguous(), kbl, vbl, kbs, vbs,
-                                tbl, slot_mask)
+        ctx = _per_shard(paged_attn_decode, q[:, :, 0, :].contiguous(), kbl, vbl,
+                         kbs, vbs, tbl, slot_mask)
         return _block_finish(x, lp, ctx[:, :, None, :], cfg)
 
     return _decode_loop(params, pool, active, generator, cfg, n_steps,
@@ -854,6 +1162,7 @@ def pool_decode_draft(params: dict, pool: dict, active, cfg: DecoderConfig, *,
     to the pool: the draft writes into copies of the depth-prefix planes.
     A standalone probe of draft quality; serving runs the fused
     :func:`pool_decode_spec`. Paged pools draft over a gathered view."""
+    params = _tp(params)
     if pool_paged(pool):
         return pool_decode_draft(params, _paged_gather(pool), active, cfg,
                                  draft_layers=draft_layers, n_draft=n_draft)
@@ -892,6 +1201,7 @@ def pool_decode_spec(params: dict, pool: dict, active, cfg: DecoderConfig,
     int32)``: a lane's stream is each cycle's first ``n_emit`` tokens.
     Paged pools gather, run and scatter back; the scatter skips the
     sentinel and shared prefix blocks, which verify never writes."""
+    params = _tp(params)
     if pool_paged(pool):
         view, toks, n_emit = pool_decode_spec(params, _paged_gather(pool), active,
                                               cfg, n_cycles,
@@ -1068,7 +1378,10 @@ def _tensor_leaves(tree):
 
 def params_device_bytes(params: dict) -> dict[str, int]:
     """Param bytes per device (int8 payloads and their scales included):
-    the ``weights.*`` HBM ledger's source."""
+    the ``weights.*`` HBM ledger's source. Sharded params are keyed by mesh
+    position ("0".."n-1"; virtual shards may share one card)."""
+    if tree_mesh(params) is not None:
+        return tree_position_bytes(params)
     out: dict[str, int] = {}
     for t in _tensor_leaves(params):
         dev = _device_key(t)
@@ -1080,25 +1393,42 @@ def pool_component_device_bytes(pool: dict) -> dict[str, dict[str, int]]:
     """Device bytes of the pool's KV storage per ledger component and
     device: ``{component: {device: bytes}}``. A dense pool reports
     ``slot_pool``, ``kv_scales`` and ``prefix_arena`` (+ ``arena_scales``);
-    a paged one ``kv_blocks``, ``kv_scales`` and ``block_table``."""
+    a paged one ``kv_blocks``, ``kv_scales`` and ``block_table``. A sharded
+    pool is keyed by mesh position: a head-sharded plane charges each
+    position its shard (1/tp), a replicated one (the block table) every
+    position in full."""
+    mesh = tree_mesh(pool)
     out: dict[str, dict[str, int]] = {}
     for component, keys in _HBM_COMPONENT_KEYS.items():
-        per_dev: dict[str, int] = {}
-        for c in keys:
-            if c in pool:
-                dev = _device_key(pool[c])
-                per_dev[dev] = per_dev.get(dev, 0) + pool[c].numel() * pool[c].element_size()
+        planes = {c: pool[c] for c in keys if c in pool}
+        if mesh is not None:
+            per_dev = tree_position_bytes(planes, mesh)
+        else:
+            per_dev = {}
+            for t in planes.values():
+                dev = _device_key(t)
+                per_dev[dev] = per_dev.get(dev, 0) + t.numel() * t.element_size()
         if any(per_dev.values()):
             out[component] = per_dev
+    return out
+
+
+def pool_component_bytes(pool: dict) -> dict[str, int]:
+    """Bytes of each ledger component's planes, whole (a sharded plane's
+    shards summed once)."""
+    out = {}
+    for component, keys in _HBM_COMPONENT_KEYS.items():
+        n = sum(pool[c].numel() * pool[c].element_size() for c in keys if c in pool)
+        if n:
+            out[component] = n
     return out
 
 
 def pool_bytes(pool: dict) -> int:
     """Device bytes of the pool's KV storage: caches, prefix arena and int8
     scales of a dense pool; block planes, scales and table of a paged one
-    (the sum of :func:`pool_component_device_bytes`)."""
-    return sum(sum(per_dev.values())
-               for per_dev in pool_component_device_bytes(pool).values())
+    (the sum of :func:`pool_component_bytes`)."""
+    return sum(pool_component_bytes(pool).values())
 
 
 def paged_pool_init(params: dict, cfg: DecoderConfig, n_slots: int,
@@ -1302,6 +1632,8 @@ def kv_block_export(pool: dict, idxs) -> dict:
             out[b] = pool[a][:, idxs].transpose(0, 1).contiguous()
         else:
             out[b] = pool[a][idxs]
+        if isinstance(out[b], ShardedTensor):  # whole heads for the host tier
+            out[b] = all_gather(axis_shards(out[b]), dim=2)
     return out
 
 
@@ -1316,6 +1648,8 @@ def kv_block_import(pool: dict, idxs, blobs: dict) -> dict:
         if b not in blobs:
             raise ValueError(f"kv_block_import: blob missing channel {b!r}")
         blob = blobs[b].to(pool[a].dtype)
+        if isinstance(pool[a], ShardedTensor):
+            blob = split(blob, 2, pool[a].mesh)
         if paged:
             pool[a][:, idxs] = blob.transpose(0, 1)
         else:

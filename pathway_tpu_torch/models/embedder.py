@@ -77,6 +77,7 @@ from pathway_tpu_torch.models.transformer import (
     map_params,
     parse_weight_quant,
     quantize_encoder_params,
+    shard_encoder_params,
 )
 from pathway_tpu_torch.ops.late_bank import LATE_DIM, doc_token_states, late_projection
 
@@ -355,7 +356,8 @@ class SentenceEmbedderModel:
     JAX flag defaults. ``weight_quant="int8"`` stores int8 weights (None,
     the default, full precision); ``late_proj`` fixes the ``(hidden, dc)``
     projection of the token path and of its pipelines' late-interaction
-    bank (by default the port's seeded ``late_projection``)."""
+    bank (by default the port's seeded ``late_projection``). ``mesh`` (a
+    serving mesh) stores the params sharded (``shard_encoder_params``)."""
 
     def __init__(
         self,
@@ -374,6 +376,7 @@ class SentenceEmbedderModel:
         serve_retries: int = 1,
         weight_quant: str | None = None,
         late_proj: torch.Tensor | None = None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -390,6 +393,10 @@ class SentenceEmbedderModel:
                 params, out=cast_params_for_inference(params, cfg))
         else:
             self.params = cast_params_for_inference(params, cfg)
+        # the serving mesh: params placed with the Megatron layout (lenient),
+        # gathered on use by each encode
+        self.mesh = mesh
+        self.params = shard_encoder_params(self.params, cfg, mesh)
         # HBM ledger: the embedder's param footprint at placement (int8
         # payloads and their scales when quantized), under this model's
         # owner so that two live embedders each keep their entry; close(), or

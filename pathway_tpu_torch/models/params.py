@@ -8,7 +8,9 @@ the encoder (the stacked ``(L, ...)`` layer leaves of
 ``init_params`` with its tied ``wte``, the int8 payloads and f32 ``_scale``
 leaves after ``quantize_params``, the encoder's after
 ``quantize_encoder_params`` (int8 ``word`` and layer weights, the f32
-``word_scale`` and ``*_scale`` keys), and the serving pools (int8 and
+``word_scale`` and ``*_scale`` keys), the MoE block's flat tree
+(``pathway_tpu/models/moe.py`` ``init_moe_params``: the router and the
+experts stacked on a leading axis), and the serving pools (int8 and
 int32 planes). Values and dtypes are carried bit for bit (bf16 as its 16-bit
 patterns). The port imports no JAX: callers convert with ``np.asarray`` on
 their side.

@@ -32,6 +32,17 @@ import torch
 import torch.nn.functional as F
 
 from pathway_tpu_torch.models.flash_attention import flash_attn
+from pathway_tpu_torch.parallel.mesh import (
+    SERVE_FSDP_AXIS,
+    SERVE_TP_AXIS,
+    P,
+    ShardedTensor,
+    gather_pytree,
+    mesh_shape_error,
+    place_pytree,
+    spec_dropping_nondividing,
+    spec_with_fsdp,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,23 +228,108 @@ def _dense(x, lp: dict, name: str, cfg: TransformerConfig):
     return (out * scale).to(cfg.dtype)
 
 
-def _attention(x, lp, cfg: TransformerConfig, core):
-    """x: (B, S, H) in compute dtype; lp: one layer's param slice.
-    ``core(q, k, v) -> (B, nh, S, hd) f32`` owns scaling and masking."""
+def param_partition_specs(cfg: TransformerConfig, tp_axis: str = "tp") -> dict:
+    """Megatron layout: QKV and MLP-in shard their output features,
+    attn-out and MLP-out their input features, the embeddings the vocab."""
+    t = tp_axis
+    return {
+        "embeddings": {
+            "word": P(t, None),
+            "position": P(None, None),
+            "type": P(None, None),
+            "ln_scale": P(None),
+            "ln_bias": P(None),
+        },
+        "layers": {
+            "qkv_w": P(None, None, t),
+            "qkv_b": P(None, t),
+            "attn_out_w": P(None, t, None),
+            "attn_out_b": P(None, None),
+            "ln1_scale": P(None, None),
+            "ln1_bias": P(None, None),
+            "mlp_in_w": P(None, None, t),
+            "mlp_in_b": P(None, t),
+            "mlp_out_w": P(None, t, None),
+            "mlp_out_b": P(None, None),
+            "ln2_scale": P(None, None),
+            "ln2_bias": P(None, None),
+        },
+        "pooler": {"w": P(None, t), "b": P(t)},
+    }
+
+
+def validate_encoder_mesh(cfg: TransformerConfig, mesh) -> None:
+    """Typed ``MeshShapeError`` when ``cfg`` cannot shard over the serving
+    mesh's tp axis (heads, ffn features and vocab must divide)."""
+    tp = int(mesh.shape.get(SERVE_TP_AXIS, 1))
+    bad = [f"{name}={v}" for name, v in (("heads", cfg.heads),
+                                         ("intermediate", cfg.intermediate),
+                                         ("vocab_size", cfg.vocab_size)) if v % tp]
+    if bad:
+        raise mesh_shape_error(
+            f"encoder config does not divide the tp axis: {', '.join(bad)} "
+            f"% tp={tp} != 0", mesh)
+
+
+def shard_encoder_params(params: dict, cfg: TransformerConfig, mesh) -> dict:
+    """Encoder params placed on the ``(data, fsdp, tp)`` serving mesh: the
+    Megatron layout with the fsdp axis overlaid on each leaf's first
+    unsharded divisible dim. Placement is lenient, as in JAX: a dim the
+    axes do not divide (the 30,522-row vocab over tp=4) replicates
+    (``validate_encoder_mesh`` is the strict check). An int8 ``*_scale``
+    plane takes its payload's spec. :func:`encode` gathers a sharded tree
+    on use (ZeRO-3), so the outputs are the host encode's. No-op without a
+    mesh; a one-position mesh is plain placement."""
+    if mesh is None:
+        return params
+    fsdp = int(mesh.shape.get(SERVE_FSDP_AXIS, 1))
+    specs = param_partition_specs(cfg, tp_axis=SERVE_TP_AXIS)
+
+    def walk(node, sp):
+        out = {}
+        for name, leaf in node.items():
+            if isinstance(leaf, dict):
+                out[name] = walk(leaf, sp[name])
+                continue
+            if name in sp:
+                base = sp[name]
+            elif name.endswith("_scale") and name[:-len("_scale")] in sp:
+                base = sp[name[:-len("_scale")]]
+            else:
+                raise KeyError(f"no partition spec for encoder param {name!r}")
+            s = spec_dropping_nondividing(base, leaf.shape, mesh)
+            out[name] = spec_with_fsdp(s, tuple(leaf.shape), fsdp)
+        return out
+
+    return place_pytree(params, mesh, walk(params, specs))
+
+
+def _qkv_heads(x, lp, cfg: TransformerConfig):
+    """The fused QKV projection of x (B, S, H), head-split: yields q, k, v,
+    each a contiguous (B, nh, S, hd)."""
     B, S, H = x.shape
     nh, hd = cfg.heads, cfg.head_dim
     qkv = _dense(x, lp, "qkv_w", cfg) + lp["qkv_b"].to(cfg.dtype)
-    q, k, v = (
-        t.reshape(B, S, nh, hd).transpose(1, 2).contiguous()
-        for t in qkv.split(H, dim=-1)
-    )
-    ctx = core(q, k, v).to(cfg.dtype)
-    ctx = ctx.transpose(1, 2).reshape(B, S, H)
+    return (t.reshape(B, S, nh, hd).transpose(1, 2).contiguous()
+            for t in qkv.split(H, dim=-1))
+
+
+def _attn_out(ctx, lp, cfg: TransformerConfig):
+    """The output projection of an attention context (B, nh, S, hd)."""
+    B, nh, S, hd = ctx.shape
+    ctx = ctx.to(cfg.dtype).transpose(1, 2).reshape(B, S, nh * hd)
     return _dense(ctx, lp, "attn_out_w", cfg) + lp["attn_out_b"].to(cfg.dtype)
 
 
-def _layer(x, lp, cfg: TransformerConfig, core):
-    attn = _attention(x, lp, cfg, core)
+def _attention(x, lp, cfg: TransformerConfig, core):
+    """x: (B, S, H) in compute dtype; lp: one layer's param slice.
+    ``core(q, k, v) -> (B, nh, S, hd) f32`` owns scaling and masking."""
+    q, k, v = _qkv_heads(x, lp, cfg)
+    return _attn_out(core(q, k, v), lp, cfg)
+
+
+def _layer_rest(x, attn, lp, cfg: TransformerConfig):
+    """A layer after its attention: residual LN, the MLP, residual LN."""
     x = _layer_norm(x + attn, lp["ln1_scale"], lp["ln1_bias"],
                     cfg.layer_norm_eps).to(cfg.dtype)
     h = _dense(x, lp, "mlp_in_w", cfg)
@@ -241,6 +337,10 @@ def _layer(x, lp, cfg: TransformerConfig, core):
     h = _dense(h, lp, "mlp_out_w", cfg) + lp["mlp_out_b"].to(cfg.dtype)
     return _layer_norm(x + h, lp["ln2_scale"], lp["ln2_bias"],
                        cfg.layer_norm_eps).to(cfg.dtype)
+
+
+def _layer(x, lp, cfg: TransformerConfig, core):
+    return _layer_rest(x, _attention(x, lp, cfg, core), lp, cfg)
 
 
 def embed_inputs(params: dict, input_ids, cfg: TransformerConfig,
@@ -275,7 +375,10 @@ def encode(params: dict, input_ids, attention_mask, cfg: TransformerConfig,
     ``flash_attn(q, k, v, attention_mask, causal=False)``, the CUDA
     kernel on the card. Rows whose mask is all zero (bucket padding) come
     out of that core as zeros, where a dense softmax would average them:
-    only live rows are comparable across the two."""
+    only live rows are comparable across the two. A sharded ``params``
+    tree (:func:`shard_encoder_params`) is gathered first."""
+    if isinstance(params["embeddings"]["word"], ShardedTensor):
+        params = gather_pytree(params)
     x = embed_inputs(params, input_ids, cfg, token_type_ids)
     if core is None:
         mask = attention_mask.to(torch.int32).contiguous()

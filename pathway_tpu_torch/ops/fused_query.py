@@ -67,6 +67,8 @@ from pathway_tpu_torch.ops.late_bank import (
     projection_flops,
     query_token_states,
 )
+from pathway_tpu_torch.parallel.mesh import Mesh, make_mesh
+from pathway_tpu_torch.parallel.sharded_ivf import ShardedIvfIndex
 
 _NEG_INF = -1e30
 
@@ -263,7 +265,12 @@ class FusedRAGPipeline:
     ``token_bank_submit`` agree. ``close()`` drops the bank and its ledger
     entry (a later late query builds it again). ``llm_reranker`` (a :class:`ListwiseLLMReranker`)
     with ``llm_rerank`` (read per call) reorders every resolved rerank row.
-    Every default is the JAX flag default."""
+    ``mesh_retrieval`` (JAX's ``PATHWAY_TPU_MESH`` for retrieval; ``True``:
+    a ``dp`` mesh over every visible CUDA device, or the embedder's device
+    on the CPU; or a ``parallel.Mesh``) mirrors the corpus into a
+    ``ShardedIvfIndex`` probing all 16 cells of each shard, and plain
+    ``retrieve`` (so ``QueryServer`` retrieval) answers from it; rerank
+    keeps the dense path. Every default is the JAX flag default."""
 
     def __init__(self, embedder, reranker=None, *,
                  reserved_space: int = 1024, metric: str = "cos",
@@ -273,7 +280,8 @@ class FusedRAGPipeline:
                  rerank_cascade_survivors: int = 0,
                  rerank_seed_weight: float = 0.25,
                  late_interaction: bool = False, late_dim: int = LATE_DIM,
-                 llm_reranker=None, llm_rerank: bool = False):
+                 llm_reranker=None, llm_rerank: bool = False,
+                 mesh_retrieval=False):
         self.embedder = embedder          # SentenceEmbedderModel
         self.reranker = reranker          # CrossEncoderModel | None
         # the listwise LLM final stage; doc texts are kept on the host for
@@ -305,6 +313,18 @@ class FusedRAGPipeline:
             dimensions=embedder.cfg.hidden,
             reserved_space=reserved_space, metric=metric, device=self.device,
         )
+        # the mesh-resident mirror: exhaustive probing keeps recall at 1.0,
+        # the split is over shards, not cells
+        self.sharded_index = None
+        if mesh_retrieval:
+            mesh = mesh_retrieval
+            if not isinstance(mesh, Mesh):
+                devs = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                        if self.device.type == "cuda" else [self.device])
+                mesh = make_mesh(devs, dp=len(devs), tp=1)
+            self.sharded_index = ShardedIvfIndex(
+                mesh, dimensions=embedder.cfg.hidden, n_cells=16, nprobe=16,
+                metric="l2" if metric in ("l2", "l2sq") else "cos")
         cap = self.index.capacity
         self._doc_tokens = torch.zeros((cap, doc_seq), dtype=torch.int32,
                                        device=self.device)
@@ -376,6 +396,11 @@ class FusedRAGPipeline:
                 # the flag went off: these rows backfill at the next MaxSim query
                 self._bank_valid[start : start + n] = False
             self._record_late_bank()
+        if self.sharded_index is not None:
+            # mirror the embedded rows by slot (an upsert may have moved rows)
+            slots = torch.as_tensor([self.index._slot_of[key] for key in keys],
+                                    device=self.device)
+            self.sharded_index.add(list(keys), self.index._corpus[slots].float().cpu().numpy())
 
     def remove(self, keys: list) -> None:
         """Remove documents, keeping the token store and the bank aligned
@@ -403,6 +428,8 @@ class FusedRAGPipeline:
             self._text_by_key.pop(key, None)
         if self._bank_q is not None:
             self._record_late_bank()
+        if self.sharded_index is not None:
+            self.sharded_index.remove(list(keys))
 
     def close(self) -> None:
         """Let the late-interaction bank go and drop this pipeline's HBM
@@ -528,7 +555,15 @@ class FusedRAGPipeline:
         )
 
     def retrieve(self, texts: list[str], k: int):
-        """[(key, score)] per query, best first."""
+        """[(key, score)] per query, best first (from the sharded mirror
+        under ``mesh_retrieval``: the query embed, then one sharded IVF
+        search)."""
+        if self.sharded_index is not None:
+            ids, mask, _ = self._tokenize_queries(texts)
+            record_device_dispatch("sharded_ivf_search")
+            e = self.embedder
+            emb = embed_fn(e.params, ids, mask, e.cfg).float().cpu().numpy()[:len(texts)]
+            return self.sharded_index.search(emb, k)
         scores, idx = self.retrieve_device(texts, k)
         scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
         record_retrieval_backend("dense", len(texts))

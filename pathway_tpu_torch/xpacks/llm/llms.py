@@ -71,9 +71,12 @@ re-admission is a table edit plus a re-prefill of the final partial
 block. Greedy streams do not depend on either schedule.
 
 Behaviour is set by constructor arguments whose defaults are the JAX flag
-defaults, for every feature the server carries. The JAX server's serving
-mesh is not ported; asking for it raises ``NotImplementedError``. Nothing
-reads an environment variable.
+defaults, for every feature the server carries. ``mesh=`` (a serving mesh
+from ``parallel.make_serving_mesh``) shards the params and the pool once at
+construction and again at a supervised rebuild: tensor-parallel blocks,
+head-sharded KV, each attention kernel once per tp shard
+(``models/decoder.py``); a one-position mesh serves the single-device
+streams byte for byte. Nothing reads an environment variable.
 """
 
 from __future__ import annotations
@@ -441,11 +444,9 @@ class _PendingCompletion:
         self.seq = 0
 
 
-_UNPORTED = (
-    # (argument, asked-for test, what it is)
-    ("mesh", lambda v: v is not None,
-     "the serving mesh (queued with parallel/, ROADMAP A11)"),
-)
+# (argument, asked-for test, what it is) of every JAX serving feature the
+# port does not carry: none since the serving mesh
+_UNPORTED: tuple = ()
 
 
 class _ContinuousServer:
@@ -523,14 +524,17 @@ class _ContinuousServer:
                  serve_queue: int = 0,
                  degradation: bool = True,
                  hbm_owner: str | None = None):
-        asked = dict(mesh=mesh)
+        asked: dict = {}
         for name, on, what in _UNPORTED:
             if on(asked[name]):
                 raise NotImplementedError(
                     f"{name}: {what} is not ported to pathway_tpu_torch yet")
         self.cfg = cfg
-        self.params = params
-        self.device = params["wte"].device
+        # the serving mesh, read once: params shard here, the pool in
+        # _build_pool (so a supervised rebuild re-shards it identically)
+        self.mesh = mesh
+        self.params = D.shard_decoder_params(params, cfg, mesh)
+        self.device = self.params["wte"].device
         # tags this server's request spans and gauges
         self._trace_tag = f"decode:{id(self):x}"
         # the HBM ledger's owner of this server's pool and weights (its
@@ -763,13 +767,15 @@ class _ContinuousServer:
             self._total_blocks = max(2, self._paged_blocks_override or auto)
             self._allocator = D.BlockAllocator(self._total_blocks)
             self._slot_blocks = {}
-            return D.paged_pool_init(
+            pool = D.paged_pool_init(
                 self.params, self.cfg, self.n_slots, self.cache_len,
                 n_blocks=self._total_blocks, block=self.paged_block,
                 kv_quant=bool(self.kv_quant))
-        return D.pool_init(self.params, self.cfg, self.n_slots, self.cache_len,
-                           kv_quant=bool(self.kv_quant), arena_blocks=cached,
-                           arena_block=self.prefix_block)
+        else:
+            pool = D.pool_init(self.params, self.cfg, self.n_slots, self.cache_len,
+                               kv_quant=bool(self.kv_quant), arena_blocks=cached,
+                               arena_block=self.prefix_block)
+        return D.shard_pool(pool, self.cfg, self.mesh)
 
     def _make_prefix_cache(self) -> PrefixCache:
         """The prefix tree: arena-backed for a dense pool; ADOPTED for a
@@ -1290,7 +1296,8 @@ class _ContinuousServer:
         self.pool = D.pool_prefill_chunk(
             self.params, to_device(p_ids, dev), to_device(p_mask, dev),
             to_device(p_pos, dev), self.pool, slot, off, n_prompt, self.cfg,
-            first=first, last=last, last_col=lc, flash=self.flash_prefill)
+            first=first, last=last, last_col=lc, flash=self.flash_prefill,
+            mesh=self.mesh)
         self.stats["prefill_chunks"] += 1
         self._record_attn("chunk", int(p_ids.shape[1]), self.cache_len, cached_kv=True)
         req_p = self.slots[slot]
@@ -1335,10 +1342,12 @@ class _ContinuousServer:
             slots = [p[0] for p in part]
             if len(part) == 1:
                 self.pool = D.pool_admit(self.params, ids, mask, self.pool,
-                                         slots[0], self.cfg, flash=self.flash_prefill)
+                                         slots[0], self.cfg, flash=self.flash_prefill,
+                                         mesh=self.mesh)
             else:
                 self.pool = D.pool_admit_batch(self.params, ids, mask, self.pool,
-                                               slots, self.cfg, flash=self.flash_prefill)
+                                               slots, self.cfg, flash=self.flash_prefill,
+                                               mesh=self.mesh)
             s = part[0][3]
             self._record_attn("prefill", s, s, batch=len(part))
             self.stats["admit_dispatches"] += 1
@@ -1716,7 +1725,7 @@ class _ContinuousServer:
             self.pool, toks = D.pool_decode_chunk(
                 self.params, self.pool, lanes, self._gen, self.cfg, steps,
                 temperature=self._temperature, top_k=self._top_k,
-                top_p=self._top_p, paged_kernel=self.paged_kernel)
+                top_p=self._top_p, paged_kernel=self.paged_kernel, mesh=self.mesh)
             payload = _HostCopy(toks)
         self._last_dispatch_steps = lane_steps
         self._inflight.append((payload, active.copy(), list(self.slots)))

@@ -387,3 +387,182 @@ def test_decoder_chat_needs_a_checkpoint_or_params():
 
     with pytest.raises(ValueError, match="checkpoint_path"):
         DecoderChat(device="cpu")
+
+
+# ---- the native (mesh) checkpoint format ------------------------------------
+#
+# ``save_checkpoint`` / ``load_checkpoint``: gathered arrays in params.npz
+# and layout.json, the files JAX writes. Round trips are bitwise, onto the
+# host, a one-position mesh and the (data=1, fsdp=2, tp=4) mesh of 8
+# virtual CPU positions, quantized too; and a checkpoint crosses the two
+# packages bit for bit in both directions (JAX on the conftest's 8 host
+# devices).
+
+from pathway_tpu.models import decoder as JD  # noqa: E402
+from pathway_tpu.parallel import mesh as JM  # noqa: E402
+from pathway_tpu_torch.engine.state import host_state_pytree, place_state_pytree  # noqa: E402
+from pathway_tpu_torch.parallel.mesh import (  # noqa: E402
+    ShardedTensor,
+    make_serving_mesh,
+)
+
+MJCFG = JD.DecoderConfig(vocab_size=128, hidden=32, layers=4, heads=4,
+                         intermediate=64, max_position=128, dtype=jnp.float32)
+MTCFG = TD.DecoderConfig(vocab_size=128, hidden=32, layers=4, heads=4,
+                         intermediate=64, max_position=128, dtype=torch.float32)
+
+
+def _mesh8():
+    return make_serving_mesh([torch.device("cpu")] * 8, data=1, fsdp=2, tp=4)
+
+
+def _mesh1():
+    return make_serving_mesh([torch.device("cpu")], data=1, fsdp=1, tp=1)
+
+
+def _flat(tree, prefix=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + k + "/")
+        else:
+            if isinstance(v, ShardedTensor):
+                v = v.gather()
+            if isinstance(v, torch.Tensor):
+                v = v.cpu()
+                v = (v.view(torch.int16) if v.dtype == torch.bfloat16 else v).numpy()
+            else:
+                v = np.asarray(v)
+                if v.dtype.name == "bfloat16" or v.dtype.kind == "V":
+                    v = v.view(np.int16)
+            yield prefix + k, v
+
+
+def _assert_bitwise(got, want):
+    g, w = dict(_flat(got)), dict(_flat(want))
+    assert set(g) == set(w)
+    for k in g:
+        assert g[k].dtype == w[k].dtype, k
+        np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def mesh_jparams():
+    return JD.init_params(jax.random.PRNGKey(0), MJCFG)
+
+
+@pytest.fixture(scope="module")
+def mesh_tparams(mesh_jparams):
+    return from_jax_params(jax.tree.map(np.asarray, mesh_jparams))
+
+
+def test_checkpoint_reshard_roundtrip_bitwise(mesh_tparams, tmp_path):
+    mesh = _mesh8()
+    sharded = TD.shard_decoder_params(mesh_tparams, MTCFG, mesh)
+    path = str(tmp_path / "mesh_ckpt")
+    TC.save_checkpoint(path, sharded, mesh=mesh)
+    layout = TC.checkpoint_layout(path)
+    assert layout["mesh"] == {"axes": ["data", "fsdp", "tp"], "shape": [1, 2, 4]}
+    assert layout["specs"]["wte"] == ["tp", "fsdp"]
+    _assert_bitwise(TC.load_checkpoint(path), mesh_tparams)
+    on_one = TC.load_checkpoint(path, mesh=_mesh1())
+    assert not isinstance(on_one["wte"], ShardedTensor)
+    _assert_bitwise(on_one, mesh_tparams)
+    back = TC.load_checkpoint(path, mesh=mesh)
+    assert isinstance(back["wte"], ShardedTensor) and tuple(back["wte"].spec) == ("tp", "fsdp")
+    _assert_bitwise(back, mesh_tparams)
+
+
+def test_checkpoint_single_device_save_loads_onto_mesh(mesh_tparams, tmp_path):
+    path = str(tmp_path / "chip_ckpt")
+    TC.save_checkpoint(path, mesh_tparams)
+    assert TC.checkpoint_layout(path)["mesh"] is None
+    mesh = _mesh8()
+    replicated = TC.load_checkpoint(path, mesh=mesh)  # no saved specs: replicated
+    assert len(replicated["wte"].shards) == 1
+    loaded = TC.load_checkpoint(path, mesh=mesh,
+                                specs=TD.param_mesh_specs(mesh_tparams, MTCFG, mesh))
+    _assert_bitwise(loaded, mesh_tparams)
+    assert len(loaded["wte"].shards) == 8
+
+
+def test_quantized_checkpoint_roundtrip_bitwise(mesh_tparams, tmp_path):
+    qp = TD.quantize_params(mesh_tparams, MTCFG)
+    path = str(tmp_path / "wq_ckpt")
+    TC.save_checkpoint(path, qp)
+    assert TC.checkpoint_layout(path)["weight_quant"] == "int8"
+    _assert_bitwise(TC.load_checkpoint(path, weight_quant="int8"), qp)
+    _assert_bitwise(TC.load_checkpoint(path, mesh=_mesh1(), weight_quant="int8"), qp)
+    mesh = _mesh8()
+    on_mesh = TC.load_checkpoint(path, mesh=mesh, weight_quant="int8",
+                                 specs=TD.param_mesh_specs(qp, MTCFG, mesh))
+    _assert_bitwise(on_mesh, qp)
+    assert on_mesh["layers"]["qkv_w"].dtype == torch.int8
+    assert len(on_mesh["layers"]["qkv_w"].shards) == 8
+
+
+def test_quantized_checkpoint_without_weight_quant_raises(mesh_tparams, tmp_path):
+    path = str(tmp_path / "wq_ckpt_off")
+    TC.save_checkpoint(path, TD.quantize_params(mesh_tparams, MTCFG))
+    with pytest.raises(TC.QuantizedCheckpointError):
+        TC.load_checkpoint(path)
+    with pytest.raises(TC.QuantizedCheckpointError):
+        TC.load_checkpoint(path, mesh=_mesh1())
+    with pytest.raises(ValueError):
+        TC.load_checkpoint(path, weight_quant="int4")
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_checkpoint_crosses_from_jax_bitwise(mesh_jparams, tmp_path, monkeypatch, quant):
+    """JAX ``save_checkpoint`` from its mesh8 -> the port's
+    ``load_checkpoint`` onto the host and onto the port's mesh8."""
+    monkeypatch.setenv("PATHWAY_TPU_WEIGHT_QUANT", "int8" if quant else "0")
+    jp = JD.quantize_params(mesh_jparams, MJCFG) if quant else mesh_jparams
+    jmesh = JM.make_serving_mesh(jax.devices(), data=1, fsdp=2, tp=4)
+    path = str(tmp_path / "from_jax")
+    JC.save_checkpoint(path, JD.shard_decoder_params(jp, MJCFG, jmesh), mesh=jmesh)
+    wq = "int8" if quant else None
+    _assert_bitwise(TC.load_checkpoint(path, weight_quant=wq), jp)
+    on_mesh = TC.load_checkpoint(path, mesh=_mesh8(), weight_quant=wq)
+    assert isinstance(on_mesh["layers"]["qkv_w"], ShardedTensor)
+    _assert_bitwise(on_mesh, jp)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_checkpoint_crosses_to_jax_bitwise(mesh_tparams, tmp_path, monkeypatch, quant):
+    """The port's ``save_checkpoint`` from its mesh8 -> JAX's
+    ``load_checkpoint`` onto the host and onto JAX's mesh8."""
+    monkeypatch.setenv("PATHWAY_TPU_WEIGHT_QUANT", "int8" if quant else "0")
+    tp = TD.quantize_params(mesh_tparams, MTCFG) if quant else mesh_tparams
+    mesh = _mesh8()
+    path = str(tmp_path / "to_jax")
+    TC.save_checkpoint(path, TD.shard_decoder_params(tp, MTCFG, mesh), mesh=mesh)
+    _assert_bitwise(JC.load_checkpoint(path), tp)
+    jmesh = JM.make_serving_mesh(jax.devices(), data=1, fsdp=2, tp=4)
+    on_jmesh = JC.load_checkpoint(path, mesh=jmesh)
+    assert not on_jmesh["wte"].sharding.is_fully_replicated
+    _assert_bitwise(on_jmesh, tp)
+
+
+def test_bf16_checkpoint_crosses_both_ways(tmp_path):
+    """bf16 leaves travel as JAX writes them (2-byte records of the bits)."""
+    jp = {"w": jnp.asarray(np.random.default_rng(0).normal(size=(4, 8)), jnp.bfloat16)}
+    JC.save_checkpoint(str(tmp_path / "a"), jp)
+    got = TC.load_checkpoint(str(tmp_path / "a"))
+    assert got["w"].dtype == torch.bfloat16
+    _assert_bitwise(got, jp)
+    TC.save_checkpoint(str(tmp_path / "b"), got)
+    _assert_bitwise(TC.load_checkpoint(str(tmp_path / "b")), jp)
+    _assert_bitwise(JC.load_checkpoint(str(tmp_path / "b")), jp)
+
+
+def test_state_pytree_gathers_and_places(mesh_tparams):
+    mesh = _mesh8()
+    sharded = TD.shard_decoder_params(mesh_tparams, MTCFG, mesh)
+    host = host_state_pytree(sharded)
+    assert isinstance(host["wte"], torch.Tensor) and host["wte"].device.type == "cpu"
+    _assert_bitwise(host, mesh_tparams)
+    assert place_state_pytree(host) is host
+    placed = place_state_pytree(host, mesh, TD.param_mesh_specs(host, MTCFG, mesh))
+    _assert_bitwise(placed, mesh_tparams)
+    assert isinstance(placed["layers"]["mlp_out_w"], ShardedTensor)

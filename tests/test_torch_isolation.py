@@ -81,6 +81,16 @@ def test_source_scan_sees_the_retrieval_variants():
             "query_server.py"} <= names
 
 
+def test_source_scan_sees_the_parallel_layer():
+    files = set(_sources())
+    pkg = ROOT / "pathway_tpu_torch"
+    for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
+                "parallel/sharded_knn.py", "parallel/sharded_ivf.py",
+                "parallel/ring_attention.py", "engine/state.py", "models/moe.py",
+                "models/pipeline.py"):
+        assert pkg / rel in files, rel
+
+
 def test_retrieval_variants_raise_without_cuda(monkeypatch):
     """The IVF index and the int8 encoders run on the card unless asked;
     the host-side HNSW index has no device to refuse."""
@@ -242,17 +252,53 @@ def test_decoder_kernels_on_cpu_launch_nothing():
 
 
 @pytest.mark.parametrize("feature", [
-    # the serving mesh is the one feature left out; the lanes and the
-    # tenant scheduler are ported, and asking for them beside the mesh
-    # still refuses it
-    dict(mesh=object(), disagg=True), dict(mesh=object(), tenant_sched=True),
-    dict(mesh=object()),
+    # nothing JAX's server carries is left out since the serving mesh was
+    # ported: the features once refused beside it now construct
+    dict(mesh="mesh1", disagg=True), dict(mesh="mesh2", tenant_sched=True),
+    dict(mesh="mesh2"),
 ])
 def test_server_refuses_features_left_out(feature):
+    from pathway_tpu_torch.parallel import make_serving_mesh
+    from pathway_tpu_torch.xpacks.llm import llms
+
+    assert llms._UNPORTED == ()
+    n = int(feature["mesh"][-1])
+    feature = dict(feature, mesh=make_serving_mesh(["cpu"] * n, tp=n))
     dcfg, params, tok = _tiny_decoder()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DecoderChat(params=params, cfg=dcfg, tokenizer=tok, continuous=True,
-                    device="cpu", **feature)
+    chat = DecoderChat(params=params, cfg=dcfg, tokenizer=tok, continuous=True,
+                       max_new_tokens=2, device="cpu", **feature)
+    try:
+        assert chat.server.mesh is feature["mesh"]
+    finally:
+        chat.close()
+
+
+def test_unported_is_empty_and_mesh_is_accepted_on_cpu():
+    """``mesh=`` serves on the CPU through the plain versions: the streams
+    equal the mesh-off ones and no kernel launches."""
+    from pathway_tpu_torch.parallel import ShardedTensor, make_serving_mesh
+    from pathway_tpu_torch.xpacks.llm import llms
+
+    assert llms._UNPORTED == ()
+    dcfg, params, tok = _tiny_decoder()
+    counters = (TPA.paged_attn_decode, TFA.flash_chunk_attn,
+                TFA.flash_chunk_attn_paged, TWQ.wq_matmul, TFA.flash_attn)
+    before = [f.launches for f in counters]
+    outs = []
+    for mesh in (None, make_serving_mesh(["cpu"] * 2, data=1, fsdp=1, tp=2)):
+        chat = DecoderChat(params=params, cfg=dcfg, tokenizer=tok, max_new_tokens=4,
+                           max_prompt_tokens=32, continuous=True, n_slots=2,
+                           chunk_steps=2, prefill_chunk=8, paged_kv=True,
+                           paged_kernel=True, flash_prefill=True, weight_quant="int8",
+                           wq_kernel=True, device="cpu", mesh=mesh)
+        try:
+            outs.append(chat(["a short one", "a prompt long enough for two pieces"]))
+            if mesh is not None:
+                assert isinstance(chat.server.pool["kb"], ShardedTensor)
+        finally:
+            chat.close()
+    assert outs[0] == outs[1]
+    assert [f.launches for f in counters] == before
 
 
 def test_server_constructs_spec_decode_and_chunk_autotune():

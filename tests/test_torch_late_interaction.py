@@ -20,6 +20,8 @@ Tolerances, each with its reason:
   the scores that decide it differ by more than 1e-4.
 """
 
+import gc
+
 import numpy as np
 import pytest
 
@@ -341,6 +343,10 @@ def test_retraction_lowers_the_gauge_and_moved_rows_stay_aligned(models):
     surviving slot's row equals a fresh encode of its own text, the gauge
     falls by the removed rows' bytes exactly, and a query for a moved
     document finds it; a re-add brings rows back."""
+    # an earlier test's pipeline sits in a reference cycle (monkeypatch's
+    # undo binds a method onto it): collect it now, so that its ledger drop
+    # cannot land between the gauge reads below
+    gc.collect()
     p = _make_pipe(models, n_docs=40, seed=7, late_interaction=True)
     row = TL.bank_row_bytes(24, 32)
     full = TP.hbm_stats()["current_bytes"]["late_bank"]
