@@ -209,7 +209,28 @@ without printing a result:
    shards against the ``flash_attn`` encode, within 2e-3 at live positions;
    (e) GPT-2 small (int8) saved from the 1x1x1 mesh and (b)'s int8 config
    from the tp=4 mesh (``save_checkpoint``), each loaded back bitwise on the
-   host and on its mesh. Prints the script's wall.
+   host and on its mesh;
+16. the dataflow engine (``import pathway_tpu_torch as pw``) at the full
+   width of ``bench.py``'s ``config4_streaming_engine``: 98,304 docs of 24
+   words (7-word vocabulary, seed 11) through an ``InMemoryKafkaBroker``,
+   full MiniLM-L6 as the ``SentenceTransformerEmbedder`` UDF
+   (``max_batch_size=1024``) into a ``DataIndex`` over ``BruteForceKnn``
+   (reserved N + 512, cosine), 2 live queries at k = 10 that arrive once
+   half the docs are embedded, ``subscribe`` on both tables, ``pw.run()``;
+   after a warm pass over the pow2 batch buckets, 3 reps each of (a) the
+   UDF ``deferred=True``, (b) ``deferred=False`` and (c) the direct path
+   (the same texts through ``SentenceEmbedderModel`` and
+   ``BruteForceKnnIndex.add``), in turns. Every doc reaches the subscriber,
+   each engine vector within cosine 0.9999 of the direct one for its text,
+   both queries answered with 10 matches whose scores equal the cosine of
+   the query and row vectors within 2e-2 (the bf16 corpus), (a)'s and (b)'s
+   final tables equal; (d) 4,096 static docs and 64 queries through
+   ``DataIndex.query`` equal ``BruteForceKnnIndex.search`` over the direct
+   embeddings but at ties within 1e-3. Prints docs/s with the ratios to
+   (c), ``LAST_RUN_STATS.engine_tax()``, the phase's ``flash_attn``
+   launches (at least one a layer per encode) and the device idle share of
+   each rep (CUDA-event times of each encode size over the wall: an
+   estimate). Prints the script's wall.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -3734,6 +3755,340 @@ def run_mesh_checkpoints(dev, gpu: str, params, tp_params) -> None:
                 "resharded on the mesh")
 
 
+# ---------------------------------------------------------------- phase 16
+# the dataflow engine's config-4 program (bench.py's
+# config4_streaming_engine, full mode): 6 x 16,384 docs of 24 words from a
+# 7-word vocabulary (seed 11) through an in-process Kafka broker, full
+# MiniLM-L6 at max_batch_size 1024, the brute-force index reserved at
+# N + 512, cosine; 2 live queries at k = 10; 3 reps of each arm in turns.
+# (d): 4,096 static docs and 64 queries through DataIndex.query
+C4_DOCS, C4_REPS, C4_BATCH, C4_K = 6 * 16384, 3, 1024, 10
+C4_WORDS = ["alpha", "beta", "gamma", "delta", "stream", "tensor", "index"]
+C4_QUERIES = ["alpha stream tensor", "delta index beta"]
+C4_STATIC_DOCS, C4_STATIC_QUERIES = 4096, 64
+# the reply's scores come from the bf16 corpus and a bf16-rounded query
+C4_SCORE_TOL, C4_COS_MIN, C4_TIE_TOL = 2e-2, 0.9999, 1e-3
+
+
+def c4_texts(n: int, seed: int = 11, words: int = 24) -> list[str]:
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(C4_WORDS, words)) for _ in range(n)]
+
+
+class EncodeCount:
+    """Counts the encodes a model runs (the batches of ``embed_submit``
+    that reach the device) by batch size; ``flash_attn`` must launch once
+    a layer for each."""
+
+    def __init__(self, model):
+        self.model, self.sizes = model, []
+        self._submit = model.embed_submit
+
+        def submit(texts):
+            if texts:
+                self.sizes.append(len(texts))
+            return self._submit(texts)
+
+        model.embed_submit = submit
+
+    def reset(self) -> None:
+        self.sizes = []
+
+    def close(self) -> None:
+        self.model.embed_submit = self._submit
+
+
+def encode_busy_ms(model, texts, sizes) -> float:
+    """Device ms of the encodes of ``sizes`` rows each, from CUDA-event
+    times of one encode per distinct padded batch (queue held): an
+    estimate of a run's device busy time, not a trace."""
+    import torch
+
+    from pathway_tpu_torch.models.embedder import embed_fn
+    from pathway_tpu_torch.models.tokenizer import pad_to_buckets
+
+    per = {}
+    total = 0.0
+    for n in sizes:
+        if n not in per:
+            ids, mask = pad_to_buckets(*model.tokenizer(texts[:n], max_length=model.max_length))
+            ids, mask = (torch.from_numpy(a).to(model.device) for a in (ids, mask))
+            per[n] = cuda_time_ms(lambda: embed_fn(model.params, ids, mask, model.cfg),
+                                  3, warmup=1)
+        total += per[n]
+    return total
+
+
+def c4_stream(pw, emb, payloads, n: int, timeout: float = 600.0) -> dict:
+    """The config-4 program once: docs from a Kafka broker through the
+    embed UDF into a DataIndex; 2 live queries arrive once half the docs
+    are embedded and are answered as of that moment. Returns the embedded
+    rows by row key, the replies and the run's wall."""
+    import threading
+
+    from pathway_tpu_torch.io.kafka import InMemoryKafkaBroker
+
+    pw.clear_graph()
+    broker = InMemoryKafkaBroker()
+    for p in payloads:
+        broker.produce("docs", p)
+    broker.close()
+
+    class DocSchema(pw.Schema):
+        id: int
+        text: str
+
+    class QuerySchema(pw.Schema):
+        qtext: str
+
+    rows, replies, lock = {}, {}, threading.Lock()
+    half = threading.Event()
+
+    class LiveQueries(pw.io.python.ConnectorSubject):
+        def run(self):
+            if not half.wait(timeout):
+                raise TimeoutError("half of the docs never arrived")
+            for q in C4_QUERIES:
+                self.next(qtext=q)
+            self.commit()
+
+    docs = pw.io.kafka.read(broker, topic="docs", schema=DocSchema)
+    embedded = docs.select(docs.id, vec=emb(docs.text))
+    index = pw.indexing.DataIndex(embedded, pw.indexing.BruteForceKnn(
+        embedded.vec, dimensions=emb.get_embedding_dimension(), reserved_space=n + 512,
+        metric="cos"))
+    queries = pw.io.python.read(LiveQueries(), schema=QuerySchema)
+    q_emb = queries.select(queries.qtext, qvec=emb(queries.qtext))
+    res = index.query_as_of_now(q_emb.qvec, number_of_matches=C4_K, with_distances=True)
+    res = res.select(res.vec, res._pw_dist, qtext=q_emb.restrict(res).qtext)
+
+    def on_doc(key, row, time, is_addition):
+        with lock:
+            if is_addition:
+                rows[key.value] = row["vec"]
+            else:
+                rows.pop(key.value, None)
+            if len(rows) * 2 >= n:
+                half.set()
+
+    def on_reply(key, row, time, is_addition):
+        with lock:
+            if is_addition:
+                replies[row["qtext"]] = (row["vec"], row["_pw_dist"])
+
+    pw.io.subscribe(embedded, on_change=on_doc)
+    pw.io.subscribe(res, on_change=on_reply)
+    connectors = list(pw.G.connectors)
+
+    def stopper():  # a bound on the run, not its end: the broker closes itself
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            with lock:
+                if len(rows) >= n and len(replies) >= len(C4_QUERIES):
+                    return
+            time.sleep(0.05)
+        half.set()
+        for c in connectors:
+            c._stop.set()
+            c.close()
+
+    threading.Thread(target=stopper, daemon=True).start()
+    t0 = time.perf_counter()
+    pw.run()
+    wall = time.perf_counter() - t0
+    from pathway_tpu_torch.internals.run import LAST_RUN_STATS
+
+    return {"rows": rows, "replies": replies, "wall_s": wall, "docs_per_s": len(rows) / wall,
+            "tax": LAST_RUN_STATS.engine_tax()}
+
+
+def c4_direct(model, texts) -> dict:
+    """(c): the same texts straight through the model and the index, in
+    the UDF's batches: every batch submitted, one resolve, one add."""
+    import torch
+
+    from pathway_tpu_torch import BruteForceKnnIndex
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [model.embed_submit(texts[s : s + C4_BATCH])
+               for s in range(0, len(texts), C4_BATCH)]
+    vecs = np.concatenate(model.embed_resolve(handles, 600))
+    index = BruteForceKnnIndex(model.cfg.hidden, reserved_space=len(texts) + 512,
+                               metric="cos", device=model.device)
+    index.add(list(range(len(texts))), vecs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"vecs": vecs, "index": index, "wall_s": wall, "docs_per_s": len(texts) / wall}
+
+
+def c4_check_stream(out: dict, keys: np.ndarray, direct: np.ndarray, qvecs: dict,
+                    name: str) -> None:
+    """Every doc reached the subscriber, each vector within cosine
+    C4_COS_MIN of the direct one for its text, each live query answered
+    with scores equal to the cosine of its vector and the row's."""
+    rows = out["rows"]
+    require(len(rows) == len(keys) and set(rows) == set(keys.tolist()),
+            f"({name}) every doc reached the embedded subscriber ({len(rows)} rows)")
+    got = np.stack([rows[k] for k in keys.tolist()]).astype(np.float32)
+    cos = np.sum(got * direct, axis=1) / (np.linalg.norm(got, axis=1)
+                                          * np.linalg.norm(direct, axis=1))
+    require(cos.min() >= C4_COS_MIN,
+            f"({name}) engine vectors within cosine {C4_COS_MIN} of the direct ones "
+            f"(min {cos.min():.6f})")
+    require(sorted(out["replies"]) == sorted(C4_QUERIES),
+            f"({name}) both live queries answered")
+    worst = 0.0
+    for q, (vecs, dists) in out["replies"].items():
+        require(len(vecs) == C4_K and len(dists) == C4_K,
+                f"({name}) query {q!r} answered with {C4_K} matches")
+        for v, d in zip(vecs, dists):
+            worst = max(worst, abs(float(np.dot(qvecs[q], v)) + d))
+    require(worst <= C4_SCORE_TOL,
+            f"({name}) reply scores equal cos(query, row) within {C4_SCORE_TOL} "
+            f"(max diff {worst:.2e})")
+
+
+def c4_static(pw, emb, model, gpu: str) -> int:
+    """(d): static docs and queries through DataIndex.query, against
+    BruteForceKnnIndex.search over the direct embeddings. ``emb`` must be
+    blocking: docs and queries then reach the index in one epoch, the docs
+    first. Returns the engine run's flash_attn launches."""
+    from pathway_tpu_torch import BruteForceKnnIndex
+    from pathway_tpu_torch.models import flash_attention as FA
+
+    texts = c4_texts(C4_STATIC_DOCS, seed=12)
+    q_texts = c4_texts(C4_STATIC_QUERIES, seed=13, words=6)
+    pw.clear_graph()
+    docs = pw.debug.table_from_rows(pw.schema_from_types(doc=int, text=str),
+                                    list(enumerate(texts)))
+    embedded = docs.select(docs.doc, vec=emb(docs.text))
+    index = pw.indexing.DataIndex(embedded, pw.indexing.BruteForceKnn(
+        embedded.vec, dimensions=model.cfg.hidden, reserved_space=C4_STATIC_DOCS,
+        metric="cos"))
+    queries = pw.debug.table_from_rows(pw.schema_from_types(q=str),
+                                       [(q,) for q in q_texts])
+    res = index.query(queries.select(queries.q, qv=emb(queries.q)).qv,
+                      number_of_matches=C4_K, with_distances=True)
+    res = res.select(res.doc, res._pw_dist, q=queries.restrict(res).q)
+    before = FA.flash_attn.launches
+    t0 = time.perf_counter()
+    got = pw.debug.table_to_dicts(res)[1]
+    wall = time.perf_counter() - t0
+    launches = FA.flash_attn.launches - before
+    ref_index = BruteForceKnnIndex(model.cfg.hidden, reserved_space=C4_STATIC_DOCS,
+                                   metric="cos", device=model.device)
+    # in the UDF's batches: a bf16 encode's rounding follows its batch height
+    ref_index.add(list(range(C4_STATIC_DOCS)), np.concatenate(
+        [model.embed_batch(texts[s : s + C4_BATCH])
+         for s in range(0, C4_STATIC_DOCS, C4_BATCH)]))
+    want = dict(zip(q_texts, ref_index.search(model.embed_batch(q_texts), C4_K)))
+    by_q = {got["q"][k]: [(d, -s) for d, s in zip(got["doc"][k], got["_pw_dist"][k])]
+            for k in got["q"]}
+    agree = sum(ranks_agree(want[q], by_q[q], C4_TIE_TOL) for q in q_texts)
+    info(f"engine (d) static DataIndex.query, {C4_STATIC_DOCS} docs x {C4_STATIC_QUERIES} "
+         f"queries [{gpu}]: {wall:.3f} s; replies equal BruteForceKnnIndex.search but at "
+         f"ties within {C4_TIE_TOL}: {agree}/{C4_STATIC_QUERIES}")
+    require(len(by_q) == C4_STATIC_QUERIES and agree == C4_STATIC_QUERIES,
+            "(d) the static replies equal the direct index's")
+    require(launches >= MINILM_LAYERS * (-(-C4_STATIC_DOCS // C4_BATCH) + 1),
+            f"(d) every encode went through flash_attn ({launches})")
+    return launches
+
+
+def run_engine_config4(dev, gpu: str) -> int:
+    """Phase 16; returns its flash_attn launches."""
+    import gc
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import BruteForceKnnIndex
+    from pathway_tpu_torch.engine.value import keys_for_value_columns
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.xpacks.llm import SentenceTransformerEmbedder
+
+    t16 = time.perf_counter()
+    texts = c4_texts(C4_DOCS)
+    payloads = [json.dumps({"id": i, "text": t}).encode() for i, t in enumerate(texts)]
+    # the broker's row keys: Key::for_values(topic, offset), as the reader makes them
+    keys = keys_for_value_columns([np.full(C4_DOCS, "docs", dtype=object),
+                                   np.arange(C4_DOCS).astype(object)], C4_DOCS)
+    deferred = SentenceTransformerEmbedder("minilm-l6", max_batch_size=C4_BATCH,
+                                           deferred=True, device=dev)
+    model = deferred.model
+    blocking = SentenceTransformerEmbedder(model, max_batch_size=C4_BATCH, deferred=False)
+    # warm the pow2 batch buckets, the query bucket and the index, as bench does
+    warm_index = BruteForceKnnIndex(model.cfg.hidden, reserved_space=C4_DOCS + 512,
+                                    metric="cos", device=dev)
+    for b in (8, 16, 32, 64, 128, 256, 512, 1024):
+        warm_index.add(list(range(b)), model.embed_batch(texts[:b]))
+    model.embed_batch(C4_QUERIES)
+    warm_index.search(model.embed_batch(C4_QUERIES), C4_K)
+    del warm_index
+    qvecs = dict(zip(C4_QUERIES, model.embed_batch(C4_QUERIES)))
+
+    counter = EncodeCount(model)
+    FA.flash_attn.launches = 0
+    arms = {"a": [], "b": [], "c": []}
+    direct = None
+    for rep in range(C4_REPS):
+        for name in "abc":
+            counter.reset()
+            if name == "c":
+                out = c4_direct(model, texts)
+                direct = out["vecs"]
+                out.pop("index")
+            else:
+                emb = deferred if name == "a" else blocking
+                emb._dedup.clear()  # every rep embeds cold, as bench does
+                out = c4_stream(pw, emb, payloads, C4_DOCS)
+            out["encodes"] = list(counter.sizes)
+            arms[name].append(out)
+            gc.collect()
+    launches = FA.flash_attn.launches
+    n_encodes = sum(len(r["encodes"]) for rs in arms.values() for r in rs)
+    for name in "ab":
+        for r in arms[name]:
+            c4_check_stream(r, keys, direct, qvecs, name)
+    # the deferred and blocking final tables: same keys, vectors within cosine
+    a_rows, b_rows = arms["a"][-1]["rows"], arms["b"][-1]["rows"]
+    ab = np.array([float(np.dot(a_rows[k], b_rows[k])) for k in keys.tolist()])
+    require(a_rows.keys() == b_rows.keys() and ab.min() >= C4_COS_MIN,
+            f"(a) and (b) give the same embedded table (min cosine {ab.min():.6f})")
+    require(launches >= MINILM_LAYERS * n_encodes,
+            f"every encode of phase 16 went through flash_attn ({launches} >= "
+            f"{MINILM_LAYERS} x {n_encodes})")
+    med = {n: statistics.median(r["docs_per_s"] for r in arms[n]) for n in arms}
+    labels = {"a": "engine, deferred", "b": "engine, blocking", "c": "direct"}
+    for name in "abc":
+        rs = arms[name]
+        busy = [encode_busy_ms(model, texts, r["encodes"]) for r in rs]
+        idle = [1.0 - b / (r["wall_s"] * 1e3) for b, r in zip(busy, rs)]
+        info(f"engine ({name}) {labels[name]} [{gpu}]: docs/s "
+             + ", ".join(f"{r['docs_per_s']:.1f}" for r in rs)
+             + f" (median {med[name]:.1f}, {med[name] / med['c']:.4f}x (c)); wall s "
+             + ", ".join(f"{r['wall_s']:.3f}" for r in rs)
+             + f"; encodes {len(rs[0]['encodes'])} a rep; device idle share estimate "
+             + ", ".join(f"{x:.3f}" for x in idle)
+             + f" (device busy ms {', '.join(f'{b:.1f}' for b in busy)})")
+        if name != "c":
+            info(f"engine ({name}) LAST_RUN_STATS.engine_tax() of each rep: "
+                 + "; ".join(json.dumps(r["tax"]) for r in rs))
+    # blocking: a deferred UDF injects its chunks when they resolve, so an
+    # as-of-now query could be answered before every static doc is indexed
+    static_launches = c4_static(pw, blocking, model, gpu)
+    counter.close()
+    info(f"engine: phase 16 flash_attn launches {launches} in (a)-(c), {static_launches} "
+         f"in (d); {time.perf_counter() - t16:.1f} s")
+    launches += static_launches
+    deferred.close()
+    del arms, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3754,14 +4109,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
 
-    # phase 2: build (the CUDA kernels and the C++ tokenizers at once)
+    # phase 2: build (the CUDA kernels, the C++ tokenizers and the engine's
+    # C++ loops at once)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         tok_build = pool.submit(native.build)
+        engine_build = pool.submit(native.build, native._ENGINE_SRC)
         kernels.build()
-        tok_lib = tok_build.result()
-    info(f"build: {time.perf_counter() - t0:.1f} s for {sorted(kernels.KERNELS)} and "
-         f"{tok_lib.name}")
+        tok_lib, engine_lib = tok_build.result(), engine_build.result()
+    info(f"build: {time.perf_counter() - t0:.1f} s for {sorted(kernels.KERNELS)}, "
+         f"{tok_lib.name} and {engine_lib.name}")
 
     # phase 3: kernel vs plain
     worst = check_flash_attn(dev)
@@ -3880,6 +4237,9 @@ def main() -> int:
     info(f"mesh: phase 15 serving launches {mesh_launches}; "
          f"{time.perf_counter() - t15:.1f} s")
     dec = {n: dec[n] + mesh_launches[n] for n in dec}
+
+    # phase 16: the dataflow engine's config-4 program at full width
+    launches += run_engine_config4(dev, gpu)
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",

@@ -49,9 +49,88 @@ tensor-parallel blocks and a head-sharded KV pool), the embedder's
 pipelined encoder (``models/moe.py``, ``models/pipeline.py``) and the
 checkpoint format both packages read (``models/checkpoint.py``
 ``save_checkpoint`` / ``load_checkpoint``).
+
+The dataflow engine is the ``pw`` namespace, as in JAX
+(``import pathway_tpu_torch as pw``): ``Table`` and ``Schema``, the
+expression and reducer API, UDFs (``pw.udf``, ``pw.UDF``, batched and
+deferred two-phase UDFs), ``pw.io`` (``python``, ``kafka`` with its
+in-process broker, ``null``, ``subscribe``), ``pw.debug``,
+``pw.indexing`` (``DataIndex`` over ``BruteForceKnn``) and ``pw.run``,
+whose engine switches are one ``EngineConfig`` (``pw.run(config=...)``;
+JAX's defaults, no environment variable). The engine is host Python and
+numpy with C++ loops for keys and consolidation; the device work of a
+program is its UDFs' and indexes'. Joins, temporal operators, ``sort``,
+``iterate``, persistence and several processes are not ported yet
+(ROADMAP A13). The pandas-backed datetime types load on first use, so a
+program without datetimes runs without pandas.
 """
 
 from pathway_tpu_torch.device import resolve_device
+from pathway_tpu_torch.internals import dtype as _dt
+from pathway_tpu_torch.internals import reducers
+from pathway_tpu_torch.internals import universe as _universe_mod
+from pathway_tpu_torch.internals.api import (
+    ERROR,
+    Pending,
+    Pointer,
+    PyObjectWrapper,
+    unwrap_py_object,
+    wrap_py_object,
+)
+from pathway_tpu_torch.internals.api import PathwayType as Type
+from pathway_tpu_torch.internals.config import EngineConfig
+from pathway_tpu_torch.internals.custom_reducers import BaseCustomAccumulator
+from pathway_tpu_torch.internals.errors import global_error_log, local_error_log
+from pathway_tpu_torch.internals.expression import (
+    ColumnExpression,
+    ColumnReference,
+    apply,
+    apply_async,
+    apply_async_with_type,
+    apply_fully_async,
+    apply_with_type,
+    cast,
+    coalesce,
+    declare_type,
+    fill_error,
+    if_else,
+    make_tuple,
+    require,
+    unwrap,
+)
+from pathway_tpu_torch.internals.groupbys import GroupedTable
+from pathway_tpu_torch.internals.json import Json
+from pathway_tpu_torch.internals.parse_graph import G, clear_graph
+from pathway_tpu_torch.internals.run import run, run_all
+from pathway_tpu_torch.internals.schema import (
+    ColumnDefinition,
+    Schema,
+    SchemaProperties,
+    column_definition,
+    schema_builder,
+    schema_from_csv,
+    schema_from_dict,
+    schema_from_pandas,
+    schema_from_types,
+)
+from pathway_tpu_torch.internals.table import Table, TableLike
+from pathway_tpu_torch.internals.table_slice import TableSlice
+from pathway_tpu_torch.internals.thisclass import this
+from pathway_tpu_torch.internals import udfs
+from pathway_tpu_torch.internals.udfs import (
+    UDF,
+    UDFAsync,
+    UDFSync,
+    async_executor,
+    auto_executor,
+    fully_async_executor,
+    sync_executor,
+    udf,
+    udf_async,
+)
+from pathway_tpu_torch.internals.universe import Universe
+from pathway_tpu_torch import debug, io  # noqa: E402
+from pathway_tpu_torch.stdlib import indexing  # noqa: E402
 from pathway_tpu_torch.engine import probes, tracing
 from pathway_tpu_torch.models import (
     MINILM_L6,
@@ -67,7 +146,104 @@ from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
 from pathway_tpu_torch.ops.query_server import QueryServer
 from pathway_tpu_torch.xpacks.llm import DecoderChat
 
+PointerType = Pointer
+DATE_TIME_NAIVE = _dt.DATE_TIME_NAIVE
+DATE_TIME_UTC = _dt.DATE_TIME_UTC
+DURATION = _dt.DURATION
+
+universes = _universe_mod
+
+_DATETIME_TYPES = ("DateTimeNaive", "DateTimeUtc", "Duration")
+
+
+def __getattr__(name: str):
+    # the datetime types subclass pandas' Timestamp / Timedelta: imported
+    # (with pandas) on first use only
+    if name in _DATETIME_TYPES:
+        from pathway_tpu_torch.internals import datetime_types
+
+        return getattr(datetime_types, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_DATETIME_TYPES))
+
+
+def assert_table_has_schema(
+    table: Table,
+    schema,
+    *,
+    allow_superset: bool = True,
+    ignore_primary_keys: bool = True,
+) -> None:
+    schema.assert_matches_schema(
+        table.schema,
+        allow_superset=allow_superset,
+        ignore_primary_keys=ignore_primary_keys,
+    )
+
+
+def table_transformer(fn=None, **kwargs):
+    """Decorator marking a function as a table -> table transformer (no
+    checks, as in JAX)."""
+
+    def wrap(f):
+        return f
+
+    if fn is not None:
+        return wrap(fn)
+    return wrap
+
+
 __all__ = [
+    "Table",
+    "TableLike",
+    "TableSlice",
+    "GroupedTable",
+    "UDFAsync",
+    "UDFSync",
+    "Schema",
+    "Json",
+    "Pointer",
+    "Duration",
+    "DateTimeNaive",
+    "DateTimeUtc",
+    "UDF",
+    "udf",
+    "udf_async",
+    "udfs",
+    "this",
+    "reducers",
+    "apply",
+    "apply_with_type",
+    "apply_async",
+    "apply_async_with_type",
+    "apply_fully_async",
+    "cast",
+    "coalesce",
+    "declare_type",
+    "if_else",
+    "make_tuple",
+    "require",
+    "unwrap",
+    "fill_error",
+    "run",
+    "run_all",
+    "EngineConfig",
+    "G",
+    "clear_graph",
+    "debug",
+    "io",
+    "indexing",
+    "column_definition",
+    "schema_from_types",
+    "schema_from_dict",
+    "schema_from_pandas",
+    "schema_builder",
+    "global_error_log",
+    "ERROR",
+    "Pending",
     "BruteForceKnnIndex",
     "CrossEncoderModel",
     "DecoderChat",

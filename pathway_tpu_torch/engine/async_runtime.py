@@ -1,14 +1,45 @@
-"""The bounded stage worker (counterpart of ``StageWorker`` in
-``pathway_tpu/engine/async_runtime.py``): a daemon thread draining a
-bounded work queue. The embedder's ingest pipeline chains two of them
-(tokenize -> dispatch), and the serving loop's tier-2 prefix cache stages
-its host-to-device promotions on one."""
+"""The async-UDF event loop and the bounded stage worker (counterpart of
+``pathway_tpu/engine/async_runtime.py``).
+
+One long-lived background loop thread serves every async-UDF microbatch,
+so blocking resolution works whether or not the calling thread has a
+running loop of its own (the reference's current-thread tokio runtime,
+``src/async_runtime.rs``).
+
+``StageWorker`` is a daemon thread draining a bounded work queue. The
+embedder's ingest pipeline chains two of them (tokenize -> dispatch), and
+the serving loop's tier-2 prefix cache stages its host-to-device
+promotions on one."""
 
 from __future__ import annotations
 
+import asyncio
 import queue
 import threading
-from typing import Any, Callable
+from typing import Any, Callable, Coroutine
+
+_loop: asyncio.AbstractEventLoop | None = None
+_loop_lock = threading.Lock()
+
+
+def get_event_loop() -> asyncio.AbstractEventLoop:
+    global _loop
+    with _loop_lock:
+        if _loop is None or _loop.is_closed():
+            loop = asyncio.new_event_loop()
+            thread = threading.Thread(
+                target=loop.run_forever, name="pathway-tpu-torch:async", daemon=True
+            )
+            thread.start()
+            _loop = loop
+        return _loop
+
+
+def run_coroutine_blocking(coro: Coroutine) -> Any:
+    """Run a coroutine on the shared background loop; block until done."""
+    future = asyncio.run_coroutine_threadsafe(coro, get_event_loop())
+    return future.result()
+
 
 _STOP = object()
 

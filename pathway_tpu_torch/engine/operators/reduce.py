@@ -1,0 +1,262 @@
+"""Grouped aggregation and deduplication operators.
+
+Reference parity: ``group_by_table`` (dataflow.rs:2991) and ``deduplicate``
+(dataflow.rs:3101). Grouping keys are precomputed columns; accumulators are
+retraction-correct (see :mod:`pathway_tpu_torch.engine.reducers_impl`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+
+from pathway_tpu_torch.engine.batch import Batch
+from pathway_tpu_torch.engine.graph import Node
+from pathway_tpu_torch.engine.reducers_impl import Accumulator, make_accumulator
+from pathway_tpu_torch.engine.state import rows_equal
+from pathway_tpu_torch.engine.value import ERROR, Pointer, hash_values, ref_scalar_with_instance
+from pathway_tpu_torch.internals.errors import get_global_error_log
+
+
+class GroupbyNode(Node):
+    """Incremental groupby-reduce.
+
+    Input columns: grouping columns + reducer argument columns (precomputed by
+    a rowwise prelude). Output: one row per group — grouping values followed by
+    reduced values; output key = pointer_from(grouping values[, instance]).
+    """
+
+    def __init__(
+        self,
+        graph,
+        input_node,
+        group_cols: list[str],
+        reducers: list[tuple[str, str, list[str], dict]],
+        # (out_name, reducer_name, arg_cols, kwargs)
+        instance_col: str | None = None,
+        output_group_names: list[str] | None = None,
+        key_is_pointer_group_col: bool = False,
+        name="Groupby",
+    ):
+        out_group = output_group_names or group_cols
+        out_cols = list(out_group) + [r[0] for r in reducers]
+        super().__init__(graph, [input_node], out_cols, name)
+        self.group_cols = group_cols
+        self.out_group = out_group
+        self.reducers = reducers
+        self.instance_col = instance_col
+        self.key_is_pointer_group_col = key_is_pointer_group_col
+        self._groups: dict[int, dict[str, Any]] = {}
+        self._emitted: dict[int, tuple] = {}
+
+
+    def reset(self):
+        self._groups = {}
+        self._emitted = {}
+
+    def _group_key(self, gvals: tuple, instance) -> int:
+        if self.key_is_pointer_group_col and len(gvals) == 1 and isinstance(gvals[0], Pointer):
+            return gvals[0].value
+        if self.instance_col is not None:
+            return ref_scalar_with_instance(*gvals, instance=instance).value
+        return hash_values(*gvals)
+
+    def _group_keys_vec(self, batch: Batch) -> "np.ndarray | None":
+        """Whole-batch group keys through the native column hasher — the
+        per-row ``_group_key`` dominated wordcount-class profiles; one
+        columnar pass is ~30x cheaper. None = fall back per-row (pointer
+        fast-path with non-pointer values)."""
+        from pathway_tpu_torch.engine import value as value_mod
+
+        gcols = [batch.cols[c] for c in self.group_cols]
+        if self.key_is_pointer_group_col and len(gcols) == 1:
+            col = gcols[0]
+            try:
+                return np.fromiter(
+                    (v.value for v in col), dtype=np.uint64, count=len(col)
+                )
+            except AttributeError:
+                return None
+        n = len(batch)
+        if self.instance_col is not None:
+            icol = np.asarray(batch.cols[self.instance_col], dtype=object)
+            main = value_mod.keys_for_value_columns(gcols + [icol], n)
+            return value_mod.keys_with_instance(main, icol)
+        return value_mod.keys_for_value_columns(gcols, n)
+
+    def step(self, time, ins):
+        (batch,) = ins
+        if batch is None or len(batch) == 0:
+            return None
+        in_names = self.inputs[0].column_names
+        gks_vec = self._group_keys_vec(batch)
+        if (
+            gks_vec is not None
+            and self.instance_col is None
+            and all(rname == "count" for _, rname, _, _ in self.reducers)
+        ):
+            affected = self._accumulate_count_fast(time, batch, gks_vec)
+        else:
+            affected = self._accumulate_rowwise(time, batch, gks_vec, in_names)
+        return self._emit_affected(affected)
+
+    def _accumulate_rowwise(self, time, batch, gks_vec, in_names) -> set[int]:
+        gidx = [in_names.index(c) for c in self.group_cols]
+        iidx = in_names.index(self.instance_col) if self.instance_col else None
+        ridx = [[in_names.index(c) for c in argcols] for _, _, argcols, _ in self.reducers]
+        affected: set[int] = set()
+        for i, (key, row, diff) in enumerate(batch.rows()):
+            gvals = tuple(row[i2] for i2 in gidx)
+            if any(v is ERROR for v in gvals):
+                get_global_error_log().log("Error value in grouping column")
+                continue
+            inst = row[iidx] if iidx is not None else None
+            gk = int(gks_vec[i]) if gks_vec is not None else self._group_key(gvals, inst)
+            grp = self._groups.get(gk)
+            if grp is None:
+                grp = {
+                    "gvals": gvals,
+                    "count": 0,
+                    "accs": [
+                        make_accumulator(rname, kw)
+                        for _, rname, _, kw in self.reducers
+                    ],
+                }
+                self._groups[gk] = grp
+            grp["count"] += diff
+            for acc, idxs in zip(grp["accs"], ridx):
+                args = tuple(row[i] for i in idxs)
+                if getattr(acc, "wants_key", False):
+                    acc.add(args, diff, time, key)
+                else:
+                    acc.add(args, diff, time)
+            affected.add(gk)
+        return affected
+
+    def _accumulate_count_fast(self, time, batch, gks) -> set[int]:
+        """Columnar path for count-only reductions (the wordcount shape):
+        diffs sum per unique group key in numpy, so the Python loop runs
+        over GROUPS (thousands) instead of rows (millions). Accumulator
+        state stays identical to the row-wise path — ``CountAcc.add`` with
+        a summed diff equals many unit adds."""
+        uniq, first_idx, inverse = np.unique(
+            gks, return_index=True, return_inverse=True
+        )
+        sums = np.zeros(len(uniq), dtype=np.int64)
+        np.add.at(sums, inverse, batch.diffs)
+        gcols = [batch.cols[c] for c in self.group_cols]
+        affected: set[int] = set()
+        for j in range(len(uniq)):
+            gk = int(uniq[j])
+            d = int(sums[j])
+            grp = self._groups.get(gk)
+            if grp is None:
+                if d == 0:
+                    continue  # net no-op on a group that never existed
+                gvals = tuple(col[int(first_idx[j])] for col in gcols)
+                if any(v is ERROR for v in gvals):
+                    get_global_error_log().log("Error value in grouping column")
+                    continue
+                grp = {
+                    "gvals": gvals,
+                    "count": 0,
+                    "accs": [
+                        make_accumulator(rname, kw)
+                        for _, rname, _, kw in self.reducers
+                    ],
+                }
+                self._groups[gk] = grp
+            grp["count"] += d
+            for acc in grp["accs"]:
+                acc.add((), d, time)
+            affected.add(gk)
+        return affected
+
+    def _emit_affected(self, affected: set[int]):
+        rows = []
+        for gk in affected:
+            grp = self._groups.get(gk)
+            if grp is None:
+                continue
+            if grp["count"] == 0:
+                new = None
+                del self._groups[gk]
+            else:
+                new = tuple(grp["gvals"]) + tuple(
+                    acc.compute() for acc in grp["accs"]
+                )
+            old = self._emitted.get(gk)
+            if rows_equal(old, new):
+                continue
+            if old is not None:
+                rows.append((gk, old, -1))
+            if new is not None:
+                rows.append((gk, new, 1))
+                self._emitted[gk] = new
+            else:
+                self._emitted.pop(gk, None)
+        if not rows:
+            return None
+        return Batch.from_rows(self.column_names, rows)
+
+
+class DeduplicateNode(Node):
+    """Keep one row per instance, chosen by a user acceptor function
+    ``acceptor(new_value, prev_accepted) -> bool`` (reference deduplicate,
+    dataflow.rs:3101; stdlib/stateful/deduplicate.py)."""
+
+    def __init__(
+        self,
+        graph,
+        input_node,
+        value_col: str,
+        instance_col: str,
+        acceptor: Callable[[Any, Any], bool],
+        name="Deduplicate",
+    ):
+        super().__init__(graph, [input_node], input_node.column_names, name)
+        self.value_col = value_col
+        self.instance_col = instance_col
+        self.acceptor = acceptor
+        self._accepted: dict[Any, tuple[int, tuple]] = {}  # instance -> (key, row)
+
+
+    def reset(self):
+        self._accepted = {}
+
+    def step(self, time, ins):
+        (batch,) = ins
+        if batch is None or len(batch) == 0:
+            return None
+        in_names = self.inputs[0].column_names
+        vi = in_names.index(self.value_col)
+        ii = in_names.index(self.instance_col)
+        rows = []
+        for key, row, diff in batch.rows():
+            if diff <= 0:
+                continue  # deduplicate consumes insertions only (append-only)
+            inst = row[ii]
+            value = row[vi]
+            prev = self._accepted.get(inst)
+            if prev is None:
+                # first value for an instance is accepted unconditionally —
+                # the acceptor compares against a previous acceptance only
+                accept = True
+            else:
+                try:
+                    accept = self.acceptor(value, prev[1][vi])
+                except Exception as exc:  # noqa: BLE001
+                    get_global_error_log().log(
+                        f"deduplicate acceptor error: {exc}"
+                    )
+                    continue
+            if accept:
+                if prev is not None:
+                    rows.append((prev[0], prev[1], -1))
+                ik = hash_values(inst)
+                rows.append((ik, row, 1))
+                self._accepted[inst] = (ik, row)
+        if not rows:
+            return None
+        return Batch.from_rows(self.column_names, rows)

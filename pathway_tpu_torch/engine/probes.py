@@ -1,5 +1,5 @@
 """The port's metrics registry and the ledgers over it (counterpart of
-``pathway_tpu/engine/probes.py`` without the dataflow scheduler's parts).
+``pathway_tpu/engine/probes.py``).
 
 Every ledger is a thin layer over ONE :class:`MetricsRegistry`
 (``REGISTRY``): a thread-safe store of named counters, gauges and
@@ -15,7 +15,11 @@ ledgers keep the JAX signatures and return shapes:
 * attention traffic (an accounting model of bytes per attention call),
   the prefix-cache, speculative-decode, cascade and retrieval-backend
   ledgers, the pipeline-stage timer with :func:`bubble_attribution`, and
-  a roofline model against the H100's published peaks.
+  a roofline model against the H100's published peaks;
+* the dataflow engine's telemetry: per-operator step latency and rows
+  (``record_op_step``), backlog and frontier gauges, held rows and
+  watermark lag, ``engine_snapshot``, and the scheduler's own
+  ``SchedulerStats`` (with ``engine_tax``).
 
 :func:`set_metrics` is the master switch, on by default as
 ``PATHWAY_TPU_METRICS`` is in JAX: off, every record call is a no-op and
@@ -29,6 +33,7 @@ import bisect
 import collections
 import dataclasses
 import threading
+import time
 import weakref
 
 # H100 SXM5 80 GB, NVIDIA's data sheet: dense bf16 tensor-core peak and
@@ -255,6 +260,34 @@ class MetricsRegistry:
             rec[1] += v
             rec[2] += 1
 
+    def observe_op_step(
+        self, operator: str, seconds: float, rows_in: int, rows_out: int
+    ) -> None:
+        """One stepped operator epoch: latency histogram observation plus
+        rows-in/rows-out counters under a SINGLE enabled check + lock
+        acquisition — this sits on the scheduler's per-step hot path."""
+        if not self.enabled:
+            return
+        v = float(seconds)
+        hkey = (("operator", operator),)
+        with self._lock:
+            series = self._hists.setdefault("op_step_seconds", {})
+            rec = series.get(hkey)
+            if rec is None:
+                rec = series[hkey] = [
+                    [0] * (len(self.hist_bounds) + 1), 0.0, 0,
+                ]
+            rec[0][bisect.bisect_left(self.hist_bounds, v)] += 1
+            rec[1] += v
+            rec[2] += 1
+            rows = self._counters.setdefault("op_rows", {})
+            if rows_in:
+                key = (("direction", "in"), ("operator", operator))
+                rows[key] = rows.get(key, 0.0) + rows_in
+            if rows_out:
+                key = (("direction", "out"), ("operator", operator))
+                rows[key] = rows.get(key, 0.0) + rows_out
+
     def gauge_max(self, name: str, value: float, **labels) -> None:
         """Set the gauge to ``max(current, value)``: the high-water
         primitive of the HBM ledger. Atomic under the registry lock."""
@@ -423,9 +456,10 @@ def serving_snapshot() -> dict:
 
 
 def unified_snapshot(scheduler_stats=None) -> dict:
-    """Serving, device memory, the SLO watchdog's state and the raw
-    registry in one dict. The port has no dataflow scheduler, so
-    ``scheduler`` is what the caller passes (None by default)."""
+    """Scheduler, serving, the engine's operators, device memory, the SLO
+    watchdog's state and the raw registry in one dict. ``scheduler`` is the
+    snapshot of the ``SchedulerStats`` the caller passes (a run's
+    ``pw.internals.run.LAST_RUN_STATS``; None by default)."""
     from pathway_tpu_torch.engine import slo
 
     sched = scheduler_stats
@@ -434,10 +468,130 @@ def unified_snapshot(scheduler_stats=None) -> dict:
     return {
         "scheduler": sched,
         "serving": serving_snapshot(),
+        "engine": engine_snapshot(),
         "hbm": hbm_stats(),
         "slo": slo.slo_snapshot(),
         "registry": REGISTRY.snapshot(),
     }
+
+
+# --------------------------------------------------------------------- #
+# per-operator dataflow telemetry (registry-backed)
+#
+# The scheduler already times every operator step for SchedulerStats;
+# since the observability PR the same measurement also lands in the
+# registry — `op_step_seconds{operator=}` histograms and
+# `op_rows{operator=,direction=}` counters — so latency DISTRIBUTIONS
+# (not just totals) are scrapeable per operator. Temporal operators add
+# `op_held_rows` / `watermark_lag` gauges, the scheduler an
+# `engine_backlog{queue=}` gauge riding `pending_backlog()`, and the
+# exchange layer `exchange_rows{direction=}` counters (the port runs one
+# process: it has no exchange layer, and the exchange section of
+# engine_snapshot stays empty). All of it is gated twice: set_metrics
+# (master, per call inside the registry) and EngineConfig.op_metrics
+# (read once per scheduler construction).
+
+def record_op_step(
+    operator: str, seconds: float, rows_in: int, rows_out: int
+) -> None:
+    """Per-operator epoch record: latency observation + row counters in
+    one registry transaction. Called by ``Scheduler._step_node``."""
+    REGISTRY.observe_op_step(operator, seconds, rows_in, rows_out)
+
+
+def record_backlog(queue: str, depth: int) -> None:
+    """Backlog depth gauge (``queue`` = pending_epochs / async_inflight /
+    drain_group). Throttled by callers — gauges only need freshness, not
+    every transition."""
+    REGISTRY.gauge_set("engine_backlog", depth, queue=queue)
+
+
+def record_frontier_lag(lag: float) -> None:
+    REGISTRY.gauge_set("engine_frontier_lag", max(0.0, float(lag)))
+
+
+def record_watermark(operator: str, held_rows: int,
+                     lag: float | None) -> None:
+    """Temporal-operator state: rows currently held back and, when the
+    time column is numeric, how far the oldest held threshold trails the
+    watermark."""
+    REGISTRY.gauge_set("op_held_rows", held_rows, operator=operator)
+    if lag is not None:
+        REGISTRY.gauge_set(
+            "watermark_lag", max(0.0, float(lag)), operator=operator
+        )
+
+
+def engine_snapshot() -> dict:
+    """Per-operator registry view: latency quantiles + row counters per
+    operator, backlog gauges, watermark lag, exchange counters. The
+    'engine' section of :func:`unified_snapshot` and the source of the
+    per-operator dashboard panel."""
+    snap = REGISTRY.snapshot()
+    ops: dict[str, dict] = {}
+    for series in snap["histograms"].get("op_step_seconds", {}).get(
+        "series", []
+    ):
+        name = series["labels"].get("operator", "")
+        s = REGISTRY.hist_summary("op_step_seconds", operator=name)
+        if s is None:
+            continue
+        ops[name] = {
+            "steps": s["count"],
+            "p50_ms": round(s["p50"] * 1e3, 3),
+            "p95_ms": round(s["p95"] * 1e3, 3),
+            "mean_ms": round(s["mean"] * 1e3, 3),
+            "rows_in": 0,
+            "rows_out": 0,
+        }
+    for series in snap["counters"].get("op_rows", {}).get("series", []):
+        labels = series["labels"]
+        op = ops.setdefault(labels.get("operator", ""), {
+            "steps": 0, "p50_ms": 0.0, "p95_ms": 0.0, "mean_ms": 0.0,
+            "rows_in": 0, "rows_out": 0,
+        })
+        key = "rows_in" if labels.get("direction") == "in" else "rows_out"
+        op[key] = int(series["value"])
+    backlog = {
+        k: int(v)
+        for k, v in REGISTRY.labelled(
+            "engine_backlog", "queue", kind="gauge"
+        ).items()
+    }
+    held = {
+        k: int(v)
+        for k, v in REGISTRY.labelled(
+            "op_held_rows", "operator", kind="gauge"
+        ).items()
+    }
+    lag = REGISTRY.labelled("watermark_lag", "operator", kind="gauge")
+    frontier = REGISTRY.gauge_value("engine_frontier_lag")
+    out: dict = {
+        "operators": {k: ops[k] for k in sorted(ops)},
+        "backlog": backlog,
+        "held_rows": held,
+        "watermark_lag": {k: round(v, 6) for k, v in sorted(lag.items())},
+        "exchange": {
+            k: int(v)
+            for k, v in REGISTRY.labelled(
+                "exchange_rows", "direction"
+            ).items()
+        },
+    }
+    if frontier is not None:
+        out["frontier_lag"] = frontier
+    summaries = [o["p50_ms"] for o in ops.values() if o.get("steps")]
+    out["op_latency_p50_ms"] = (
+        round(sum(summaries) / len(summaries), 3) if summaries else 0.0
+    )
+    return out
+
+
+def reset_engine_stats() -> None:
+    REGISTRY.remove(
+        "op_step_seconds", "op_rows", "op_held_rows", "watermark_lag",
+        "engine_backlog", "engine_frontier_lag", "exchange_rows",
+    )
 
 
 # --------------------------------------------------------------------- #
@@ -621,10 +775,19 @@ def kv_parked_value(server: str = "decoder"):
 # --------------------------------------------------------------------- #
 # device-dispatch counters
 
+_current_op = threading.local()  # set by Scheduler._step_node
+
+
 def record_device_dispatch(kind: str, n: int = 1) -> None:
     """Count ``n`` device round trips of ``kind`` (``embed_dispatch``,
-    ``knn_append``, ``fused_retrieve``, ...). Thread-safe."""
+    ``knn_append``, ``fused_retrieve``, ...). Thread-safe. When a
+    scheduler step is on the stack the count is also attributed to the
+    stepping operator (scheduler accounting: ``set_metrics`` does not gate
+    it)."""
     REGISTRY.counter_add("device_dispatch", n, kind=kind)
+    op = getattr(_current_op, "stats", None)
+    if op is not None:
+        op.dispatches += n
 
 
 def dispatch_counts() -> dict[str, int]:
@@ -951,3 +1114,122 @@ class RooflineModel:
         with self._lock:
             return {name: p.summary(self.peak_flops, self.peak_bytes)
                     for name, p in self.phases.items()}
+
+
+@dataclasses.dataclass
+class OperatorStats:
+    name: str
+    rows_in: int = 0
+    rows_out: int = 0
+    epochs: int = 0
+    total_time_s: float = 0.0
+    last_active_time: float = 0.0
+    dispatches: int = 0
+
+    @property
+    def lag_s(self) -> float:
+        return max(0.0, time.time() - self.last_active_time)
+
+
+@dataclasses.dataclass
+class ConnectorStats:
+    name: str
+    rows_read: int = 0
+    commits: int = 0
+    finished: bool = False
+
+
+class SchedulerStats:
+    """Thread-safe stats registry attached to a live scheduler.
+
+    Only the collections (and the skip counter) are guarded:
+    ``current_time`` / ``epochs_total`` / ``finished`` / ``fused_*`` are
+    written by the single scheduler thread before workers start or after
+    they stop."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.operators: dict[int, OperatorStats] = {}
+        # keyed by connector node id (names may collide across connectors)
+        self.connectors: dict[int, ConnectorStats] = {}
+        self.current_time: int = -1
+        self.epochs_total: int = 0
+        self.started_at: float = time.time()
+        self.finished: bool = False
+        # chain-fusion plan summary (set by the scheduler after fuse_chains)
+        self.fused_chains: int = 0
+        self.fused_nodes: int = 0
+        # epochs where a node's step was skipped (no input deltas, no
+        # injection) — the sparse-stepping win made countable
+        self.steps_skipped: int = 0
+
+    def operator(self, node_id: int, name: str) -> OperatorStats:
+        with self._lock:
+            stats = self.operators.get(node_id)
+            if stats is None:
+                stats = self.operators[node_id] = OperatorStats(name=name)
+            return stats
+
+    def connector(self, node_id: int, name: str) -> ConnectorStats:
+        with self._lock:
+            stats = self.connectors.get(node_id)
+            if stats is None:
+                stats = self.connectors[node_id] = ConnectorStats(name=name)
+            return stats
+
+    def record_connector_commit(self, node_id: int, name: str, n_rows: int) -> None:
+        stats = self.connector(node_id, name)
+        with self._lock:
+            stats.rows_read += n_rows
+            stats.commits += 1
+
+    def connector_finished(self, node_id: int, name: str) -> None:
+        self.connector(node_id, name).finished = True
+
+    def record_skip(self) -> None:
+        with self._lock:
+            self.steps_skipped += 1
+
+    def record_step(
+        self, node_id: int, name: str, rows_in: int, rows_out: int, dt: float
+    ) -> None:
+        stats = self.operator(node_id, name)
+        with self._lock:
+            stats.rows_in += rows_in
+            stats.rows_out += rows_out
+            stats.epochs += 1
+            stats.total_time_s += dt
+            stats.last_active_time = time.time()
+
+    def snapshot(self) -> dict:
+        """Plain-dict snapshot for renderers/exporters."""
+        with self._lock:
+            return {
+                "current_time": self.current_time,
+                "epochs_total": self.epochs_total,
+                "uptime_s": time.time() - self.started_at,
+                "finished": self.finished,
+                "fused_chains": self.fused_chains,
+                "fused_nodes": self.fused_nodes,
+                "steps_skipped": self.steps_skipped,
+                "operators": [dataclasses.asdict(s) for s in self.operators.values()],
+                "connectors": [dataclasses.asdict(s) for s in self.connectors.values()],
+            }
+
+    def engine_tax(self) -> dict:
+        """Aggregate engine-overhead view: total operator wall seconds split
+        into dispatch-bearing vs pure-Python steps. ``wall_s`` is the sum of
+        per-operator step time; with the device-dispatch counters this
+        separates 'the chip was working' from 'the engine was shuffling'."""
+        with self._lock:
+            wall = sum(s.total_time_s for s in self.operators.values())
+            steps = sum(s.epochs for s in self.operators.values())
+            dispatches = sum(s.dispatches for s in self.operators.values())
+            return {
+                "wall_s": round(wall, 6),
+                "steps": steps,
+                "steps_skipped": self.steps_skipped,
+                "operator_dispatches": dispatches,
+                "fused_chains": self.fused_chains,
+                "fused_nodes": self.fused_nodes,
+            }

@@ -1,13 +1,17 @@
-"""The port's C++ batch tokenizers (``_tokenize.cpp``), built at first use.
+"""The port's C++ host loops, built at first use: the batch tokenizers
+(``_tokenize.cpp``) and the dataflow engine's loops (``_engine.cpp``:
+column hashing, delta consolidation, the row transpose and the
+connectors' record extraction).
 
-``g++ -O3 -shared -fPIC`` compiles the source into a CPython extension in
+``g++ -O3 -shared -fPIC`` compiles each source into a CPython extension in
 ``build/pathway_tpu_torch/`` beside the package (listed in
 ``.gitignore``), named by a hash of the source and flags, so a changed
 source is rebuilt and an unchanged one reused. The library is written
 under a temporary name and moved into place with ``os.replace``: several
 processes may build it at once, and none sees half a file. A missing
 ``g++`` or a failed build raises; nothing falls back. The Python tokenize
-path runs only when a tokenizer is built with ``native=False``.
+path runs only when a tokenizer is built with ``native=False``; the
+engine's loops hand back the rows they cannot encode (see each wrapper).
 """
 
 from __future__ import annotations
@@ -24,38 +28,43 @@ from pathlib import Path
 import numpy as np
 
 _SRC = Path(__file__).resolve().parent / "_tokenize.cpp"
+_ENGINE_SRC = Path(__file__).resolve().parent / "_engine.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "pathway_tpu_torch"
 FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
-def lib_path() -> Path:
+def lib_path(src: "Path | None" = None) -> Path:
+    src = src or _SRC
     h = hashlib.sha256()
     h.update(" ".join(FLAGS).encode())
-    h.update(_SRC.read_bytes())
+    h.update(src.read_bytes())
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
-    return BUILD_DIR / f"_tokenize-{h.hexdigest()[:16]}{suffix}"
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}{suffix}"
 
 
-def build() -> Path:
-    """Compile the extension unless it is built already; returns its path."""
-    path = lib_path()
+def build(src: "Path | None" = None) -> Path:
+    """Compile ``src`` (the tokenizers by default) unless it is built
+    already; returns its path."""
+    src = src or _SRC
+    path = lib_path(src)
     if path.exists():
         return path
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found on PATH: the port's native tokenizers "
-                           "cannot be built (pass native=False for the Python path)")
+        raise RuntimeError(f"g++ not found on PATH: the port's native {src.name} "
+                           "cannot be built (tokenizers: pass native=False for "
+                           "the Python path)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.tmp{os.getpid()}.{threading.get_ident()}")
-    cmd = [gxx, *FLAGS, f"-I{sysconfig.get_paths()['include']}", str(_SRC),
+    cmd = [gxx, *FLAGS, f"-I{sysconfig.get_paths()['include']}", str(src),
            "-o", str(tmp)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
-            raise RuntimeError(f"native tokenizer build failed (g++ exited "
+            raise RuntimeError(f"native {src.name} build failed (g++ exited "
                                f"{proc.returncode}):\n{proc.stderr[-4000:]}")
         os.replace(tmp, path)  # atomic: readers never see half a file
     finally:
@@ -63,17 +72,79 @@ def build() -> Path:
     return path
 
 
-def lib():
-    """The loaded extension module, built on first use."""
-    global _lib
-    if _lib is None:
+def lib(src: "Path | None" = None):
+    """The loaded extension module of ``src`` (the tokenizers by default),
+    built on first use."""
+    src = src or _SRC
+    mod = _libs.get(src)
+    if mod is None:
         with _lock:
-            if _lib is None:
-                spec = importlib.util.spec_from_file_location("_tokenize", build())
+            mod = _libs.get(src)
+            if mod is None:
+                spec = importlib.util.spec_from_file_location(src.stem, build(src))
                 mod = importlib.util.module_from_spec(spec)
                 spec.loader.exec_module(mod)
-                _lib = mod
-    return _lib
+                _libs[src] = mod
+    return mod
+
+
+def engine_lib():
+    """The engine's loops (``_engine.cpp``), built on first use; the
+    engine's ``Pointer`` type is registered with it once, so pointers hash
+    as JAX's engine hashes them."""
+    mod = _libs.get(_ENGINE_SRC)
+    if mod is None:
+        from pathway_tpu_torch.engine.value import Pointer
+
+        mod = lib(_ENGINE_SRC)
+        mod.set_pointer_type(Pointer)
+    return mod
+
+
+def hash_object_column(col) -> "tuple[np.ndarray, list]":
+    """Per-row XXH64 of the canonical encoding of an object column:
+    (uint64 digests, indices of rows the C++ encoder does not handle:
+    arrays, Json, datetimes, ints beyond 64 bits; the caller hashes those
+    in Python)."""
+    out = np.empty(len(col), dtype=np.uint64)
+    fallback = engine_lib().hash_object_column(col, memoryview(out.view(np.uint8)))
+    return out, fallback
+
+
+def consolidate_pairs(keys, rowh, diffs):
+    """Group rows by (key, row hash), sum their diffs, drop zero groups:
+    (first index of each kept group, its summed diff), by first index."""
+    idx_b, diff_b = engine_lib().consolidate_pairs(
+        memoryview(np.ascontiguousarray(keys, dtype=np.uint64)),
+        memoryview(np.ascontiguousarray(rowh, dtype=np.uint64)),
+        memoryview(np.ascontiguousarray(diffs, dtype=np.int64)),
+    )
+    return np.frombuffer(idx_b, dtype=np.uint64), np.frombuffer(diff_b, dtype=np.int64)
+
+
+def batch_rows_split(rows, ncols: int, keys, diffs):
+    """The SoA transpose of ``(key, row, diff)`` triples: fills the uint64
+    ``keys`` and int64 ``diffs`` arrays, returns one value list a column.
+    Raises ``TypeError`` for entries that are not such triples."""
+    return engine_lib().batch_rows_split(rows, ncols, memoryview(keys), memoryview(diffs))
+
+
+def rows_from_records(records, cols, codes, defaults):
+    """Record dicts -> row tuples with the fast coercions: (rows, indices
+    of records that need the Python parser)."""
+    return engine_lib().rows_from_records(records, cols, codes, defaults)
+
+
+def jsonl_rows(data: bytes, cols, codes, defaults, columnar: int = 0):
+    """JSON-lines bytes -> row tuples (or column lists with ``columnar=1``)
+    with the fast coercions; lines it cannot parse come back as
+    ``(index, bytes)`` for the Python parser."""
+    return engine_lib().jsonl_rows(data, cols, codes, defaults, columnar)
+
+
+def xxh64(data: bytes, seed: int = 0) -> int:
+    """XXH64 of a bytes-like object (the C++ form of ``engine.xxh64``)."""
+    return engine_lib().xxh64_digest(data, seed)
 
 
 def hash_tokenize(texts: list, max_length: int, reserved: int, span: int):

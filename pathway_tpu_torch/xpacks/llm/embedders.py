@@ -1,12 +1,21 @@
-"""The embedder seam of the port (counterpart of
-``SentenceTransformerEmbedder`` in ``pathway_tpu/xpacks/llm/embedders.py``).
+"""Embedder UDFs (counterpart of ``pathway_tpu/xpacks/llm/embedders.py``;
+reference ``xpacks/llm/embedders.py:64-413``).
 
-A plain class, not a Pathway UDF (the UDF engine is not ported), with the
-JAX embedder's body: model resolution, batch ``__call__``, the two-phase
-``submit_batch`` / ``resolve_batch`` protocol the engine drives, and the
-content-keyed dedup (``dedup=True``, the JAX default): a text -> vector
-LRU, so re-ingested texts reuse their vectors instead of going to the
-device again, and an all-hit batch opens no device handle.
+``SentenceTransformerEmbedder`` is a batched ``pw.UDF``: each engine
+microbatch is tokenized on the host and encoded on the card by the port's
+``SentenceEmbedderModel``, whose attention is the ``flash_attn`` kernel
+(``csrc/flash_attn.cu``) on CUDA tensors. ``deferred=True`` selects the
+fully-async executor: the engine submits an epoch's chunks through the
+two-phase ``submit_batch`` / ``resolve_batch`` protocol and a drain thread
+injects the vectors at a later engine time. The content-keyed dedup
+(``dedup=True``, JAX's ``embed_dedup`` default) keeps a text -> vector LRU,
+so re-ingested texts reuse their vectors, and an all-hit batch opens no
+device handle.
+
+Called on a list of texts instead of a column, the embedder embeds the
+batch directly (the plain seam the ingest path and ``FusedRAGPipeline``
+drive). The API-client embedders of the JAX package (OpenAI, LiteLLM,
+Gemini) are not ported.
 """
 
 from __future__ import annotations
@@ -16,23 +25,72 @@ from typing import Any
 
 import numpy as np
 
+from pathway_tpu_torch.internals import udfs
+from pathway_tpu_torch.internals.expression import ColumnExpression
+
 # entries kept in the per-embedder dedup LRU (text -> vector); at MiniLM
 # width that is ~12 MB of host memory at the bound
 DEDUP_MAX = 8192
 
 
-class SentenceTransformerEmbedder:
-    """Sentence embedder over the port's ``SentenceEmbedderModel``.
+class BaseEmbedder(udfs.UDF):
+    """Base embedder UDF (reference ``BaseEmbedder``, embedders.py:64).
+
+    ``__call__`` on a string column returns an embedding-vector column;
+    ``get_embedding_dimension`` embeds a probe string to discover the dim.
+    """
+
+    def get_embedding_dimension(self, **kwargs) -> int:
+        return len(self._embed_sync(".", **kwargs))
+
+    def _embed_sync(self, text: str, **kwargs):
+        import asyncio
+        import inspect
+
+        fun = self.__wrapped__
+        if inspect.iscoroutinefunction(fun):
+            return asyncio.run(fun(text, **kwargs))
+        if self.batch:
+            return fun([text], **{k: [v] for k, v in kwargs.items()})[0]
+        return fun(text, **kwargs)
+
+
+class SentenceTransformerEmbedder(BaseEmbedder):
+    """Sentence embedder over the port's ``SentenceEmbedderModel``
+    (reference ``SentenceTransformerEmbedder``, embedders.py:270-313).
 
     ``model`` is a ready ``SentenceEmbedderModel``, a preset name
     (``"minilm-l6"``, ``"minilm-l12"``, ``"bge-small"``: seeded random
     weights), or a local HF directory: with weights it loads through
     ``from_pretrained``, with tokenizer files only through ``from_local``.
-    ``init_kwargs`` go to the model's constructor (``device``,
-    ``max_length``, the pipeline and tokenizer arguments). The dedup LRU
-    keeps ``DEDUP_MAX`` texts, as the JAX package does."""
+    ``device`` is the model's (``None``: the card, raising without one;
+    ``"cpu"`` only when asked); ``init_kwargs`` go to the model's
+    constructor (``max_length``, the pipeline and tokenizer arguments).
+    ``max_batch_size`` bounds the rows of one device call, as in JAX."""
 
-    def __init__(self, model: Any = "minilm-l6", *, dedup: bool = True, **init_kwargs):
+    def __init__(
+        self,
+        model: Any = "minilm-l6",
+        call_kwargs: dict = {},
+        device: Any = None,
+        *,
+        max_batch_size: int | None = 1024,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        deferred: bool = False,
+        dedup: bool = True,
+        **init_kwargs,
+    ):
+        # deferred=True: the epoch submits the embed chunks and moves on;
+        # the vectors are injected at a later engine time (derived tables
+        # see them after the raw rows, as with the reference's fully-async
+        # UDFs)
+        super().__init__(
+            deterministic=True,
+            batch=True,
+            max_batch_size=max_batch_size,
+            cache_strategy=cache_strategy,
+            executor=udfs.fully_async_executor() if deferred else None,
+        )
         from pathway_tpu_torch.models.checkpoint import has_checkpoint_weights
         from pathway_tpu_torch.models.embedder import SentenceEmbedderModel
         from pathway_tpu_torch.models.transformer import (
@@ -46,14 +104,19 @@ class SentenceTransformerEmbedder:
         if isinstance(model, SentenceEmbedderModel):
             self.model = model
         elif isinstance(model, str) and model in presets:
-            self.model = SentenceEmbedderModel(cfg=presets[model], **init_kwargs)
+            self.model = SentenceEmbedderModel(cfg=presets[model], device=device,
+                                               **init_kwargs)
         elif isinstance(model, str):
             if has_checkpoint_weights(model):
-                self.model = SentenceEmbedderModel.from_pretrained(model, **init_kwargs)
+                self.model = SentenceEmbedderModel.from_pretrained(
+                    model, device=device, **init_kwargs)
             else:
-                self.model = SentenceEmbedderModel.from_local(model, **init_kwargs)
+                self.model = SentenceEmbedderModel.from_local(
+                    model, device=device, **init_kwargs)
         else:
             raise TypeError(f"unsupported model spec: {model!r}")
+        self.device = self.model.device
+        self.kwargs = dict(call_kwargs)
         self.dedup = bool(dedup)
         self._dedup: OrderedDict[str, np.ndarray] = OrderedDict()
         self.dedup_stats = {"hits": 0, "misses": 0}
@@ -92,7 +155,7 @@ class SentenceTransformerEmbedder:
         return [np.array(x if kind == "h" else miss_vecs[x], copy=True)
                 for kind, x in plan]
 
-    def __call__(self, input: list[str]) -> list[np.ndarray]:
+    def __wrapped__(self, input: list[str], **kwargs) -> list[np.ndarray]:
         """Embed a batch of texts (None reads as ""): one vector each."""
         texts = [t if t is not None else "" for t in input]
         if not self.dedup:
@@ -101,9 +164,9 @@ class SentenceTransformerEmbedder:
         miss_vecs = self.model.embed_batch(miss_texts) if miss_texts else []
         return self._dedup_fill(plan, miss_texts, miss_vecs)
 
-    # two-phase protocol: an epoch's chunks are all submitted, then drained
-    # together
-    def submit_batch(self, input: list[str]):
+    # two-phase protocol (picked up by UDF._call_batched): an epoch's
+    # chunks are all submitted, then drained together
+    def submit_batch(self, input: list[str], **kwargs):
         texts = [t if t is not None else "" for t in input]
         if not self.dedup:
             return ("raw", self.model.embed_submit(texts))
@@ -139,8 +202,15 @@ class SentenceTransformerEmbedder:
         submitted handle."""
         return self.model.token_bank_resolve(handles, timeout)
 
-    def get_embedding_dimension(self) -> int:
+    def get_embedding_dimension(self, **kwargs) -> int:
         return self.model.dim
+
+    def __call__(self, input, **kwargs):
+        """On a column expression: the UDF's vector column. On a list of
+        texts: their vectors, embedded now."""
+        if isinstance(input, ColumnExpression):
+            return super().__call__(input, **kwargs)
+        return self.__wrapped__(input, **kwargs)
 
     def close(self) -> None:
         self.model.close()

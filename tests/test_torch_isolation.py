@@ -5,7 +5,10 @@ is bound in kernels.py, and the C++ tokenizer source lives in the port;
 entry points (the embedder and reranker seams and the checkpoint loaders'
 entry points included) refuse to run on the CPU unless asked; CPU tensors
 never launch a kernel; the decoder server refuses the JAX serving features
-it does not carry and constructs the ones it does."""
+it does not carry and constructs the ones it does. The dataflow engine's
+modules are under the same scans; its embed UDF and KNN index refuse the
+CPU unless asked, and a config-4 program on CPU tensors launches no
+kernel."""
 
 import ast
 import re
@@ -89,6 +92,77 @@ def test_source_scan_sees_the_parallel_layer():
                 "parallel/ring_attention.py", "engine/state.py", "models/moe.py",
                 "models/pipeline.py"):
         assert pkg / rel in files, rel
+
+
+def test_source_scan_sees_the_engine():
+    files = set(_sources())
+    pkg = ROOT / "pathway_tpu_torch"
+    for rel in ("engine/value.py", "engine/xxh64.py", "engine/batch.py",
+                "engine/clock.py", "engine/graph.py", "engine/scheduler.py",
+                "engine/expression_eval.py", "engine/method_impl.py",
+                "engine/reducers_impl.py", "engine/operators/core.py",
+                "engine/operators/reduce.py", "engine/operators/output.py",
+                "engine/operators/external_index.py", "internals/config.py",
+                "internals/table.py", "internals/run.py", "internals/udfs/__init__.py",
+                "internals/udfs/executors.py", "internals/udfs/caches.py",
+                "io/kafka.py", "io/python.py", "io/_streams.py", "io/_utils.py",
+                "debug/__init__.py", "stdlib/indexing/data_index.py",
+                "stdlib/indexing/nearest_neighbors.py", "xpacks/llm/embedders.py"):
+        assert pkg / rel in files, rel
+
+
+def test_engine_device_seams_raise_without_cuda(monkeypatch):
+    """The embed UDF (blocking or deferred) and the KNN index of a
+    ``DataIndex`` run on the card unless asked for the CPU."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.xpacks.llm import SentenceTransformerEmbedder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for deferred in (False, True):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SentenceTransformerEmbedder(deferred=deferred)
+    pw.clear_graph()
+    docs = pw.debug.table_from_rows(pw.schema_from_types(vec=np.ndarray),
+                                    [(np.ones(4),)])
+    index = pw.indexing.DataIndex(docs, pw.indexing.BruteForceKnn(docs.vec, dimensions=4))
+    res = index.query(docs.vec, number_of_matches=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pw.debug.table_to_dicts(res)
+
+
+def test_engine_on_cpu_launches_nothing():
+    """The embed UDF through the engine, deferred and blocking, on CPU
+    tensors takes the plain attention: no kernel launch."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.xpacks.llm import SentenceTransformerEmbedder
+
+    cfg = TransformerConfig(vocab_size=1000, hidden=16, layers=1, heads=2,
+                            intermediate=32)
+    model = SentenceEmbedderModel(cfg, tokenizer=HashTokenizer(vocab_size=1000),
+                                  device="cpu")
+    before = TFA.flash_attn.launches
+    for deferred in (True, False):
+        pw.clear_graph()
+        docs = pw.debug.table_from_rows(pw.schema_from_types(text=str),
+                                        [("a b c",), ("d e",)])
+        emb = SentenceTransformerEmbedder(model, deferred=deferred)
+        vecs = pw.debug.table_to_dicts(docs.select(v=emb(docs.text)))[1]["v"]
+        assert len(vecs) == 2
+    assert TFA.flash_attn.launches == before
+
+
+def test_engine_reads_no_environment_and_has_one_config():
+    """The engine's switches are ``EngineConfig`` fields with JAX's flag
+    defaults; several processes are refused."""
+    from pathway_tpu_torch.internals.config import EngineConfig
+
+    cfg = EngineConfig()
+    assert (cfg.fusion, cfg.columnar_subscribe, cfg.drain_coalesce,
+            cfg.drain_coalesce_max, cfg.epoch_closeout, cfg.op_metrics,
+            cfg.terminate_on_error, cfg.threads, cfg.processes) == (
+        True, True, True, 8, True, True, True, 1, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        EngineConfig(processes=2)
 
 
 def test_retrieval_variants_raise_without_cuda(monkeypatch):

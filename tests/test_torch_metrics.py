@@ -289,9 +289,10 @@ def test_unified_snapshot_and_roofline():
     _serving(TP, np.random.default_rng(5))
     TP.record_hbm("weights.decoder", 1000)
     uni = TP.unified_snapshot()
-    assert set(uni) == {"scheduler", "serving", "hbm", "slo", "registry"}
+    assert set(uni) == {"scheduler", "serving", "engine", "hbm", "slo", "registry"}
     assert uni["scheduler"] is None
     assert uni["serving"] == TP.serving_snapshot()
+    assert uni["engine"] == TP.engine_snapshot()
     assert uni["hbm"]["current_bytes"] == {"weights.decoder": 1000}
     assert uni["registry"] == TP.REGISTRY.snapshot()
     assert TP.unified_snapshot({"epochs": 3})["scheduler"] == {"epochs": 3}
