@@ -217,7 +217,7 @@ without printing a result:
    (``max_batch_size=1024``) into a ``DataIndex`` over ``BruteForceKnn``
    (reserved N + 512, cosine), 2 live queries at k = 10 that arrive once
    half the docs are embedded, ``subscribe`` on both tables, ``pw.run()``;
-   after a warm pass over the pow2 batch buckets, 3 reps each of (a) the
+   after a warm pass over the pow2 batch buckets, 2 reps each of (a) the
    UDF ``deferred=True``, (b) ``deferred=False`` and (c) the direct path
    (the same texts through ``SentenceEmbedderModel`` and
    ``BruteForceKnnIndex.add``), in turns. Every doc reaches the subscriber,
@@ -230,7 +230,35 @@ without printing a result:
    (c), ``LAST_RUN_STATS.engine_tax()``, the phase's ``flash_attn``
    launches (at least one a layer per encode) and the device idle share of
    each rep (CUDA-event times of each encode size over the wall: an
-   estimate). Prints the script's wall.
+   estimate);
+17. the RAG applications through ``pw.run()`` and their REST servers at
+   the same widths (``BASELINE.json`` configs 2 and 3): phase 4's corpus
+   as a document table (no pandas), phase 4's MiniLM-L6 as the embed UDF
+   at ``max_batch_size=1024`` and its cross-encoder as the
+   ``CrossEncoderReranker`` UDF, phase 6's server (paged, int8 weights)
+   as the answer UDF; every server binds 127.0.0.1 on port 0 and every
+   wait is bounded. (a) ``VectorStoreServer(...).run_server``:
+   ``/v1/statistics`` reads 32,768 files, ``/v1/inputs`` lists them, 64
+   ``VectorStoreClient`` queries at k=10 one at a time equal a direct
+   ``BruteForceKnnIndex`` search over the model's own embeddings but at
+   score gaps < 1e-3, scores within 2e-2, recall@10 >= 0.9 against phase
+   4's exact f32 scoring; (b) ``rerank_route`` (retrieve k=32, a flatten,
+   the cross-encoder UDF, a groupby with ``reducers.tuple``,
+   ``rerank_topk_filter`` k=10, a join back by id) on the server of (c):
+   16 queries one at a time, scores within 2e-2 of the cross-encoder
+   called directly on the same pairs, the top 10 equal but at near-ties,
+   one score a pair and one encode a query (the answered query's
+   retraction replays); (c) ``BaseRAGQuestionAnswerer(...,
+   search_topk=6)`` with ``build_server`` / ``run_server``: 16 questions at
+   once from 16 threads to ``/v1/pw_ai_answer``, exactly 16 requests at
+   the continuous server, 6 context docs each, each answer the served
+   request's text, held against the static ``generate`` on the same
+   (cut) prompt ids with phase 6's bars. Prints docs/s through
+   ``pw.run()``, REST p50 / p99 beside phase 4's direct p50s, TTFT and
+   end-to-end p50, the prompts cut, and the phase's launches (each of
+   ``flash_attn``, ``flash_chunk_attn_paged``, ``paged_attn_decode`` and
+   ``wq_matmul`` above zero, ``flash_attn`` at least a layer an encode).
+   Prints the script's wall.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -509,7 +537,7 @@ def run_main_path(device, docs, queries, cfg, batch: int = INGEST_BATCH,
         "retrieve_p50_ms": statistics.median(lat) * 1e3,
         "rerank_p50_ms": statistics.median(rr_lat) * 1e3,
         "rerank_batch8_ms": batch_ms,
-        "encodes": encodes,
+        "encodes": encodes, "truth": truth,
         "emb": emb, "ce": ce, "pipe": pipe,
     }
 
@@ -3760,9 +3788,10 @@ def run_mesh_checkpoints(dev, gpu: str, params, tp_params) -> None:
 # config4_streaming_engine, full mode): 6 x 16,384 docs of 24 words from a
 # 7-word vocabulary (seed 11) through an in-process Kafka broker, full
 # MiniLM-L6 at max_batch_size 1024, the brute-force index reserved at
-# N + 512, cosine; 2 live queries at k = 10; 3 reps of each arm in turns.
+# N + 512, cosine; 2 live queries at k = 10; 2 reps of each arm in turns
+# (the whole script stays near half its time limit).
 # (d): 4,096 static docs and 64 queries through DataIndex.query
-C4_DOCS, C4_REPS, C4_BATCH, C4_K = 6 * 16384, 3, 1024, 10
+C4_DOCS, C4_REPS, C4_BATCH, C4_K = 6 * 16384, 2, 1024, 10
 C4_WORDS = ["alpha", "beta", "gamma", "delta", "stream", "tensor", "index"]
 C4_QUERIES = ["alpha stream tensor", "delta index beta"]
 C4_STATIC_DOCS, C4_STATIC_QUERIES = 4096, 64
@@ -4089,6 +4118,403 @@ def run_engine_config4(dev, gpu: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+# BASELINE configs 2 and 3 through pw.run() and the REST servers: phase 4's
+# corpus, the embed UDF at its bench batch, 16 questions in (b) and (c), a
+# reply score's tolerance against the direct path and the near-tie gap
+RAG_BATCH, RAG_QUESTIONS, RAG_CONTEXT = 1024, 16, 6
+RAG_SCORE_TOL, RAG_TIE_TOL = 2e-2, 1e-3
+RAG_HOST = "127.0.0.1"
+RAG_TIMEOUT = 300.0  # a bound on each wait: server start, a request, a join
+
+
+def rag_docs_table(pw, docs):
+    """Phase 4's corpus as a document table without pandas: ``data`` and
+    ``_metadata`` (``path`` = the doc's index, ``modified_at``)."""
+    schema = pw.schema_from_types(data=str, _metadata=pw.Json)
+    return pw.debug.table_from_rows(schema, [
+        (d, pw.Json({"path": f"doc{i}", "modified_at": i})) for i, d in enumerate(docs)])
+
+
+def rerank_route(pw, llm, store, reranker, webserver, k_retrieve: int = RERANK_K,
+                 k_keep: int = TOP_K) -> None:
+    """(b): BASELINE config 3's rerank stage as a user writes it, one REST
+    route: ``retrieve_query`` (k_retrieve), a flatten over the docs, the
+    cross-encoder UDF on each (doc, query) pair, a groupby per query with
+    ``reducers.tuple``, ``rerank_topk_filter`` (k_keep) and a join back to
+    the query by id. The reply is ``{"docs": [...], "scores": [...]}``."""
+
+    class RerankQuerySchema(pw.Schema):
+        query: str
+
+    queries, writer = pw.io.http.rest_connector(
+        webserver=webserver, route="/v1/rerank", schema=RerankQuerySchema,
+        methods=("POST",), delete_completed_queries=True)
+    retrieved = store.retrieve_query(queries.select(
+        query=queries.query, k=k_retrieve, metadata_filter=None, filepath_globpattern=None))
+    with_docs = queries.with_columns(docs=retrieved.promise_universes_are_equal(queries).result)
+
+    @pw.udf
+    def doc_list(result) -> tuple:
+        return tuple(pw.Json(d) for d in result.value)
+
+    @pw.udf
+    def doc_text(doc) -> str:
+        return doc.value["text"]
+
+    pairs = with_docs.select(qid=with_docs.id, query=with_docs.query,
+                             doc=doc_list(with_docs.docs))
+    pairs = pairs.flatten(pairs.doc)
+    scored = pairs.select(pairs.qid, pairs.doc, score=reranker(doc_text(pairs.doc), pairs.query))
+    grouped = scored.groupby(scored.qid).reduce(
+        scored.qid, docs=pw.reducers.tuple(scored.doc), scores=pw.reducers.tuple(scored.score))
+    top = grouped.select(grouped.qid, top=llm.rerankers.rerank_topk_filter(
+        grouped.docs, grouped.scores, k_keep))
+
+    @pw.udf
+    def as_result(top) -> pw.Json:
+        docs, scores = top
+        return pw.Json({"docs": [d.value for d in docs], "scores": [float(s) for s in scores]})
+
+    writer(queries.join(top, queries.id == top.qid, id=queries.id).select(
+        result=as_result(top.top)))
+
+
+class LiveRun:
+    """``run`` (default ``pw.run``) on a thread until every REST route of
+    the current graph answers; ``stop()`` stops the run's connectors and
+    joins the thread. Every wait is bounded."""
+
+    def __init__(self, pw, webserver, run=None):
+        import threading
+
+        self.connectors = list(pw.G.connectors)
+        self.webserver, self.error = webserver, None
+
+        def body():
+            try:
+                (run or pw.run)()
+            except BaseException as exc:  # noqa: BLE001 - raised by stop()
+                self.error = exc
+
+        self.thread = threading.Thread(target=body, daemon=True, name="phase17-run")
+        self.thread.start()
+        routes = {c.route for c in self.connectors if hasattr(c, "route")}
+        deadline = time.monotonic() + RAG_TIMEOUT
+        while not (webserver._started.is_set()
+                   and routes <= {r for _m, r in webserver._routes}):
+            if time.monotonic() > deadline or not self.thread.is_alive():
+                raise AssertionError(f"the REST routes never came up ({self.error!r})")
+            time.sleep(0.02)
+        self.base = f"http://{RAG_HOST}:{webserver.port}"
+
+    def stop(self) -> None:
+        for c in self.connectors:
+            c._stop.set()
+            c.close()
+        self.thread.join(RAG_TIMEOUT)
+        require(not self.thread.is_alive() and self.error is None,
+                f"the run ended within {RAG_TIMEOUT:.0f} s of its stop ({self.error!r})")
+        require(not self.webserver._started.is_set(), "the web server stopped with the run")
+
+
+def post(url: str, payload: dict):
+    """(reply JSON, wall ms) of one POST; a non-200 reply raises."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=RAG_TIMEOUT) as resp:
+        body = resp.read()
+        status = resp.status
+    ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise AssertionError(f"{url}: HTTP {status}")
+    return json.loads(body), ms
+
+
+class Counted:
+    """Counts the rows a model method is called with (by call), as an
+    instance attribute over the bound method; ``close()`` restores it."""
+
+    def __init__(self, model, name: str):
+        self.model, self.name, self.calls = model, name, []
+        self._orig = getattr(model, name)
+        self._own = name in vars(model)  # an earlier Counted's wrapper
+
+        def wrapped(rows, *a, **kw):
+            self.calls.append(len(rows))
+            return self._orig(rows, *a, **kw)
+
+        setattr(model, name, wrapped)
+
+    def close(self) -> None:
+        if self._own:
+            setattr(self.model, self.name, self._orig)
+        else:
+            delattr(self.model, self.name)
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+
+def rag_direct(model, docs):
+    """The direct path's corpus: every doc embedded by the model in the
+    UDF's batches (a bf16 encode's rounding follows its batch), in a
+    ``BruteForceKnnIndex`` keyed by the doc's index."""
+    from pathway_tpu_torch import BruteForceKnnIndex
+
+    vecs = np.concatenate([model.embed_batch(docs[s : s + RAG_BATCH])
+                           for s in range(0, len(docs), RAG_BATCH)])
+    index = BruteForceKnnIndex(model.cfg.hidden, reserved_space=len(docs), metric="cos",
+                               device=model.device)
+    index.add(list(range(len(docs))), vecs)
+    return index
+
+
+def vector_store_arm(pw, llm, model, docs, queries) -> dict:
+    """(a) BASELINE config 2: ``VectorStoreServer(...).run_server`` over the
+    corpus; 64 queries at k=10, one at a time, through
+    ``VectorStoreClient``. Returns the replies and the times."""
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+
+    pw.clear_graph()
+    emb = llm.SentenceTransformerEmbedder(model, max_batch_size=RAG_BATCH)
+    vs = llm.VectorStoreServer(rag_docs_table(pw, docs), embedder=emb,
+                               index_factory=BruteForceKnnFactory(
+                                   dimensions=model.cfg.hidden, embedder=emb,
+                                   reserved_space=len(docs), metric="cos", device=model.device))
+    t0 = time.perf_counter()
+    server = vs.run_server(host=RAG_HOST, port=0, threaded=True)
+    rest = [c for c in pw.G.connectors if hasattr(c, "route")]
+    live = LiveRun(pw, rest[0].webserver, run=server.join)
+    client = llm.VectorStoreClient(host=RAG_HOST, port=live.webserver.port, timeout=RAG_TIMEOUT)
+    try:
+        stats = client.get_vectorstore_statistics()  # answered once the corpus is indexed
+        ingest_s = time.perf_counter() - t0
+        lat, replies = [], []
+        for q in queries:
+            t1 = time.perf_counter()
+            replies.append(client.query(q, k=TOP_K))
+            lat.append((time.perf_counter() - t1) * 1e3)
+        inputs = client.get_input_files()
+    finally:
+        live.stop()
+    return {"stats": stats, "inputs": inputs, "replies": replies, "lat": lat,
+            "ingest_s": ingest_s}
+
+
+def rerank_and_answer_arms(pw, llm, chat, model, ce, docs, queries) -> tuple[dict, dict]:
+    """(b) and (c) on one server over one ``DocumentStore`` of the corpus:
+    ``BaseRAGQuestionAnswerer`` with ``build_server`` / ``run_server``,
+    and ``rerank_route`` (BASELINE config 3's rerank stage) on the same
+    web server. After a ``/v1/statistics`` request (answered once the
+    corpus is indexed), (b) sends the queries to ``/v1/rerank`` one at a
+    time, then (c) sends them at once from as many client threads to
+    ``/v1/pw_ai_answer`` with ``return_context_docs``. Returns (b)'s replies,
+    walls and the rows of each cross-encoder and query encode its queries
+    caused (retractions included), and (c)'s replies by question, walls,
+    and every request the continuous server took with its (cut) prompt ids
+    and its full prompt string."""
+    import threading
+
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+
+    pw.clear_graph()
+    emb = llm.SentenceTransformerEmbedder(model, max_batch_size=RAG_BATCH)
+    store = llm.DocumentStore(rag_docs_table(pw, docs), retriever_factory=BruteForceKnnFactory(
+        dimensions=model.cfg.hidden, embedder=emb, reserved_space=len(docs), metric="cos",
+        device=model.device))
+    qa = llm.BaseRAGQuestionAnswerer(chat, store, search_topk=RAG_CONTEXT)
+    qa.build_server(RAG_HOST, 0)
+    rerank_route(pw, llm, store, llm.CrossEncoderReranker(ce), qa.server.webserver)
+    submitted, prompts = [], []
+    server_submit, format_prompt = chat.server.submit, chat._format_prompt
+
+    def submit(ids, *a, **kw):
+        req = server_submit(ids, *a, **kw)
+        submitted.append((list(ids), req))
+        return req
+
+    def fmt(messages):
+        p = format_prompt(messages)
+        prompts.append(p)
+        return p
+
+    chat.server.submit, chat._format_prompt = submit, fmt
+    live = LiveRun(pw, qa.server.webserver, run=qa.run_server)
+    try:
+        post(f"{live.base}/v1/statistics", {})
+        b = {"replies": [], "lat": []}
+        pairs, encodes = Counted(ce, "score_submit"), Counted(model, "embed_submit")
+        try:
+            for q in queries:
+                reply, ms = post(f"{live.base}/v1/rerank", {"query": q})
+                b["replies"].append(reply)
+                b["lat"].append(ms)
+            # the last query's retraction is through once one more epoch ran
+            post(f"{live.base}/v1/statistics", {})
+        finally:
+            pairs.close()
+            encodes.close()
+        b["pairs"], b["encodes"] = pairs.calls, encodes.calls
+        c = {"replies": {}, "walls": {}}
+        barrier = threading.Barrier(len(queries))
+
+        def ask(q):
+            barrier.wait(RAG_TIMEOUT)
+            c["replies"][q], c["walls"][q] = post(f"{live.base}/v1/pw_ai_answer",
+                                                  {"prompt": q, "return_context_docs": True})
+
+        threads = [threading.Thread(target=ask, args=(q,)) for q in queries]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(RAG_TIMEOUT)
+        c["wall_s"] = time.perf_counter() - t0
+    finally:
+        live.stop()
+        del chat.server.submit, chat._format_prompt
+    c["submitted"], c["prompts"] = submitted, prompts
+    return b, c
+
+
+def run_rag_apps(dev, gpu: str, out: dict, docs, queries, common) -> dict:
+    """Phase 17; returns its launches of the five kernel entry points."""
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import DecoderChat
+    from pathway_tpu_torch.models import decoder as D
+    from pathway_tpu_torch.xpacks import llm
+
+    t17 = time.perf_counter()
+    model, ce = out["emb"], out["ce"]
+    direct_index = rag_direct(model, docs)
+    # phase 6's server: a paged pool through the paged decode kernel,
+    # flash chunked prefill, int8 weights through wq_matmul
+    chat = DecoderChat(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True,
+                       flash_prefill=True, **common)
+    serve(chat, make_prompts(4, 16, 200, seed=99))  # warm-up, outside the counts
+    qs = queries[:RAG_QUESTIONS]
+
+    # the three programs, every kernel count zeroed just before them and
+    # read just after; the direct path they are held against runs later
+    for f in counters().values():
+        f.launches = 0
+    all_encodes = [Counted(model, "embed_submit"), Counted(ce, "score_submit")]
+    try:
+        a = vector_store_arm(pw, llm, model, docs, queries)
+        b, c = rerank_and_answer_arms(pw, llm, chat, model, ce, docs, qs)
+    finally:
+        for counted in reversed(all_encodes):
+            counted.close()
+    torch.cuda.synchronize()
+    launches = {n: f.launches for n, f in counters().items()}
+    n_encodes = sum(len(x.calls) for x in all_encodes)
+    pw.clear_graph()
+
+    # (a): the direct path, recall against phase 4's exact f32 truth
+    require(a["stats"]["file_count"] == len(docs),
+            f"(a) /v1/statistics file_count {a['stats']['file_count']} = {len(docs)}")
+    require(len(a["inputs"]) == len(docs), f"(a) /v1/inputs lists {len(a['inputs'])} docs")
+    agree, worst, hits = 0, 0.0, 0
+    for i, (q, reply) in enumerate(zip(queries, a["replies"])):
+        got = [(int(d["metadata"]["path"][3:]), -d["dist"]) for d in reply]
+        want = direct_index.search(model.embed_batch([q]), TOP_K)[0]
+        agree += ranks_agree(want, got, RAG_TIE_TOL)
+        want_s = dict(want)
+        worst = max([worst] + [abs(sc - want_s[k]) for k, sc in got if k in want_s])
+        hits += len({k for k, _ in got} & set(out["truth"][i].tolist()))
+    recall = hits / (len(queries) * TOP_K)
+    lat = a["lat"]
+    info(f"rag (a) VectorStoreServer [{gpu}]: ingest {len(docs) / a['ingest_s']:.1f} docs/s "
+         f"through pw.run() ({a['ingest_s']:.3f} s to the first /v1/statistics reply); "
+         f"/v1/retrieve over REST p50 {pct(lat, 50):.3f} ms, p99 {pct(lat, 99):.3f} ms "
+         f"(k={TOP_K}, {len(queries)} queries one at a time); phase 4's direct retrieve p50 "
+         f"{out['retrieve_p50_ms']:.3f} ms; replies equal the direct index but at gaps < "
+         f"{RAG_TIE_TOL}: {agree}/{len(queries)}; max score diff {worst:.2e}; "
+         f"recall@10 {recall:.4f}")
+    require(agree == len(queries), "(a) replies equal the direct index but at near-ties")
+    require(worst <= RAG_SCORE_TOL, f"(a) scores within {RAG_SCORE_TOL} of the direct path")
+    require(recall >= 0.9, f"(a) recall@10 {recall:.4f} >= 0.9 against exact f32 scoring")
+
+    # (b): each reply against the cross-encoder called directly on the
+    # same pairs (the 32 candidates the direct index retrieves)
+    agree, worst = 0, 0.0
+    for q, reply in zip(qs, b["replies"]):
+        cand = [k for k, _ in direct_index.search(model.embed_batch([q]), RERANK_K)[0]]
+        got_keys = [int(d["metadata"]["path"][3:]) for d in reply["docs"]]
+        extra = [k for k in got_keys if k not in cand]
+        scores = ce.score_batch([(q, docs[k]) for k in cand])
+        direct = dict(zip(cand, (float(x) for x in scores)))
+        if extra:
+            direct.update(zip(extra, (float(x) for x in ce.score_batch(
+                [(q, docs[k]) for k in extra]))))
+        order = np.argsort(-np.asarray(scores, dtype=np.float64), kind="stable")[:TOP_K]
+        want = [(cand[j], float(scores[j])) for j in order]
+        got = list(zip(got_keys, reply["scores"]))
+        agree += ranks_agree(want, got, RAG_TIE_TOL)
+        worst = max([worst] + [abs(sc - direct[k]) for k, sc in got])
+    info(f"rag (b) rerank route [{gpu}]: retrieve k={RERANK_K} -> cross-encoder -> top "
+         f"{TOP_K} over REST p50 {pct(b['lat'], 50):.3f} ms, p99 {pct(b['lat'], 99):.3f} ms "
+         f"({RAG_QUESTIONS} queries one at a time); phase 4's direct retrieve+rerank p50 "
+         f"{out['rerank_p50_ms']:.3f} ms; top {TOP_K} equal the direct path but at gaps < "
+         f"{RAG_TIE_TOL}: {agree}/{RAG_QUESTIONS}; max score diff {worst:.2e}; cross-encoder "
+         f"rows {sum(b['pairs'])} in {len(b['pairs'])} calls, query encodes {b['encodes']}")
+    require(agree == RAG_QUESTIONS, "(b) the kept top 10 equal the direct path's but at near-ties")
+    require(worst <= RAG_SCORE_TOL, f"(b) scores within {RAG_SCORE_TOL} of the direct CrossEncoder")
+    require(b["pairs"] == [RERANK_K] * RAG_QUESTIONS,
+            "(b) one cross-encoder score a (query, doc) pair: retractions replay")
+    require(b["encodes"] == [1] * RAG_QUESTIONS, "(b) one encode a query")
+
+    # (c): each answer against the static path on the same prompt ids
+    require(len(c["submitted"]) == RAG_QUESTIONS,
+            f"(c) exactly {RAG_QUESTIONS} requests reached the continuous server "
+            f"({len(c['submitted'])})")
+    require(sorted(c["replies"]) == sorted(qs), "(c) every question answered")
+    cap = chat._prompt_cap(MAX_NEW)
+    n_cut = sum(len(chat.tokenizer.encode(p)) > cap for p in c["prompts"])
+    first_eq = streams_eq = 0
+    for q in qs:
+        # the question closes its prompt, so the cut ids still hold it
+        (ids, req), = [(i, r) for i, r in c["submitted"] if q in chat.tokenizer.decode(i)]
+        reply = c["replies"][q]
+        require(reply["response"] == req.text, "(c) the reply is the served request's text")
+        require(len(reply["context_docs"]) == RAG_CONTEXT, f"(c) {RAG_CONTEXT} context docs")
+        x = torch.tensor([ids], dtype=torch.int32, device=dev)
+        toks = D.generate(chat.params, x, torch.ones_like(x), chat.cfg, MAX_NEW)[0].tolist()
+        first_eq += int(req.tokens[0] == toks[0])
+        streams_eq += int(req.tokens == toks)
+    ttft = [(r.first_token_at - r.submitted_at) * 1e3 for _, r in c["submitted"]]
+    e2e = list(c["walls"].values())
+    info(f"rag (c) BaseRAGQuestionAnswerer [{gpu}]: {RAG_QUESTIONS} questions at once over "
+         f"REST in {c['wall_s']:.3f} s; TTFT p50 {pct(ttft, 50):.1f} ms (serving spans), "
+         f"end-to-end p50 {pct(e2e, 50):.1f} ms, p99 {pct(e2e, 99):.1f} ms over HTTP; "
+         f"{n_cut}/{RAG_QUESTIONS} prompts cut to the last {cap} tokens as JAX cuts them; "
+         f"against the static path: first tokens {first_eq}/{RAG_QUESTIONS}, whole streams "
+         f"{streams_eq}/{RAG_QUESTIONS}")
+    require(first_eq * 8 >= MIN_FIRST_EQUAL * RAG_QUESTIONS,
+            f"(c) at least {MIN_FIRST_EQUAL}/8 first tokens equal the static path")
+    require(streams_eq * 8 >= MIN_STREAMS_EQUAL * RAG_QUESTIONS,
+            f"(c) at least {MIN_STREAMS_EQUAL}/8 whole streams equal the static path")
+    free_chats(chat)
+
+    info(f"rag: phase 17 launches {launches}; {n_encodes} encoder calls "
+         f"({len(all_encodes[0].calls)} embed, {len(all_encodes[1].calls)} cross-encoder); "
+         f"{time.perf_counter() - t17:.1f} s")
+    require(all(launches[n] > 0 for n in ("flash_attn", "flash_chunk_attn_paged",
+                                          "paged_attn_decode", "wq_matmul")),
+            "phase 17 drove flash_attn, flash_chunk_attn_paged, paged_attn_decode and wq_matmul")
+    require(launches["flash_attn"] >= MINILM_LAYERS * n_encodes,
+            f"every encode of phase 17 went through flash_attn ({launches['flash_attn']} >= "
+            f"{MINILM_LAYERS} x {n_encodes})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4240,6 +4666,10 @@ def main() -> int:
 
     # phase 16: the dataflow engine's config-4 program at full width
     launches += run_engine_config4(dev, gpu)
+
+    # phase 17: BASELINE configs 2 and 3 through pw.run() and the REST servers
+    rag = run_rag_apps(dev, gpu, out, docs, queries, common)
+    dec = {n: dec[n] + rag[n] for n in dec}
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",

@@ -53,16 +53,21 @@ checkpoint format both packages read (``models/checkpoint.py``
 The dataflow engine is the ``pw`` namespace, as in JAX
 (``import pathway_tpu_torch as pw``): ``Table`` and ``Schema``, the
 expression and reducer API, UDFs (``pw.udf``, ``pw.UDF``, batched and
-deferred two-phase UDFs), ``pw.io`` (``python``, ``kafka`` with its
-in-process broker, ``null``, ``subscribe``), ``pw.debug``,
-``pw.indexing`` (``DataIndex`` over ``BruteForceKnn``) and ``pw.run``,
-whose engine switches are one ``EngineConfig`` (``pw.run(config=...)``;
-JAX's defaults, no environment variable). The engine is host Python and
-numpy with C++ loops for keys and consolidation; the device work of a
-program is its UDFs' and indexes'. Joins, temporal operators, ``sort``,
-``iterate``, persistence and several processes are not ported yet
-(ROADMAP A13). The pandas-backed datetime types load on first use, so a
-program without datetimes runs without pandas.
+deferred two-phase UDFs), joins (``Table.join*``, ``pw.left`` /
+``pw.right``, ``JoinMode``), ``pw.io`` (``python``, ``kafka`` with its
+in-process broker, ``http``'s REST connector, ``null``, ``subscribe``),
+``pw.debug``, ``pw.indexing`` (``DataIndex`` over ``BruteForceKnn``) and
+``pw.run``, whose engine switches are one ``EngineConfig``
+(``pw.run(config=...)``; JAX's defaults, no environment variable). The
+engine is host Python and numpy with C++ loops for keys, consolidation
+and the hash join; the device work of a program is its UDFs' and
+indexes'. On it run the RAG applications of ``xpacks.llm``:
+``DocumentStore``, ``VectorStoreServer``, ``BaseRAGQuestionAnswerer`` and
+the REST servers, with the embedder, reranker and answer-LLM UDFs on the
+card. Temporal operators, ``sort``, ``iterate``, persistence and several
+processes are not ported yet (ROADMAP A13). The pandas-backed datetime
+types load on first use, so a program without datetimes runs without
+pandas.
 """
 
 from pathway_tpu_torch.device import resolve_device
@@ -98,8 +103,20 @@ from pathway_tpu_torch.internals.expression import (
     require,
     unwrap,
 )
-from pathway_tpu_torch.internals.groupbys import GroupedTable
+from pathway_tpu_torch.internals.groupbys import GroupedJoinResult, GroupedTable
+from pathway_tpu_torch.internals.join_mode import JoinMode
+from pathway_tpu_torch.internals.joins import (
+    JoinResult,
+    OuterJoinResult,
+    groupby,
+    join,
+    join_inner,
+    join_left,
+    join_outer,
+    join_right,
+)
 from pathway_tpu_torch.internals.json import Json
+from pathway_tpu_torch.internals.monitoring import MonitoringLevel
 from pathway_tpu_torch.internals.parse_graph import G, clear_graph
 from pathway_tpu_torch.internals.run import run, run_all
 from pathway_tpu_torch.internals.schema import (
@@ -113,9 +130,9 @@ from pathway_tpu_torch.internals.schema import (
     schema_from_pandas,
     schema_from_types,
 )
-from pathway_tpu_torch.internals.table import Table, TableLike
+from pathway_tpu_torch.internals.table import Joinable, Table, TableLike
 from pathway_tpu_torch.internals.table_slice import TableSlice
-from pathway_tpu_torch.internals.thisclass import this
+from pathway_tpu_torch.internals.thisclass import left, right, this
 from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.udfs import (
     UDF,
@@ -201,6 +218,20 @@ __all__ = [
     "TableLike",
     "TableSlice",
     "GroupedTable",
+    "GroupedJoinResult",
+    "Joinable",
+    "JoinMode",
+    "JoinResult",
+    "OuterJoinResult",
+    "join",
+    "join_inner",
+    "join_left",
+    "join_right",
+    "join_outer",
+    "groupby",
+    "left",
+    "right",
+    "MonitoringLevel",
     "UDFAsync",
     "UDFSync",
     "Schema",

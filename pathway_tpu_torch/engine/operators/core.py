@@ -98,7 +98,8 @@ class RowwiseNode(Node):
     ``map_named_async_with_consistent_deletions``, ``operators.rs:320-380``).
     """
 
-    def __init__(self, graph, input_node, expressions: dict[str, Any], name="Rowwise"):
+    def __init__(self, graph, input_node, expressions: dict[str, Any], name="Rowwise",
+                 replay_retractions: bool = False):
         super().__init__(graph, [input_node], list(expressions.keys()), name)
         self.expressions = expressions
         self._nondet = any(
@@ -123,6 +124,12 @@ class RowwiseNode(Node):
         }
         self._drain_queue = None
         self._drain_thread = None
+        # replay_retractions: a retraction takes the values its insertion
+        # produced (the replay cache) even when every expression is
+        # deterministic, so a device UDF runs once a row; the deferred path
+        # keeps its own semantics
+        if replay_retractions and not self._deferred_names:
+            self._nondet = True
 
 
     def reset(self):

@@ -203,3 +203,9 @@ def _expr_matches(e: ColumnExpression, g: ColumnExpression) -> bool:
     if isinstance(e, ColumnReference) and isinstance(g, ColumnReference):
         return e._table is g._table and e.name == g.name
     return False
+
+
+class GroupedJoinResult(GroupedTable):
+    """Grouping of a join result (reference ``groupbys.py:272``) —
+    ``t1.join(t2, ...).groupby(...)``. Behaviorally a GroupedTable over the
+    materialized join columns; the distinct type mirrors the reference."""

@@ -8,7 +8,9 @@ the frontier closes (or forever for unbounded streaming inputs).
 The port runs one process. The engine's switches are one
 ``EngineConfig`` (``internals/config.py``) that ``run(config=...)`` takes;
 persistence, the terminal monitor and the HTTP metrics server of the JAX
-runner are not carried (ROADMAP A13).
+runner are not carried (ROADMAP A13). A run whose monitoring level
+resolves to ``MonitoringLevel.NONE`` (what the REST servers pass) needs
+no monitor and runs.
 """
 
 from __future__ import annotations
@@ -115,13 +117,22 @@ def run(
     are the JAX flags' defaults); ``terminate_on_error`` overrides its
     field of that name, as JAX's argument does. JAX arguments the port
     does not act on (``debug``, ``default_logging``, ...) are accepted and
-    ignored; ``persistence_config``, ``monitoring_level`` and
-    ``with_http_server`` raise, since nothing here would honour them.
+    ignored. ``monitoring_level`` is resolved as JAX resolves it (see
+    ``internals/monitoring.py``): a level that resolves to
+    ``MonitoringLevel.NONE`` runs without a monitor, any other raises, as
+    do ``persistence_config`` and ``with_http_server``, since nothing here
+    would honour them.
     """
-    for name in ("persistence_config", "monitoring_level", "with_http_server"):
+    for name in ("persistence_config", "with_http_server"):
         if kwargs.get(name):
             raise NotImplementedError(
                 f"pw.run({name}=...) is not carried by the port yet (ROADMAP A13)")
+    from pathway_tpu_torch.internals.monitoring import MonitoringLevel, resolve_level
+
+    if resolve_level(kwargs.get("monitoring_level")) != MonitoringLevel.NONE:
+        raise NotImplementedError(
+            f"pw.run(monitoring_level={kwargs['monitoring_level']!r}) starts the live "
+            "monitor, which the port does not carry yet (ROADMAP A13)")
     cfg = config if config is not None else config_mod.EngineConfig()
     if terminate_on_error is not None:
         import dataclasses

@@ -1,15 +1,14 @@
 """The Table API.
 
 Parity with reference ``python/pathway/internals/table.py`` (Table: select,
-filter, groupby/reduce, concat, update_rows/cells, with_id_from, flatten,
-difference/intersect/restrict, ix/ix_ref, pointer_from, deduplicate, ...).
-Operations eagerly build engine nodes (the engine graph is lazy; nothing
-runs until ``pw.run``/debug helpers).
+filter, groupby/reduce, join family, concat, update_rows/cells,
+with_id_from, flatten, difference/intersect/restrict, ix/ix_ref,
+pointer_from, deduplicate, ...). Operations eagerly build engine nodes (the
+engine graph is lazy; nothing runs until ``pw.run``/debug helpers).
 
 The methods whose operators the port does not carry yet are absent: the
-join family, the temporal joins and ``windowby``, ``sort``, ``diff``,
-``interpolate``, the temporal behaviours, ``live`` and the gradual
-broadcast (ROADMAP A13).
+temporal joins and ``windowby``, ``sort``, ``diff``, ``interpolate``, the
+temporal behaviours, ``live`` and the gradual broadcast (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -77,7 +76,31 @@ class TableLike:
         return self
 
 
-class Table(TableLike):
+class Joinable(TableLike):
+    """Things you can join on: tables and join results."""
+
+    def join(self, other, *on, id=None, how="inner", left_instance=None, right_instance=None):
+        from pathway_tpu_torch.internals.joins import join as join_impl
+
+        return join_impl(
+            self, other, *on, id=id, how=how,
+            left_instance=left_instance, right_instance=right_instance,
+        )
+
+    def join_inner(self, other, *on, **kw):
+        return self.join(other, *on, how="inner", **kw)
+
+    def join_left(self, other, *on, **kw):
+        return self.join(other, *on, how="left", **kw)
+
+    def join_right(self, other, *on, **kw):
+        return self.join(other, *on, how="right", **kw)
+
+    def join_outer(self, other, *on, **kw):
+        return self.join(other, *on, how="outer", **kw)
+
+
+class Table(Joinable):
     """A (possibly streaming) keyed table of rows."""
 
     def __init__(
@@ -630,7 +653,12 @@ class Table(TableLike):
                 expr_mod.smart_coerce(query_filter_column)
             )
         q_env, q_rw = _prepare_env(query_table, q_exprs)
-        q_node = core_ops.RowwiseNode(G.engine_graph, q_env, q_rw)
+        # the index answers a query once and drops a retracted query by its
+        # key, never reading its vector: a retraction replays the inserted
+        # values, so the query's embedding UDF runs once a query (JAX runs
+        # it again)
+        q_node = core_ops.RowwiseNode(G.engine_graph, q_env, q_rw,
+                                      replay_retractions=True)
         node = ExternalIndexNode(
             G.engine_graph,
             idx_node,

@@ -1,7 +1,7 @@
 """The port's C++ host loops, built at first use: the batch tokenizers
 (``_tokenize.cpp``) and the dataflow engine's loops (``_engine.cpp``:
-column hashing, delta consolidation, the row transpose and the
-connectors' record extraction).
+column hashing, delta consolidation, the row transpose, the
+connectors' record extraction and the hash join's loops).
 
 ``g++ -O3 -shared -fPIC`` compiles each source into a CPython extension in
 ``build/pathway_tpu_torch/`` beside the package (listed in
@@ -140,6 +140,24 @@ def jsonl_rows(data: bytes, cols, codes, defaults, columnar: int = 0):
     with the fast coercions; lines it cannot parse come back as
     ``(index, bytes)`` for the Python parser."""
     return engine_lib().jsonl_rows(data, cols, codes, defaults, columnar)
+
+
+def join_apply_side(state, key2jk, keys, diffs, col_lists, jk_idx, error):
+    """One side's batch applied to a join's buckets (``state``: join key
+    -> {row key: row}; ``key2jk``: row key -> its join key), the join key
+    the column at ``jk_idx``: (deltas per join key, dirty join keys, undo
+    log per join key, rows whose join key was ``error``)."""
+    return engine_lib().join_apply_side(state, key2jk, keys, diffs, col_lists, jk_idx,
+                                        error)
+
+
+def join_ld_cross(works, sides: bytes, idxs: list):
+    """The delta x bucket cross products of one join step, columnar: (one
+    value list per output column, pair keys as uint64 bytes, diffs as
+    int64 bytes). ``works`` holds ``(delta, bucket[, swapped])`` items;
+    ``sides``/``idxs`` say which side and position each output column
+    reads."""
+    return engine_lib().join_ld_cross(works, sides, idxs)
 
 
 def xxh64(data: bytes, seed: int = 0) -> int:

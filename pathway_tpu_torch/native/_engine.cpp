@@ -2,8 +2,10 @@
 //
 // Canonical value serialization + XXH64 keying over whole columns,
 // (key, row-hash) delta consolidation, the SoA transpose behind
-// Batch.from_rows, and the record -> row extraction of the connectors
-// (record dicts and JSON-lines bytes). The keys are bit-for-bit those of
+// Batch.from_rows, the record -> row extraction of the connectors
+// (record dicts and JSON-lines bytes), and the hash join's two loops (one
+// side's batch applied to its buckets, and the dL x R cross products with
+// their pair keys). The keys are bit-for-bit those of
 // the JAX package's engine, so tables compare by row id across packages.
 //
 // XXH64 implemented from the public algorithm specification
@@ -928,7 +930,470 @@ static PyObject* py_batch_rows_split(PyObject*, PyObject* args) {
 }
 
 
+// ---------------------------------------------------------------- join emit
+// join_ld_cross(works, sides, idxs)
+// splitmix64 rehash with salt — must match value.py hash_keys_with.
+static inline uint64_t splitmix_salt(uint64_t x, uint64_t salt) {
+  x += salt;
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ULL;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBULL;
+  return x ^ (x >> 31);
+}
+
+static const uint64_t kSeqSalt = 0x9E3779B97F4A7C15ULL;  // value.py _SEQ_SALT
+static const uint64_t kColPrime = 0x100000001B3ULL;
+
+// xxh64 of the canonical serialization of one value (the per-element body
+// of hash_object_column). Returns false when the value can't be
+// canonically serialized in C (exotic types) — callers raise.
+static bool hash_value_u64(PyObject* v, std::string& scratch, uint64_t* out) {
+  scratch.clear();
+  try {
+    if (!serialize(v, scratch)) return false;
+  } catch (SerializeError&) {
+    PyErr_Clear();
+    return false;
+  }
+  *out = xxh64(reinterpret_cast<const uint8_t*>(scratch.data()),
+               scratch.size(), 0);
+  return true;
+}
+
+//   works: list of (ld, rbucket) where ld = [(key, row, diff), ...] and
+//          rbucket = {rkey: rrow}; rows are tuples. diff (+/-1) is the
+//          emission weight: a retracted left row crossed against the
+//          bucket emits its pairs with diff -1 (the weighted bilinear
+//          delta — mixed insert/retract streams ride the same path).
+//   sides: bytes, one per output column, 1 = from lrow else rrow.
+//   idxs:  list of ints, source position within that row.
+// One call per engine step covers every fast-path join key: emits the
+// dL x R cross product COLUMNAR — (col_lists, out_keys_u64_bytes,
+// diffs_i64_bytes) — with the pair output keys (Key::for_values(lk,
+// rk), matching value.py keys_for_value_columns) hashed inline. The
+// caller wraps the columns + key/diff buffers straight into a Batch:
+// no row tuples, no re-split, no second hashing pass.
+static PyObject* py_join_ld_cross(PyObject*, PyObject* args) {
+  PyObject *works, *sides_obj, *idxs_obj;
+  if (!PyArg_ParseTuple(args, "OSO", &works, &sides_obj, &idxs_obj))
+    return nullptr;
+  const char* sides = PyBytes_AS_STRING(sides_obj);
+  Py_ssize_t ncols = PyBytes_GET_SIZE(sides_obj);
+  PyObject* idx_fast = PySequence_Fast(idxs_obj, "idxs must be a sequence");
+  if (idx_fast == nullptr) return nullptr;
+  if (PySequence_Fast_GET_SIZE(idx_fast) != ncols) {
+    Py_DECREF(idx_fast);
+    PyErr_SetString(PyExc_ValueError, "sides/idxs length mismatch");
+    return nullptr;
+  }
+  std::vector<Py_ssize_t> idxs((size_t)ncols);
+  for (Py_ssize_t j = 0; j < ncols; j++) {
+    idxs[(size_t)j] =
+        PyLong_AsSsize_t(PySequence_Fast_GET_ITEM(idx_fast, j));
+    if (idxs[(size_t)j] < 0) {  // conversion error OR a negative index —
+      // both invalid (unchecked GET_ITEM macros below must never see <0)
+      if (!PyErr_Occurred())
+        PyErr_SetString(PyExc_ValueError, "idxs must be non-negative");
+      Py_DECREF(idx_fast);
+      return nullptr;
+    }
+  }
+  PyObject* works_fast = PySequence_Fast(works, "works must be a sequence");
+  if (works_fast == nullptr) {
+    Py_DECREF(idx_fast);
+    return nullptr;
+  }
+  Py_ssize_t nwork = PySequence_Fast_GET_SIZE(works_fast);
+  // total pair count up front (lens only) so the key buffer and column
+  // lists are allocated exactly once
+  Py_ssize_t total = 0;
+  bool fail = false;
+  for (Py_ssize_t w = 0; !fail && w < nwork; w++) {
+    PyObject* pair = PySequence_Fast_GET_ITEM(works_fast, w);
+    if (!PyTuple_Check(pair) || PyTuple_GET_SIZE(pair) < 2 ||
+        !PyDict_Check(PyTuple_GET_ITEM(pair, 1))) {
+      PyErr_SetString(PyExc_TypeError,
+                      "work item must be (delta, bucket[, swapped])");
+      fail = true;
+      break;
+    }
+    Py_ssize_t nld = PySequence_Size(PyTuple_GET_ITEM(pair, 0));
+    if (nld < 0) { fail = true; break; }
+    total += nld * PyDict_GET_SIZE(PyTuple_GET_ITEM(pair, 1));
+  }
+  PyObject* keys_buf =
+      fail ? nullptr : PyByteArray_FromStringAndSize(nullptr, total * 8);
+  PyObject* diffs_buf =
+      fail ? nullptr : PyByteArray_FromStringAndSize(nullptr, total * 8);
+  PyObject* cols = fail || keys_buf == nullptr || diffs_buf == nullptr
+                       ? nullptr
+                       : PyTuple_New(ncols);
+  fail = fail || keys_buf == nullptr || diffs_buf == nullptr ||
+         cols == nullptr;
+  for (Py_ssize_t j = 0; !fail && j < ncols; j++) {
+    PyObject* lst = PyList_New(total);
+    if (lst == nullptr) { fail = true; break; }
+    PyTuple_SET_ITEM(cols, j, lst);
+  }
+  uint64_t* keys_out =
+      fail ? nullptr
+           : reinterpret_cast<uint64_t*>(PyByteArray_AS_STRING(keys_buf));
+  int64_t* diffs_out =
+      fail ? nullptr
+           : reinterpret_cast<int64_t*>(PyByteArray_AS_STRING(diffs_buf));
+  std::string scratch;
+  std::vector<uint64_t> rk_hash;  // per-work rbucket hashes (reused rows)
+  Py_ssize_t outpos = 0;
+  for (Py_ssize_t w = 0; !fail && w < nwork; w++) {
+    PyObject* pair = PySequence_Fast_GET_ITEM(works_fast, w);
+    PyObject* ld = PyTuple_GET_ITEM(pair, 0);
+    PyObject* rbucket = PyTuple_GET_ITEM(pair, 1);
+    // swapped: the delta is the RIGHT side crossed against a LEFT
+    // bucket (L x dR term) — output-column sourcing and the two key-
+    // hash salts flip, everything else is symmetric
+    int swapped = 0;
+    if (PyTuple_GET_SIZE(pair) >= 3) {
+      swapped = PyObject_IsTrue(PyTuple_GET_ITEM(pair, 2));
+      if (swapped < 0) { fail = true; break; }
+    }
+    PyObject* ld_fast = PySequence_Fast(ld, "ld must be a sequence");
+    if (ld_fast == nullptr) { fail = true; break; }
+    Py_ssize_t nld = PySequence_Fast_GET_SIZE(ld_fast);
+    Py_ssize_t nrb = PyDict_GET_SIZE(rbucket);
+    // hash each bucket key once per work item (shared across delta rows);
+    // the left-position hash carries the column-combine prime so the pair
+    // key is a plain XOR either way
+    rk_hash.resize((size_t)nrb);
+    {
+      PyObject *rk, *rrow;
+      Py_ssize_t pos = 0, ri = 0;
+      while (PyDict_Next(rbucket, &pos, &rk, &rrow)) {
+        uint64_t h;
+        if (!hash_value_u64(rk, scratch, &h)) {
+          PyErr_SetString(PyExc_TypeError, "unhashable join row key");
+          fail = true;
+          break;
+        }
+        rk_hash[(size_t)ri++] =
+            swapped ? splitmix_salt(h, kSeqSalt) * kColPrime
+                    : splitmix_salt(h, kSeqSalt * 2);
+      }
+    }
+    for (Py_ssize_t i = 0; !fail && i < nld; i++) {
+      PyObject* entry = PySequence_Fast_GET_ITEM(ld_fast, i);
+      if (!PyTuple_Check(entry) || PyTuple_GET_SIZE(entry) < 2 ||
+          !PyTuple_Check(PyTuple_GET_ITEM(entry, 1))) {
+        PyErr_SetString(PyExc_TypeError, "ld entry must be (key, row, diff)");
+        fail = true;
+        break;
+      }
+      PyObject* lk = PyTuple_GET_ITEM(entry, 0);
+      PyObject* lrow = PyTuple_GET_ITEM(entry, 1);
+      long long weight = 1;
+      if (PyTuple_GET_SIZE(entry) >= 3) {
+        weight = PyLong_AsLongLong(PyTuple_GET_ITEM(entry, 2));
+        if (PyErr_Occurred()) { fail = true; break; }
+      }
+      uint64_t lh;
+      if (!hash_value_u64(lk, scratch, &lh)) {
+        PyErr_SetString(PyExc_TypeError, "unhashable join row key");
+        fail = true;
+        break;
+      }
+      lh = swapped ? splitmix_salt(lh, kSeqSalt * 2)
+                   : splitmix_salt(lh, kSeqSalt) * kColPrime;
+      PyObject *rk, *rrow;
+      Py_ssize_t pos = 0, ri = 0;
+      while (!fail && PyDict_Next(rbucket, &pos, &rk, &rrow)) {
+        if (!PyTuple_Check(rrow)) {
+          PyErr_SetString(PyExc_TypeError, "rrow must be a tuple");
+          fail = true;
+          break;
+        }
+        for (Py_ssize_t j = 0; j < ncols; j++) {
+          PyObject* src = ((sides[j] != 0) != (swapped != 0)) ? lrow : rrow;
+          Py_ssize_t k = idxs[(size_t)j];
+          if (k >= PyTuple_GET_SIZE(src)) {
+            PyErr_SetString(PyExc_IndexError, "row index out of range");
+            fail = true;
+            break;
+          }
+          PyObject* v = PyTuple_GET_ITEM(src, k);
+          Py_INCREF(v);
+          PyList_SET_ITEM(PyTuple_GET_ITEM(cols, j), outpos, v);
+        }
+        if (fail) break;
+        keys_out[outpos] = lh ^ rk_hash[(size_t)ri++];
+        diffs_out[outpos] = (int64_t)weight;
+        outpos++;
+      }
+    }
+    Py_DECREF(ld_fast);
+  }
+  Py_DECREF(works_fast);
+  Py_DECREF(idx_fast);
+  if (!fail && outpos != total) {
+    PyErr_SetString(PyExc_RuntimeError, "join cross emitted short");
+    fail = true;
+  }
+  if (fail) {
+    Py_XDECREF(keys_buf);
+    Py_XDECREF(diffs_buf);
+    Py_XDECREF(cols);
+    return nullptr;
+  }
+  PyObject* result = PyTuple_Pack(3, cols, keys_buf, diffs_buf);
+  Py_DECREF(cols);
+  Py_DECREF(keys_buf);
+  Py_DECREF(diffs_buf);
+  return result;
+}
+
+// Ensure deltas[jk] exists and return it (borrowed); nullptr on error.
+static PyObject* join_delta_list(PyObject* deltas, PyObject* jk) {
+  PyObject* dl = PyDict_GetItemWithError(deltas, jk);  // borrowed
+  if (dl == nullptr) {
+    if (PyErr_Occurred()) return nullptr;
+    dl = PyList_New(0);
+    if (dl == nullptr || PyDict_SetItem(deltas, jk, dl) < 0) {
+      Py_XDECREF(dl);
+      return nullptr;
+    }
+    Py_DECREF(dl);  // deltas holds it; borrowed ref stays valid
+  }
+  return dl;
+}
+
+// undo[jk].append((key, old_row_or_None)) — the per-mutation undo log the
+// recompute path replays in reverse to reconstruct pre-batch buckets
+// (replacing the old always-materialized emitted-pairs cache).
+static int join_log_undo(PyObject* undo, PyObject* jk, PyObject* key,
+                         PyObject* old) {
+  PyObject* lst = join_delta_list(undo, jk);  // borrowed ensure-list
+  if (lst == nullptr) return -1;
+  PyObject* pairt = PyTuple_Pack(2, key, old ? old : Py_None);
+  if (pairt == nullptr) return -1;
+  int rc = PyList_Append(lst, pairt);
+  Py_DECREF(pairt);
+  return rc;
+}
+
+// Remove `key` from state[jk]'s bucket (dropping an emptied bucket),
+// logging the removed row to the undo log. Returns 0 ok, -1 error.
+static int join_evict(PyObject* state, PyObject* jk, PyObject* key,
+                      PyObject* undo) {
+  PyObject* bucket = PyDict_GetItemWithError(state, jk);  // borrowed
+  if (bucket == nullptr) return PyErr_Occurred() ? -1 : 0;
+  PyObject* old = PyDict_GetItemWithError(bucket, key);  // borrowed
+  if (old == nullptr) return PyErr_Occurred() ? -1 : 0;
+  if (join_log_undo(undo, jk, key, old) < 0) return -1;
+  if (PyDict_DelItem(bucket, key) < 0) return -1;
+  if (PyDict_GET_SIZE(bucket) == 0 && PyDict_DelItem(state, jk) < 0)
+    return -1;
+  return 0;
+}
+
+// join_apply_side(state, key2jk, keys, diffs, col_lists, jk_idx,
+//                 error_sentinel)
+//   state: dict jk -> {rowkey: rowtuple}; key2jk: dict rowkey -> its
+//   current jk (stale-bucket eviction for key-changing raw
+//   re-deliveries); keys/diffs: lists; col_lists: tuple of per-column
+//   value lists (the SoA batch); jk_idx: which column is the (single)
+//   join key. Builds each row tuple once, applies the delta to the
+//   bucket state, and groups deltas per jk — the whole Python
+//   _side_deltas pass in one C loop. Every bucket mutation is logged to
+//   an undo dict (jk -> [(key, old_row|None), ...]) so the recompute
+//   path can rebuild pre-batch buckets. Returns (deltas_dict,
+//   dirty_list, undo_dict, n_errors).
+static PyObject* py_join_apply_side(PyObject*, PyObject* args) {
+  PyObject *state, *key2jk, *keys, *diffs, *col_lists, *sentinel;
+  Py_ssize_t jk_idx;
+  if (!PyArg_ParseTuple(args, "O!O!OOO!nO", &PyDict_Type, &state,
+                        &PyDict_Type, &key2jk, &keys, &diffs,
+                        &PyTuple_Type, &col_lists, &jk_idx, &sentinel))
+    return nullptr;
+  PyObject* keys_fast = PySequence_Fast(keys, "keys");
+  PyObject* diffs_fast = PySequence_Fast(diffs, "diffs");
+  if (keys_fast == nullptr || diffs_fast == nullptr) {
+    Py_XDECREF(keys_fast);
+    Py_XDECREF(diffs_fast);
+    return nullptr;
+  }
+  Py_ssize_t n = PySequence_Fast_GET_SIZE(keys_fast);
+  Py_ssize_t ncols = PyTuple_GET_SIZE(col_lists);
+  std::vector<PyObject**> col_items((size_t)ncols);
+  bool fail = PySequence_Fast_GET_SIZE(diffs_fast) != n || jk_idx < 0 ||
+              jk_idx >= ncols;
+  if (fail) PyErr_SetString(PyExc_ValueError, "bad apply_side arguments");
+  for (Py_ssize_t j = 0; !fail && j < ncols; j++) {
+    PyObject* col = PyTuple_GET_ITEM(col_lists, j);
+    if (!PyList_Check(col) || PyList_GET_SIZE(col) != n) {
+      PyErr_SetString(PyExc_TypeError, "columns must be n-length lists");
+      fail = true;
+      break;
+    }
+    col_items[(size_t)j] = ((PyListObject*)col)->ob_item;
+  }
+  PyObject* deltas = fail ? nullptr : PyDict_New();
+  PyObject* dirty = fail ? nullptr : PyList_New(0);
+  PyObject* undo = fail ? nullptr : PyDict_New();
+  Py_ssize_t n_err = 0;
+  if (deltas == nullptr || dirty == nullptr || undo == nullptr) fail = true;
+  for (Py_ssize_t i = 0; !fail && i < n; i++) {
+    PyObject* jk = col_items[(size_t)jk_idx][i];
+    if (jk == sentinel) { n_err++; continue; }
+    PyObject* key = PySequence_Fast_GET_ITEM(keys_fast, i);
+    long long d = PyLong_AsLongLong(PySequence_Fast_GET_ITEM(diffs_fast, i));
+    if (PyErr_Occurred()) { fail = true; break; }
+    PyObject* row = PyTuple_New(ncols);
+    if (row == nullptr) { fail = true; break; }
+    for (Py_ssize_t j = 0; j < ncols; j++) {
+      PyObject* v = col_items[(size_t)j][i];
+      Py_INCREF(v);
+      PyTuple_SET_ITEM(row, j, v);
+    }
+    PyObject* old = PyDict_GetItemWithError(key2jk, key);  // borrowed
+    if (old == nullptr && PyErr_Occurred()) {
+      Py_DECREF(row);
+      fail = true;
+      break;
+    }
+    int moved = 0;  // row key is live under a DIFFERENT jk
+    if (old != nullptr && old != jk) {
+      moved = PyObject_RichCompareBool(old, jk, Py_EQ);
+      if (moved < 0) { Py_DECREF(row); fail = true; break; }
+      moved = !moved;
+    }
+    // which deltas[...] list this triple lands in: the delivered jk for
+    // inserts, the row's ACTUAL bucket for retractions (a retraction
+    // carrying a stale join key must drain from where the row lives)
+    PyObject* grp;
+    if (d > 0) {
+      if (moved) {
+        // key-changing raw re-delivery: evict the stale row and mark
+        // the old bucket for recompute (its pairs must retract)
+        if (join_evict(state, old, key, undo) < 0 ||
+            PyList_Append(dirty, old) < 0 ||
+            join_delta_list(deltas, old) == nullptr) {
+          Py_DECREF(row);
+          fail = true;
+          break;
+        }
+      }
+      grp = jk;
+      Py_INCREF(grp);
+      PyObject* bucket = PyDict_GetItemWithError(state, jk);  // borrowed
+      if (bucket == nullptr && PyErr_Occurred()) {
+        Py_DECREF(grp);
+        Py_DECREF(row);
+        fail = true;
+        break;
+      }
+      PyObject* prev = nullptr;  // row stored under this key pre-insert
+      if (bucket == nullptr) {
+        bucket = PyDict_New();
+        if (bucket == nullptr ||
+            PyDict_SetItem(state, jk, bucket) < 0) {
+          Py_XDECREF(bucket);
+          Py_DECREF(grp);
+          Py_DECREF(row);
+          fail = true;
+          break;
+        }
+        Py_DECREF(bucket);  // state holds it; borrowed ref stays valid
+      } else {
+        prev = PyDict_GetItemWithError(bucket, key);  // borrowed
+        if (prev == nullptr && PyErr_Occurred()) {
+          Py_DECREF(grp);
+          Py_DECREF(row);
+          fail = true;
+          break;
+        }
+        // upsert-style re-delivery of a row key: recompute path
+        if (prev != nullptr && PyList_Append(dirty, jk) < 0) {
+          Py_DECREF(grp);
+          Py_DECREF(row);
+          fail = true;
+          break;
+        }
+      }
+      if (join_log_undo(undo, jk, key, prev) < 0 ||
+          PyDict_SetItem(bucket, key, row) < 0 ||
+          PyDict_SetItem(key2jk, key, jk) < 0) {
+        Py_DECREF(grp);
+        Py_DECREF(row);
+        fail = true;
+        break;
+      }
+    } else {
+      grp = old != nullptr ? old : jk;
+      Py_INCREF(grp);  // must survive the key2jk delete below
+      if (old != nullptr && PyDict_DelItem(key2jk, key) < 0) {
+        Py_DECREF(grp);
+        Py_DECREF(row);
+        fail = true;
+        break;
+      }
+      if (join_evict(state, grp, key, undo) < 0 ||
+          (moved && PyList_Append(dirty, grp) < 0)) {
+        Py_DECREF(grp);
+        Py_DECREF(row);
+        fail = true;
+        break;
+      }
+    }
+    // deltas[grp].append((key, row, diff))
+    PyObject* dl = join_delta_list(deltas, grp);
+    if (dl == nullptr) {
+      Py_DECREF(grp);
+      Py_DECREF(row);
+      fail = true;
+      break;
+    }
+    PyObject* triple = PyTuple_New(3);
+    if (triple == nullptr) {
+      Py_DECREF(grp);
+      Py_DECREF(row);
+      fail = true;
+      break;
+    }
+    Py_INCREF(key);
+    PyTuple_SET_ITEM(triple, 0, key);
+    PyTuple_SET_ITEM(triple, 1, row);  // steals the row ref
+    PyObject* dobj = PyLong_FromLongLong(d);
+    if (dobj == nullptr) {
+      Py_DECREF(grp);
+      Py_DECREF(triple);
+      fail = true;
+      break;
+    }
+    PyTuple_SET_ITEM(triple, 2, dobj);
+    if (PyList_Append(dl, triple) < 0) fail = true;
+    Py_DECREF(triple);
+    Py_DECREF(grp);
+  }
+  Py_DECREF(keys_fast);
+  Py_DECREF(diffs_fast);
+  if (fail) {
+    Py_XDECREF(deltas);
+    Py_XDECREF(dirty);
+    Py_XDECREF(undo);
+    return nullptr;
+  }
+  PyObject* nerr = PyLong_FromSsize_t(n_err);
+  PyObject* out =
+      nerr ? PyTuple_Pack(4, deltas, dirty, undo, nerr) : nullptr;
+  Py_DECREF(deltas);
+  Py_DECREF(dirty);
+  Py_DECREF(undo);
+  Py_XDECREF(nerr);
+  return out;
+}
+
 static PyMethodDef methods[] = {
+    {"join_apply_side", py_join_apply_side, METH_VARARGS,
+     "apply one side's columnar batch to join bucket state"},
+    {"join_ld_cross", py_join_ld_cross, METH_VARARGS,
+     "emit dL x R cross products columnar with hashed pair output keys"},
     {"hash_object_column", py_hash_object_column, METH_VARARGS,
      "hash a sequence of values into an n*8-byte output buffer; returns "
      "indices needing python fallback"},
@@ -947,7 +1412,7 @@ static PyMethodDef methods[] = {
 
 static struct PyModuleDef moduledef = {
     PyModuleDef_HEAD_INIT, "_engine",
-    "the port's engine host loops (hashing, consolidation, row extraction)",
+    "the port's engine host loops (hashing, consolidation, row extraction, joins)",
     -1, methods};
 
 PyMODINIT_FUNC PyInit__engine(void) { return PyModule_Create(&moduledef); }

@@ -1,9 +1,14 @@
-"""The answer LLM of the port: ``DecoderChat`` and its continuous-batching
-server (counterparts of ``TPUDecoderChat`` and ``_ContinuousServer`` in
+"""The answer LLM of the port: ``BaseChat``, ``DecoderChat`` and its
+continuous-batching server (counterparts of ``BaseChat``,
+``TPUDecoderChat`` and ``_ContinuousServer`` in
 ``pathway_tpu/xpacks/llm/llms.py``).
 
-``DecoderChat`` has the JAX chat's constructor and call surface but is a
-plain class: the Pathway UDF engine is not ported. It generates either
+``DecoderChat`` is a batched ``pw.UDF`` with the JAX chat's constructor
+and call surface: applied to a column of message lists it answers each
+engine microbatch in one call (with ``continuous=True`` through the
+server's two-phase ``submit_batch`` / ``resolve_batch``, as JAX's
+``_submit_batch_continuous`` / ``_resolve_batch_continuous``); called on a
+Python list of messages it answers them directly. It generates either
 batch-static (``decoder.generate``, one call per batch of prompts) or, with
 ``continuous=True``, through ``_ContinuousServer``: a background thread that
 owns a slot pool (dense, or paged with a block table), admits requests into
@@ -100,7 +105,10 @@ from pathway_tpu_torch.engine.probes import (
     record_spec_many,
     record_stage,
 )
+from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.errors import get_global_error_log
+from pathway_tpu_torch.internals.expression import ColumnExpression
+from pathway_tpu_torch.internals.json import Json
 from pathway_tpu_torch.internals.retries import ExponentialBackoffRetryStrategy
 from pathway_tpu_torch.models import decoder as D
 from pathway_tpu_torch.models import flash_attention as FA
@@ -140,12 +148,42 @@ def _parse_quant(raw) -> str:
 
 
 def _messages_to_list(messages) -> list[dict]:
+    if isinstance(messages, Json):
+        messages = messages.value
     if isinstance(messages, str):
         return [{"role": "user", "content": messages}]
-    return [dict(m) for m in messages]
+    out = []
+    for m in messages:
+        if isinstance(m, Json):
+            m = m.value
+        out.append(dict(m))
+    return out
 
 
-class DecoderChat:
+def _prep_message_log(messages: list[dict], verbose: bool) -> str:
+    if verbose:
+        return str(messages)
+    return str([
+        {**m, "content": m.get("content", "")[:100]} for m in messages
+    ])
+
+
+class BaseChat(udfs.UDF):
+    """Base chat UDF (reference ``BaseChat``, llms.py:27)."""
+
+    def _accepts_call_arg(self, arg_name: str) -> bool:
+        """Whether the underlying API accepts ``arg_name`` as a call kwarg."""
+        return True
+
+
+@udfs.udf
+def prompt_chat_single_qa(question: str) -> Json:
+    """Wrap a plain question string into a one-message chat (reference
+    ``prompt_chat_single_qa``, llms.py:686)."""
+    return Json([{"role": "user", "content": question}])
+
+
+class DecoderChat(BaseChat):
     """Local GPT-2-family chat generating on the card.
 
     Construct from ``checkpoint_path`` (a local HF GPT-2-family directory:
@@ -153,8 +191,15 @@ class DecoderChat:
     ``tokenizer`` is given), or from explicit ``params`` (the port's param
     dict, any device) + ``cfg`` + ``tokenizer`` (``encode``/``decode`` and
     an ``eos_id``).
-    Calls take a list of messages (each a string or a list of
-    ``{"role", "content"}`` dicts) and return one completion string each.
+    Calls take a list of messages (each a string, a list of
+    ``{"role", "content"}`` dicts, or ``pw.Json`` of one) and return one
+    completion string each; applied to a column it is the UDF
+    (``max_batch_size`` rows a call, ``cache_strategy`` as in JAX). A greedy
+    batch-static chat is deterministic; a continuous one is not (JAX
+    declares it deterministic): its replies depend on the requests batched
+    beside them, so the engine replays a retracted row's reply instead of
+    generating it again, on the blocking path (JAX's ``deferred=True``,
+    the fully-async path, is not carried: it needs a deterministic UDF).
     ``device=None`` runs on CUDA and raises without it; ``device="cpu"``
     runs the plain PyTorch path. ``serve_restarts``, ``serve_retries``,
     ``request_deadline_ms``, ``serve_queue`` and ``degradation`` set the
@@ -175,6 +220,8 @@ class DecoderChat:
         top_p: float | None = None,
         max_prompt_tokens: int = 512,
         seed: int = 0,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        max_batch_size: int | None = 64,
         continuous: bool = False,
         n_slots: int = 16,
         chunk_steps: int = 16,
@@ -211,6 +258,13 @@ class DecoderChat:
         degradation: bool = True,
         device=None,
     ):
+        greedy = float(temperature) == 0.0 and top_k is None and top_p is None
+        super().__init__(
+            batch=True,
+            deterministic=greedy and not continuous,
+            max_batch_size=max_batch_size,
+            cache_strategy=cache_strategy,
+        )
         if checkpoint_path is not None:
             from pathway_tpu_torch.models.bpe import BPETokenizer
             from pathway_tpu_torch.models.checkpoint import load_decoder_checkpoint
@@ -294,6 +348,11 @@ class DecoderChat:
                 degradation=degradation,
                 hbm_owner=self.hbm_owner,
             )
+            # the two-phase engine protocol exists in continuous mode only:
+            # as class methods they would put batch-static chats on the
+            # pipelined path too
+            self.submit_batch = self._submit_batch_continuous
+            self.resolve_batch = self._resolve_batch_continuous
 
     @property
     def server(self) -> "_ContinuousServer | None":
@@ -327,11 +386,12 @@ class DecoderChat:
             )
         return cap
 
+    def _accepts_call_arg(self, arg_name: str) -> bool:
+        return arg_name in ("max_new_tokens", "temperature", "top_k", "top_p")
+
     # two-phase protocol (continuous mode): submit enqueues every row
     # without waiting; resolve blocks on the completions
-    def submit_batch(self, messages: list, **kwargs):
-        if self._server is None:
-            raise TypeError("submit_batch requires continuous=True")
+    def _submit_batch_continuous(self, messages: list, **kwargs):
         max_new = int(kwargs.pop("max_new_tokens", self.max_new_tokens))
         # level 3 of the degradation ladder sheds priority <= 0; the
         # tenant steers the tenant scheduler (one FIFO when it is off)
@@ -353,7 +413,7 @@ class DecoderChat:
             priority=priority, tenant=tenant)
             for m in messages]
 
-    def resolve_batch(self, handles) -> list:
+    def _resolve_batch_continuous(self, handles) -> list:
         out = []
         for reqs in handles:
             texts = []
@@ -368,7 +428,14 @@ class DecoderChat:
             out.append(texts)
         return out
 
-    def __call__(self, messages: list, **kwargs) -> list[str | None]:
+    def __call__(self, messages, **kwargs):
+        """On a column expression: the UDF's reply column. On a list of
+        messages: their replies, generated now."""
+        if isinstance(messages, ColumnExpression):
+            return super().__call__(messages, **kwargs)
+        return self.__wrapped__(messages, **kwargs)
+
+    def __wrapped__(self, messages: list, **kwargs) -> list[str | None]:
         if self._server is not None:
             return self.resolve_batch([self.submit_batch(messages, **kwargs)])[0]
         max_new = int(kwargs.pop("max_new_tokens", self.max_new_tokens))

@@ -1,25 +1,92 @@
-"""The reranker seams of the port (counterparts of ``CrossEncoderReranker``
-and ``ListwiseLLMReranker`` in ``pathway_tpu/xpacks/llm/rerankers.py``):
-plain classes, not Pathway UDFs (the UDF engine is not ported). The
-cross-encoder scores (query, doc) pairs a batch at a time; the listwise
-reranker has an answer LLM order a window of documents in one prompt."""
+"""Reranker UDFs (counterpart of ``pathway_tpu/xpacks/llm/rerankers.py``;
+reference ``xpacks/llm/rerankers.py:15-345``).
+
+``CrossEncoderReranker`` and ``EncoderReranker`` are batched ``pw.UDF``s:
+a whole engine microbatch of (doc, query) pairs is scored in one call of
+the port's encoder on the card (attention through the ``flash_attn``
+kernel), and an epoch's chunks go out through the two-phase
+``submit_batch`` / ``resolve_batch`` protocol and drain together, as in
+JAX. Called on lists instead of columns they score the pairs directly
+(the plain seam ``FusedRAGPipeline`` and the ingest tests drive).
+
+Both declare ``deterministic=False`` where JAX declares True: a bf16
+encode's scores follow the padded height of the batch it rode in, so a
+retraction scored again could differ from its insertion and fail to
+cancel it. The engine's replay cache returns the inserted score instead,
+and each pair is scored once.
+
+``LLMReranker`` asks a chat for a 1-5 rating; ``ListwiseLLMReranker`` has
+a chat order a window of documents in one prompt (over ``pw.Json`` docs as
+a UDF, or through ``rerank_batch`` directly). ``FlashRankReranker`` is
+not ported yet (ROADMAP A12).
+"""
 
 from __future__ import annotations
 
 import re
 from typing import Any
 
-from pathway_tpu_torch.xpacks.llm.llms import decode_serve_error
+import numpy as np
+
+from pathway_tpu_torch.internals import udfs
+from pathway_tpu_torch.internals.expression import ColumnExpression
+from pathway_tpu_torch.internals.json import Json
+from pathway_tpu_torch.xpacks.llm.llms import BaseChat, decode_serve_error
+
+# ruff: noqa: E501
 
 
-class CrossEncoderReranker:
-    """``model_name`` is a ready ``CrossEncoderModel``, a preset name
+@udfs.udf
+def rerank_topk_filter(
+    docs: list[Any], scores: list[float], k: int = 5
+) -> tuple[list[Any], list[float]]:
+    """Keep the top-``k`` docs by rerank score (reference
+    ``rerank_topk_filter``, rerankers.py:15).
+
+    ``k > len(docs)`` returns ALL docs in score order (a slice past the
+    end, never an error); ``k <= 0`` returns nothing. Docs beyond the
+    score list carry no ranking signal and are dropped rather than
+    ordered arbitrarily.
+    """
+    if not docs or k <= 0:
+        return [], []
+    docs = docs[: len(scores)]
+    # stable sort with original-index tie-break: tied scores must always
+    # resolve the same way (plain argsort reversed would also flip the
+    # order WITHIN ties)
+    order = np.argsort(
+        -np.asarray(scores[: len(docs)], dtype=np.float64), kind="stable"
+    )[:k]
+    docs_sorted = [docs[i] for i in order]
+    scores_sorted = [float(scores[i]) for i in order]
+    return docs_sorted, scores_sorted
+
+
+class CrossEncoderReranker(udfs.UDF):
+    """Cross-encoder reranker over the port's ``CrossEncoderModel``
+    (reference ``CrossEncoderReranker``, rerankers.py:186-249). Batched:
+    one padded encoder call per microbatch.
+
+    ``model_name`` is a ready ``CrossEncoderModel``, a preset name
     (``"minilm-l6"``, ``"minilm-l12"``: seeded random weights), or a local
     HF cross-encoder directory with weights. ``custom_kwargs`` go to the
     model's constructor (``device``, ``max_length``, ...)."""
 
-    def __init__(self, model_name: Any = "minilm-l6", *,
-                 custom_kwargs: dict | None = None):
+    def __init__(
+        self,
+        model_name: Any = "minilm-l6",
+        *,
+        max_batch_size: int | None = 512,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        custom_kwargs: dict | None = None,
+    ):
+        super().__init__(
+            deterministic=False,
+            batch=True,
+            max_batch_size=max_batch_size,
+            cache_strategy=cache_strategy,
+            return_type=float,
+        )
         from pathway_tpu_torch.models.checkpoint import has_checkpoint_weights
         from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
         from pathway_tpu_torch.models.transformer import MINILM_L6, MINILM_L12
@@ -36,7 +103,7 @@ class CrossEncoderReranker:
         else:
             self.model = CrossEncoderModel(**kwargs)
 
-    def __call__(self, doc: list[str], query: list[str], **kwargs) -> list[float]:
+    def __wrapped__(self, doc: list[str], query: list[str], **kwargs) -> list[float]:
         """One relevance score per (query, doc) row (None reads as "")."""
         pairs = [(q or "", d or "") for q, d in zip(query, doc)]
         return [float(s) for s in self.model.score_batch(pairs)]
@@ -49,8 +116,104 @@ class CrossEncoderReranker:
     def resolve_batch(self, handles) -> list[list[float]]:
         return [[float(s) for s in arr] for arr in self.model.score_resolve(handles)]
 
+    def __call__(self, doc, query, **kwargs):
+        """On columns: the UDF's score column. On lists: the scores now."""
+        if isinstance(doc, ColumnExpression) or isinstance(query, ColumnExpression):
+            return super().__call__(doc, query, **kwargs)
+        return self.__wrapped__(doc, query, **kwargs)
 
-class ListwiseLLMReranker:
+
+class EncoderReranker(udfs.UDF):
+    """Bi-encoder reranker: cosine of (query, doc) embeddings (reference
+    ``EncoderReranker``, rerankers.py:251-317). Batched on the card."""
+
+    def __init__(
+        self,
+        model_name: Any = "minilm-l6",
+        *,
+        max_batch_size: int | None = 1024,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        custom_kwargs: dict | None = None,
+    ):
+        super().__init__(
+            deterministic=False,
+            batch=True,
+            max_batch_size=max_batch_size,
+            cache_strategy=cache_strategy,
+            return_type=float,
+        )
+        from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+        self.embedder = SentenceTransformerEmbedder(model_name, **(custom_kwargs or {}))
+
+    def __wrapped__(self, doc: list[str], query: list[str], **kwargs) -> list[float]:
+        # through the embedder UDF: its content-keyed dedup collapses the
+        # query column's repeats (one text per candidate doc) to one row
+        q = np.asarray(self.embedder.__wrapped__(list(query)))
+        d = np.asarray(self.embedder.__wrapped__(list(doc)))
+        # embeddings are unit-norm, so dot product == cosine similarity
+        return [float(s) for s in np.sum(q * d, axis=1)]
+
+    # two-phase protocol: both embed dispatches per chunk go out eagerly;
+    # the single resolve drains every (query, doc) pair of the epoch
+    def submit_batch(self, doc: list[str], query: list[str], **kwargs):
+        hq = self.embedder.submit_batch(list(query))
+        hd = self.embedder.submit_batch(list(doc))
+        return (hq, hd)
+
+    def resolve_batch(self, handles) -> list[list[float]]:
+        flat = []
+        for hq, hd in handles:
+            flat.append(hq)
+            flat.append(hd)
+        arrs = self.embedder.resolve_batch(flat)
+        out = []
+        for i in range(0, len(arrs), 2):
+            q = np.asarray(arrs[i])
+            d = np.asarray(arrs[i + 1])
+            out.append([float(s) for s in np.sum(q * d, axis=1)])
+        return out
+
+
+class LLMReranker(udfs.UDF):
+    """Ask a chat model to rate doc relevance 1-5 (reference ``LLMReranker``,
+    rerankers.py:58-184)."""
+
+    prompt_template = (
+        "Rate how relevant the document is to the query on a scale 1 to 5. "
+        "Reply with a single digit.\n\nQuery: {query}\n\nDocument: {doc}\n\nRating:"
+    )
+
+    def __init__(
+        self,
+        llm: BaseChat,
+        *,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        use_logit_bias: bool | None = None,
+    ):
+        super().__init__(cache_strategy=cache_strategy, return_type=float)
+        self.llm = llm
+        self.use_logit_bias = use_logit_bias
+
+    def __wrapped__(self, doc: str, query: str, **kwargs) -> float:
+        from pathway_tpu_torch.xpacks.llm._utils import _coerce_sync
+
+        prompt = self.prompt_template.format(query=query, doc=doc)
+        messages = [{"role": "user", "content": prompt}]
+        if getattr(self.llm, "batch", False):
+            # the decoder chat is a batch UDF: the prompt goes as a one-row
+            # batch (a continuous DecoderChat serves it through its pool)
+            response = _coerce_sync(self.llm.__wrapped__)([messages], **kwargs)[0]
+        else:
+            response = _coerce_sync(self.llm.__wrapped__)(messages, **kwargs)
+        digits = [c for c in str(response) if c.isdigit()]
+        if not digits:
+            raise ValueError(f"reranker got non-numeric response: {response!r}")
+        return float(digits[0])
+
+
+class ListwiseLLMReranker(udfs.UDF):
     """RankLLM-style listwise reranker: a window of candidates goes into
     ONE prompt and the model answers with a permutation (``[2] > [1] >
     [3]``), instead of scoring each (query, doc) pair alone.
@@ -62,12 +225,19 @@ class ListwiseLLMReranker:
     continuous server, every window prompt of a round enters its slot pool
     together (``submit_batch(..., tenant=)``, one ``resolve_batch``);
     otherwise any callable taking a list of message lists and returning one
-    reply each."""
+    reply each. As a UDF it reorders each row's docs (``pw.Json``, dicts or
+    strings) for its query."""
 
     _ID_RE = re.compile(r"\[(\d+)\]")
 
     def __init__(self, llm, *, window: int = 8, stride: int = 4,
-                 max_new_tokens: int | None = None, tenant: str = "rerank"):
+                 max_new_tokens: int | None = None, tenant: str = "rerank",
+                 cache_strategy: udfs.CacheStrategy | None = None):
+        super().__init__(
+            deterministic=bool(getattr(llm, "deterministic", False)),
+            batch=True,
+            cache_strategy=cache_strategy,
+        )
         if window < 2:
             raise ValueError(f"window must be >= 2, got {window}")
         if not 1 <= stride <= window:
@@ -163,3 +333,25 @@ class ListwiseLLMReranker:
                 if perm is not None:
                     orders[i][s : s + self.window] = [w[p] for p in perm]
         return orders
+
+    def __wrapped__(self, docs: list[list[Any]], query: list[str],
+                    **kwargs) -> list[list[Any]]:
+        texts = [[_doc_text(d) for d in (row or [])] for row in docs]
+        perms = self.rerank_batch(list(query), texts, **kwargs)
+        return [[row[j] for j in perm]
+                for row, perm in zip([list(r or []) for r in docs], perms)]
+
+
+def _doc_text(d: Any) -> str:
+    """Text payload of a retrieved doc (Json/dict/str)."""
+    if isinstance(d, Json):
+        d = d.value
+    if isinstance(d, dict):
+        return str(d.get("text", ""))
+    return str(d)
+
+
+@udfs.udf
+def unwrap_doc_texts(docs: list[Any]) -> list[str]:
+    """Extract text fields from retrieved doc dicts/Jsons."""
+    return [_doc_text(d) for d in docs or []]

@@ -136,7 +136,8 @@ def test_engine_loops_build_from_the_ports_source():
     table = text[text.index("static PyMethodDef methods[]"):]
     assert sorted(set(re.findall(r'\{"(\w+)", py_', table))) == [
         "batch_rows_split", "consolidate_pairs", "hash_object_column",
-        "jsonl_rows", "rows_from_records", "set_pointer_type", "xxh64_digest"]
+        "join_apply_side", "join_ld_cross", "jsonl_rows", "rows_from_records",
+        "set_pointer_type", "xxh64_digest"]
     path = native.build(native._ENGINE_SRC)
     assert path.parent == native.BUILD_DIR and path.name.startswith("_engine-")
     assert "xxhash" not in TV.__dict__

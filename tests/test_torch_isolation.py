@@ -111,6 +111,74 @@ def test_source_scan_sees_the_engine():
         assert pkg / rel in files, rel
 
 
+def test_source_scan_sees_the_rag_apps():
+    files = set(_sources())
+    pkg = ROOT / "pathway_tpu_torch"
+    for rel in ("engine/operators/join.py", "internals/joins.py", "internals/join_mode.py",
+                "internals/monitoring.py", "io/http.py", "xpacks/llm/__init__.py",
+                "xpacks/llm/_utils.py", "xpacks/llm/constants.py",
+                "xpacks/llm/_parser_utils.py", "xpacks/llm/prompts.py",
+                "xpacks/llm/splitters.py", "xpacks/llm/parsers.py",
+                "xpacks/llm/rerankers.py", "xpacks/llm/llms.py",
+                "xpacks/llm/document_store.py", "xpacks/llm/vector_store.py",
+                "xpacks/llm/question_answering.py", "xpacks/llm/servers.py"):
+        assert pkg / rel in files, rel
+
+
+def test_rag_app_udfs_raise_without_cuda(monkeypatch):
+    """The reranker and answer-LLM UDFs run on the card unless asked."""
+    from pathway_tpu_torch.xpacks.llm import EncoderReranker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(vocab_size=64, hidden=16, layers=1, heads=2, intermediate=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EncoderReranker(SentenceEmbedderModel(cfg))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EncoderReranker("minilm-l6")
+    dcfg, params, tok = _tiny_decoder()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecoderChat(params=params, cfg=dcfg, tokenizer=tok, max_new_tokens=2)
+
+
+def test_rag_program_on_cpu_launches_nothing():
+    """A RAG program on CPU tensors (the embed UDF into a DocumentStore,
+    the cross-encoder UDF, a continuous DecoderChat as the answer UDF)
+    takes every plain path: no kernel launch."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.xpacks import llm
+
+    cfg = TransformerConfig(vocab_size=1000, hidden=16, layers=1, heads=2, intermediate=32)
+    tok1k = HashTokenizer(vocab_size=1000)
+    emb = llm.SentenceTransformerEmbedder(SentenceEmbedderModel(cfg, tokenizer=tok1k,
+                                                                device="cpu"))
+    rr = llm.CrossEncoderReranker(CrossEncoderModel(cfg, tokenizer=tok1k, device="cpu"))
+    dcfg, params, tok = _tiny_decoder()
+    chat = DecoderChat(params=params, cfg=dcfg, tokenizer=tok, max_new_tokens=2,
+                       continuous=True, n_slots=2, device="cpu")
+    counts = [FA.flash_attn, FA.flash_chunk_attn, FA.flash_chunk_attn_paged,
+              TPA.paged_attn_decode, TWQ.wq_matmul]
+    before = [f.launches for f in counts]
+    try:
+        pw.clear_graph()
+        docs = pw.debug.table_from_rows(pw.schema_from_types(data=str),
+                                        [("alpha beta",), ("gamma delta",)])
+        store = llm.DocumentStore(docs, retriever_factory=pw.indexing.BruteForceKnnFactory(
+            dimensions=16, embedder=emb, device="cpu"))
+        qa = llm.BaseRAGQuestionAnswerer(chat, store, search_topk=1)
+        queries = pw.debug.table_from_rows(pw.schema_from_types(
+            prompt=str, filters=str | None, model=str | None, return_context_docs=bool),
+            [("alpha?", None, None, True)])
+        answers = qa.answer_query(queries)
+        scored = docs.select(s=rr(docs.data, docs.data))
+        assert len(pw.debug.table_to_dicts(answers)[1]["result"]) == 1
+        assert len(pw.debug.table_to_dicts(scored)[1]["s"]) == 2
+    finally:
+        chat.close()
+        pw.clear_graph()
+    assert [f.launches for f in counts] == before
+
+
 def test_engine_device_seams_raise_without_cuda(monkeypatch):
     """The embed UDF (blocking or deferred) and the KNN index of a
     ``DataIndex`` run on the card unless asked for the CPU."""
