@@ -93,7 +93,7 @@ without printing a result:
    chunk steps;
 11. telemetry on the card (metrics are on by default, as in JAX, so
    phases 4-10 ran with them): (a) phase 6's 48-request burst on one
-   server with metrics on, off, off, on: streams equal token for token,
+   server with metrics on, then off: streams equal token for token,
    no span and an empty registry when off, 48 complete ordered decode
    spans when on, the registry's TTFT histogram (48 observations, p50
    within one log-2 bucket of the requests' own), the occupancy gauge
@@ -101,7 +101,7 @@ without printing a result:
    and TTFT p50 on against off; (b) the HBM ledger of that server: the
    weights' bytes, the pool components summing to ``pool_bytes``, the total
    within ``torch.cuda.memory_allocated``; (c) phase 8's defaults seam,
-   fresh each run, on, off, off, on: embeddings byte-identical, 8 embed
+   fresh each run, on, then off: embeddings byte-identical, 8 embed
    spans with ordered events, ``embed_dispatch`` and the encoder's
    attention bytes per batch that reached the device, docs/s on against
    off; (d) one ``retrieve`` and one ``retrieve_rerank`` on phase 4's
@@ -109,7 +109,7 @@ without printing a result:
    JSONL flight recorder holds a burst's 8 decode spans after ``close()``;
 12. supervision and the query server (the JAX defaults: the degradation
    ladder on, chaos off, no restarts): (a) phase 6's burst with the
-   defaults against ``degradation=False``, on, off, off, on: streams equal
+   defaults against ``degradation=False``, on, then off: streams equal
    48/48, tokens/s and TTFT p50 ratios; (b) ``decode`` chaos at rate 0.05
    (seed 0) with ``serve_restarts=8``, ``serve_retries=3``: the burst, and
    16 requests on a dense pool (whole-prompt causal ``flash_attn``
@@ -134,7 +134,7 @@ without printing a result:
    ``query.tick`` chaos with ``serve_restarts=2``. Phase 12 drives all five
    kernel entry points;
 13. the serving features JAX keeps off by default, at phase 6's settings:
-   (a) phase 6's burst with ``disagg`` off, on (budget 1), on, off:
+   (a) phase 6's burst with ``disagg`` off, then on (budget 1):
    streams equal 48/48, ``kv_migrated_blocks`` the sum of the handed-off
    rows' block counts, ``lane_stats()`` back to zero; decode tokens/s, TTFT
    p50 and TPOT p99 from the request spans; (b) ``tenant_sched`` with one
@@ -257,8 +257,33 @@ without printing a result:
    ``pw.run()``, REST p50 / p99 beside phase 4's direct p50s, TTFT and
    end-to-end p50, the prompts cut, and the phase's launches (each of
    ``flash_attn``, ``flash_chunk_attn_paged``, ``paged_attn_decode`` and
-   ``wq_matmul`` above zero, ``flash_attn`` at least a layer an encode).
-   Prints the script's wall.
+   ``wq_matmul`` above zero, ``flash_attn`` at least a layer an encode);
+18. BASELINE configs 1, 2 and 5 as users write them, through the file
+   connectors and the index factories, at phase 4's MiniLM-L6 and corpus:
+   (a) the 32,768 docs in 8 CSV files, ``pw.io.csv.read(mode="static")``
+   -> the embed UDF (``max_batch_size=1024``) -> ``pw.io.jsonlines.write``,
+   beside the same program into ``pw.io.null.write`` and the direct path
+   (the texts through the model in the UDF's batches), 2 reps of each in
+   turns: every doc written once, vectors within cosine 0.9999 of the
+   direct ones; (b) the first 4,096 docs one file each,
+   ``pw.io.fs.read(format="binary", with_metadata=True, mode="streaming")``
+   into a ``DocumentStore`` served by ``DocumentStoreServer`` on port 0,
+   once for each of ``BruteForceKnnFactory``, ``UsearchKnnFactory``,
+   ``IvfKnnFactory`` (its defaults, and nprobe 64 of 64 cells) and
+   ``HybridIndexFactory([BruteForceKnnFactory, TantivyBM25Factory])``: 64
+   queries at k=10 one at a time over ``/v1/retrieve`` (p50 / p99,
+   recall@10 against exact f32 scoring; brute force >= 0.9, exhaustive IVF
+   equal to brute force but at near-ties, the hybrid's replies equal an
+   RRF computed on the host from its two sub-indexes' own replies over two
+   more routes), then 256 files out and 512 in, waited for until the
+   store lists exactly the files left: 4 new docs' own texts find them,
+   no deleted doc returned; (c) ``BruteForceKnnFactory(mesh=)`` and
+   ``IvfKnnFactory(mesh=, nprobe=n_cells)`` over 4 virtual positions of the
+   card index (a)'s 32,768 vectors through ``DataIndex`` in ``pw.run()``:
+   ``retrieval_backend_stats()`` names the sharded index, top-10 keys equal
+   the unsharded brute force's but at near-ties, search ms of the 64
+   queries beside it. Phase 18 runs ``flash_attn`` only, once a layer an
+   encode. Prints the script's wall.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -2029,11 +2054,11 @@ def run_telemetry_serving(dev, gpu: str, common) -> dict:
     require(hbm["current_total_bytes"] <= allocated,
             "(b) the ledger total is at most torch.cuda.memory_allocated")
 
-    # (a) metrics on against off, phase 6's burst, in turns: on, off, off, on
+    # (a) metrics on against off, phase 6's burst: one pair of arms, on, off
     serve(chat, make_prompts(4, 16, 200, seed=99))  # warm-up, outside the counts
     srv.prefix_reset()
     prompts = make_prompts(N_REQUESTS, 16, 480, seed=1)
-    runs = [(on, telemetry_arm(chat, prompts, on)) for on in (True, False, False, True)]
+    runs = [(on, telemetry_arm(chat, prompts, on)) for on in (True, False)]
     total = {n: sum(r["launches"][n] for _, r in runs) for n in counters()}
     streams = [[r.tokens for r in out["reqs"]] for _, out in runs]
     for i, (on, out) in enumerate(runs):
@@ -2109,7 +2134,7 @@ def run_telemetry_ingest(dev, gpu: str, docs) -> int:
 
     warm = [d + " warm" for d in docs[:INGEST_BATCH]]
     runs, launches = [], 0
-    for on in (True, False, False, True):
+    for on in (True, False):
         probes.set_metrics(on)
         try:
             emb = seam(dev)
@@ -2300,7 +2325,7 @@ def run_supervision_serving(dev, gpu: str, common) -> dict:
     off.server.prefix_reset()
     chats = {True: on, False: off}
     runs = []
-    for arm in (True, False, False, True):
+    for arm in (True, False):
         out = serve(chats[arm], prompts)
         chats[arm].server.prefix_reset()
         runs.append((arm, out))
@@ -2777,7 +2802,7 @@ def run_lanes_tenants_fleet(dev, gpu: str, common) -> dict:
     prompts = make_prompts(N_REQUESTS, 16, 480, seed=1)
     n_tok = [len(common["tokenizer"].encode(p)) for p in prompts]
 
-    # (a) disaggregated lanes against interleaved prefill: off, on, on, off
+    # (a) disaggregated lanes against interleaved prefill: one pair, off, on
     off = DecoderChat(disagg=False, **paged, **common)
     serve(off, make_prompts(4, 16, 200, seed=99))  # warm-up, outside the counts
     off.server.prefix_reset()
@@ -2785,7 +2810,7 @@ def run_lanes_tenants_fleet(dev, gpu: str, common) -> dict:
     serve(on, make_prompts(4, 16, 200, seed=99))
     on.server.prefix_reset()
     chats, runs = {False: off, True: on}, []
-    for arm in (False, True, True, False):
+    for arm in (False, True):
         tracing.reset_traces()
         out = serve(chats[arm], prompts)
         srv = chats[arm].server
@@ -4515,6 +4540,376 @@ def run_rag_apps(dev, gpu: str, out: dict, docs, queries, common) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 18
+# BASELINE configs 1, 2 and 5 as users write them, at phase 4's MiniLM-L6
+# bf16 and corpus: (a) its 32,768 docs in 8 CSV files read statically
+# through the embed UDF at batches of 1,024 into a JSON-lines file, beside
+# the same program into the null sink and the direct path, FS_REPS reps of
+# the three arms in turns; (b) its first 4,096
+# docs, one file each, watched by pw.io.fs.read into a DocumentStore served
+# over REST, once a factory; 64 queries one at a time at k = 10, then 256
+# files out (every 16th) and 512 in, and the new and deleted docs' own
+# texts asked for (FS_PROBES each); (c) the brute-force and IVF factories
+# routed over FS_MESH virtual positions of the card.
+FS_FILES, FS_REPS, FS_DOCS, FS_NEW, FS_GONE, FS_PROBES, FS_MESH = 8, 2, 4096, 512, 256, 4, 4
+FS_REFRESH = 0.5  # s between the streaming reader's scans: its default
+FS_FACTORIES = ("brute_force", "usearch", "ivf", "ivf_exhaustive", "hybrid")
+
+
+def write_csv_corpus(path: str, docs) -> None:
+    """(a)'s input: ``docs`` split in FS_FILES CSV files of ``doc,text``."""
+    import csv
+
+    os.makedirs(path)
+    per = -(-len(docs) // FS_FILES)
+    for f in range(FS_FILES):
+        with open(os.path.join(path, f"part{f}.csv"), "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["doc", "text"])
+            w.writerows((i, docs[i]) for i in range(f * per, min((f + 1) * per, len(docs))))
+
+
+def fs_config1_arm(pw, llm, model, src: str, out: str | None) -> float:
+    """(a) engine: CSV files -> the embed UDF -> a JSON-lines file (no
+    file: ``pw.io.null.write``); the run's wall in s."""
+    import torch
+
+    pw.clear_graph()
+    emb = llm.SentenceTransformerEmbedder(model, max_batch_size=RAG_BATCH)
+
+    class DocSchema(pw.Schema):
+        doc: int
+        text: str
+
+    docs = pw.io.csv.read(src, schema=DocSchema, mode="static")
+    vecs = docs.select(docs.doc, vec=emb(docs.text))
+    if out is None:
+        pw.io.null.write(vecs)
+    else:
+        pw.io.jsonlines.write(vecs, out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pw.run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def fs_direct_arm(model, docs) -> tuple[np.ndarray, float]:
+    """(a) direct: the same texts through the model in the UDF's batches."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [model.embed_submit(docs[s : s + RAG_BATCH]) for s in range(0, len(docs), RAG_BATCH)]
+    vecs = np.concatenate(model.embed_resolve(handles, 600))
+    torch.cuda.synchronize()
+    return vecs, time.perf_counter() - t0
+
+
+def fs_config1(pw, llm, model, docs, tmp: str, gpu: str) -> np.ndarray:
+    """(a); returns the direct path's vectors."""
+    src = os.path.join(tmp, "csv")
+    write_csv_corpus(src, docs)
+    walls = {"engine": [], "null sink": [], "direct": []}
+    outs, direct = [], None
+    for rep in range(FS_REPS):
+        out = os.path.join(tmp, f"vecs{rep}.jsonl")
+        walls["engine"].append(fs_config1_arm(pw, llm, model, src, out))
+        outs.append(out)
+        walls["null sink"].append(fs_config1_arm(pw, llm, model, src, None))
+        direct, wall = fs_direct_arm(model, docs)
+        walls["direct"].append(wall)
+    pw.clear_graph()
+    for rep, out in enumerate(outs):
+        with open(out) as fh:
+            n_lines = sum(1 for _ in fh)
+        require(n_lines == len(docs), f"(a) rep {rep}: {n_lines} lines for {len(docs)} docs")
+    with open(outs[0]) as fh:
+        recs = [json.loads(line) for line in fh]
+    require(all(r["diff"] == 1 for r in recs), "(a) one insertion a doc, no retraction")
+    got = {r["doc"]: r["vec"] for r in recs}
+    require(sorted(got) == list(range(len(docs))), "(a) every doc written once")
+    vecs = np.asarray([got[i] for i in range(len(docs))], dtype=np.float32)
+    cos = np.sum(vecs * direct, axis=1) / (np.linalg.norm(vecs, axis=1)
+                                           * np.linalg.norm(direct, axis=1))
+    rate = {a: [len(docs) / w for w in ws] for a, ws in walls.items()}
+    med = {a: statistics.median(r) for a, r in rate.items()}
+    info(f"files (a) config 1: {len(docs)} docs in {FS_FILES} CSV files -> embed UDF (batches "
+         f"of {RAG_BATCH}) -> pw.io.jsonlines.write [{gpu}]: docs/s "
+         + ", ".join(f"{r:.1f}" for r in rate["engine"])
+         + f" (median {med['engine']:.1f}, {med['engine'] / med['direct']:.4f}x direct); "
+         f"into pw.io.null.write " + ", ".join(f"{r:.1f}" for r in rate["null sink"])
+         + f" (median {med['null sink']:.1f}, {med['null sink'] / med['direct']:.4f}x direct); "
+         f"direct docs/s " + ", ".join(f"{r:.1f}" for r in rate["direct"])
+         + f" (median {med['direct']:.1f}); arms in turns; min cosine to direct {cos.min():.6f}")
+    require(cos.min() >= C4_COS_MIN, f"(a) vectors within cosine {C4_COS_MIN} of the direct ones")
+    return direct
+
+
+def sub_index_route(pw, store, i: int, route: str, webserver) -> None:
+    """(b): a REST route answering from the i-th sub-index of the store's
+    hybrid index, its own reply to ``{"query", "k"}`` as the store's."""
+    from pathway_tpu_torch.internals.json import unwrap_json
+
+    class SubQuerySchema(pw.Schema):
+        query: str
+        k: int
+
+    queries, writer = pw.io.http.rest_connector(
+        webserver=webserver, route=route, schema=SubQuerySchema, methods=("POST",),
+        delete_completed_queries=True)
+    m = store.index.indexes[i].query_as_of_now(queries.query, number_of_matches=queries.k,
+                                               with_distances=True)
+
+    @pw.udf
+    def as_docs(texts, metas, dists) -> pw.Json:
+        return pw.Json([{"text": t, "metadata": unwrap_json(meta) or {}, "dist": float(d)}
+                        for t, meta, d in zip(texts, metas, dists)])
+
+    writer(m.select(result=as_docs(m.text, m.metadata, m._pw_dist)))
+
+
+def store_factory(pw, name: str, emb, dim: int):
+    ix = pw.indexing
+    knn = ix.BruteForceKnnFactory(dimensions=dim, embedder=emb, reserved_space=FS_DOCS + FS_NEW,
+                                  metric="cos")
+    return {
+        "brute_force": lambda: knn,
+        "usearch": lambda: ix.UsearchKnnFactory(dimensions=dim, embedder=emb, metric="cos"),
+        "ivf": lambda: ix.IvfKnnFactory(dimensions=dim, embedder=emb, metric="cos"),
+        "ivf_exhaustive": lambda: ix.IvfKnnFactory(dimensions=dim, embedder=emb, metric="cos",
+                                                   nprobe=64),
+        "hybrid": lambda: ix.HybridIndexFactory([knn, ix.TantivyBM25Factory()]),
+    }[name]()
+
+
+def doc_index(d: dict) -> int:
+    return int(os.path.basename(d["metadata"]["path"])[3:8])
+
+
+def wait_files(base: str, names: set) -> None:
+    """Until the store holds the docs of exactly the files ``names``: its
+    count first, then its list of inputs (a scan that caught the
+    directory mid-change can show the right count with other files)."""
+    deadline = time.monotonic() + RAG_TIMEOUT
+    while True:
+        if post(f"{base}/v1/statistics", {})[0]["file_count"] == len(names):
+            inputs = post(f"{base}/v1/inputs",
+                          {"metadata_filter": None, "filepath_globpattern": None})[0]
+            if {os.path.basename(m["path"]) for m in inputs} == names:
+                return
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the store did not hold its {len(names)} files within "
+                                 f"{RAG_TIMEOUT} s")
+        time.sleep(0.05)
+
+
+def doc_file(i: int) -> str:
+    return f"doc{i:05d}.txt"
+
+
+def store_arm(pw, llm, model, name: str, docs, queries, tmp: str) -> dict:
+    """(b) one factory: the corpus written one file a doc, the store
+    served until it holds every doc, the queries one at a time, then
+    FS_NEW files in and FS_GONE out and the probes."""
+    d = os.path.join(tmp, f"store-{name}")
+    os.makedirs(d)
+    for i in range(FS_DOCS):
+        with open(os.path.join(d, doc_file(i)), "wb") as fh:
+            fh.write(docs[i].encode())
+    pw.clear_graph()
+    emb = llm.SentenceTransformerEmbedder(model, max_batch_size=RAG_BATCH)
+    files = pw.io.fs.read(d, format="binary", with_metadata=True, mode="streaming",
+                          refresh_interval=FS_REFRESH)
+    store = llm.DocumentStore(files, retriever_factory=store_factory(pw, name, emb,
+                                                                     model.cfg.hidden))
+    server = llm.DocumentStoreServer(RAG_HOST, 0, store)
+    if name == "hybrid":
+        for i in range(2):
+            sub_index_route(pw, store, i, f"/v1/sub{i}", server.webserver)
+    t0 = time.perf_counter()
+    live = LiveRun(pw, server.webserver)
+    out = {"lat": [], "replies": [], "subs": [[], []]}
+    try:
+        wait_files(live.base, {doc_file(i) for i in range(FS_DOCS)})
+        out["ingest_s"] = time.perf_counter() - t0
+        for q in queries:
+            reply, ms = post(f"{live.base}/v1/retrieve", {"query": q, "k": TOP_K})
+            out["replies"].append(reply)
+            out["lat"].append(ms)
+        if name == "hybrid":
+            for i in range(2):
+                out["subs"][i] = [post(f"{live.base}/v1/sub{i}", {"query": q, "k": 2 * TOP_K})[0]
+                                  for q in queries]
+        gone = list(range(0, FS_DOCS, FS_DOCS // FS_GONE))
+        t1 = time.perf_counter()
+        for i in gone:
+            os.unlink(os.path.join(d, doc_file(i)))
+        for i in range(FS_DOCS, FS_DOCS + FS_NEW):
+            with open(os.path.join(d, doc_file(i)), "wb") as fh:
+                fh.write(docs[i].encode())
+        wait_files(live.base, {doc_file(i) for i in range(FS_DOCS + FS_NEW)}
+                   - {doc_file(i) for i in gone})
+        out["change_s"] = time.perf_counter() - t1
+        new = list(range(FS_DOCS, FS_DOCS + FS_NEW, FS_NEW // FS_PROBES))
+        out["fresh"] = [doc_index(post(f"{live.base}/v1/retrieve",
+                                       {"query": docs[i], "k": 1})[0][0]) == i for i in new]
+        after = [post(f"{live.base}/v1/retrieve", {"query": q, "k": TOP_K})[0]
+                 for q in [docs[i] for i in gone[:FS_PROBES]] + list(queries)]
+        out["gone_hits"] = sum(doc_index(x) in set(gone) for reply in after for x in reply)
+    finally:
+        live.stop()
+    pw.clear_graph()
+    return out
+
+
+def hybrid_keys(reply) -> list:
+    """The hybrid's match keys of a REST reply, in its order."""
+    import pathway_tpu_torch as pw
+
+    return [repr((d["text"], pw.Json(d["metadata"]))) for d in reply]
+
+
+def fs_config2(pw, llm, model, docs, queries, gpu: str, tmp: str) -> None:
+    """(b)."""
+    from pathway_tpu_torch.stdlib.indexing.hybrid_index import canonical_ranking, rrf_fuse
+
+    # truth: exact f32 host scoring of the port's own embeddings of the corpus
+    corpus_v = np.concatenate([model.embed_batch(docs[s : s + RAG_BATCH])
+                               for s in range(0, FS_DOCS, RAG_BATCH)]).astype(np.float32)
+    q_v = model.embed_batch(queries).astype(np.float32)
+    truth = np.argsort(-(q_v @ corpus_v.T), axis=1, kind="stable")[:, :TOP_K]
+    arms = {name: store_arm(pw, llm, model, name, docs, queries, tmp) for name in FS_FACTORIES}
+    recall = {}
+    for name, a in arms.items():
+        hits = sum(len({doc_index(x) for x in reply} & set(truth[i].tolist()))
+                   for i, reply in enumerate(a["replies"]))
+        recall[name] = hits / (len(queries) * TOP_K)
+        info(f"files (b) config 2, {name} [{gpu}]: {FS_DOCS} files -> pw.io.fs.read(binary, "
+             f"metadata, streaming) -> DocumentStoreServer: ingest {FS_DOCS / a['ingest_s']:.1f} "
+             f"docs/s ({a['ingest_s']:.3f} s until it held the {FS_DOCS} files); /v1/retrieve p50 "
+             f"{pct(a['lat'], 50):.3f} ms, p99 {pct(a['lat'], 99):.3f} ms (k={TOP_K}, "
+             f"{len(queries)} queries one at a time); recall@10 {recall[name]:.4f} against exact "
+             f"f32 scoring; -{FS_GONE} files +{FS_NEW} held in {a['change_s']:.3f} s; "
+             f"new docs found {sum(a['fresh'])}/{FS_PROBES}; deleted docs returned "
+             f"{a['gone_hits']}")
+        require(all(a["fresh"]), f"(b) {name}: a new doc's own text finds it")
+        require(a["gone_hits"] == 0, f"(b) {name}: no deleted doc is returned")
+        require(all(len(r) == TOP_K for r in a["replies"]), f"(b) {name}: {TOP_K} docs a reply")
+    require(recall["brute_force"] >= 0.9, f"(b) brute force recall@10 {recall['brute_force']:.4f}")
+    bf = [[(doc_index(x), -x["dist"]) for x in r] for r in arms["brute_force"]["replies"]]
+    ivf = [[(doc_index(x), -x["dist"]) for x in r] for r in arms["ivf_exhaustive"]["replies"]]
+    agree = sum(ranks_agree(w, g, RAG_TIE_TOL) for w, g in zip(bf, ivf))
+    info(f"files (b) IVF at nprobe 64 of 64 cells equal brute force but at gaps < {RAG_TIE_TOL}: "
+         f"{agree}/{len(queries)}")
+    require(agree == len(queries), "(b) exhaustive IVF equals brute force")
+    h = arms["hybrid"]
+    fused_eq = 0
+    for reply, s0, s1 in zip(h["replies"], *h["subs"]):
+        want = rrf_fuse([canonical_ranking([(x["text"], pw.Json(x["metadata"])) for x in s],
+                                           [x["dist"] for x in s]) for s in (s0, s1)], TOP_K)
+        fused_eq += (hybrid_keys(reply) == [k for k, _ in want]
+                     and [x["dist"] for x in reply] == [-s for _k, s in want])
+    info(f"files (b) hybrid top-{TOP_K} equal an RRF (k=60) of its two sub-indexes' own "
+         f"replies at {2 * TOP_K}, computed on the host: {fused_eq}/{len(queries)}")
+    require(fused_eq == len(queries), "(b) the hybrid's replies equal the host RRF")
+
+
+def fs_config5(pw, model, vecs: np.ndarray, queries, dev, gpu: str) -> None:
+    """(c): phase 4's vectors through DataIndex in pw.run(), unsharded and
+    routed by ``mesh=`` to the sharded IVF over FS_MESH virtual positions
+    (exhaustive probing); then each index's search of the queries timed."""
+    import torch
+
+    from pathway_tpu_torch.engine import probes
+    from pathway_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([dev] * FS_MESH, dp=FS_MESH, tp=1)
+    q_v = model.embed_batch(queries).astype(np.float32)
+    ix = pw.indexing
+    dim = model.cfg.hidden
+    facs = {
+        "unsharded": ix.BruteForceKnnFactory(dimensions=dim, reserved_space=len(vecs)),
+        "brute_force_mesh": ix.BruteForceKnnFactory(dimensions=dim, mesh=mesh),
+        "ivf_mesh": ix.IvfKnnFactory(dimensions=dim, mesh=mesh, n_cells=64, nprobe=64),
+    }
+    got, search_ms = {}, {}
+    probes.reset_retrieval_backend_stats()
+    for name, fac in facs.items():
+        pw.clear_graph()
+        docs_t = pw.debug.table_from_rows(pw.schema_from_types(doc=int, vec=np.ndarray),
+                                          [(i, vecs[i]) for i in range(len(vecs))])
+        q_t = pw.debug.table_from_rows(pw.schema_from_types(q=int, qv=np.ndarray),
+                                       [(j, q_v[j]) for j in range(len(q_v))])
+        res = fac.build_index(docs_t.vec, docs_t).query_as_of_now(
+            q_t.qv, number_of_matches=TOP_K, with_distances=True)
+        res = res.select(res.doc, res._pw_dist, q=q_t.restrict(res).q)
+        _, cols = pw.debug.table_to_dicts(res)
+        got[name] = {cols["q"][k]: list(zip(cols["doc"][k], (-d for d in cols["_pw_dist"][k])))
+                     for k in cols["q"]}
+        index = fac.build_inner_index(None).make_factory().make_instance()
+        index.add(list(range(len(vecs))), vecs)
+        index.search(q_v, TOP_K)  # warm
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index.search(q_v, TOP_K)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        search_ms[name] = statistics.median(ts)
+        del index
+    pw.clear_graph()
+    stats = probes.retrieval_backend_stats()
+    # bf16 cells scored apart from the brute force's bf16 corpus: phase
+    # 15's near-tie gap
+    agree = {n: sum(ranks_agree(got["unsharded"][q], got[n][q], TIE_TOL)
+                    for q in range(len(q_v))) for n in ("brute_force_mesh", "ivf_mesh")}
+    info(f"files (c) config 5 on one card: {len(vecs)} vectors through DataIndex in pw.run(), "
+         f"mesh of {FS_MESH} virtual positions [{gpu}]: retrieval backends {stats}; top-{TOP_K} "
+         f"equal the unsharded brute force's but at gaps < {TIE_TOL}: "
+         + ", ".join(f"{n} {a}/{len(q_v)}" for n, a in agree.items())
+         + f"; search ms of {len(q_v)} queries " + ", ".join(f"{n} {ms:.3f}"
+                                                             for n, ms in search_ms.items()))
+    require(stats.get("sharded_ivf", 0) >= 2 * len(q_v), "(c) the sharded index answered")
+    require(all(a == len(q_v) for a in agree.values()),
+            "(c) the mesh factories' top keys equal the unsharded brute force's")
+
+
+def run_file_connectors(dev, gpu: str, out: dict, docs, queries) -> dict:
+    """Phase 18 over phase 4's model; returns its launches of the five
+    kernel entry points."""
+    import tempfile
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.xpacks import llm
+
+    t18 = time.perf_counter()
+    model = out["emb"]
+    model.embed_batch(docs[:RAG_BATCH])  # warm the batch bucket, outside the counts
+    for f in counters().values():
+        f.launches = 0
+    counter = EncodeCount(model)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            vecs = fs_config1(pw, llm, model, docs, tmp, gpu)
+            fs_config2(pw, llm, model, docs, queries, gpu, tmp)
+        fs_config5(pw, model, vecs, queries, dev, gpu)
+    finally:
+        counter.close()
+    torch.cuda.synchronize()
+    launches = {n: f.launches for n, f in counters().items()}
+    info(f"files: phase 18 launches {launches}; {len(counter.sizes)} encodes; "
+         f"{time.perf_counter() - t18:.1f} s")
+    require(launches["flash_attn"] >= MINILM_LAYERS * len(counter.sizes) > 0,
+            f"every encode of phase 18 went through flash_attn ({launches['flash_attn']} >= "
+            f"{MINILM_LAYERS} x {len(counter.sizes)})")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4670,6 +5065,11 @@ def main() -> int:
     # phase 17: BASELINE configs 2 and 3 through pw.run() and the REST servers
     rag = run_rag_apps(dev, gpu, out, docs, queries, common)
     dec = {n: dec[n] + rag[n] for n in dec}
+
+    # phase 18: BASELINE configs 1, 2 and 5 through the file connectors and
+    # the index factories
+    files = run_file_connectors(dev, gpu, out, docs, queries)
+    dec = {n: dec[n] + files[n] for n in dec}
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",

@@ -1,15 +1,17 @@
 """Shared connector plumbing: schema→row conversion, value parsing.
 
 Reference parity: ``python/pathway/io/_utils.py`` + the parser layer of
-``src/connectors/data_format.rs`` (JsonLinesParser, IdentityParser). The
-record -> row extraction runs in the port's C++ engine loops
-(``native/_engine.cpp``); the CSV parser of the file connectors is not
-ported yet (ROADMAP A13).
+``src/connectors/data_format.rs`` (DsvParser, JsonLinesParser,
+IdentityParser). The record -> row extraction, the CSV parser and the line
+splitter run in the port's C++ engine loops (``native/_engine.cpp``); a
+failed build raises. ``native=False`` runs the Python parsers instead
+(the tests' reference: the same values, slower).
 """
 
 from __future__ import annotations
 
 import json
+from dataclasses import dataclass
 from typing import Any, Callable
 
 from pathway_tpu_torch.engine.value import hash_values
@@ -18,6 +20,16 @@ from pathway_tpu_torch.internals.json import Json
 
 OnChangeCallback = Callable
 OnFinishCallback = Callable
+
+
+@dataclass
+class CsvParserSettings:
+    delimiter: str = ","
+    quote: str = '"'
+    escape: str | None = None
+    enable_double_quote_escapes: bool = True
+    enable_quoting: bool = True
+    comment_character: str | None = None
 
 
 _ABSENT = object()
@@ -190,6 +202,34 @@ def _joined_parse(items: list[bytes]):
     return decoded[::2]
 
 
+_JSONL_CHUNK = 20_000
+
+
+def _parse_json_line_chunks(lines):
+    """Yield decoded objects for jsonlines content, chunked: one
+    ``json.loads`` per chunk is ~3x per-line calls, and chunking bounds the
+    transient join memory on multi-GB files. A chunk with any invalid line
+    — or any line that is not ONE standalone JSON document (caught by the
+    sentinel check in ``_joined_parse``) — falls back per-line with bad
+    lines skipped, so results never depend on chunk boundaries."""
+    for start in range(0, len(lines), _JSONL_CHUNK):
+        chunk = lines[start : start + _JSONL_CHUNK]
+        objs = _joined_parse(chunk)
+        if objs is None:
+            objs = []
+            for line in chunk:
+                try:
+                    objs.append(json.loads(line))
+                except json.JSONDecodeError:
+                    continue
+        yield from objs
+
+
+def fast_rows_eligible(fmt: str) -> bool:
+    """Whether ``rows_from_bytes`` parses ``fmt`` (JSON lines)."""
+    return fmt in ("json", "jsonlines")
+
+
 def _fast_parse_plan(schema):
     """Loop-invariant parse inputs shared by the row and columnar fast
     paths: (cols, dtypes, codes, defaults)."""
@@ -289,3 +329,162 @@ def batch_parse_stream_records(values: list[bytes], fmt: str, schema,
         else:
             rows[i] = None
     return rows
+
+
+def _csv_settings_simple(settings: "CsvParserSettings | None") -> bool:
+    """Whether the C++ CSV state machine covers these settings (1-byte
+    delimiter/quote, RFC4180 double-quote escapes, no comment chars)."""
+    s = settings or CsvParserSettings()
+    return (
+        len(s.delimiter) == 1
+        and ord(s.delimiter) < 128
+        and len(s.quote) == 1
+        and ord(s.quote) < 128
+        and s.escape is None
+        and s.enable_double_quote_escapes
+        and s.enable_quoting
+        and s.comment_character is None
+    )
+
+
+def fast_cols_eligible(fmt: str, csv_settings=None) -> bool:
+    """Whether :func:`cols_from_bytes` parses ``fmt`` with these settings."""
+    if fmt in ("json", "jsonlines"):
+        return True
+    if fmt in ("csv", "dsv"):
+        return _csv_settings_simple(csv_settings)
+    return False
+
+
+def cols_from_bytes(data: bytes, fmt: str, schema, csv_settings=None,
+                    native: bool = True):
+    """Columnar twin of :func:`rows_from_bytes`: raw jsonlines OR csv
+    bytes -> ``(column_lists, n_rows)`` with one Python list per schema
+    column — no row tuples are ever materialized (the C++ parsers emit
+    straight into column lists), so bulk readers skip the transpose
+    entirely. Fallback records are repaired per record exactly like the
+    row paths. ``native=False`` parses through
+    :func:`iter_records_from_bytes` in Python (the same columns)."""
+    if not fast_cols_eligible(fmt, csv_settings):
+        raise ValueError(f"cols_from_bytes has no columnar parse for {fmt!r} "
+                         f"with {csv_settings!r}")
+    if not native:
+        cols = [c for c in schema.column_names() if c != "_metadata"]
+        recs = list(iter_records_from_bytes(data, fmt, schema, csv_settings, native=False))
+        return [[r[c] for r in recs] for c in cols], len(recs)
+    if fmt in ("csv", "dsv"):
+        return _csv_cols_from_bytes(data, schema, csv_settings)
+    from pathway_tpu_torch import native as native_mod
+
+    cols, dtypes, codes, defaults = _fast_parse_plan(schema)
+    col_lists, n, fallback = native_mod.jsonl_rows(data, cols, codes, defaults, 1)
+    col_lists = list(col_lists)
+
+    def write_row(i, values):
+        for j, c in enumerate(cols):
+            col_lists[j][i] = values[c]
+
+    drop = _repair_fallback(fallback, cols, dtypes, schema, write_row)
+    for i in reversed(drop):
+        for col in col_lists:
+            del col[i]
+        n -= 1
+    return col_lists, n
+
+
+def _csv_cols_from_bytes(data: bytes, schema, csv_settings):
+    """C++ CSV parse; fallback records (exotic coercions) re-parse through
+    the REAL csv module against the header the C++ parser saw, so results
+    match the DictReader path exactly."""
+    import csv as csv_mod
+    import io as io_mod
+
+    from pathway_tpu_torch import native as native_mod
+
+    settings = csv_settings or CsvParserSettings()
+    cols, dtypes, codes, defaults = _fast_parse_plan(schema)
+    header, col_lists, n, fallback = native_mod.csv_cols(
+        data, settings.delimiter, settings.quote, cols, codes, defaults)
+    col_lists = list(col_lists)
+    drop: list[int] = []
+    for i, rec_bytes in fallback:
+        text = rec_bytes.decode("utf-8", errors="replace")
+        parsed = list(csv_mod.reader(
+            io_mod.StringIO(text), delimiter=settings.delimiter,
+            quotechar=settings.quote,
+        ))
+        if not parsed:
+            drop.append(i)
+            continue
+        fields = list(parsed[0])
+        if len(fields) < len(header):  # DictReader restval: None
+            fields += [None] * (len(header) - len(fields))
+        record = dict(zip(header, fields))
+        values = parse_record_fields(record, cols, dtypes, schema)
+        for j, c in enumerate(cols):
+            col_lists[j][i] = values[c]
+    for i in reversed(drop):
+        for col in col_lists:
+            del col[i]
+        n -= 1
+    return col_lists, n
+
+
+def _iter_lines(data: bytes, native: bool = True):
+    """'\\n'-separated lines, mirroring text-file iteration (the final
+    newline does not produce an empty trailing line; '\\r' is preserved).
+    The C++ splitter cuts the bytes; ``native=False`` splits the decoded
+    text in Python (the same lines: no UTF-8 sequence holds a newline
+    byte)."""
+    if native:
+        from pathway_tpu_torch import native as native_mod
+
+        return [data[int(a):int(b)].decode("utf-8", errors="replace")
+                for a, b in native_mod.split_lines(data)]
+    lines = data.decode("utf-8", errors="replace").split("\n")
+    if lines and lines[-1] == "":
+        lines.pop()
+    return lines
+
+
+def iter_records_from_bytes(data: bytes, fmt: str, schema,
+                            csv_settings: "CsvParserSettings | None" = None,
+                            native: bool = True):
+    """Yield per-record value dicts from raw file bytes — the ONE parser
+    half of the reference's scanner x tokenizer split
+    (``src/connectors/posix_like.rs``), so the formats cannot drift apart.
+    The per-record path of the file reader (metadata, primary keys, CSV
+    settings the C++ parser does not cover): CSV through
+    ``csv.DictReader``, JSON lines through ``json``; plaintext lines come
+    from the C++ splitter (``native=False``: from Python's)."""
+    import csv as csv_mod
+    import io as io_mod
+
+    cols = [c for c in schema.column_names() if c != "_metadata"]
+    dtypes = {n: c.dtype for n, c in schema.__columns__.items()}
+    if fmt in ("csv", "dsv"):
+        settings = csv_settings or CsvParserSettings()
+        text = data.decode("utf-8", errors="replace")
+        reader = csv_mod.DictReader(
+            io_mod.StringIO(text), delimiter=settings.delimiter,
+            quotechar=settings.quote,
+        )
+        for record in reader:
+            yield parse_record_fields(record, cols, dtypes, schema)
+    elif fmt in ("json", "jsonlines"):
+        lines = [ln for ln in data.split(b"\n") if ln.strip()]
+        for obj in _parse_json_line_chunks(lines):
+            # valid JSON but not a record (null / number / array):
+            # skip — same containment as parse_stream_record; one bad
+            # line must not kill the connector
+            if isinstance(obj, dict):
+                yield parse_record_fields(obj, cols, dtypes, schema)
+    elif fmt == "plaintext":
+        for line in _iter_lines(data, native):
+            yield {"data": line}
+    elif fmt == "plaintext_by_file":
+        yield {"data": data.decode("utf-8", errors="replace")}
+    elif fmt == "binary":
+        yield {"data": data}
+    else:
+        raise ValueError(f"unknown format {fmt!r}")

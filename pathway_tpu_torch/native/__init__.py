@@ -1,7 +1,8 @@
 """The port's C++ host loops, built at first use: the batch tokenizers
 (``_tokenize.cpp``) and the dataflow engine's loops (``_engine.cpp``:
 column hashing, delta consolidation, the row transpose, the
-connectors' record extraction and the hash join's loops).
+connectors' record extraction (record dicts, JSON lines, CSV), the line
+splitter of the line-based file readers and the hash join's loops).
 
 ``g++ -O3 -shared -fPIC`` compiles each source into a CPython extension in
 ``build/pathway_tpu_torch/`` beside the package (listed in
@@ -10,8 +11,10 @@ source is rebuilt and an unchanged one reused. The library is written
 under a temporary name and moved into place with ``os.replace``: several
 processes may build it at once, and none sees half a file. A missing
 ``g++`` or a failed build raises; nothing falls back. The Python tokenize
-path runs only when a tokenizer is built with ``native=False``; the
-engine's loops hand back the rows they cannot encode (see each wrapper).
+path runs only when a tokenizer is built with ``native=False``, and the
+Python CSV and line parsers of ``io/_utils.py`` only when a reader is
+asked for them the same way; the engine's loops hand back the rows they
+cannot encode (see each wrapper).
 """
 
 from __future__ import annotations
@@ -140,6 +143,20 @@ def jsonl_rows(data: bytes, cols, codes, defaults, columnar: int = 0):
     with the fast coercions; lines it cannot parse come back as
     ``(index, bytes)`` for the Python parser."""
     return engine_lib().jsonl_rows(data, cols, codes, defaults, columnar)
+
+
+def csv_cols(data: bytes, delimiter: str, quote: str, cols, codes, defaults):
+    """CSV bytes (a header record first) -> (header fields, one value list
+    per schema column, rows, fallback ``(index, record bytes)`` of records
+    whose fields need the Python parser), with the fast coercions; 1-byte
+    delimiter and quote, doubled quotes inside quoted fields."""
+    return engine_lib().csv_cols(data, ord(delimiter), ord(quote), cols, codes, defaults)
+
+
+def split_lines(data: bytes) -> np.ndarray:
+    """(start, end) byte offsets of each ``\\n``-separated line as an
+    (n, 2) uint64 array; a final newline makes no empty last line."""
+    return np.frombuffer(engine_lib().split_lines(data), dtype=np.uint64).reshape(-1, 2)
 
 
 def join_apply_side(state, key2jk, keys, diffs, col_lists, jk_idx, error):

@@ -3,7 +3,8 @@
 // Canonical value serialization + XXH64 keying over whole columns,
 // (key, row-hash) delta consolidation, the SoA transpose behind
 // Batch.from_rows, the record -> row extraction of the connectors
-// (record dicts and JSON-lines bytes), and the hash join's two loops (one
+// (record dicts, JSON-lines and CSV bytes), the newline tokenizer of the
+// line-based file readers, and the hash join's two loops (one
 // side's batch applied to its buckets, and the dL x R cross products with
 // their pair keys). The keys are bit-for-bit those of
 // the JAX package's engine, so tables compare by row id across packages.
@@ -317,8 +318,6 @@ static PyObject* py_consolidate_pairs(PyObject*, PyObject* args) {
   Py_DECREF(diff_bytes);
   return ret;
 }
-
-// split_lines(bytes) -> bytes of uint64 LE (start,end) offset pairs per line,
 
 // Batch schema extraction+coercion — the per-record half the reference
 // does in Rust (src/connectors/data_format.rs JsonLinesParser). For each
@@ -841,6 +840,33 @@ static PyObject* py_jsonl_rows(PyObject*, PyObject* args) {
   return Py_BuildValue("(NN)", rows, fallback);
 }
 
+// split_lines(bytes) -> bytes of uint64 LE (start,end) offset pairs per line,
+// skipping a trailing empty line — the tokenizer core for jsonlines/plaintext
+// readers (reference: src/connectors/data_tokenize.rs).
+static PyObject* py_split_lines(PyObject*, PyObject* args) {
+  Py_buffer buf;
+  if (!PyArg_ParseTuple(args, "y*", &buf)) return nullptr;
+  const char* data = reinterpret_cast<const char*>(buf.buf);
+  size_t n = (size_t)buf.len;
+  std::vector<uint64_t> offs;
+  size_t start = 0;
+  for (size_t i = 0; i < n; i++) {
+    if (data[i] == '\n') {
+      offs.push_back(start);
+      offs.push_back(i);
+      start = i + 1;
+    }
+  }
+  if (start < n) {
+    offs.push_back(start);
+    offs.push_back(n);
+  }
+  PyObject* out = PyBytes_FromStringAndSize(
+      reinterpret_cast<const char*>(offs.data()), offs.size() * 8);
+  PyBuffer_Release(&buf);
+  return out;
+}
+
 // ------------------------------------------------------------- CSV (DSV)
 // RFC4180-style state machine mirroring Python's csv.DictReader semantics
 // for the common settings (1-byte delimiter/quote): records split on
@@ -851,6 +877,318 @@ static PyObject* py_jsonl_rows(PyObject*, PyObject* args) {
 // is returned as a fallback (record index, raw record bytes) for the
 // Python csv module to re-parse — results are identical either way.
 
+namespace csvn {
+
+// exact mirror of parse_value's int(): optional sign + digits only
+// (anything else — underscores, whitespace, hex — goes to fallback)
+static bool parse_int(const std::string& f, long long* out) {
+  if (f.empty()) return false;
+  size_t i = (f[0] == '+' || f[0] == '-') ? 1 : 0;
+  if (i == f.size()) return false;
+  long long v = 0;
+  for (; i < f.size(); i++) {
+    if (f[i] < '0' || f[i] > '9') return false;
+    if (v > (9223372036854775807LL - 9) / 10) return false;  // overflow
+    v = v * 10 + (f[i] - '0');
+  }
+  *out = f[0] == '-' ? -v : v;
+  return true;
+}
+
+static bool parse_float(const std::string& f, double* out) {
+  if (f.empty()) return false;
+  // strtod accepts inf/nan/hex and leading whitespace, which Python's
+  // float() treats differently in part — allow only the plain forms
+  for (char c : f) {
+    if (!((c >= '0' && c <= '9') || c == '+' || c == '-' || c == '.' ||
+          c == 'e' || c == 'E'))
+      return false;
+  }
+  errno = 0;
+  char* end = nullptr;
+  double v = std::strtod(f.c_str(), &end);
+  if (end != f.c_str() + f.size() || errno == ERANGE) return false;
+  *out = v;
+  return true;
+}
+
+static inline bool is_strip_ws(char c) {
+  // the ASCII subset of what Python str.strip() removes (incl. the
+  // \x1c-\x1f separator control chars, which are .isspace() in Python)
+  return c == ' ' || c == '\t' || c == '\n' || c == '\r' || c == '\f' ||
+         c == '\v' || (c >= '\x1c' && c <= '\x1f');
+}
+
+// Mirrors str(raw).strip().lower() in ("1","true","yes","on").  Returns
+// false (caller falls back to the Python parser) when the field holds
+// non-ASCII bytes, where Python's strip()/lower() could diverge.
+static bool parse_bool(const std::string& f, bool* out) {
+  std::string t;
+  t.reserve(f.size());
+  size_t b = 0, e = f.size();
+  while (b < e && is_strip_ws(f[b])) b++;
+  while (e > b && is_strip_ws(f[e - 1])) e--;
+  for (size_t i = b; i < e; i++) {
+    char c = f[i];
+    if ((unsigned char)c >= 0x80) return false;
+    t.push_back(c >= 'A' && c <= 'Z' ? (char)(c + 32) : c);
+  }
+  *out = (t == "1" || t == "true" || t == "yes" || t == "on");
+  return true;
+}
+
+}  // namespace csvn
+
+// csv_cols(data, delimiter, quote, cols, codes, defaults)
+//   -> (header_list, col_lists_tuple, n_rows, fallback[(idx, bytes)])
+static PyObject* py_csv_cols(PyObject*, PyObject* args) {
+  Py_buffer buf;
+  int delim_i, quote_i;
+  PyObject *cols, *codes_obj, *defaults;
+  if (!PyArg_ParseTuple(args, "y*iiOOO", &buf, &delim_i, &quote_i, &cols,
+                        &codes_obj, &defaults))
+    return nullptr;
+  const char delim = (char)delim_i, quote = (char)quote_i;
+  PyObject* col_fast = PySequence_Fast(cols, "cols must be a sequence");
+  PyObject* code_fast =
+      col_fast ? PySequence_Fast(codes_obj, "codes must be a sequence")
+               : nullptr;
+  if (col_fast == nullptr || code_fast == nullptr) {
+    Py_XDECREF(col_fast);
+    PyBuffer_Release(&buf);
+    return nullptr;
+  }
+  Py_ssize_t nc = PySequence_Fast_GET_SIZE(col_fast);
+  std::vector<std::string> names((size_t)nc);
+  std::vector<long> codes((size_t)nc);
+  std::vector<PyObject*> defvals((size_t)nc);  // borrowed or nullptr
+  bool arg_err = PySequence_Fast_GET_SIZE(code_fast) != nc ||
+                 !PyDict_Check(defaults);
+  for (Py_ssize_t j = 0; !arg_err && j < nc; j++) {
+    PyObject* nm = PySequence_Fast_GET_ITEM(col_fast, j);
+    Py_ssize_t sl;
+    const char* s = PyUnicode_AsUTF8AndSize(nm, &sl);
+    if (s == nullptr) { arg_err = true; break; }
+    names[(size_t)j].assign(s, (size_t)sl);
+    codes[(size_t)j] = PyLong_AsLong(PySequence_Fast_GET_ITEM(code_fast, j));
+    defvals[(size_t)j] = PyDict_GetItem(defaults, nm);
+  }
+  if (arg_err) {
+    Py_DECREF(col_fast);
+    Py_DECREF(code_fast);
+    PyBuffer_Release(&buf);
+    if (!PyErr_Occurred())
+      PyErr_SetString(PyExc_ValueError, "bad cols/codes/defaults");
+    return nullptr;
+  }
+  const char* p = reinterpret_cast<const char*>(buf.buf);
+  const char* end = p + buf.len;
+
+  // one record: fields split on delim outside quotes; doubled quotes
+  // inside a quoted field unescape; returns false at EOF with no data
+  std::vector<std::string> fields;
+  auto read_record = [&](const char** cursor, const char** rec_start,
+                         const char** rec_end) -> bool {
+    const char* c = *cursor;
+    if (c >= end) return false;
+    *rec_start = c;
+    fields.clear();
+    std::string cur;
+    bool in_quotes = false;
+    bool any = false;
+    // csv.reader opens a quoted section only when the quote is the very
+    // first character of a field; any later quote is a literal char
+    // (e.g. '5" disk,x' -> ['5" disk', 'x'], '"a"b"c,d' -> ['ab"c', 'd'])
+    bool field_fresh = true;
+    while (c < end) {
+      char ch = *c;
+      if (in_quotes) {
+        if (ch == quote) {
+          if (c + 1 < end && c[1] == quote) { cur.push_back(quote); c += 2; }
+          else { in_quotes = false; c++; }
+        } else { cur.push_back(ch); c++; }
+      } else if (ch == quote) {
+        if (field_fresh) in_quotes = true;
+        else cur.push_back(quote);
+        field_fresh = false;
+        any = true;
+        c++;
+      } else if (ch == delim) {
+        fields.push_back(cur);
+        cur.clear();
+        field_fresh = true;
+        any = true;
+        c++;
+      } else if (ch == '\n' || ch == '\r') {
+        const char* brk = c;
+        if (ch == '\r' && c + 1 < end && c[1] == '\n') c += 2; else c++;
+        if (!any && cur.empty() && fields.empty()) {
+          // blank line: csv.reader yields [] and DictReader skips it
+          *cursor = c;
+          *rec_start = c;
+          continue;
+        }
+        fields.push_back(cur);
+        *rec_end = brk;
+        *cursor = c;
+        return true;
+      } else {
+        cur.push_back(ch);
+        field_fresh = false;
+        any = true;
+        c++;
+      }
+    }
+    if (!any && cur.empty() && fields.empty()) { *cursor = c; return false; }
+    fields.push_back(cur);
+    *rec_end = c;
+    *cursor = c;
+    return true;
+  };
+
+  const char* cursor = p;
+  const char *rs, *re;
+  PyObject* header = PyList_New(0);
+  std::vector<Py_ssize_t> field_to_col;  // header position -> schema col
+  bool mem_err = header == nullptr;
+  if (!mem_err && read_record(&cursor, &rs, &re)) {
+    for (const std::string& h : fields) {
+      PyObject* hs = PyUnicode_DecodeUTF8(h.data(), (Py_ssize_t)h.size(),
+                                          "replace");
+      if (hs == nullptr || PyList_Append(header, hs) < 0) {
+        Py_XDECREF(hs);
+        mem_err = true;
+        break;
+      }
+      Py_DECREF(hs);
+      Py_ssize_t target = -1;
+      for (Py_ssize_t j = 0; j < nc; j++) {
+        if (names[(size_t)j] == h) { target = j; break; }
+      }
+      field_to_col.push_back(target);
+    }
+  }
+  std::vector<PyObject*> col_out((size_t)nc, nullptr);
+  PyObject* fallback = PyList_New(0);
+  if (fallback == nullptr) mem_err = true;
+  for (Py_ssize_t j = 0; !mem_err && j < nc; j++) {
+    col_out[(size_t)j] = PyList_New(0);
+    if (col_out[(size_t)j] == nullptr) mem_err = true;
+  }
+  // schema columns ABSENT from the header take defaults every row
+  // (parse_record_fields absent-field semantics); header-mapped columns
+  // missing from a SHORT row get None (DictReader's restval)
+  std::vector<bool> col_in_header((size_t)nc, false);
+  for (Py_ssize_t t : field_to_col) {
+    if (t >= 0) col_in_header[(size_t)t] = true;
+  }
+  std::vector<PyObject*> rowvals((size_t)nc);
+  Py_ssize_t n_rows = 0;
+  while (!mem_err && read_record(&cursor, &rs, &re)) {
+    for (Py_ssize_t j = 0; j < nc; j++) rowvals[(size_t)j] = nullptr;
+    bool ok = true;
+    for (size_t fi = 0; ok && fi < fields.size() && fi < field_to_col.size();
+         fi++) {
+      Py_ssize_t target = field_to_col[fi];
+      if (target < 0) continue;
+      const std::string& f = fields[fi];
+      long code = codes[(size_t)target];
+      PyObject* outv = nullptr;
+      switch (code) {
+        case 1: {
+          long long v;
+          if (csvn::parse_int(f, &v)) outv = PyLong_FromLongLong(v);
+          break;
+        }
+        case 2: {
+          double v;
+          if (csvn::parse_float(f, &v)) outv = PyFloat_FromDouble(v);
+          break;
+        }
+        case 3: {
+          bool v;
+          if (csvn::parse_bool(f, &v)) {
+            outv = v ? Py_True : Py_False;
+            Py_INCREF(outv);
+          }
+          break;
+        }
+        case 4:
+        case 6:
+          outv = PyUnicode_DecodeUTF8(f.data(), (Py_ssize_t)f.size(),
+                                      "replace");
+          break;
+        default:
+          break;  // bytes/json/datetime/containers -> python fallback
+      }
+      if (outv == nullptr) {
+        if (PyErr_Occurred()) PyErr_Clear();
+        ok = false;
+        break;
+      }
+      Py_XDECREF(rowvals[(size_t)target]);
+      rowvals[(size_t)target] = outv;
+    }
+    if (ok) {
+      for (Py_ssize_t j = 0; j < nc && !mem_err; j++) {
+        PyObject* outv = rowvals[(size_t)j];
+        if (outv == nullptr) {
+          if (!col_in_header[(size_t)j] && defvals[(size_t)j] != nullptr) {
+            outv = defvals[(size_t)j];  // absent column -> schema default
+          } else {
+            outv = Py_None;  // short row (restval) or absent w/o default
+          }
+          Py_INCREF(outv);
+        }
+        if (PyList_Append(col_out[(size_t)j], outv) < 0) mem_err = true;
+        Py_DECREF(outv);
+        rowvals[(size_t)j] = nullptr;
+      }
+      for (Py_ssize_t j = 0; j < nc; j++) {
+        Py_XDECREF(rowvals[(size_t)j]);
+        rowvals[(size_t)j] = nullptr;
+      }
+      n_rows++;
+    } else {
+      for (Py_ssize_t j = 0; j < nc; j++) {
+        Py_XDECREF(rowvals[(size_t)j]);
+        rowvals[(size_t)j] = nullptr;
+      }
+      PyObject* entry = Py_BuildValue("(ny#)", n_rows, rs,
+                                      (Py_ssize_t)(re - rs));
+      if (entry == nullptr || PyList_Append(fallback, entry) < 0) {
+        Py_XDECREF(entry);
+        mem_err = true;
+      } else {
+        Py_DECREF(entry);
+        for (Py_ssize_t j = 0; j < nc && !mem_err; j++) {
+          if (PyList_Append(col_out[(size_t)j], Py_None) < 0) mem_err = true;
+        }
+        n_rows++;
+      }
+    }
+  }
+  Py_DECREF(col_fast);
+  Py_DECREF(code_fast);
+  PyBuffer_Release(&buf);
+  if (mem_err) {
+    Py_XDECREF(header);
+    Py_XDECREF(fallback);
+    for (PyObject* cl : col_out) Py_XDECREF(cl);
+    return nullptr;
+  }
+  PyObject* cols_tuple = PyTuple_New(nc);
+  if (cols_tuple == nullptr) {
+    Py_XDECREF(header);
+    Py_XDECREF(fallback);
+    for (PyObject* cl : col_out) Py_XDECREF(cl);
+    return nullptr;
+  }
+  for (Py_ssize_t j = 0; j < nc; j++) {
+    PyTuple_SET_ITEM(cols_tuple, j, col_out[(size_t)j]);  // steals ref
+  }
+  return Py_BuildValue("(NNnN)", header, cols_tuple, n_rows, fallback);
+}
 
 static PyObject* py_set_pointer_type(PyObject*, PyObject* args) {
   PyObject* t;
@@ -1406,13 +1744,18 @@ static PyMethodDef methods[] = {
      "batch record-dict -> row-tuple extraction with fast coercions"},
     {"jsonl_rows", py_jsonl_rows, METH_VARARGS,
      "one-pass jsonlines bytes -> row tuples with schema coercion"},
+    {"csv_cols", py_csv_cols, METH_VARARGS,
+     "one-pass CSV bytes -> per-column value lists with schema coercion"},
+    {"split_lines", py_split_lines, METH_VARARGS,
+     "newline tokenizer returning (start,end) offset pairs"},
     {"set_pointer_type", py_set_pointer_type, METH_VARARGS,
      "register the engine Pointer type"},
     {nullptr, nullptr, 0, nullptr}};
 
 static struct PyModuleDef moduledef = {
     PyModuleDef_HEAD_INIT, "_engine",
-    "the port's engine host loops (hashing, consolidation, row extraction, joins)",
+    "the port's engine host loops (hashing, consolidation, row extraction, "
+    "CSV and line parsing, joins)",
     -1, methods};
 
 PyMODINIT_FUNC PyInit__engine(void) { return PyModule_Create(&moduledef); }
