@@ -283,7 +283,33 @@ without printing a result:
    ``retrieval_backend_stats()`` names the sharded index, top-10 keys equal
    the unsharded brute force's but at near-ties, search ms of the 64
    queries beside it. Phase 18 runs ``flash_attn`` only, once a layer an
-   encode. Prints the script's wall.
+   encode;
+19. an event-time windowed embed stream through ``pw.temporal`` at phase
+   16's width: its 98,304 docs, each with a topic (``i % 8``) and an event
+   time ``t = i + j`` (``j`` a seeded jitter in [-512, 512]), a seeded 1%
+   of them late (a ``t`` from the stream's first quarter, produced last),
+   through an ``InMemoryKafkaBroker`` fed in commits of 1,024 docs (each
+   taken by the reader before the next: every epoch holds at most 1,024)
+   into phase 16's deferred MiniLM-L6 UDF; 64 queries follow on a second
+   topic. (a) ``windowby(t, sliding(hop=2048, duration=8192),
+   common_behavior(delay=1024, cutoff=4096), instance=topic).reduce(topic,
+   start, n=count(), centroid=npsum(vec), last=max(t))``: the windows,
+   counts and last times equal a host computation from the in-order docs,
+   no late doc counted, each centroid within cosine 0.9999 of the sum of
+   its docs' direct embeddings; (b) ``windows.diff(start, n,
+   instance=topic)`` (``Table.sort`` and ``SortNode``) equals the host's;
+   (c) ``interval_join(queries, docs, interval(-4096, 0), topic ==
+   topic)`` scored by ``pw.apply`` and reduced per query to ``argmax`` and
+   ``max``: each best doc equals host brute force over the direct
+   embeddings in its topic and interval but at gaps < 1e-3, scores within
+   2e-2; (d) ``asof_join`` of the queries to their topic's windows on
+   ``last``: the latest window at or before each query, cos(query,
+   centroid) within 2e-2 of the host's. The windowed program and the same
+   feed without windows run 2 reps each, in turns; prints docs/s of both
+   and their ratio, the reader's epochs, ``op_step_seconds`` / ``op_rows``
+   of the Buffer, Freeze, Sort, IntervalJoin and AsofJoin nodes
+   (``probes.engine_snapshot()``) and the phase's ``flash_attn`` launches
+   (at least one a layer an encode). Prints the script's wall.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -4910,6 +4936,308 @@ def run_file_connectors(dev, gpu: str, out: dict, docs, queries) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 19
+# an event-time windowed embed stream: phase 16's corpus and deferred
+# MiniLM-L6 UDF, each doc with a topic (i % W_TOPICS) and an event time
+# t = i + j, j a seeded jitter in [-W_JITTER, W_JITTER]; a seeded 1% of the
+# docs are late, a t from the stream's first quarter, produced last. The
+# broker is fed in commits of W_COMMIT docs, each taken by the reader
+# before the next is produced, so no epoch holds more: every in-order doc
+# is kept (its window closes >= W_CUTOFF - W_JITTER after it) and every
+# late doc lies >= 12,288 behind the watermark and is dropped. 64 queries
+# follow on a second topic. The windowed program and the same feed without
+# windows run W_REPS reps each, in turns.
+W_TOPICS, W_HOP, W_DURATION, W_DELAY, W_CUTOFF, W_JITTER = 8, 2048, 8192, 1024, 4096, 512
+W_LATE, W_COMMIT, W_QUERIES, W_LOOKBACK, W_REPS = 0.01, 1024, 64, 4096, 2
+W_OPERATORS = ("Buffer", "Freeze", "Sort", "IntervalJoin", "AsofJoin")
+
+
+def w_feed(texts: list[str], seed: int = 19) -> dict:
+    """Phase 19's docs and queries: event times, the late docs, the
+    payloads in the order they are produced."""
+    rng = np.random.default_rng(seed)
+    n = len(texts)
+    t = np.arange(n) + rng.integers(-W_JITTER, W_JITTER + 1, n)
+    late = np.sort(rng.choice(n, int(n * W_LATE), replace=False))
+    t[late] = rng.integers(0, n // 4, len(late))
+    is_late = np.zeros(n, dtype=bool)
+    is_late[late] = True
+    order = np.concatenate([np.flatnonzero(~is_late), late])
+    payloads = [json.dumps({"doc": int(i), "topic": int(i % W_TOPICS), "t": int(t[i]),
+                            "text": texts[i]}).encode() for i in order]
+    q_t = np.sort(rng.integers(W_DURATION, n, W_QUERIES))
+    q_texts = c4_texts(W_QUERIES, seed=20, words=6)
+    queries = [{"q": j, "topic": j % W_TOPICS, "t": int(q_t[j]), "text": q_texts[j]}
+               for j in range(W_QUERIES)]
+    return {"t": t, "topic": np.arange(n) % W_TOPICS, "late": is_late, "payloads": payloads,
+            "queries": queries,
+            "q_payloads": [json.dumps(q).encode() for q in queries]}
+
+
+def paced_feed(broker, connectors, topic: str, payloads, chunk: int, timeout: float) -> None:
+    """Produces ``payloads`` in commits of ``chunk``, each once the topic's
+    reader has taken the one before: no epoch of the reader holds more
+    than ``chunk`` rows."""
+    reader = next(c for c in connectors if getattr(c, "topic", None) == topic)
+    deadline = time.time() + timeout
+    for s in range(0, len(payloads), chunk):
+        for p in payloads[s : s + chunk]:
+            broker.produce(topic, p)
+        end = min(s + chunk, len(payloads))
+        while reader._offset < end:
+            if time.time() > deadline:
+                raise TimeoutError(f"the {topic!r} reader stalled at {reader._offset}")
+            time.sleep(0.001)
+
+
+def w_program(pw, docs, queries) -> dict:
+    """(a) the windows, (b) their diff, (c) each query's best doc of its
+    topic in the lookback interval, (d) each query's latest window."""
+    windows = docs.windowby(
+        docs.t, window=pw.temporal.sliding(hop=W_HOP, duration=W_DURATION),
+        behavior=pw.temporal.common_behavior(delay=W_DELAY, cutoff=W_CUTOFF),
+        instance=docs.topic).reduce(
+        pw.this.topic, start=pw.this._pw_window_start, n=pw.reducers.count(),
+        centroid=pw.reducers.npsum(pw.this.vec), last=pw.reducers.max(pw.this.t))
+    diffs = windows.diff(windows.start, windows.n, instance=windows.topic)
+    pairs = pw.temporal.interval_join(
+        queries, docs, queries.t, docs.t, pw.temporal.interval(-W_LOOKBACK, 0),
+        queries.topic == docs.topic).select(
+        q=pw.left.q, doc=pw.right.doc,
+        score=pw.apply(lambda a, b: float(np.dot(a, b)), pw.left.vec, pw.right.vec))
+    best = pairs.groupby(pairs.q).reduce(pairs.q, arg=pw.reducers.argmax(pairs.score),
+                                         top=pw.reducers.max(pairs.score))
+    best = best.select(best.q, best.top, doc=pairs.ix(best.arg).doc)
+    asof = pw.temporal.asof_join(
+        queries, windows, queries.t, windows.last, queries.topic == windows.topic).select(
+        q=pw.left.q, start=pw.right.start, last=pw.right.last,
+        cos=pw.apply(lambda a, c: float(np.dot(a, c) / np.linalg.norm(c)),
+                     pw.left.vec, pw.right.centroid))
+    return {"windows": windows, "diffs": diffs, "best": best, "asof": asof}
+
+
+def w_stream(pw, emb, feed: dict, windowed: bool, timeout: float = 600.0) -> dict:
+    """One rep: the docs, then the queries, through the paced broker into
+    the embed UDF and, when ``windowed``, the temporal program. Returns
+    the final tables, the run's wall and the docs reader's commits."""
+    import threading
+
+    from pathway_tpu_torch.internals import run as run_mod
+    from pathway_tpu_torch.io.kafka import InMemoryKafkaBroker
+
+    pw.clear_graph()
+    broker = InMemoryKafkaBroker()
+
+    class DocSchema(pw.Schema):
+        doc: int
+        topic: int
+        t: int
+        text: str
+
+    class QuerySchema(pw.Schema):
+        q: int
+        topic: int
+        t: int
+        text: str
+
+    docs = pw.io.kafka.read(broker, topic="docs", schema=DocSchema)
+    docs = docs.with_columns(vec=emb(docs.text))
+    queries = pw.io.kafka.read(broker, topic="queries", schema=QuerySchema)
+    queries = queries.with_columns(vec=emb(queries.text))
+    tables = (w_program(pw, docs, queries) if windowed
+              else {"docs": docs.select(docs.doc), "queries": queries.select(queries.q)})
+    finals = {name: {} for name in tables}
+    lock = threading.Lock()
+
+    def sink(rows):
+        def on_change(key, row, time, is_addition):
+            with lock:
+                if is_addition:
+                    rows[key.value] = row
+                elif rows.get(key.value) == row:
+                    del rows[key.value]
+        return on_change
+
+    for name, tab in tables.items():
+        pw.io.subscribe(tab, on_change=sink(finals[name]))
+    connectors = list(pw.G.connectors)
+    failure = []
+
+    def feeder():
+        try:
+            paced_feed(broker, connectors, "docs", feed["payloads"], W_COMMIT, timeout)
+            paced_feed(broker, connectors, "queries", feed["q_payloads"], W_QUERIES, timeout)
+        except Exception as exc:  # noqa: BLE001 - raised below
+            failure.append(exc)
+        finally:
+            broker.close()
+
+    thread = threading.Thread(target=feeder, daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    pw.run()
+    wall = time.perf_counter() - t0
+    thread.join(timeout)
+    require(not failure and not thread.is_alive(), f"the paced feed ran to its end {failure}")
+    reader = next(c for c in connectors if getattr(c, "topic", None) == "docs")
+    stats = run_mod.LAST_RUN_STATS.connectors[reader.node.id]
+    return {"finals": finals, "wall_s": wall, "docs_per_s": len(feed["t"]) / wall,
+            "epochs": stats.commits, "rows_read": stats.rows_read}
+
+
+def w_host(feed: dict, vecs: np.ndarray) -> dict:
+    """The windows from the in-order docs' times on the host:
+    {(topic, start): (n, last, centroid)}; every doc lies in
+    W_DURATION / W_HOP windows."""
+    keep = np.flatnonzero(~feed["late"])
+    t, topic = feed["t"][keep], feed["topic"][keep]
+    per = W_DURATION // W_HOP
+    starts = np.concatenate([(t // W_HOP - k) * W_HOP for k in range(per)])
+    topics = np.tile(topic, per)
+    members = np.tile(keep, per)
+    times = np.tile(t, per)
+    order = np.lexsort((starts, topics))
+    starts, topics, members, times = (a[order] for a in (starts, topics, members, times))
+    head = np.flatnonzero(np.r_[True, (starts[1:] != starts[:-1]) | (topics[1:] != topics[:-1])])
+    sums = np.add.reduceat(vecs[members], head, axis=0)
+    counts = np.diff(np.r_[head, len(starts)])
+    lasts = np.maximum.reduceat(times, head)
+    return {(int(topics[h]), int(starts[h])): (int(c), int(last), s)
+            for h, c, last, s in zip(head, counts, lasts, sums)}
+
+
+def w_check(out: dict, feed: dict, host: dict, vecs: np.ndarray, qvecs: np.ndarray) -> dict:
+    """(a)-(d) of one windowed rep against the host; returns the counts
+    that were printed."""
+    f = out["finals"]
+    got = {(r["topic"], r["start"]): r for r in f["windows"].values()}
+    require(got.keys() == host.keys() and all(
+        (got[k]["n"], got[k]["last"]) == host[k][:2] for k in host),
+        f"(a) {len(got)} windows, their counts and last times equal the host's from the "
+        f"in-order docs ({len(host)} windows)")
+    counted = sum(r["n"] for r in got.values())
+    require(counted == (W_DURATION // W_HOP) * int((~feed["late"]).sum()),
+            f"(a) no late doc counted ({counted} window memberships)")
+    cos = np.array([float(np.dot(got[k]["centroid"], host[k][2])
+                          / np.linalg.norm(got[k]["centroid"]) / np.linalg.norm(host[k][2]))
+                    for k in host])
+    require(cos.min() >= C4_COS_MIN, f"(a) centroids within cosine {C4_COS_MIN} of the sum "
+                                     f"of the direct embeddings (min {cos.min():.6f})")
+    diffs = {(r["topic"], r["start"]): r["diff_n"] for r in f["diffs"].values()}
+    want = {k: (host[k][0] - host[(k[0], k[1] - W_HOP)][0]
+                if (k[0], k[1] - W_HOP) in host else None) for k in host}
+    require(diffs == want, f"(b) the diff of {len(diffs)} windows equals the host's")
+    best = {r["q"]: r for r in f["best"].values()}
+    agree = near = 0
+    worst = 0.0
+    for q in feed["queries"]:
+        cand = np.flatnonzero((feed["topic"] == q["topic"])
+                              & (feed["t"] - q["t"] >= -W_LOOKBACK) & (feed["t"] <= q["t"]))
+        scores = vecs[cand] @ qvecs[q["q"]]
+        top2 = np.sort(scores)[-2:]
+        row = best.get(q["q"])
+        if row is None:
+            continue
+        worst = max(worst, abs(row["top"] - float(top2[-1])))
+        if row["doc"] == int(cand[int(np.argmax(scores))]):
+            agree += 1
+        elif top2[-1] - top2[0] < C4_TIE_TOL:
+            near += 1
+    require(agree + near == W_QUERIES and worst <= C4_SCORE_TOL,
+            f"(c) best docs equal host brute force {agree}/{W_QUERIES} (+{near} at gaps < "
+            f"{C4_TIE_TOL}), scores within {C4_SCORE_TOL} (max diff {worst:.2e})")
+    asof = {r["q"]: r for r in f["asof"].values()}
+    joined, worst_asof = 0, 0.0
+    for q in feed["queries"]:
+        latest = max(v[1] for k, v in host.items() if k[0] == q["topic"] and v[1] <= q["t"])
+        row = asof.get(q["q"])
+        if row is None or (q["topic"], row["start"]) not in host:
+            continue
+        c = host[(q["topic"], row["start"])][2]
+        joined += row["last"] == latest == host[(q["topic"], row["start"])][1]
+        worst_asof = max(worst_asof, abs(row["cos"] - float(
+            np.dot(qvecs[q["q"]], c) / np.linalg.norm(c))))
+    require(joined == W_QUERIES and worst_asof <= C4_SCORE_TOL,
+            f"(d) {joined}/{W_QUERIES} queries joined to their topic's latest window at or "
+            f"before them, cos(query, centroid) within {C4_SCORE_TOL} of the host's "
+            f"(max diff {worst_asof:.2e})")
+    return {"windows": len(got), "agree": agree, "near": near, "cos_min": float(cos.min()),
+            "score_diff": worst, "asof_diff": worst_asof}
+
+
+def run_temporal_stream(dev, gpu: str) -> int:
+    """Phase 19; returns its flash_attn launches."""
+    import gc
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import probes
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.xpacks.llm import SentenceTransformerEmbedder
+
+    t19 = time.perf_counter()
+    texts = c4_texts(C4_DOCS)
+    feed = w_feed(texts)
+    emb = SentenceTransformerEmbedder("minilm-l6", max_batch_size=C4_BATCH, deferred=True,
+                                      device=dev)
+    model = emb.model
+    for b in (8, 16, 32, 64, 128, 256, 512, 1024):  # the pow2 batch buckets, as phase 16
+        model.embed_batch(texts[:b])
+    counter = EncodeCount(model)
+    FA.flash_attn.launches = 0
+    # the direct embeddings, in the UDF's batches
+    vecs = np.concatenate(model.embed_resolve(
+        [model.embed_submit(texts[s : s + C4_BATCH]) for s in range(0, C4_DOCS, C4_BATCH)],
+        600))
+    qvecs = model.embed_batch([q["text"] for q in feed["queries"]])
+    host = w_host(feed, vecs)
+    arms = {"plain": [], "windowed": []}
+    for _rep in range(W_REPS):
+        for name in arms:
+            emb._dedup.clear()  # every rep embeds cold
+            probes.reset_engine_stats()
+            out = w_stream(pw, emb, feed, windowed=name == "windowed")
+            if name == "windowed":
+                ops = probes.engine_snapshot()["operators"]
+                out["ops"] = {n: ops.get(n) for n in W_OPERATORS}
+                out["check"] = w_check(out, feed, host, vecs, qvecs)
+            else:
+                require(len(out["finals"]["docs"]) == C4_DOCS
+                        and len(out["finals"]["queries"]) == W_QUERIES,
+                        "(plain) every doc and query reached the subscriber")
+            out.pop("finals")
+            arms[name].append(out)
+            gc.collect()
+    launches = FA.flash_attn.launches
+    n_encodes = len(counter.sizes)
+    counter.close()
+    require(all(r["rows_read"] == C4_DOCS and r["epochs"] >= C4_DOCS // W_COMMIT
+                for rs in arms.values() for r in rs),
+            f"every rep read {C4_DOCS} docs in commits of at most {W_COMMIT}")
+    med = {n: statistics.median(r["docs_per_s"] for r in rs) for n, rs in arms.items()}
+    for name, rs in arms.items():
+        info(f"temporal ({name}) [{gpu}]: docs/s " + ", ".join(
+            f"{r['docs_per_s']:.1f}" for r in rs) + f" (median {med[name]:.1f}); wall s "
+             + ", ".join(f"{r['wall_s']:.3f}" for r in rs) + "; epochs "
+             + ", ".join(str(r["epochs"]) for r in rs))
+    info(f"temporal: windowed / plain docs/s {med['windowed'] / med['plain']:.4f}")
+    for i, r in enumerate(arms["windowed"]):
+        info(f"temporal (windowed) rep {i} checks: {json.dumps(r['check'])}")
+        info(f"temporal (windowed) rep {i} op_step_seconds / op_rows: "
+             + json.dumps(r["ops"]))
+    info(f"temporal: phase 19 flash_attn launches {launches}; {n_encodes} encodes; "
+         f"{len(feed['late'].nonzero()[0])} late docs; {time.perf_counter() - t19:.1f} s")
+    require(launches >= MINILM_LAYERS * n_encodes > 0,
+            f"every encode of phase 19 went through flash_attn ({launches} >= "
+            f"{MINILM_LAYERS} x {n_encodes})")
+    emb.close()
+    del vecs, arms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5070,6 +5398,9 @@ def main() -> int:
     # the index factories
     files = run_file_connectors(dev, gpu, out, docs, queries)
     dec = {n: dec[n] + files[n] for n in dec}
+
+    # phase 19: an event-time windowed embed stream through pw.temporal
+    launches += run_temporal_stream(dev, gpu)
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",

@@ -64,10 +64,12 @@ and the hash join; the device work of a program is its UDFs' and
 indexes'. On it run the RAG applications of ``xpacks.llm``:
 ``DocumentStore``, ``VectorStoreServer``, ``BaseRAGQuestionAnswerer`` and
 the REST servers, with the embedder, reranker and answer-LLM UDFs on the
-card. Temporal operators, ``sort``, ``iterate``, persistence and several
-processes are not ported yet (ROADMAP A13). The pandas-backed datetime
-types load on first use, so a program without datetimes runs without
-pandas.
+card. ``pw.temporal`` (windows with their behaviours, the asof, interval,
+window and asof-now joins), ``Table.sort`` / ``diff`` / ``interpolate``
+(``pw.ordered``, ``pw.statistical``) and the sorted index are host
+operators too. ``iterate``, persistence and several processes are not
+ported yet (ROADMAP A13). The pandas-backed datetime types load on first
+use, so a program without datetimes runs without pandas.
 """
 
 from pathway_tpu_torch.device import resolve_device
@@ -147,7 +149,12 @@ from pathway_tpu_torch.internals.udfs import (
 )
 from pathway_tpu_torch.internals.universe import Universe
 from pathway_tpu_torch import debug, io  # noqa: E402
-from pathway_tpu_torch.stdlib import indexing  # noqa: E402
+from pathway_tpu_torch.stdlib import indexing, ordered, statistical, temporal  # noqa: E402
+from pathway_tpu_torch.stdlib.temporal import (  # noqa: E402
+    AsofJoinResult,
+    IntervalJoinResult,
+    WindowJoinResult,
+)
 from pathway_tpu_torch.engine import probes, tracing
 from pathway_tpu_torch.models import (
     MINILM_L6,
@@ -223,6 +230,9 @@ __all__ = [
     "JoinMode",
     "JoinResult",
     "OuterJoinResult",
+    "AsofJoinResult",
+    "IntervalJoinResult",
+    "WindowJoinResult",
     "join",
     "join_inner",
     "join_left",
@@ -267,6 +277,9 @@ __all__ = [
     "debug",
     "io",
     "indexing",
+    "ordered",
+    "statistical",
+    "temporal",
     "column_definition",
     "schema_from_types",
     "schema_from_dict",

@@ -946,6 +946,8 @@ class FlattenNode(Node):
         fcol = self.flatten_column
         idx = names.index(fcol)
         rows = []
+        src_keys: list[int] = []
+        positions: list[int] = []
         for k, row, d in batch.rows():
             value = row[idx]
             if value is ERROR:
@@ -958,15 +960,23 @@ class FlattenNode(Node):
                 )
                 continue
             for j, item in enumerate(items):
-                new_key = int(
-                    hash_keys_with(np.array([k], dtype=np.uint64), _FLATTEN_SALT + j * 2 + 1)[0]
-                )
                 new_row = tuple(
                     item if i == idx else row[i] for i in range(len(row))
                 )
                 if self.origin_column:
                     new_row = new_row + (Pointer(int(k)),)
-                rows.append((new_key, new_row, d))
+                rows.append((0, new_row, d))
+                src_keys.append(k)
+                positions.append(j)
         if not rows:
             return None
+        # new key = hash_keys_with(key, salt of the element's position): one
+        # vectorized pass a position, not a numpy call a row
+        src = np.array(src_keys, dtype=np.uint64)
+        pos = np.array(positions)
+        new_keys = np.empty(len(rows), dtype=np.uint64)
+        for j in np.unique(pos).tolist():
+            at = pos == j
+            new_keys[at] = hash_keys_with(src[at], _FLATTEN_SALT + j * 2 + 1)
+        rows = [(int(key), row, d) for key, (_k, row, d) in zip(new_keys.tolist(), rows)]
         return Batch.from_rows(self.column_names, rows)

@@ -2,13 +2,13 @@
 
 Parity with reference ``python/pathway/internals/table.py`` (Table: select,
 filter, groupby/reduce, join family, concat, update_rows/cells,
-with_id_from, flatten, difference/intersect/restrict, ix/ix_ref,
-pointer_from, deduplicate, ...). Operations eagerly build engine nodes (the
-engine graph is lazy; nothing runs until ``pw.run``/debug helpers).
+with_id_from, flatten, sort, difference/intersect/restrict, ix/ix_ref,
+pointer_from, deduplicate, windowby via stdlib.temporal, the temporal joins,
+diff, interpolate, ...). Operations eagerly build engine nodes (the engine
+graph is lazy; nothing runs until ``pw.run``/debug helpers).
 
-The methods whose operators the port does not carry yet are absent: the
-temporal joins and ``windowby``, ``sort``, ``diff``, ``interpolate``, the
-temporal behaviours, ``live`` and the gradual broadcast (ROADMAP A13).
+The methods whose operators the port does not carry yet are absent:
+``live`` and the gradual broadcast (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import numpy as np
 from pathway_tpu_torch.engine.graph import Node
 from pathway_tpu_torch.engine.operators import core as core_ops
 from pathway_tpu_torch.engine.operators import reduce as reduce_ops
+from pathway_tpu_torch.engine.operators import temporal as temporal_ops
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import expression as expr_mod
 from pathway_tpu_torch.internals import schema as schema_mod
@@ -98,6 +99,26 @@ class Joinable(TableLike):
 
     def join_outer(self, other, *on, **kw):
         return self.join(other, *on, how="outer", **kw)
+
+    def asof_join(self, other, t_left, t_right, *on, how="inner", defaults=None, direction="backward"):
+        from pathway_tpu_torch.stdlib.temporal import asof_join as impl
+
+        return impl(self, other, t_left, t_right, *on, how=how, defaults=defaults or {}, direction=direction)
+
+    def asof_now_join(self, other, *on, id=None, how="inner"):
+        from pathway_tpu_torch.stdlib.temporal import asof_now_join as impl
+
+        return impl(self, other, *on, id=id, how=how)
+
+    def interval_join(self, other, t_left, t_right, interval, *on, how="inner"):
+        from pathway_tpu_torch.stdlib.temporal import interval_join as impl
+
+        return impl(self, other, t_left, t_right, interval, *on, how=how)
+
+    def window_join(self, other, t_left, t_right, window, *on, how="inner"):
+        from pathway_tpu_torch.stdlib.temporal import window_join as impl
+
+        return impl(self, other, t_left, t_right, window, *on, how=how)
 
 
 class Table(Joinable):
@@ -599,6 +620,85 @@ class Table(Joinable):
             )
         schema = schema_mod.schema_builder_from_definitions(cols)
         return Table(node, schema, Universe())
+
+    # ------------------------------------------------------------------- sort
+    def sort(self, key, instance=None) -> "Table":
+        key = self._desugar(expr_mod.smart_coerce(key))
+        inst = (
+            self._desugar(expr_mod.smart_coerce(instance))
+            if instance is not None
+            else expr_mod.ColumnConstExpression(None)
+        )
+        env_node, rewritten = _prepare_env(
+            self, {"__key__": key, "__instance__": inst}
+        )
+        combo = core_ops.RowwiseNode(G.engine_graph, env_node, rewritten)
+        node = temporal_ops.SortNode(
+            G.engine_graph, combo, "__key__", "__instance__"
+        )
+        schema = schema_mod.schema_from_types(
+            prev=dt.Optional(dt.Pointer(self._schema)),
+            next=dt.Optional(dt.Pointer(self._schema)),
+        )
+        return Table(node, schema, self._universe)
+
+    # -------------------------------------------------------- private temporal
+    def _buffer(self, threshold_column, time_column) -> "Table":
+        return self._temporal_behavior_op(
+            temporal_ops.BufferNode, threshold_column, time_column
+        )
+
+    def _forget(
+        self, threshold_column, time_column, mark_forgetting_records: bool = False
+    ) -> "Table":
+        return self._temporal_behavior_op(
+            temporal_ops.ForgetNode,
+            threshold_column,
+            time_column,
+            mark_forgetting_records=mark_forgetting_records,
+        )
+
+    def _freeze(self, threshold_column, time_column) -> "Table":
+        return self._temporal_behavior_op(
+            temporal_ops.FreezeNode, threshold_column, time_column
+        )
+
+    def _temporal_behavior_op(self, node_cls, threshold_column, time_column, **kw) -> "Table":
+        thr = self._desugar(expr_mod.smart_coerce(threshold_column))
+        tc = self._desugar(expr_mod.smart_coerce(time_column))
+        env_node, rewritten = _prepare_env(
+            self,
+            {
+                "__thr__": thr,
+                "__time__": tc,
+                **{n: ColumnReference(self, n) for n in self.column_names()},
+            },
+        )
+        combo = core_ops.RowwiseNode(G.engine_graph, env_node, rewritten)
+        node = node_cls(G.engine_graph, combo, "__thr__", "__time__", **kw)
+        out = core_ops.SelectColumnsNode(
+            G.engine_graph, node, {n: n for n in self.column_names()}
+        )
+        schema = schema_mod.schema_builder_from_definitions(
+            dict(self._schema.__columns__)
+        )
+        return Table(out, schema, Universe())
+
+    # ------------------------------------------------------------- stdlib hooks
+    def windowby(self, time_expr, *, window, behavior=None, instance=None, **kwargs):
+        from pathway_tpu_torch.stdlib.temporal import windowby as impl
+
+        return impl(self, time_expr, window=window, behavior=behavior, instance=instance, **kwargs)
+
+    def diff(self, timestamp, *values, instance=None):
+        from pathway_tpu_torch.stdlib.ordered import diff as impl
+
+        return impl(self, timestamp, *values, instance=instance)
+
+    def interpolate(self, timestamp, *values, mode=None):
+        from pathway_tpu_torch.stdlib.statistical import interpolate as impl
+
+        return impl(self, timestamp, *values, mode=mode)
 
     # ------------------------------------------------------------------ output
     def debug(self, name: str = "debug") -> "Table":

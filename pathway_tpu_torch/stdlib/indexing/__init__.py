@@ -45,10 +45,20 @@ from pathway_tpu_torch.stdlib.indexing.vector_document_index import (
 from pathway_tpu_torch.stdlib.indexing.full_text_document_index import (
     default_full_text_document_index,
 )
+from pathway_tpu_torch.stdlib.indexing.sorting import (
+    SortedIndex,
+    build_sorted_index,
+    retrieve_prev_next_values,
+    sort_from_index,
+)
 
 __all__ = [
     "BruteForceKnnMetricKind",
     "USearchMetricKind",
+    "SortedIndex",
+    "build_sorted_index",
+    "retrieve_prev_next_values",
+    "sort_from_index",
     "DataIndex",
     "InnerIndex",
     "BruteForceKnn",

@@ -4,8 +4,9 @@
 The store consumes one or more connector tables of raw documents
 (``data: bytes|str`` + optional ``_metadata: Json``), runs parser →
 post-processors → splitter, and maintains a retriever index over the
-chunks (the port's brute-force KNN with its corpus on the card; the BM25
-and hybrid factories are not ported yet, ROADMAP A13). Query tables are answered live:
+chunks (any of the port's index factories: brute-force KNN with its
+corpus on the card, IVF, the host HNSW, LSH, BM25 or the hybrid). Query
+tables are answered live:
 ``retrieve_query`` / ``statistics_query`` / ``inputs_query`` mirror the
 reference's REST surface.
 

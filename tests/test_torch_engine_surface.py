@@ -91,10 +91,17 @@ def test_the_port_has_what_the_slice_carries():
     for name in ("select", "with_columns", "filter", "concat", "concat_reindex",
                  "update_rows", "update_cells", "ix", "ix_ref", "flatten", "groupby",
                  "reduce", "deduplicate", "with_id", "with_id_from", "difference",
-                 "intersect", "restrict", "promise_universe_is_subset_of"):
+                 "intersect", "restrict", "promise_universe_is_subset_of",
+                 "asof_join", "asof_now_join", "interval_join", "window_join",
+                 "windowby", "diff", "interpolate", "sort"):
         assert name in _public(T.Table), name
     for name in ("run", "run_all", "udf", "UDF", "udfs", "Schema", "Table", "this",
                  "reducers", "apply", "apply_with_type", "apply_async", "G",
                  "clear_graph", "EngineConfig", "io", "debug", "indexing",
-                 "DateTimeNaive", "DateTimeUtc", "Duration"):
+                 "DateTimeNaive", "DateTimeUtc", "Duration", "AsofJoinResult",
+                 "IntervalJoinResult", "WindowJoinResult", "temporal", "ordered",
+                 "statistical"):
         assert name in _public(T), name
+    for name in ("SortedIndex", "build_sorted_index", "retrieve_prev_next_values",
+                 "sort_from_index", "sorting"):
+        assert name in _public(T.indexing), name
