@@ -67,8 +67,12 @@ the REST servers, with the embedder, reranker and answer-LLM UDFs on the
 card. ``pw.temporal`` (windows with their behaviours, the asof, interval,
 window and asof-now joins), ``Table.sort`` / ``diff`` / ``interpolate``
 (``pw.ordered``, ``pw.statistical``) and the sorted index are host
-operators too. ``iterate``, persistence and several processes are not
-ported yet (ROADMAP A13). The pandas-backed datetime types load on first
+operators too, as are ``pw.iterate`` (a body run to its fixpoint on a
+nested scheduler), ``pw.graphs`` and ``Table._gradual_broadcast``.
+``EngineConfig(processes=N, process_id=p, first_port=...)`` makes a run
+one of N processes on the host that exchange rows over TCP before each
+stateful operator (``engine/exchange.py``); each process keeps its own
+device work. Persistence is not ported yet (ROADMAP A13). The pandas-backed datetime types load on first
 use, so a program without datetimes runs without pandas.
 """
 
@@ -149,7 +153,8 @@ from pathway_tpu_torch.internals.udfs import (
 )
 from pathway_tpu_torch.internals.universe import Universe
 from pathway_tpu_torch import debug, io  # noqa: E402
-from pathway_tpu_torch.stdlib import indexing, ordered, statistical, temporal  # noqa: E402
+from pathway_tpu_torch.stdlib import graphs, indexing, ordered, statistical, temporal  # noqa: E402
+from pathway_tpu_torch.internals.iterate import iterate, iterate_universe  # noqa: E402
 from pathway_tpu_torch.stdlib.temporal import (  # noqa: E402
     AsofJoinResult,
     IntervalJoinResult,
@@ -269,6 +274,9 @@ __all__ = [
     "require",
     "unwrap",
     "fill_error",
+    "iterate",
+    "iterate_universe",
+    "graphs",
     "run",
     "run_all",
     "EngineConfig",

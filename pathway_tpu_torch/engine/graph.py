@@ -50,6 +50,25 @@ class Node:
     def reset(self) -> None:
         """Drop run-scoped state (engine graphs can be executed repeatedly)."""
 
+    # sparse epoch stepping: when False (default) the scheduler SKIPS this
+    # node's step() in epochs where every input delta is None and nothing
+    # was injected for it — every shipped operator no-ops on an all-None
+    # step, so skipping is free. Operators with step-side effects that must
+    # run every epoch (ExchangeNode serving its peers) set this True.
+    always_step: bool = False
+
+    # nodes whose reset() clears run outputs rather than dataflow state
+    # (capture / subscribe): not stateful, so no exchange is spliced
+    # before them (JAX's ``_persist_exempt``; the port has no persistence)
+    _output_side: bool = False
+
+    def is_stateful(self) -> bool:
+        """Whether the operator keeps dataflow state across epochs: the
+        multi-process splice routes its input rows to their owner process
+        first (``engine/exchange.py:splice_exchanges``)."""
+        cls = type(self)
+        return cls.reset is not Node.reset and not self._output_side
+
 
 class FusedChainNode(Node):
     """Execution-plan node running a linear chain of stateless per-row

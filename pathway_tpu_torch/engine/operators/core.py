@@ -105,6 +105,10 @@ class RowwiseNode(Node):
         self._nondet = any(
             _contains_nondeterministic(e) for e in expressions.values()
         )
+        # the replay cache is load-bearing (a retraction must replay what a
+        # non-deterministic UDF gave) only here; replay_retractions below
+        # uses it to save device work, and a miss there recomputes
+        self._stateful = self._nondet
         # key -> [refcount, {out_col: value}]
         self._replay_cache: dict[int, list] = {}
         # top-level deferred two-phase applies (fully-async executor): the
@@ -131,6 +135,9 @@ class RowwiseNode(Node):
         if replay_retractions and not self._deferred_names:
             self._nondet = True
 
+
+    def is_stateful(self) -> bool:  # only when the cache is load-bearing
+        return self._stateful
 
     def reset(self):
         super().reset()
@@ -160,6 +167,7 @@ class RowwiseNode(Node):
             self._deferred_names
             and not self._nondet
             and getattr(self, "scheduler", None) is not None
+            and getattr(self.scheduler, "allow_deferred", False)
         ):
             return self._step_deferred(batch)
         if not self._nondet:

@@ -17,6 +17,7 @@ class CaptureNode(Node):
     """Materializes the final table (used by debug/compute-and-print paths
     and as the engine's ``ExportedTable``)."""
 
+    _output_side = True
 
     def __init__(self, graph, input_node, name="Capture"):
         super().__init__(graph, [input_node], input_node.column_names, name)
@@ -91,6 +92,7 @@ class SubscribeNode(Node):
     lands before the run completes. A callback exception is re-raised on
     the engine thread at the next step or at finish."""
 
+    _output_side = True
 
     def __init__(
         self,
@@ -229,6 +231,12 @@ class SinkNode(Node):
             maybe_terminate_on_error(batch)
             self.write_batch(time, batch)
         return batch
+
+    def start(self, config) -> None:
+        """Run-start hook (writers that open their file per run config)."""
+        start = getattr(self.write_batch, "start", None)
+        if start is not None:
+            start(config)
 
     def finish(self) -> None:
         """End-of-run flush hook (writers with background queues)."""

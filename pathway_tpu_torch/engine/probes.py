@@ -485,9 +485,8 @@ def unified_snapshot(scheduler_stats=None) -> dict:
 # (not just totals) are scrapeable per operator. Temporal operators add
 # `op_held_rows` / `watermark_lag` gauges, the scheduler an
 # `engine_backlog{queue=}` gauge riding `pending_backlog()`, and the
-# exchange layer `exchange_rows{direction=}` counters (the port runs one
-# process: it has no exchange layer, and the exchange section of
-# engine_snapshot stays empty). All of it is gated twice: set_metrics
+# exchange layer `exchange_rows{direction=}` counters (empty unless the
+# run has several processes). All of it is gated twice: set_metrics
 # (master, per call inside the registry) and EngineConfig.op_metrics
 # (read once per scheduler construction).
 
@@ -520,6 +519,14 @@ def record_watermark(operator: str, held_rows: int,
         REGISTRY.gauge_set(
             "watermark_lag", max(0.0, float(lag)), operator=operator
         )
+
+
+def record_exchange(**rows: int) -> None:
+    """Exchange-layer row accounting by direction (``local`` / ``sent`` /
+    ``received`` / ``broadcast``): one lock acquisition per step."""
+    REGISTRY.counter_add_many(
+        "exchange_rows", "direction", {k: v for k, v in rows.items() if v}
+    )
 
 
 def engine_snapshot() -> dict:
@@ -1162,6 +1169,10 @@ class SchedulerStats:
         # epochs where a node's step was skipped (no input deltas, no
         # injection) — the sparse-stepping win made countable
         self.steps_skipped: int = 0
+        # several processes: exchanged rows by direction (local / sent /
+        # received / broadcast), and at teardown the mesh's bytes_sent /
+        # bytes_received / control_rounds
+        self.exchange: dict[str, int] = {}
 
     def operator(self, node_id: int, name: str) -> OperatorStats:
         with self._lock:
@@ -1185,6 +1196,11 @@ class SchedulerStats:
 
     def connector_finished(self, node_id: int, name: str) -> None:
         self.connector(node_id, name).finished = True
+
+    def record_exchange(self, **rows: int) -> None:
+        with self._lock:
+            for k, v in rows.items():
+                self.exchange[k] = self.exchange.get(k, 0) + v
 
     def record_skip(self) -> None:
         with self._lock:

@@ -7,8 +7,12 @@ in strict timestamp order. Totally-ordered logical times (reference
 retractions) make the epoch-synchronous pass equivalent to differential
 dataflow progress tracking in the single-dimension case.
 
-The port runs one process: the JAX scheduler's lockstep loop over a peer
-mesh (``processes > 1``) is not carried. Its switches come from the run's
+With ``EngineConfig(processes=N)`` every process runs the same graph, with
+an ``ExchangeNode`` spliced before each stateful operator, and a lockstep
+loop over the peer mesh (``engine/exchange.py``) agrees each round on the
+next global epoch time and on termination. ``pw.iterate`` runs its body to
+a fixpoint on a nested scheduler each round, under the same loop when the
+run has several processes. The switches come from the run's
 ``EngineConfig`` (``internals/config.py``), read once at construction.
 """
 
@@ -17,6 +21,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import defaultdict
+from typing import Callable
 
 from pathway_tpu_torch.engine.batch import Batch, concat_batches, consolidate
 from pathway_tpu_torch.engine.graph import EngineGraph, Node, fuse_chains
@@ -26,11 +31,32 @@ from pathway_tpu_torch.engine.probes import SchedulerStats, _current_op
 
 class Scheduler:
     def __init__(self, graph: EngineGraph, targets: list[Node] | None = None,
-                 config=None):
+                 config=None, exchange_ctx=None,
+                 ctl_tag_alloc: "Callable[[], int] | None" = None,
+                 allow_deferred: bool = True):
         from pathway_tpu_torch.internals import config as config_mod
 
         self.graph = graph
         self.config = config if config is not None else config_mod.active()
+        self.exchange_ctx = exchange_ctx
+        # deferred (fully-async) UDF emission needs the run's OUTER pump:
+        # nested fixpoint sub-schedulers (iterate rounds) run under their
+        # own time discipline and must keep UDFs on the blocking path
+        self.allow_deferred = allow_deferred
+        # control rounds are tagged by ``ctl_tag_alloc`` when provided:
+        # nested schedulers (iterate fixpoint sub-runs) draw from the
+        # owning node's private monotonic namespace so their barriers can
+        # never be confused with the outer loop's or a sibling's
+        self.ctl_tag_alloc = ctl_tag_alloc
+        # exchanges are spliced BEFORE fusion plans the order: a fused
+        # chain then never swallows an ExchangeNode (it is no fusable stage)
+        self._spliced = []
+        if exchange_ctx is not None:
+            from pathway_tpu_torch.engine.exchange import splice_exchanges
+
+            self._spliced = splice_exchanges(
+                graph, graph.topo_order(targets), exchange_ctx
+            )
         self.order = graph.topo_order(targets)
         # chain fusion: collapse linear runs of stateless per-row operators
         # into single plan nodes (engine/graph.py:fuse_chains) — one step,
@@ -161,6 +187,8 @@ class Scheduler:
 
     def run(self) -> None:
         """Process events until all sources are closed and queues drain."""
+        if self.exchange_ctx is not None:
+            return self._run_multiprocess()
         while True:
             with self._lock:
                 while True:
@@ -185,6 +213,66 @@ class Scheduler:
             self._pool.shutdown(wait=True, cancel_futures=True)
             self._pool = None
 
+    def teardown_exchanges(self) -> None:
+        """Close the peer mesh and restore the user graph's original wiring
+        (the graph is global; exchanges bound to a dead mesh must not leak
+        into later runs). The mesh's byte and round counters stay in
+        ``stats.exchange``."""
+        if self.exchange_ctx is None:
+            return
+        from pathway_tpu_torch.engine.exchange import unsplice_exchanges
+
+        unsplice_exchanges(self._spliced)
+        self._spliced = []
+        self.stats.exchange.update(self.exchange_ctx.counters())
+        self.exchange_ctx.close()
+
+    def _run_multiprocess(self) -> None:
+        """Lockstep multi-process loop: every round, all processes agree on
+        the globally smallest ready epoch time and run that epoch together
+        (ExchangeNodes inside the epoch barrier per-operator). A process
+        with no local events still runs the epoch — it must serve its side
+        of every exchange. Replaces timely's distributed progress tracking
+        for the totally-ordered single-dimension case. A deferred UDF's
+        drain thread counts as in flight (``async_begin`` / ``async_done``)
+        until its last batch is injected, so no process leaves while a
+        peer's device results are still coming."""
+        ctx = self.exchange_ctx
+        rnd = 0
+        while True:
+            with self._lock:
+                if self._stopped:
+                    return
+                local_t = self._next_ready_time()
+                frontier = min(self._source_frontiers.values(), default=None)
+                live = bool(self._source_frontiers)
+                inflight = self._async_inflight > 0
+            tag = self.ctl_tag_alloc() if self.ctl_tag_alloc is not None else rnd
+            states = ctx.control_allgather(tag, (local_t, frontier, live, inflight))
+            rnd += 1
+            times = [s[0] for s in states.values() if s[0] is not None]
+            frontiers = [s[1] for s in states.values() if s[1] is not None]
+            # a time is globally safe only below every process's source
+            # frontier — a peer's source may still emit earlier events that
+            # will be exchanged into this process's operators
+            global_frontier = min(frontiers) if frontiers else None
+            t = min(times) if times else None
+            if t is None or (global_frontier is not None and t >= global_frontier):
+                if any(s[2] or s[3] for s in states.values()) or times:
+                    # wait for LOCAL progress (inject/advance notify the
+                    # condition) instead of a flat poll — a new local event
+                    # starts the next control round at once, so commit
+                    # latency is bounded by peers' wait timeout, not by a
+                    # fixed sleep on every hop
+                    with self._lock:
+                        if not self._stopped:
+                            self._lock.wait(timeout=0.02)
+                    continue
+                return
+            with self._lock:
+                injected = self._pending.pop(t, {})
+            self._run_epoch(t, injected)
+
     def _step_node(self, node: Node, t: int,
                    outputs: dict[int, "Batch | None"],
                    injected: dict[int, list[Batch]]) -> None:
@@ -198,7 +286,11 @@ class Scheduler:
         # entirely (the end-of-epoch on_time_end sweep still runs for all
         # nodes). With deferred-UDF streams most epochs touch only the
         # embed->index spine, not the whole graph.
-        if extra is None and all(b is None for b in ins):
+        if (
+            extra is None
+            and not node.always_step
+            and all(b is None for b in ins)
+        ):
             self.stats.record_skip()
             return
         started = time.perf_counter()
@@ -260,7 +352,8 @@ class Scheduler:
                     for node in level
                 ]
                 # wait for the WHOLE level even on failure: abandoned
-                # siblings would keep stepping while the caller unwinds
+                # siblings would keep stepping (and, with several
+                # processes, block in exchanges) while the caller unwinds
                 errors = []
                 for f in futures:
                     try:

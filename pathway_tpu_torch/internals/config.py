@@ -34,20 +34,28 @@ class EngineConfig:
     terminate_on_error: bool = True
     # PATHWAY_THREADS: operators of one topological level step in a pool
     threads: int = 1
-    # PATHWAY_PROCESSES: several processes exchange rows (not ported:
-    # anything but 1 raises, see ROADMAP A13)
+    # PATHWAY_PROCESSES / PATHWAY_PROCESS_ID / PATHWAY_FIRST_PORT: the
+    # run is one of ``processes`` processes on this host, which exchange
+    # rows over a TCP mesh; process ``p`` listens on ``first_port + p``
+    # (engine/exchange.py). A launcher's child builds these from its own
+    # variables: the port reads none.
     processes: int = 1
+    process_id: int = 0
+    first_port: int = 10000
 
     def __post_init__(self):
         if self.drain_coalesce_max < 1:
             raise ValueError("drain_coalesce_max must be at least 1")
         if self.threads < 1:
             raise ValueError("threads must be at least 1")
-        if self.processes != 1:
-            raise NotImplementedError(
-                "processes > 1 needs the engine's row exchange between "
-                "processes (engine/exchange.py), which the port does not "
-                "carry yet: ROADMAP A13")
+        if self.processes < 1:
+            raise ValueError("processes must be at least 1")
+        if not 0 <= self.process_id < self.processes:
+            raise ValueError(
+                f"process_id must be in [0, {self.processes}), got {self.process_id}")
+        if not 0 < self.first_port <= 65536 - self.processes:
+            raise ValueError(f"first_port {self.first_port} leaves no room for "
+                             f"{self.processes} ports")
 
 
 _active = EngineConfig()

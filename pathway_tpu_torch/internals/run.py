@@ -5,10 +5,13 @@ tree-shakes the engine graph from requested outputs, resets run-scoped state,
 feeds static sources, starts connector threads and pumps the scheduler until
 the frontier closes (or forever for unbounded streaming inputs).
 
-The port runs one process. The engine's switches are one
-``EngineConfig`` (``internals/config.py``) that ``run(config=...)`` takes;
-persistence, the terminal monitor and the HTTP metrics server of the JAX
-runner are not carried (ROADMAP A13). A run whose monitoring level
+The engine's switches are one ``EngineConfig`` (``internals/config.py``)
+that ``run(config=...)`` takes. With ``processes > 1`` the run is one
+process of a group that connects a peer mesh (``engine/exchange.py``):
+static sources feed on process 0 only, connectors that do not partition
+their own input run there only, and every process takes part in each
+end-of-stream flush round. Persistence, the terminal monitor and the HTTP
+metrics server of the JAX runner are not carried (ROADMAP A13). A run whose monitoring level
 resolves to ``MonitoringLevel.NONE`` (what the REST servers pass) needs
 no monitor and runs.
 """
@@ -41,32 +44,64 @@ class GraphRunner:
             config_mod.install(prev)
 
     def _run(self) -> None:
-        sched = Scheduler(G.engine_graph, self.targets, config=self.config)
+        exchange_ctx = None
+        pid = self.config.process_id
+        if self.config.processes > 1:
+            from pathway_tpu_torch.engine.exchange import ExchangeContext, PeerMesh
+
+            exchange_ctx = ExchangeContext(
+                PeerMesh(pid, self.config.processes, self.config.first_port))
+        try:
+            sched = Scheduler(G.engine_graph, self.targets, config=self.config,
+                              exchange_ctx=exchange_ctx)
+        except BaseException:
+            if exchange_ctx is not None:
+                exchange_ctx.close()
+            raise
         global LAST_RUN_STATS
         LAST_RUN_STATS = sched.stats
-        involved = {n.id for n in sched.order}
-        for node in sched.order:
-            node.reset()
-        static = [
-            (node, provider)
-            for node, provider in G.static_sources.values()
-            if node.id in involved
-        ]
-        for node, _ in static:
-            sched.register_source(node, 0)
-        connectors = [c for c in G.connectors if c.node.id in involved]
-        for c in connectors:
-            sched.register_source(c.node, 0)
-        for node, provider in static:
-            batch = provider()
-            if batch is not None and len(batch) > 0:
-                sched.inject(node, 0, batch)
-            sched.close_source(node)
+        try:
+            involved = {n.id for n in sched.order}
+            for node in sched.order:
+                node.reset()
+                start = getattr(node, "start", None)
+                if start is not None:
+                    start(self.config)
+            # static sources (several processes: injected on process 0 only;
+            # the exchange layer routes rows to their owner shards)
+            static = [
+                (node, provider)
+                for node, provider in G.static_sources.values()
+                if node.id in involved and (exchange_ctx is None or pid == 0)
+            ]
+            for node, _ in static:
+                sched.register_source(node, 0)
+            connectors = [c for c in G.connectors if c.node.id in involved]
+            if exchange_ctx is not None and pid != 0:
+                # connectors that do not partition their input run on process 0
+                connectors = [c for c in connectors if c.shardable]
+            for c in connectors:
+                sched.register_source(c.node, 0)
+            for node, provider in static:
+                batch = provider()
+                if batch is not None and len(batch) > 0:
+                    sched.inject(node, 0, batch)
+                sched.close_source(node)
+        except BaseException:
+            # a failure before the run starts must not leave the peers
+            # waiting on this process's mesh until their timeout
+            sched.teardown_exchanges()
+            sched.shutdown()
+            raise
         for c in connectors:
             c.start(sched)
         try:
             sched.run()
-            # end-of-stream: flush buffers repeatedly until quiescent
+            # end-of-stream: flush buffers repeatedly until quiescent. With
+            # several processes the "anyone flushed?" decision is global —
+            # a process that flushed nothing still has to serve exchanges
+            # for peers that did.
+            flush_round = 1 << 40  # disjoint from the scheduler's rounds
             while True:
                 flushed = False
                 for node in sched.order:
@@ -82,6 +117,10 @@ class GraphRunner:
                             node, t, Batch.from_rows(node.column_names, rows)
                         )
                         flushed = True
+                if exchange_ctx is not None:
+                    states = exchange_ctx.control_allgather(flush_round, flushed)
+                    flush_round += 1
+                    flushed = any(states.values())
                 if not flushed:
                     break
                 sched.run()
@@ -92,6 +131,7 @@ class GraphRunner:
                 # into a later pw.run() on the same graph; requests issued
                 # after this point (pre-start of the next run) survive
                 c.reset_after_run()
+            sched.teardown_exchanges()
             sched.shutdown()
             # drain the span flight recorder's buffered JSONL lines —
             # the run's serving/ingest spans are all finished by now

@@ -775,6 +775,35 @@ class Table(Joinable):
         )
         return Table(node, schema, query_table._universe)
 
+    def _gradual_broadcast(self, threshold_table, lower, value, upper) -> "Table":
+        """LSH bucketer support (reference table.py:631): every row carries
+        an ``apx_value`` that updates ONLY when the threshold band moves
+        past the row's assigned value — small band movements touch nothing
+        (reference gradual_broadcast.rs:65), unlike a cross-join broadcast
+        which would retract the whole table per update."""
+        from pathway_tpu_torch.engine.operators.gradual_broadcast import (
+            GradualBroadcastNode,
+        )
+
+        lower = threshold_table._desugar(expr_mod.smart_coerce(lower))
+        value = threshold_table._desugar(expr_mod.smart_coerce(value))
+        upper = threshold_table._desugar(expr_mod.smart_coerce(upper))
+        env_node, rw = _prepare_env(
+            threshold_table, {"__l__": lower, "__v__": value, "__u__": upper}
+        )
+        tnode = core_ops.RowwiseNode(G.engine_graph, env_node, rw)
+        left_env, left_rw = _prepare_env(
+            self, {n: ColumnReference(self, n) for n in self.column_names()}
+        )
+        left_prep = core_ops.RowwiseNode(G.engine_graph, left_env, left_rw)
+        node = GradualBroadcastNode(G.engine_graph, left_prep, tnode)
+        # reference `_gradual_broadcast` returns self + apx_value (same
+        # universe); the node output already carries all input columns
+        schema = self._schema | schema_mod.schema_from_types(
+            apx_value=dt.Optional(dt.FLOAT)
+        )
+        return Table(node, schema, self._universe)
+
     # ------------------------------------------------------------------ misc
     @staticmethod
     def empty(**kwargs) -> "Table":

@@ -29,6 +29,10 @@ class BaseConnector:
     """
 
     heartbeat_ms: int | None = None
+    # several processes: shardable connectors partition their input
+    # themselves (e.g. fs by file hash); the others run on process 0 only
+    # and rely on ExchangeNodes to route rows to their owners
+    shardable: bool = False
 
     def __init__(self, node: Node):
         from pathway_tpu_torch.engine import chaos

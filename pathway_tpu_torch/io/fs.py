@@ -7,7 +7,12 @@ CSV without metadata and primary keys parses in the C++ engine loops
 (``csv_cols``), JSON lines too; a failed build raises. In streaming mode a
 file that disappears retracts the rows it gave, and a file that changes
 retracts its old rows before its new ones are read, as the reference's
-scanner does. One process reads every file (``EngineConfig(processes=1)``).
+scanner does. With ``EngineConfig(processes=N)`` each process reads a
+share: a keyless source whole files, by the hash of their path; a
+primary-keyed (upsert) source the rows whose key it owns, out of every
+file, so that one process holds every version of a key. ``write`` then
+writes one file a process, ``filename.{process_id}``, opened when the run
+starts.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import numpy as np
 from pathway_tpu_torch.engine.batch import Batch, concat_batches
 from pathway_tpu_torch.engine.operators.core import InputNode
 from pathway_tpu_torch.engine.operators.output import SinkNode
-from pathway_tpu_torch.engine.value import keys_for_value_columns
+from pathway_tpu_torch.engine.value import hash_values, keys_for_value_columns, shard_of_key
+from pathway_tpu_torch.internals import config as config_mod
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import schema as schema_mod
 from pathway_tpu_torch.internals.json import Json
@@ -128,6 +134,13 @@ class _FsConnector(BaseConnector):
         if mode != "static":
             self.heartbeat_ms = 500
 
+    shardable = True  # files partition across processes by path hash
+
+    def _owned(self) -> "tuple[int, int] | None":
+        """(processes, process_id) of the run when it has several, else None."""
+        cfg = config_mod.active()
+        return (cfg.processes, cfg.process_id) if cfg.processes > 1 else None
+
     def _retract_file(self, fp: str) -> list[Batch]:
         """The retraction of everything ``fp`` gave, as batches."""
         old = self._file_batch.pop(fp, None)
@@ -145,6 +158,13 @@ class _FsConnector(BaseConnector):
         """The files to read this poll (new or modified, listing order)
         and the retractions of those that went away or changed."""
         listed = _list_files(self.path)
+        owned = self._owned()
+        if owned is not None and not self.schema.primary_key_columns():
+            # keyless sources shard whole files by path; primary-keyed
+            # (upsert) sources shard by KEY (every process scans every
+            # file and keeps its key shard, in _read_all)
+            n_proc, pid = owned
+            listed = [fp for fp in listed if shard_of_key(hash_values(fp), n_proc) == pid]
         retract: list[Batch] = []
         if self._track:
             present = set(listed)
@@ -214,8 +234,11 @@ class _FsConnector(BaseConnector):
             [_object_col([e[1][j] for e in entries]) for j in range(len(entries[0][1]))], n)
         rows: list[tuple[int, tuple, int]] = []
         if pk:
+            owned = self._owned()
             for (row, _src), key_np, fp in zip(entries, keys, owners):
                 key = int(key_np)
+                if owned is not None and shard_of_key(key, owned[0]) != owned[1]:
+                    continue
                 if self._track:
                     self._file_keys.setdefault(fp, []).append(key)
                     self._pk_src[key] = fp
@@ -318,32 +341,52 @@ def read(
     return Table(node, schema, Universe())
 
 
-def write(table: Table, filename: str | os.PathLike, *, format: str = "json", **kwargs) -> None:  # noqa: A002
-    filename = os.fspath(filename)
-    cols = list(table.column_names())
-    f = open(filename, "w", encoding="utf-8")  # noqa: SIM115 - lifetime = run
-    if format == "csv":
-        writer = csv_mod.writer(f)
-        writer.writerow(cols + ["time", "diff"])
+class _FileWriter:
+    """A sink's writer: ``start`` opens ``filename`` (with ``.{process_id}``
+    when the run has several processes) as a run starts, and keeps it open
+    across runs of the same graph as long as the name stays."""
 
-        def write_batch(time, batch):
+    def __init__(self, filename: str, fmt: str, cols: list[str]):
+        self.filename = filename
+        self.fmt = fmt
+        self.cols = cols
+        self._name: str | None = None
+        self._f = None
+        self._csv = None
+
+    def start(self, config) -> None:
+        name = self.filename
+        if config.processes > 1:
+            # each process writes its own shard (reference cluster mode:
+            # every worker owns its output partition)
+            name = f"{name}.{config.process_id}"
+        if name == self._name:
+            return
+        if self._f is not None:
+            self._f.close()
+        self._name = name
+        self._f = open(name, "w", encoding="utf-8")  # noqa: SIM115 - lifetime = runs
+        if self.fmt == "csv":
+            self._csv = csv_mod.writer(self._f)
+            self._csv.writerow(self.cols + ["time", "diff"])
+
+    def __call__(self, time, batch) -> None:
+        if self._csv is not None:
             for key, row, diff in batch.rows():
-                writer.writerow(
-                    [format_value_for_output(v) for v in row] + [time, diff]
-                )
-            f.flush()
-
-    else:
-
-        def write_batch(time, batch):
+                self._csv.writerow([format_value_for_output(v) for v in row] + [time, diff])
+        else:
+            cols = self.cols
             for key, row, diff in batch.rows():
-                obj = {
-                    c: format_value_for_output(v) for c, v in zip(cols, row)
-                }
+                obj = {c: format_value_for_output(v) for c, v in zip(cols, row)}
                 obj["time"] = time
                 obj["diff"] = diff
-                f.write(json.dumps(obj) + "\n")
-            f.flush()
+                self._f.write(json.dumps(obj) + "\n")
+        self._f.flush()
 
-    node = SinkNode(G.engine_graph, table._node, write_batch, name=f"fs-write({filename})")
+
+def write(table: Table, filename: str | os.PathLike, *, format: str = "json", **kwargs) -> None:  # noqa: A002
+    filename = os.fspath(filename)
+    writer = _FileWriter(filename, "csv" if format == "csv" else "json",
+                         list(table.column_names()))
+    node = SinkNode(G.engine_graph, table._node, writer, name=f"fs-write({filename})")
     G.register_sink(node)

@@ -100,8 +100,9 @@ def test_the_port_has_what_the_slice_carries():
                  "clear_graph", "EngineConfig", "io", "debug", "indexing",
                  "DateTimeNaive", "DateTimeUtc", "Duration", "AsofJoinResult",
                  "IntervalJoinResult", "WindowJoinResult", "temporal", "ordered",
-                 "statistical"):
+                 "statistical", "iterate", "iterate_universe", "graphs"):
         assert name in _public(T), name
     for name in ("SortedIndex", "build_sorted_index", "retrieve_prev_next_values",
                  "sort_from_index", "sorting"):
         assert name in _public(T.indexing), name
+    assert "_gradual_broadcast" in dir(T.Table)

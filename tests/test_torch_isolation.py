@@ -221,16 +221,19 @@ def test_engine_on_cpu_launches_nothing():
 
 def test_engine_reads_no_environment_and_has_one_config():
     """The engine's switches are ``EngineConfig`` fields with JAX's flag
-    defaults; several processes are refused."""
+    defaults; several processes take their process id and first port as
+    fields too (a launcher's child passes them), and an id out of range is
+    refused."""
     from pathway_tpu_torch.internals.config import EngineConfig
 
     cfg = EngineConfig()
     assert (cfg.fusion, cfg.columnar_subscribe, cfg.drain_coalesce,
             cfg.drain_coalesce_max, cfg.epoch_closeout, cfg.op_metrics,
-            cfg.terminate_on_error, cfg.threads, cfg.processes) == (
-        True, True, True, 8, True, True, True, 1, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        EngineConfig(processes=2)
+            cfg.terminate_on_error, cfg.threads, cfg.processes, cfg.process_id,
+            cfg.first_port) == (True, True, True, 8, True, True, True, 1, 1, 0, 10000)
+    assert EngineConfig(processes=2, process_id=1).process_id == 1
+    with pytest.raises(ValueError, match="process_id"):
+        EngineConfig(processes=2, process_id=2)
 
 
 def test_retrieval_variants_raise_without_cuda(monkeypatch):
