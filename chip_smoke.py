@@ -167,9 +167,10 @@ without printing a result:
    ``BruteForceKnnIndex`` at nprobe 8, 16, 64 (not falling; exhaustive
    probing equal but at near-ties), int8 cells, ``add_device`` equal to
    ``add``, 1,024 removed keys never returned, search ms beside brute
-   force; ``HnswIndex`` (host numpy) over the first 4,096 docs: recall@10
-   against the f32 brute-force index at expansion_search 64 (the default,
-   reported; JAX's index reads the same on these vectors) and 128
+   force; ``HnswIndex`` (host numpy) over the first 1,024 docs (its Python
+   inserts took ~57 s at 4,096): recall@10 against
+   the f32 brute-force index at expansion_search 64 (the default,
+   reported) and 128
    (>= 0.9), insert and search times; (c) ``FusedRAGPipeline(
    late_interaction=True, rerank_cascade=True)`` at doc_seq 96, dc 32:
    the ``late_bank`` gauge exactly live rows x 3,456 bytes; the full
@@ -211,13 +212,14 @@ without printing a result:
    from the tp=4 mesh (``save_checkpoint``), each loaded back bitwise on the
    host and on its mesh;
 16. the dataflow engine (``import pathway_tpu_torch as pw``) at the full
-   width of ``bench.py``'s ``config4_streaming_engine``: 98,304 docs of 24
+   width of ``bench.py``'s ``config4_streaming_engine``, at half its docs
+   (the script's time): 49,152 docs of 24
    words (7-word vocabulary, seed 11) through an ``InMemoryKafkaBroker``,
    full MiniLM-L6 as the ``SentenceTransformerEmbedder`` UDF
    (``max_batch_size=1024``) into a ``DataIndex`` over ``BruteForceKnn``
    (reserved N + 512, cosine), 2 live queries at k = 10 that arrive once
    half the docs are embedded, ``subscribe`` on both tables, ``pw.run()``;
-   after a warm pass over the pow2 batch buckets, 2 reps each of (a) the
+   after a warm pass over the pow2 batch buckets, one rep each of (a) the
    UDF ``deferred=True``, (b) ``deferred=False`` and (c) the direct path
    (the same texts through ``SentenceEmbedderModel`` and
    ``BruteForceKnnIndex.add``), in turns. Every doc reaches the subscriber,
@@ -245,12 +247,12 @@ without printing a result:
    4's exact f32 scoring; (b) ``rerank_route`` (retrieve k=32, a flatten,
    the cross-encoder UDF, a groupby with ``reducers.tuple``,
    ``rerank_topk_filter`` k=10, a join back by id) on the server of (c):
-   16 queries one at a time, scores within 2e-2 of the cross-encoder
+   8 queries one at a time, scores within 2e-2 of the cross-encoder
    called directly on the same pairs, the top 10 equal but at near-ties,
    one score a pair and one encode a query (the answered query's
    retraction replays); (c) ``BaseRAGQuestionAnswerer(...,
-   search_topk=6)`` with ``build_server`` / ``run_server``: 16 questions at
-   once from 16 threads to ``/v1/pw_ai_answer``, exactly 16 requests at
+   search_topk=6)`` with ``build_server`` / ``run_server``: 8 questions at
+   once from 8 threads to ``/v1/pw_ai_answer``, exactly 8 requests at
    the continuous server, 6 context docs each, each answer the served
    request's text, held against the static ``generate`` on the same
    (cut) prompt ids with phase 6's bars. Prints docs/s through
@@ -263,9 +265,9 @@ without printing a result:
    (a) the 32,768 docs in 8 CSV files, ``pw.io.csv.read(mode="static")``
    -> the embed UDF (``max_batch_size=1024``) -> ``pw.io.jsonlines.write``,
    beside the same program into ``pw.io.null.write`` and the direct path
-   (the texts through the model in the UDF's batches), 2 reps of each in
+   (the texts through the model in the UDF's batches), one rep of each in
    turns: every doc written once, vectors within cosine 0.9999 of the
-   direct ones; (b) the first 4,096 docs one file each,
+   direct ones; (b) the first 1,024 docs one file each,
    ``pw.io.fs.read(format="binary", with_metadata=True, mode="streaming")``
    into a ``DocumentStore`` served by ``DocumentStoreServer`` on port 0,
    once for each of ``BruteForceKnnFactory``, ``UsearchKnnFactory``,
@@ -275,7 +277,7 @@ without printing a result:
    recall@10 against exact f32 scoring; brute force >= 0.9, exhaustive IVF
    equal to brute force but at near-ties, the hybrid's replies equal an
    RRF computed on the host from its two sub-indexes' own replies over two
-   more routes), then 256 files out and 512 in, waited for until the
+   more routes), then 64 files out and 128 in, waited for until the
    store lists exactly the files left: 4 new docs' own texts find them,
    no deleted doc returned; (c) ``BruteForceKnnFactory(mesh=)`` and
    ``IvfKnnFactory(mesh=, nprobe=n_cells)`` over 4 virtual positions of the
@@ -285,7 +287,7 @@ without printing a result:
    queries beside it. Phase 18 runs ``flash_attn`` only, once a layer an
    encode;
 19. an event-time windowed embed stream through ``pw.temporal`` at phase
-   16's width: its 98,304 docs, each with a topic (``i % 8``) and an event
+   16's width: its 49,152 docs, each with a topic (``i % 8``) and an event
    time ``t = i + j`` (``j`` a seeded jitter in [-512, 512]), a seeded 1%
    of them late (a ``t`` from the stream's first quarter, produced last),
    through an ``InMemoryKafkaBroker`` fed in commits of 1,024 docs (each
@@ -305,7 +307,7 @@ without printing a result:
    2e-2; (d) ``asof_join`` of the queries to their topic's windows on
    ``last``: the latest window at or before each query, cos(query,
    centroid) within 2e-2 of the host's. The windowed program and the same
-   feed without windows run 2 reps each, in turns; prints docs/s of both
+   feed without windows run one rep each, in turns; prints docs/s of both
    and their ratio, the reader's epochs, ``op_step_seconds`` / ``op_rows``
    of the Buffer, Freeze, Sort, IntervalJoin and AsofJoin nodes
    (``probes.engine_snapshot()``) and the phase's ``flash_attn`` launches
@@ -322,7 +324,7 @@ without printing a result:
    ``pw.io.null.write``; 64 queries from one more file, let through once a
    count of the embedded docs reaches 32,768 (the index answers as of
    now), answered with k=10 into ``pw.io.jsonlines.write`` (shards ``.0``
-   / ``.1``); one process and two, 2 reps each, in turns: the processes
+   / ``.1``); one process and two, one rep each, in turns: the processes
    embedded disjoint shares of every doc, every process's index holds all
    32,768 rows, each query answered once after folding the shards' update
    streams, each top-10 equal to the one-process run's but at score gaps
@@ -338,8 +340,47 @@ without printing a result:
    each child's docs, exchanged rows, bytes and control rounds,
    ``flash_attn`` launches (added to the kernels line) and peak
    ``torch.cuda.max_memory_allocated``; (b)'s rounds, the Iterate nodes'
-   step seconds and ``op_step_seconds``, and the components. Prints the
-   script's wall.
+   step seconds and ``op_step_seconds``, and the components;
+21. ``pw.ml``, ``rag_eval`` with the observability routes, and the fleet
+   over processes: (a) phase 4's 32,768 docs (and its 64 queries) through
+   the embed UDF (batches of 1,024) into
+   ``clustering_via_lsh(generate_cosine_lsh_bucketer(384, M=10, L=4,
+   seed=0), k=64)`` (the representatives' k-means on the card) and
+   ``knn_classifier`` (k = 10) over its labels, in one ``pw.run()``: the
+   engine's representatives equal the host's (band, bucket) groups in the
+   order it hands them over; each doc's label a majority of its bands'
+   labels from a host clustering (JAX's init in numpy, its k-means steps
+   in f64) for at least 99% of the docs; each prediction a majority label
+   of the host's exact top 10 over the program's vectors but at a near-tie
+   10th/11th score; ``fuzzy_match_tables`` of the first 512 doc texts
+   against copies with one word changed matches at least 95% to their
+   original. Prints docs/s of the program, the representatives' count, the
+   card k-means ms (CUDA events), the fuzzy join's s and the
+   ``flash_attn`` launches; (b) ``rag_eval.generate_qa_dataset(64,
+   seed=0)`` through ``run_rag_eval`` over a ``BaseRAGQuestionAnswerer``
+   (MiniLM-L6 bf16, phase 6's server): 64 answered, 8 of them against the
+   static path: at least 7/8 first tokens equal, and each stream equal up
+   to a near-tie (where it parts, the served token within 0.1 of the
+   static top logit; accuracy printed, not judged: the weights are
+   random); the same answerer behind its REST
+   server in ``pw.run(with_http_server=True)``: the metrics server's
+   ``/metrics`` holds the engine and serving families and ``/healthz``
+   answers 200, ``GET /debug/profile?ms=500`` (``profile_dir`` set) during
+   a question writes a ``torch.profiler`` trace naming the paged-decode and
+   chunk kernels, and a server without ``profile_dir`` refuses in JAX's
+   shape; (c) ``python -m pathway_tpu_torch fleet serve --fleet`` with 1
+   and with 2 replicas, each replica this script with
+   ``--phase21-replica`` (phase 6's server on ``cuda:0`` behind a REST
+   server, the kernels loaded from phase 2's build), both fleets booted at
+   once: 32 questions over the router's ``/v1/pw_ai_answer``, 8 behind
+   each of 4 shared 256-byte heads (the heads' first, then the rest),
+   answers of 2 replicas equal 1 replica's; then a replica SIGKILLed 0.3 s
+   into a burst: every request answered or shed, the replica drained and
+   a new one spawned, ``fleet stats --url`` listing 2 members. Prints the walls
+   and tokens/s of 1 and 2 replicas and their ratio, each replica's peak
+   ``max_memory_allocated`` and launches, and the respawn time; each
+   fleet's and replica's output is under ``chiprun_out/phase21``. Prints
+   the script's wall.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -350,6 +391,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -3144,8 +3186,9 @@ def run_lanes_tenants_fleet(dev, gpu: str, common) -> dict:
 # ---------------------------------------------------------------- phase 14
 # the RAG retrieval variants at phase 4's settings: the bank's doc width
 # and token width, the retraction and backfill sizes, HNSW's cut of the
-# corpus (a Python insert loop), the listwise stage's queries and depth
-LATE_SEQ, LATE_DC, N_RETRACT, N_BACKFILL, HNSW_DOCS = 96, 32, 1024, 512, 4096
+# corpus (a Python insert loop: 4,096 docs took ~57 s of the script's
+# time), the listwise stage's queries and depth
+LATE_SEQ, LATE_DC, N_RETRACT, N_BACKFILL, HNSW_DOCS = 96, 32, 1024, 512, 1024
 LLM_QUERIES, LLM_K, LLM_NEW = 8, 16, 32
 
 
@@ -3874,10 +3917,11 @@ def run_mesh_checkpoints(dev, gpu: str, params, tp_params) -> None:
 # config4_streaming_engine, full mode): 6 x 16,384 docs of 24 words from a
 # 7-word vocabulary (seed 11) through an in-process Kafka broker, full
 # MiniLM-L6 at max_batch_size 1024, the brute-force index reserved at
-# N + 512, cosine; 2 live queries at k = 10; 2 reps of each arm in turns
+# N + 512, cosine; 2 live queries at k = 10; one rep of each arm in turns
+# (a second rep did not fit the script's time once phase 21 came)
 # (the whole script stays near half its time limit).
 # (d): 4,096 static docs and 64 queries through DataIndex.query
-C4_DOCS, C4_REPS, C4_BATCH, C4_K = 6 * 16384, 2, 1024, 10
+C4_DOCS, C4_REPS, C4_BATCH, C4_K = 6 * 8192, 1, 1024, 10
 C4_WORDS = ["alpha", "beta", "gamma", "delta", "stream", "tensor", "index"]
 C4_QUERIES = ["alpha stream tensor", "delta index beta"]
 C4_STATIC_DOCS, C4_STATIC_QUERIES = 4096, 64
@@ -4206,9 +4250,10 @@ def run_engine_config4(dev, gpu: str) -> int:
 
 # ---------------------------------------------------------------- phase 17
 # BASELINE configs 2 and 3 through pw.run() and the REST servers: phase 4's
-# corpus, the embed UDF at its bench batch, 16 questions in (b) and (c), a
+# corpus, the embed UDF at its bench batch, 8 questions in (b) and (c) (16
+# until the script's time ran short), a
 # reply score's tolerance against the direct path and the near-tie gap
-RAG_BATCH, RAG_QUESTIONS, RAG_CONTEXT = 1024, 16, 6
+RAG_BATCH, RAG_QUESTIONS, RAG_CONTEXT = 1024, 8, 6
 RAG_SCORE_TOL, RAG_TIE_TOL = 2e-2, 1e-3
 RAG_HOST = "127.0.0.1"
 RAG_TIMEOUT = 300.0  # a bound on each wait: server start, a request, a join
@@ -4606,13 +4651,15 @@ def run_rag_apps(dev, gpu: str, out: dict, docs, queries, common) -> dict:
 # bf16 and corpus: (a) its 32,768 docs in 8 CSV files read statically
 # through the embed UDF at batches of 1,024 into a JSON-lines file, beside
 # the same program into the null sink and the direct path, FS_REPS reps of
-# the three arms in turns; (b) its first 4,096
-# docs, one file each, watched by pw.io.fs.read into a DocumentStore served
-# over REST, once a factory; 64 queries one at a time at k = 10, then 256
-# files out (every 16th) and 512 in, and the new and deleted docs' own
+# the three arms in turns; (b) its first 1,024
+# docs (4,096 took the uSearch arm's host HNSW 65-110 s), one file each,
+# watched by pw.io.fs.read into a DocumentStore served over REST, once a
+# factory; 64 queries one at a time at k = 10, then 64 files out (every
+# 16th) and 128 in, and the new and deleted docs' own
 # texts asked for (FS_PROBES each); (c) the brute-force and IVF factories
 # routed over FS_MESH virtual positions of the card.
-FS_FILES, FS_REPS, FS_DOCS, FS_NEW, FS_GONE, FS_PROBES, FS_MESH = 8, 2, 4096, 512, 256, 4, 4
+# one rep of (a)'s arms (a second did not fit the script's time with phase 21)
+FS_FILES, FS_REPS, FS_DOCS, FS_NEW, FS_GONE, FS_PROBES, FS_MESH = 8, 1, 1024, 128, 64, 4, 4
 FS_REFRESH = 0.5  # s between the streaming reader's scans: its default
 FS_FACTORIES = ("brute_force", "usearch", "ivf", "ivf_exhaustive", "hybrid")
 
@@ -4983,7 +5030,8 @@ def run_file_connectors(dev, gpu: str, out: dict, docs, queries) -> dict:
 # follow on a second topic. The windowed program and the same feed without
 # windows run W_REPS reps each, in turns.
 W_TOPICS, W_HOP, W_DURATION, W_DELAY, W_CUTOFF, W_JITTER = 8, 2048, 8192, 1024, 4096, 512
-W_LATE, W_COMMIT, W_QUERIES, W_LOOKBACK, W_REPS = 0.01, 1024, 64, 4096, 2
+# one rep of each arm (a second did not fit the script's time with phase 21)
+W_LATE, W_COMMIT, W_QUERIES, W_LOOKBACK, W_REPS = 0.01, 1024, 64, 4096, 1
 W_OPERATORS = ("Buffer", "Freeze", "Sort", "IntervalJoin", "AsofJoin")
 
 
@@ -5717,7 +5765,9 @@ def mp_check_graph(g: dict, n: int, tau: float, arm: str) -> dict:
             "near_tau": sum(1 for c in g["pairs"].values() if abs(c - tau) < MP_TAU_NEAR)}
 
 
-MP_PLAN = ((1, "ab", "p1r0"), (2, "ab", "p2r0"), (1, "a", "p1r1"), (2, "a", "p2r1"))
+# one rep of (a) a process count (a second did not fit the script's time with
+# phase 21)
+MP_PLAN = ((1, "ab", "p1r0"), (2, "ab", "p2r0"))
 
 
 def mp_setup(tmp: str, docs: list[str], queries: list[str], n_b: int) -> dict:
@@ -5829,6 +5879,686 @@ def run_multiprocess(gpu: str, docs, queries, truth) -> int:
     info(f"multiprocess: docs/s two processes / one {med[2] / med[1]:.4f} (medians "
          f"{med[1]:.1f}, {med[2]:.1f}); phase 20 flash_attn launches {launches}; "
          f"{time.perf_counter() - t20:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 21
+# pw.ml, rag_eval with the observability routes, and the fleet over
+# processes. (a): phase 4's corpus through the embed UDF (batches of 1,024)
+# into clustering_via_lsh (cosine bucketer over 384 dims, 10 hashes a band,
+# 4 bands, seed 0; k = 64) and knn_classifier (64 queries, k = 10); the
+# fuzzy join over ML_FUZZY_DOCS doc texts. (b): rag_eval's dataset of 64
+# questions. (c): 32 questions, 8 on each of 4 shared 256-byte heads,
+# through `python -m pathway_tpu_torch fleet serve` over 1 and 2 replica
+# processes.
+ML_BATCH, ML_K, ML_M, ML_L, ML_SEED, ML_KNN_K = 1024, 64, 10, 4, 0, 10
+ML_TIE_REL, ML_MAX_DISAGREE, ML_FUZZY_DOCS, ML_FUZZY_MIN = 1e-3, 0.01, 512, 0.95
+EVAL_N, EVAL_HELD = 64, 8
+P21_HEADS, P21_PER_HEAD, P21_HEAD_LEN = 4, 8, 256
+P21_TIMEOUT = 300.0  # a bound on each wait: a boot, a burst, a respawn, a stop
+# a replica not ready this long after its start is drained and respawned
+# (JAX's CLI default; a replica boots in 20-40 s)
+P21_BOOT_GRACE = 120.0
+KERNEL_NAME = r"(\w*kernel\w*)"  # a kernel's own name in a demangled trace name
+
+
+def ml_rep_groups(vecs: np.ndarray, bucketer) -> tuple[list, np.ndarray]:
+    """The LSH representatives as the engine groups them: ``(band, bucket)``
+    groups in the order ``apply_all_rows`` hands them to the clustering
+    (sorted by the group's row key) and each doc's group per band."""
+    from pathway_tpu_torch.engine.value import hash_values
+
+    members: dict = {}
+    rows = [[(i, int(b)) for i, b in enumerate(bucketer(v))] for v in vecs]
+    for j, r in enumerate(rows):
+        for g in r:
+            members.setdefault(g, []).append(j)
+    order = sorted(members, key=lambda g: hash_values(*g) & 0xFFFFFFFFFFFFFFFF)
+    pos = {g: n for n, g in enumerate(order)}
+    doc_groups = np.array([[pos[g] for g in r] for r in rows], dtype=np.int64)
+    return [members[g] for g in order], doc_groups
+
+
+def ml_host_kmeans(reps: np.ndarray, w: np.ndarray, k: int, n_iters: int = 10):
+    """JAX's clustering of the representatives on the host: the init as
+    JAX picks it (numpy, f32 weights), then its k-means steps and the
+    nearest centroid in f64. Returns the labels and each representative's
+    near-tie flag (its two nearest centroids within ML_TIE_REL)."""
+    host = np.asarray(reps, dtype=np.float32)
+    init = host[np.argsort(-np.asarray(w, dtype=np.float32))[:k]]
+    if init.shape[0] < k:
+        init = np.tile(init, (-(-k // max(init.shape[0], 1)), 1))[:k]
+    v, c = host.astype(np.float64), init.astype(np.float64)
+
+    def dist2(c):
+        return (v * v).sum(1)[:, None] + (c * c).sum(1)[None, :] - 2.0 * v @ c.T
+
+    for _ in range(n_iters):
+        a = dist2(c).argmin(1)
+        sums = np.zeros_like(c)
+        np.add.at(sums, a, v)
+        counts = np.bincount(a, minlength=k)[:, None].astype(np.float64)
+        c = np.where(counts > 0, sums / np.maximum(counts, 1.0), c)
+    d2 = dist2(c)
+    two = np.sort(d2, axis=1)[:, :2]
+    near = (two[:, 1] - two[:, 0]) <= ML_TIE_REL * np.maximum(np.abs(two[:, 1]), 1e-12)
+    return d2.argmin(1), near
+
+
+def majority_set(labels) -> set:
+    from collections import Counter
+
+    counts = Counter(labels).most_common()
+    return {v for v, c in counts if c == counts[0][1]}
+
+
+def ml_program(pw, emb, docs, queries, *, dims: int, k: int, knn_k: int, device,
+               bucketer=None) -> dict:
+    """(a)'s program, one pw.run(): the texts through the embed UDF into
+    clustering_via_lsh and, over its labels, knn_classifier of the
+    queries. The clustering's input (the representatives and weights the
+    engine hands it) is recorded. Returns the vectors, labels and
+    predictions by row, the run's wall and the recorded input."""
+    from pathway_tpu_torch.stdlib.ml import classifiers
+    from pathway_tpu_torch.stdlib.ml._lsh import generate_cosine_lsh_bucketer
+
+    bucketer = bucketer or generate_cosine_lsh_bucketer(dims, M=ML_M, L=ML_L, seed=ML_SEED)
+    pw.clear_graph()
+    schema = pw.schema_from_types(i=int, text=str)
+    d = pw.debug.table_from_rows(schema, [(i, t) for i, t in enumerate(docs)])
+    q = pw.debug.table_from_rows(schema, [(i, t) for i, t in enumerate(queries)])
+    vecs = d.select(d.i, data=emb(d.text))
+    qvecs = q.select(q.i, data=emb(q.text))
+    labels = classifiers.clustering_via_lsh(vecs, bucketer, k=k, device=device)
+    preds = classifiers.knn_classifier(vecs.select(vecs.data), labels, qvecs.select(qvecs.data),
+                                       k=knn_k, n_dimensions=dims, distance_type="cosine",
+                                       device=device)
+    out = {"vecs": {}, "qvecs": {}, "labels": {}, "preds": {}, "kmeans_in": []}
+
+    def keep(name, col=None):
+        def on_change(key, row, time, is_addition):
+            if is_addition:
+                out[name][key.value] = row if col is None else row[col]
+            else:
+                out[name].pop(key.value, None)
+        return on_change
+
+    pw.io.subscribe(vecs, on_change=keep("vecs"))
+    pw.io.subscribe(qvecs, on_change=keep("qvecs"))
+    pw.io.subscribe(labels, on_change=keep("labels", "label"))
+    pw.io.subscribe(preds, on_change=keep("preds", "predicted_label"))
+    orig = classifiers._kmeans_labels
+
+    def recorded(v, w, kk, dev):
+        got = orig(v, w, kk, dev)
+        out["kmeans_in"].append((np.array(v, dtype=np.float32), np.asarray(w), got))
+        return got
+
+    classifiers._kmeans_labels = recorded
+    try:
+        t0 = time.perf_counter()
+        pw.run()
+        out["wall_s"] = time.perf_counter() - t0
+    finally:
+        classifiers._kmeans_labels = orig
+    pw.clear_graph()
+    out["bucketer"] = bucketer
+    return out
+
+
+def ml_check(out: dict, k: int, knn_k: int) -> dict:
+    """Holds (a)'s program to its host references (see the module
+    docstring); returns the counts it printed."""
+    n = len(out["vecs"])
+    keys = sorted(out["vecs"], key=lambda kk: out["vecs"][kk]["i"])
+    vecs = np.stack([np.asarray(out["vecs"][kk]["data"], dtype=np.float32) for kk in keys])
+    require(len(out["kmeans_in"]) == 1, "(a) the representatives were clustered once")
+    reps, w, rep_labels = out["kmeans_in"][0]
+    members, doc_groups = ml_rep_groups(vecs, out["bucketer"])
+    host_means = np.stack([vecs[m].astype(np.float64).mean(0) for m in members])
+    require([len(m) for m in members] == [int(x) for x in w]
+            and np.abs(host_means - reps).max() < 1e-4,
+            f"(a) the engine's {len(w)} representatives equal the host's groups, in its order")
+    ref, near = ml_host_kmeans(reps, w, k)
+    port_rep = np.asarray(rep_labels)
+    labels = np.array([out["labels"][kk] for kk in keys])
+    ref_sets = [majority_set(ref[g]) for g in doc_groups]
+    bad = [j for j in range(n) if labels[j] not in ref_sets[j]]
+    tie_bad = sum(bool(near[doc_groups[j]].any()) for j in bad)
+    qkeys = sorted(out["qvecs"], key=lambda kk: out["qvecs"][kk]["i"])
+    qv = np.stack([np.asarray(out["qvecs"][kk]["data"], dtype=np.float32) for kk in qkeys])
+    scores = (qv @ vecs.T) / np.outer(np.linalg.norm(qv, axis=1), np.linalg.norm(vecs, axis=1))
+    agree = boundary = 0
+    for r, kk in enumerate(qkeys):
+        order = np.argsort(-scores[r], kind="stable")
+        tie = scores[r][order[knn_k - 1]] - scores[r][order[knn_k]] < RAG_TIE_TOL
+        ok = out["preds"][kk] in majority_set(labels[order[:knn_k]])
+        agree += ok
+        boundary += (not ok) and tie
+    return {"n": n, "reps": len(w), "rep_disagree": int((port_rep != ref).sum()),
+            "rep_near": int(near.sum()), "bad": len(bad), "tie_bad": tie_bad,
+            "agree": agree, "boundary": boundary, "n_q": len(qkeys),
+            "reps_vecs": reps, "reps_w": w}
+
+
+def fuzzy_changed(texts: list[str], seed: int = 21) -> list[str]:
+    """Each text with one seeded word replaced by a word no text has."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in texts:
+        ws = t.split()
+        ws[int(rng.integers(0, len(ws)))] = f"zq{int(rng.integers(0, 10 ** 6))}"
+        out.append(" ".join(ws))
+    return out
+
+
+def fuzzy_arm(pw, texts: list[str]) -> dict:
+    """fuzzy_match_tables of ``texts`` against their changed copies;
+    returns the matched (left index, right index) pairs and the wall."""
+    from pathway_tpu_torch.internals.run import capture_table
+    from pathway_tpu_torch.stdlib.ml.smart_table_ops import fuzzy_match_tables
+
+    pw.clear_graph()
+    schema = pw.schema_from_types(text=str)
+    changed = fuzzy_changed(texts)
+    left = pw.debug.table_from_rows(schema, [(t,) for t in texts])
+    right = pw.debug.table_from_rows(schema, [(t,) for t in changed])
+    keys = []
+    for tab, side in ((left, texts), (right, changed)):
+        pos = {t: i for i, t in enumerate(side)}
+        keys.append({k: pos[r[0]] for k, r in capture_table(tab).state.rows.items()})
+    t0 = time.perf_counter()
+    cap = capture_table(fuzzy_match_tables(left, right))
+    wall = time.perf_counter() - t0
+    cols = list(cap.column_names)
+    li, ri = cols.index("left"), cols.index("right")
+    pairs = [(keys[0][r[li].value], keys[1][r[ri].value]) for r in cap.state.rows.values()]
+    pw.clear_graph()
+    return {"pairs": pairs, "wall_s": wall}
+
+
+def run_ml(dev, gpu: str, out: dict, docs, queries) -> int:
+    """Phase 21 (a); returns its flash_attn launches."""
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.ops.ivf import kmeans_fit
+    from pathway_tpu_torch.xpacks.llm import SentenceTransformerEmbedder
+
+    model = out["emb"]
+    emb = SentenceTransformerEmbedder(model, max_batch_size=ML_BATCH)
+    FA.flash_attn.launches = 0
+    res = ml_program(pw, emb, docs, queries, dims=model.cfg.hidden, k=ML_K, knn_k=ML_KNN_K,
+                     device=dev)
+    torch.cuda.synchronize()
+    launches = FA.flash_attn.launches
+    chk = ml_check(res, ML_K, ML_KNN_K)
+    reps = torch.from_numpy(chk["reps_vecs"]).to(dev)
+    init = torch.from_numpy(chk["reps_vecs"][np.argsort(-chk["reps_w"].astype(np.float32))
+                                             [:ML_K]]).to(dev)
+    km_ms = cuda_time_ms(lambda: kmeans_fit(reps, init), 5)
+    info(f"ml (a) {len(docs)} docs -> embed UDF (batches of {ML_BATCH}) -> clustering_via_lsh "
+         f"(cosine, M={ML_M}, L={ML_L}, k={ML_K}) + knn_classifier ({len(queries)} queries, "
+         f"k={ML_KNN_K}) in one pw.run() [{gpu}]: {len(docs) / res['wall_s']:.1f} docs/s "
+         f"({res['wall_s']:.3f} s); {chk['reps']} representatives; k-means on the card "
+         f"{km_ms:.4f} ms (CUDA events, 10 steps); flash_attn launches {launches}")
+    info(f"ml (a) labels against the host (f64 k-means from the same init): representatives "
+         f"labelled apart {chk['rep_disagree']}/{chk['reps']} ({chk['rep_near']} near-ties); "
+         f"docs whose label is not a majority of their bands' host labels {chk['bad']}/"
+         f"{chk['n']} ({chk['tie_bad']} of them touch a near-tie); knn_classifier predictions "
+         f"a majority label of the host's exact top {ML_KNN_K} {chk['agree']}/{chk['n_q']} "
+         f"({chk['boundary']} others at a near-tie 10th/11th score)")
+    require(chk["n"] == len(docs) and len(res["labels"]) == len(docs), "(a) every doc labelled")
+    require(chk["bad"] <= ML_MAX_DISAGREE * chk["n"],
+            f"(a) at most {ML_MAX_DISAGREE:.0%} of the docs labelled apart from the host")
+    require(chk["agree"] + chk["boundary"] == chk["n_q"],
+            "(a) each prediction is a majority label of the host's exact top 10 but at near-ties")
+    require(launches >= MINILM_LAYERS * -(-(len(docs) + len(queries)) // ML_BATCH),
+            "(a) the embeds went through flash_attn")
+    fz = fuzzy_arm(pw, docs[:ML_FUZZY_DOCS])
+    hits = sum(i == j for i, j in fz["pairs"])
+    info(f"ml (a) fuzzy_match_tables of {ML_FUZZY_DOCS} doc texts against copies with one word "
+         f"changed [{gpu}]: {fz['wall_s']:.3f} s; {len(fz['pairs'])} pairs, {hits} matched to "
+         f"their original")
+    require(hits >= ML_FUZZY_MIN * ML_FUZZY_DOCS,
+            f"(a) at least {ML_FUZZY_MIN:.0%} of the texts matched to their original")
+    return launches
+
+
+def get_json(url: str, timeout: float = 30.0):
+    """(status, JSON body or None) of one GET; HTTP errors are returned."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            status, body = resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        status, body = exc.code, exc.read()
+    try:
+        return status, json.loads(body)
+    except ValueError:
+        return status, body.decode("utf-8", "replace")
+
+
+def run_rag_eval_phase(dev, gpu: str, out: dict, common) -> dict:
+    """Phase 21 (b); returns its launches of the five kernel entry points."""
+    import tempfile
+    import threading
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import DecoderChat
+    from pathway_tpu_torch.internals import run as run_mod
+    from pathway_tpu_torch.models import decoder as D
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks import llm
+    from pathway_tpu_torch.xpacks.llm import rag_eval
+    from pathway_tpu_torch.xpacks.llm.servers import BaseRestServer
+
+    t0 = time.perf_counter()
+    model = out["emb"]
+    samples = rag_eval.generate_qa_dataset(EVAL_N, seed=0)
+    chat = DecoderChat(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True,
+                       flash_prefill=True, **common)
+    serve(chat, make_prompts(4, 16, 200, seed=99))  # warm-up, outside the counts
+
+    def qa_over(samples):
+        emb = llm.SentenceTransformerEmbedder(model, max_batch_size=RAG_BATCH)
+        store = llm.DocumentStore(rag_eval.docs_table(samples), retriever_factory=(
+            BruteForceKnnFactory(dimensions=model.cfg.hidden, embedder=emb, metric="cos",
+                                 device=model.device)))
+        return llm.BaseRAGQuestionAnswerer(chat, store)
+
+    submitted = []
+    server_submit = chat.server.submit
+
+    def submit(ids, *a, **kw):
+        req = server_submit(ids, *a, **kw)
+        submitted.append((list(ids), req))
+        return req
+
+    chat.server.submit = submit
+    for f in counters().values():
+        f.launches = 0
+    try:
+        pw.clear_graph()
+        t1 = time.perf_counter()
+        res = rag_eval.run_rag_eval(qa_over(samples), samples)
+        eval_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        # the same answerer behind its REST server in pw.run(with_http_server=True),
+        # with /debug/profile enabled
+        pw.clear_graph()
+        prof_dir = tempfile.mkdtemp(prefix="p21-profile-")
+        qa = qa_over(samples)
+        qa.build_server(RAG_HOST, 0, profile_dir=prof_dir)
+        cfg = pw.EngineConfig(metrics_first_port=0)
+        live = LiveRun(pw, qa.server.webserver,
+                       run=lambda: qa.run_server(with_http_server=True, config=cfg))
+        try:
+            wait_until(lambda: run_mod.METRICS_SERVER is not None, "the metrics server",
+                       RAG_TIMEOUT)
+            mbase = f"http://{RAG_HOST}:{run_mod.METRICS_SERVER.port}"
+            got = {}
+            prof = threading.Thread(target=lambda: got.setdefault(
+                "profile", get_json(f"{live.base}/debug/profile?ms=500", RAG_TIMEOUT)))
+            prof.start()
+            time.sleep(0.05)
+            got["answer"] = post(f"{live.base}/v1/pw_ai_answer",
+                                 {"prompt": samples[0].question})[0]
+            prof.join(RAG_TIMEOUT)
+            m_status, m_text = get_json(mbase + "/metrics")
+            h_status, _ = get_json(mbase + "/healthz")
+            q_status, q_text = get_json(f"{live.base}/metrics")
+        finally:
+            live.stop()
+        require(run_mod.METRICS_SERVER is None, "(b) the metrics server stopped with the run")
+        off = BaseRestServer(RAG_HOST, 0)
+        off.start_observability_endpoints()
+        off.webserver.start()
+        try:
+            refused = get_json(f"http://{RAG_HOST}:{off.webserver.port}/debug/profile?ms=500")
+        finally:
+            off.webserver.stop()
+    finally:
+        del chat.server.submit
+    torch.cuda.synchronize()
+    launches = {n: f.launches for n, f in counters().items()}
+    pw.clear_graph()
+
+    info(f"rag_eval (b) {EVAL_N} questions through run_rag_eval over BaseRAGQuestionAnswerer "
+         f"(MiniLM-L6 bf16, phase 6's server) [{gpu}]: {eval_s:.3f} s; n {res['n']}; accuracy "
+         f"contains {res['accuracy_contains']:.4f}, exact {res['accuracy_exact']:.4f} (random "
+         f"weights: not a quality figure)")
+    require(res["n"] == EVAL_N, f"(b) run_rag_eval answered {EVAL_N} questions")
+    by_q = {r[0]: r[1] for r in res["results"]}
+    held = [s.question for s in samples[:: EVAL_N // EVAL_HELD]]
+    first_eq = streams_eq = 0
+    gaps = []
+    for q in held:
+        matches = [(i, r) for i, r in submitted[:EVAL_N] if q in chat.tokenizer.decode(i)]
+        require(len(matches) == 1, f"(b) one request served for {q!r}")
+        ids, req = matches[0]
+        require(by_q[q] == req.text, "(b) the response is the served request's text")
+        x = torch.tensor([ids], dtype=torch.int32, device=dev)
+        toks = D.generate(chat.params, x, torch.ones_like(x), chat.cfg, MAX_NEW)[0].tolist()
+        first_eq += int(req.tokens[0] == toks[0])
+        streams_eq += int(req.tokens == toks)
+        j = next((t for t, (a, b) in enumerate(zip(req.tokens, toks)) if a != b), None)
+        if j is not None:
+            # the static path's logits where the streams part: the served
+            # token must be within LOGIT_TOL of the static argmax there
+            y = torch.tensor([ids + req.tokens[:j]], dtype=torch.int32, device=dev)
+            lg = D.forward(chat.params, y, torch.ones_like(y), chat.cfg)[0, -1].float()
+            gaps.append(float(lg.max() - lg[req.tokens[j]]))
+    info(f"rag_eval (b) against the static path ({EVAL_HELD} of the {EVAL_N}): first tokens "
+         f"{first_eq}/{EVAL_HELD}, whole streams {streams_eq}/{EVAL_HELD}; where a stream "
+         f"parts, the served token's static logit below the static top "
+         f"{sorted(round(g, 4) for g in gaps)}")
+    require(first_eq * 8 >= MIN_FIRST_EQUAL * EVAL_HELD,
+            f"(b) at least {MIN_FIRST_EQUAL}/8 first tokens equal the static path")
+    require(all(g <= LOGIT_TOL for g in gaps),
+            f"(b) every stream equals the static path's up to a near-tie (the served token "
+            f"within {LOGIT_TOL} of the static top logit where they part)")
+    engine_fams = ("pathway_logical_time", "pathway_connector_rows_read_total",
+                   "pathway_tpu_op_rows_total")
+    serving_fams = ("pathway_tpu_ttft_seconds_count", "pathway_tpu_e2e_seconds_count")
+    info(f"rag_eval (b) pw.run(with_http_server=True): /metrics {m_status} ({len(m_text)} "
+         f"bytes), /healthz {h_status}; the QA server's /metrics {q_status}")
+    require(m_status == 200 and all(f in m_text for f in engine_fams + serving_fams),
+            "(b) the metrics server's /metrics holds the engine and serving families")
+    require(h_status == 200 and q_status == 200 and "# EOF" in q_text,
+            "(b) /healthz and the QA server's /metrics answer 200")
+    p_status, p = got["profile"]
+    require(p_status == 200 and isinstance(p, dict) and "trace" in p,
+            f"(b) /debug/profile?ms=500 wrote a trace ({p!r})")
+    trace = json.load(open(p["trace"]))
+    kernels = sorted({e["name"] for e in trace["traceEvents"]
+                      if e.get("cat") == "kernel" and e.get("name")})
+    ours = [k for k in kernels if any(s in k for s in ("paged_split_kernel", "chunk_attn",
+                                                        "wq_matmul"))]
+    info(f"rag_eval (b) /debug/profile during a question: {p['ms']} ms, activities "
+         f"{p['activities']}, {len(trace['traceEvents'])} events, {len(kernels)} kernel names, "
+         f"of them the port's: {sorted({re.search(KERNEL_NAME, k).group(1) for k in ours})}")
+    require(any("paged_split_kernel" in k for k in kernels)
+            and any("chunk_attn" in k for k in kernels),
+            "(b) the trace names the paged-decode and chunk kernels")
+    r_status, r = refused
+    info(f"rag_eval (b) /debug/profile without profile_dir: {r_status} {r}")
+    require(r_status == 200 and isinstance(r, dict) and set(r) == {"error"}
+            and r["error"].startswith("profiling disabled"),
+            "(b) without profile_dir the route refuses in JAX's shape")
+    require(got["answer"].get("response") is not None, "(b) the profiled question answered")
+    free_chats(chat)
+    info(f"rag_eval: phase 21 (b) launches {launches}; {time.perf_counter() - t0:.1f} s")
+    require(all(launches[n] > 0 for n in ("flash_attn", "flash_chunk_attn_paged",
+                                          "paged_attn_decode", "wq_matmul")),
+            "(b) drove flash_attn, flash_chunk_attn_paged, paged_attn_decode and wq_matmul")
+    return launches
+
+
+# (c): the fleet over processes
+def p21_replica(argv: list[str]) -> int:
+    """A replica of phase 21 (c): phase 6's server (paged, int8 weights,
+    greedy) on cuda:0 behind a REST server on ``--port``, the kernels
+    loaded from the parent's build (a missing one fails). /v1/pw_ai_answer
+    answers ``{"response": ...}``; GET /v1/phase21 reports this process's
+    peak memory and kernel launches."""
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import DecoderChat
+    from pathway_tpu_torch.xpacks.llm.llms import prompt_chat_single_qa
+    from pathway_tpu_torch.xpacks.llm.servers import BaseRestServer
+
+    port = int(argv[argv.index("--port") + 1])
+    mp_load_kernels()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _params, _tok, common = decoder_setup(dev)
+    chat = DecoderChat(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True,
+                       flash_prefill=True, **common)
+    serve(chat, make_prompts(4, 16, 200, seed=99))  # warm-up, outside the counts
+    for f in counters().values():
+        f.launches = 0
+
+    class Question(pw.Schema):
+        prompt: str
+
+    def answer(q):
+        reply = chat(prompt_chat_single_qa(q.prompt))
+        return q.select(result=pw.apply_with_type(lambda r: pw.Json({"response": r}), pw.Json,
+                                                  reply))
+
+    srv = BaseRestServer(RAG_HOST, port)
+    srv.serve("/v1/pw_ai_answer", Question, answer)
+    srv.webserver._register("/v1/phase21", ["GET"], lambda _p: {
+        "pid": os.getpid(), "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "launches": {n: f.launches for n, f in counters().items()}})
+    srv.run()
+    return 0
+
+
+def p21_prompts() -> tuple[list[str], list[str]]:
+    """P21_HEADS shared heads of P21_HEAD_LEN bytes, two owned by each
+    member of a two-replica ring (the router's character keys), and
+    P21_PER_HEAD questions behind each: (firsts, the rest)."""
+    from pathway_tpu_torch import serving
+    from pathway_tpu_torch.serving.router import _char_tokenize
+
+    ring = serving.HashRing()
+    for rid in ("replica-0", "replica-1"):
+        ring.add(rid)
+    rng = np.random.default_rng(211)
+    heads, owners, seed = [], [], 210
+    while len(heads) < P21_HEADS:
+        group = shared_prompts(P21_HEAD_LEN, rng.integers(8, 64, P21_PER_HEAD).tolist(),
+                               seed=seed)
+        seed += 1
+        owner = ring.lookup(serving.head_block_key(
+            _char_tokenize(group[0]), block=serving.affinity_block_tokens(), blocks=4))
+        if owners.count(owner) < P21_HEADS // 2:
+            heads.append(group)
+            owners.append(owner)
+    return [g[0] for g in heads], [p for g in heads for p in g[1:]]
+
+
+def p21_fleet(n: int, port: int, logdir: str, replica: list[str], env=None):
+    """``python -m pathway_tpu_torch fleet serve --fleet -n n`` over the
+    replica program ``replica``, its own output and each replica's in
+    ``logdir``."""
+    os.makedirs(logdir, exist_ok=True)
+    log = open(os.path.join(logdir, "fleet.log"), "wb")
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pathway_tpu_torch", "fleet", "serve", "--fleet", "-n", str(n),
+         "--port", str(port), "--boot-grace", str(P21_BOOT_GRACE), "--health-interval", "0.5",
+         "--replica-log-dir", logdir, *replica], cwd=here, stdout=log,
+        stderr=subprocess.STDOUT, env=env)
+    proc.log = log
+    return proc
+
+
+def p21_state(base: str) -> dict | None:
+    try:
+        status, state = get_json(base + "/v1/fleet", 10.0)
+    except OSError:
+        return None
+    return state if status == 200 else None
+
+
+def p21_ready(base: str, n: int) -> bool:
+    from pathway_tpu_torch.serving import HttpReplica
+
+    state = p21_state(base)
+    return bool(state and state["size"] == n and all(
+        HttpReplica(rid, info["url"]).healthy() for rid, info in state["replicas"].items()))
+
+
+def p21_ask(base: str, prompt: str) -> tuple[int, object]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + "/v1/pw_ai_answer", method="POST",
+                                 data=json.dumps({"prompt": prompt}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=P21_TIMEOUT) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode("utf-8", "replace")
+    except OSError as exc:  # the router dropped the request: a failure
+        return 0, repr(exc)
+
+
+def p21_burst(base: str, prompts: list[str], on_start=None) -> dict:
+    """``prompts`` at once from as many threads; returns statuses and
+    replies by prompt and the wall."""
+    out = {}
+    with ThreadPoolExecutor(len(prompts)) as pool:
+        t0 = time.perf_counter()
+        futs = {p: pool.submit(p21_ask, base, p) for p in prompts}
+        if on_start is not None:
+            on_start()
+        for p, f in futs.items():
+            out[p] = f.result(timeout=P21_TIMEOUT)
+    return {"replies": out, "wall_s": time.perf_counter() - t0}
+
+
+def p21_stop(proc) -> int:
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=P21_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        proc.log.close()
+
+
+def run_fleet_processes(gpu: str, logdir: str, replica: list[str] | None = None,
+                        env=None) -> dict:
+    """Phase 21 (c); returns the replicas' launches of the five kernel
+    entry points. ``replica`` is the replica program (default: this script
+    with ``--phase21-replica``); it must serve GET /v1/phase21 as
+    :func:`p21_replica` does."""
+    import contextlib
+    import io
+    import signal
+
+    from pathway_tpu_torch import cli
+    from pathway_tpu_torch.serving import free_port
+
+    t0 = time.perf_counter()
+    replica = replica or [sys.executable, os.path.abspath(__file__), "--phase21-replica"]
+    firsts, rest = p21_prompts()
+    ports = {1: free_port(), 2: free_port()}
+    bases = {n: f"http://{RAG_HOST}:{p}" for n, p in ports.items()}
+    fleets = {n: p21_fleet(n, ports[n], os.path.join(logdir, f"fleet{n}"), replica, env)
+              for n in (1, 2)}
+    launches = {n: 0 for n in counters()}
+
+    def child_stats(base):
+        state = p21_state(base) or {"replicas": {}}
+        return {rid: get_json(info["url"] + "/v1/phase21")[1]
+                for rid, info in state["replicas"].items()}
+
+    try:
+        for n in (1, 2):
+            wait_until(lambda n=n: p21_ready(bases[n], n), f"{n} ready replica(s)", P21_TIMEOUT)
+            require(fleets[n].poll() is None, f"(c) the {n}-replica fleet is up")
+        boot_s = time.perf_counter() - t0
+        arms = {}
+        for n in (1, 2):
+            a = p21_burst(bases[n], firsts)
+            b = p21_burst(bases[n], rest)
+            replies = {**a["replies"], **b["replies"]}
+            bad = [(s, str(r)[:200]) for s, r in replies.values() if s != 200]
+            if bad:
+                info(f"  (c) {n} replica(s): {len(bad)} not answered, e.g. {bad[:3]}; walls "
+                     f"{a['wall_s']:.1f} + {b['wall_s']:.1f} s; fleet {p21_state(bases[n])}")
+            require(not bad, f"(c) {n} replica(s): every question answered")
+            arms[n] = {"answers": {p: r["response"] for p, (_s, r) in replies.items()},
+                       "wall_s": a["wall_s"] + b["wall_s"], "children": child_stats(bases[n])}
+            if n == 1:
+                for st in arms[1]["children"].values():
+                    for k, v in st["launches"].items():
+                        launches[k] += v
+                require(p21_stop(fleets[1]) == 0, "(c) the 1-replica fleet stopped cleanly")
+        n_q = len(firsts) + len(rest)
+        equal = sum(arms[1]["answers"][p] == arms[2]["answers"][p] for p in firsts + rest)
+        tps = {n: n_q * MAX_NEW / arms[n]["wall_s"] for n in (1, 2)}
+        info(f"fleet (c) over processes, {n_q} questions behind {P21_HEADS} heads of "
+             f"{P21_HEAD_LEN} bytes [{gpu}]: 1 replica {arms[1]['wall_s']:.3f} s wall, "
+             f"{tps[1]:.1f} tokens/s; 2 replicas {arms[2]['wall_s']:.3f} s wall, {tps[2]:.1f} "
+             f"tokens/s; ratio (2 over 1) {arms[2]['wall_s'] / arms[1]['wall_s']:.4f} wall, "
+             f"{tps[2] / tps[1]:.4f} tokens/s; both fleets booted in {boot_s:.1f} s; answers "
+             f"equal {equal}/{n_q}")
+        for n in (1, 2):
+            for rid, st in sorted(arms[n]["children"].items()):
+                info(f"  {n}-replica fleet {rid} (pid {st['pid']}): peak "
+                     f"max_memory_allocated {st['max_memory_allocated']} bytes; launches "
+                     f"{st['launches']}")
+        require(equal == n_q, "(c) the 2-replica answers equal the 1-replica run's")
+        # failover: one replica killed mid-burst
+        state = p21_state(bases[2])
+        victim = sorted(state["replicas"].items())[0]
+        killed_at = []
+
+        def kill():
+            time.sleep(0.3)
+            os.kill(victim[1]["pid"], signal.SIGKILL)
+            killed_at.append(time.perf_counter())
+
+        before = child_stats(bases[2])
+        f = p21_burst(bases[2], firsts + rest, on_start=kill)
+        codes = [s for s, _ in f["replies"].values()]
+        answered = sum(c == 200 for c in codes)
+        shed = sum(c == 503 for c in codes)
+        same = sum(s == 200 and r["response"] == arms[1]["answers"][p]
+                   for p, (s, r) in f["replies"].items())
+        # the manager's respawn (its process started; booting it is what
+        # both fleets' start-up already measured)
+        wait_until(lambda: (p21_state(bases[2]) or {}).get("respawns", 0) >= 1
+                   and p21_state(bases[2])["size"] == 2, "the respawn", P21_TIMEOUT)
+        respawn_s = time.perf_counter() - killed_at[0]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["fleet", "stats", "--url", bases[2]])
+        listing = buf.getvalue()
+        info(f"fleet (c) SIGKILL of {victim[0]} (pid {victim[1]['pid']}) 0.3 s into a burst of "
+             f"{n_q} [{gpu}]: {answered} answered ({same} equal to the 1-replica run), {shed} "
+             f"shed, {n_q - answered - shed} failed; drained and a new replica spawned "
+             f"{respawn_s:.1f} s after the kill; fleet stats --url:")
+        for line in listing.splitlines():
+            info(f"    {line}")
+        require(answered + shed == n_q, "(c) every request answered, shed or failed over")
+        require(rc == 0 and listing.count("kind=http") == 2 and "respawn" in listing,
+                "(c) fleet stats --url lists 2 members after the respawn")
+        # the survivor's launches now, the victim's before the kill (the new
+        # replica is still booting: it has launched nothing)
+        state = p21_state(bases[2])
+        counted = [get_json(info["url"] + "/v1/phase21")[1]["launches"]
+                   for rid, info in state["replicas"].items() if rid in before]
+        for counts in counted + [before[victim[0]]["launches"]]:
+            for k, v in counts.items():
+                launches[k] += v
+        pids = [info["pid"] for info in p21_state(bases[2])["replicas"].values()]
+        require(p21_stop(fleets[2]) == 0, "(c) the 2-replica fleet stopped cleanly")
+        wait_until(lambda: not any(os.path.exists(f"/proc/{p}")
+                                   and open(f"/proc/{p}/stat").read().split()[2] != "Z"
+                                   for p in pids), "the replicas to exit", 60)
+    finally:
+        for proc in fleets.values():
+            if proc.poll() is None:
+                p21_stop(proc)
+    info(f"fleet: phase 21 (c) replica launches {launches}; {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -5999,6 +6729,18 @@ def main() -> int:
     # phase 20: two processes sharing the card (the row exchange, iterate)
     launches += run_multiprocess(gpu, docs, queries, out["truth"])
 
+    # phase 21: pw.ml, rag_eval with the observability routes, the fleet
+    # over processes
+    t21 = time.perf_counter()
+    launches += run_ml(dev, gpu, out, docs, queries)
+    ev = run_rag_eval_phase(dev, gpu, out, common)
+    fl = run_fleet_processes(gpu, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                               "chiprun_out", "phase21"))
+    require(all(fl[n] > 0 for n in ("flash_chunk_attn_paged", "paged_attn_decode", "wq_matmul")),
+            "(c) the replicas drove flash_chunk_attn_paged, paged_attn_decode and wq_matmul")
+    dec = {n: dec[n] + ev[n] + fl[n] for n in dec}
+    info(f"phase 21: {time.perf_counter() - t21:.1f} s")
+
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",
         "source": "pathway_tpu_torch/csrc/flash_attn.cu",
@@ -6037,4 +6779,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase20-child"]:
         sys.exit(mp_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase21-replica"]:
+        sys.exit(p21_replica(sys.argv[2:]))
     sys.exit(main())

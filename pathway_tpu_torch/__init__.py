@@ -72,8 +72,14 @@ nested scheduler), ``pw.graphs`` and ``Table._gradual_broadcast``.
 ``EngineConfig(processes=N, process_id=p, first_port=...)`` makes a run
 one of N processes on the host that exchange rows over TCP before each
 stateful operator (``engine/exchange.py``); each process keeps its own
-device work. Persistence is not ported yet (ROADMAP A13). The pandas-backed datetime types load on first
-use, so a program without datetimes runs without pandas.
+device work. ``pw.ml`` (LSH classifiers, ``clustering_via_lsh`` with its
+k-means on the card, ``knn_classifier``, the fuzzy join) and
+``pw.utils`` are JAX's; ``pw.run(monitoring_level=..., with_http_server=
+True)`` draws the live dashboard and serves the run's metrics;
+``python -m pathway_tpu_torch`` is the CLI (``stats``, ``watch``, ``fleet
+serve`` over replica processes). Persistence is not ported yet (ROADMAP
+A13). The pandas-backed datetime types load on first use, so a program
+without datetimes runs without pandas.
 """
 
 from pathway_tpu_torch.device import resolve_device
@@ -89,7 +95,7 @@ from pathway_tpu_torch.internals.api import (
     wrap_py_object,
 )
 from pathway_tpu_torch.internals.api import PathwayType as Type
-from pathway_tpu_torch.internals.config import EngineConfig
+from pathway_tpu_torch.internals.config import EngineConfig, set_license_key, set_monitoring_config
 from pathway_tpu_torch.internals.custom_reducers import BaseCustomAccumulator
 from pathway_tpu_torch.internals.errors import global_error_log, local_error_log
 from pathway_tpu_torch.internals.expression import (
@@ -153,7 +159,9 @@ from pathway_tpu_torch.internals.udfs import (
 )
 from pathway_tpu_torch.internals.universe import Universe
 from pathway_tpu_torch import debug, io  # noqa: E402
-from pathway_tpu_torch.stdlib import graphs, indexing, ordered, statistical, temporal  # noqa: E402
+from pathway_tpu_torch.stdlib import graphs, indexing, ml, ordered, statistical, temporal, utils  # noqa: E402
+from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer  # noqa: E402
+from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer  # noqa: E402
 from pathway_tpu_torch.internals.iterate import iterate, iterate_universe  # noqa: E402
 from pathway_tpu_torch.stdlib.temporal import (  # noqa: E402
     AsofJoinResult,
@@ -285,6 +293,12 @@ __all__ = [
     "debug",
     "io",
     "indexing",
+    "ml",
+    "utils",
+    "AsyncTransformer",
+    "pandas_transformer",
+    "set_license_key",
+    "set_monitoring_config",
     "ordered",
     "statistical",
     "temporal",

@@ -1,0 +1,336 @@
+"""Command-line interface of the port (counterpart of
+``pathway_tpu/cli.py``): ``python -m pathway_tpu_torch`` or the
+``pathway-tpu-torch`` script.
+
+Carried, with JAX's command names and options:
+
+* ``stats [--url URL] [--as-json]``: the unified observability snapshot
+  (serving latency, prefix, spec, occupancy, HBM, scheduler) of a running
+  server's ``/v1/statistics``, or of this process's registry;
+* ``watch [--url URL] [--interval S] [--iterations N] [--fail-on-alert]``:
+  the SLO watchdog's objectives, burn rates and alerts, polled;
+* ``fleet serve [--fleet] [-n N] [--host H] [--port P] PROGRAM ARGS...``:
+  PROGRAM as N supervised replica processes behind the prefix-affinity
+  router (each started with ``--port <its port>`` appended, and JAX's
+  environment contract); ``fleet stats --url`` and ``fleet watch --url``
+  read a running router's ``/v1/fleet``.
+
+JAX's ``PATHWAY_TPU_FLEET`` switch is the ``--fleet`` option here: without
+it ``fleet serve`` refuses with exit code 2, as the flag's default does.
+The parser is the standard library's ``argparse`` (JAX's is ``click``).
+``spawn``, ``spawn-from-env``, ``replay`` (which needs persistence),
+``tune`` and ``airbyte`` are not ported (ROADMAP A12, A13): they print so
+and exit with code 3. :func:`main` takes ``argv`` (the tests' way in) and
+returns the exit code.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import signal
+import sys
+import time
+import urllib.request
+
+NOT_PORTED = {
+    "spawn": "needs the multi-process launcher (ROADMAP A13)",
+    "spawn-from-env": "needs the multi-process launcher (ROADMAP A13)",
+    "replay": "needs persistence (ROADMAP A13)",
+    "tune": "needs the autotuner (ROADMAP A12)",
+    "airbyte": "needs the airbyte connector (ROADMAP A13)",
+}
+
+
+def _out(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+def _err(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def _get_json(url: str, timeout: float = 10.0) -> dict:
+    with urllib.request.urlopen(url, timeout=timeout) as resp:  # noqa: S310
+        return json.loads(resp.read().decode())
+
+
+# ------------------------------------------------------------------- stats
+
+def _section(title: str, rows: dict) -> None:
+    if not rows:
+        return
+    _out(title)
+    width = max(len(str(k)) for k in rows)
+    for k, v in rows.items():
+        _out(f"  {str(k):<{width}}  {v}")
+
+
+def cmd_stats(args) -> int:
+    if args.url is not None:
+        snap = _get_json(args.url.rstrip("/") + "/v1/statistics")
+    else:
+        from pathway_tpu_torch.engine import probes
+        from pathway_tpu_torch.internals import run as run_mod
+
+        snap = probes.unified_snapshot(run_mod.LAST_RUN_STATS)
+    if args.as_json:
+        _out(json.dumps(snap, indent=2, default=str))
+        return 0
+    serving = snap.get("serving") or {}
+    latency = serving.get("latency") or {}
+    for name, summary in sorted(latency.items()):
+        if summary:
+            _section(f"latency/{name} (ms)", summary)
+    for key in ("prefix", "spec", "cascade"):
+        _section(key, serving.get(key) or {})
+    attn = serving.get("attn") or {}
+    _section("attn", attn if attn.get("total_bytes") else {})
+    for key in ("dispatch", "stage_seconds", "occupancy", "lanes", "tenants"):
+        _section(key, serving.get(key) or {})
+    _section("kv_parked_bytes",
+             {k: v for k, v in (serving.get("kv_parked_bytes") or {}).items() if v})
+    _section("retrieval", serving.get("retrieval") or {})
+    hbm = snap.get("hbm") or {}
+    _section("hbm_bytes", hbm.get("current_bytes") or {})
+    for dev, comps in sorted((hbm.get("device_bytes") or {}).items()):
+        _section(f"hbm_bytes/device={dev}", comps)
+    _section("hbm_high_water_bytes/device", hbm.get("per_device_high_water_bytes") or {})
+    sched = snap.get("scheduler") or {}
+    if sched:
+        _section("scheduler", {k: sched[k] for k in
+                               ("current_time", "epochs_total", "uptime_s", "finished")
+                               if k in sched})
+    if not any((latency, serving.get("prefix"), serving.get("spec"), serving.get("cascade"),
+                attn.get("total_bytes"), serving.get("dispatch"),
+                serving.get("stage_seconds"), serving.get("occupancy"),
+                hbm.get("current_bytes"), sched)):
+        _out("no metrics recorded yet")
+    return 0
+
+
+# ------------------------------------------------------------------- watch
+
+def _watch_pass(url: str | None) -> tuple[dict, dict]:
+    if url is not None:
+        snap = _get_json(url.rstrip("/") + "/v1/statistics")
+        return snap.get("slo") or {}, snap.get("serving") or {}
+    from pathway_tpu_torch.engine import probes, slo
+
+    wd = slo.get_watchdog()
+    state = wd.tick() if wd.objectives else wd.state()
+    return state, probes.serving_snapshot()
+
+
+def cmd_watch(args) -> int:
+    n = 0
+    state: dict = {}
+    try:
+        while True:
+            state, serving = _watch_pass(args.url)
+            n += 1
+            objectives = state.get("objectives") or {}
+            if not objectives:
+                _out("no SLO objectives configured (engine.slo.configure thresholds)")
+            else:
+                alerting = state.get("alerting") or []
+                _out(f"[{time.strftime('%H:%M:%S')}] slo: "
+                     + ("ALERT " + ",".join(alerting) if alerting else "ok"))
+                for name, o in sorted(objectives.items()):
+                    value = o.get("value")
+                    vtxt = (f"{value:.3f}{o.get('unit', '')}"
+                            if isinstance(value, (int, float)) else "-")
+                    mark = "!" if o.get("alert") else " "
+                    _out(f" {mark} {name:<16} value={vtxt:<12} "
+                         f"target {o['kind']} {o['threshold']} "
+                         f"burn fast={o['burn_fast']:.2f} slow={o['burn_slow']:.2f} "
+                         f"breaches={o['breaches']}")
+            lanes = serving.get("lanes") or {}
+            tenants = serving.get("tenants") or {}
+            if lanes:
+                _out("   lanes: " + " ".join(f"{k}={v:.0f}" for k, v in sorted(lanes.items())))
+            if tenants:
+                _out("   tenants queued: "
+                     + " ".join(f"{k}={v:.0f}" for k, v in sorted(tenants.items())))
+            if args.iterations and n >= args.iterations:
+                break
+            time.sleep(max(args.interval, 0.05))
+    except KeyboardInterrupt:
+        pass
+    return 1 if args.fail_on_alert and state.get("alerting") else 0
+
+
+# ------------------------------------------------------------------- fleet
+
+def cmd_fleet_serve(args) -> int:
+    import os
+    import uuid
+
+    from pathway_tpu_torch import serving
+    from pathway_tpu_torch.serving.replica import HttpReplica, free_port, spawn_replica_process
+
+    if not args.fleet:
+        _err("fleet serving is off (pass --fleet to serve a fleet; the single-server "
+             "path is unchanged)")
+        return 2
+    serving.configure(enabled=True)
+    run_id = str(uuid.uuid4())
+    next_index = [0]
+    logs = []
+
+    def factory(replica_id: str):
+        idx = next_index[0]
+        next_index[0] += 1
+        rport = free_port(args.host)
+        out = None
+        if args.replica_log_dir:
+            os.makedirs(args.replica_log_dir, exist_ok=True)
+            out = open(os.path.join(args.replica_log_dir, f"replica-{idx}.log"), "ab")
+            logs.append(out)
+        proc = spawn_replica_process(
+            [args.program, *args.arguments, "--port", str(rport)],
+            replica_index=idx, port=rport, run_id=run_id, stdout=out, stderr=out)
+        return HttpReplica(replica_id, f"http://{args.host}:{rport}", proc=proc)
+
+    kw = {"boot_grace_s": args.boot_grace}
+    if args.replicas is not None:
+        kw["replicas"] = args.replicas
+    if args.health_interval is not None:
+        kw["health_interval_s"] = args.health_interval
+    manager = serving.build_fleet(factory, **kw)
+    router_srv = serving.RouterServer(manager.router, manager=manager, host=args.host,
+                                      port=args.port).start()
+    manager.run_in_thread()
+    _err(f"fleet router on http://{args.host}:{router_srv.port} "
+         f"({len(manager.router)} replicas, run {run_id})")
+
+    def on_term(signum, frame):
+        raise KeyboardInterrupt
+
+    # SIGTERM ends the fleet as Ctrl-C does: the replicas are stopped too
+    prev = signal.signal(signal.SIGTERM, on_term)
+    try:
+        while True:
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+        router_srv.stop()
+        manager.shutdown()
+        for f in logs:
+            f.close()
+    return 0
+
+
+def cmd_fleet_stats(args) -> int:
+    state = _get_json(args.url.rstrip("/") + "/v1/fleet")
+    if args.as_json:
+        _out(json.dumps(state, indent=2, default=str))
+        return 0
+    _out(f"fleet size {state.get('size')} (min {state.get('min')} / max {state.get('max')}), "
+         f"burn {state.get('burn', 0.0):.2f}, respawns {state.get('respawns', 0)}")
+    for rid, info in sorted((state.get("replicas") or {}).items()):
+        _out(f"  {rid:<14} kind={info.get('kind', '?'):<7} "
+             f"fails={info.get('consecutive_failures', 0)}")
+    events = state.get("events") or []
+    if events:
+        _out("recent events:")
+        for kind, rid in events[-10:]:
+            _out(f"  {kind} {rid if rid else ''}")
+    return 0
+
+
+def cmd_fleet_watch(args) -> int:
+    endpoint = args.url.rstrip("/") + "/v1/fleet"
+    n = 0
+    try:
+        while True:
+            state = _get_json(endpoint)
+            n += 1
+            _out(f"[{time.strftime('%H:%M:%S')}] size={state.get('size')} "
+                 f"burn={state.get('burn', 0.0):.2f} respawns={state.get('respawns', 0)} "
+                 f"members={','.join(state.get('ring_members') or [])}")
+            if args.iterations and n >= args.iterations:
+                break
+            time.sleep(max(args.interval, 0.05))
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+# ------------------------------------------------------------------ parser
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="pathway-tpu-torch",
+                                     description="pathway_tpu_torch command line")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("stats", help="pretty-print the unified observability snapshot")
+    p.add_argument("--url", default=None, metavar="URL",
+                   help="base URL of a running server (fetches URL/v1/statistics); omit to "
+                        "read this process's in-memory registry")
+    p.add_argument("--as-json", action="store_true", help="dump the raw snapshot as JSON")
+    p.set_defaults(func=cmd_stats)
+
+    p = sub.add_parser("watch", help="live SLO watchdog view")
+    p.add_argument("--url", default=None, metavar="URL",
+                   help="base URL of a running server (fetches URL/v1/statistics)")
+    p.add_argument("--interval", type=float, default=2.0, help="seconds between evaluations")
+    p.add_argument("--iterations", type=int, default=0,
+                   help="stop after N evaluations (0 = run until interrupted)")
+    p.add_argument("--fail-on-alert", action="store_true",
+                   help="exit nonzero if any SLO alert is firing at the end")
+    p.set_defaults(func=cmd_watch)
+
+    fleet = sub.add_parser("fleet", help="replicated serving fleet")
+    fsub = fleet.add_subparsers(dest="fleet_command", required=True)
+    p = fsub.add_parser("serve", help="run PROGRAM as N supervised replicas behind the router")
+    p.add_argument("--fleet", action="store_true",
+                   help="switch fleet serving on (off by default, as in JAX)")
+    p.add_argument("-n", "--replicas", type=int, default=None, metavar="N",
+                   help="initial replica count [default: 2]")
+    p.add_argument("--host", default="127.0.0.1", help="router bind host")
+    p.add_argument("--port", type=int, default=0, help="router bind port (0 = ephemeral)")
+    p.add_argument("--health-interval", type=float, default=None, metavar="S",
+                   help="seconds between supervisor ticks [default: 0.5]")
+    p.add_argument("--boot-grace", type=float, default=120.0, metavar="S",
+                   help="seconds a never-yet-ready replica may spend booting before failed "
+                        "health probes count toward draining it")
+    p.add_argument("--replica-log-dir", default=None, metavar="DIR",
+                   help="write each replica's output to DIR/replica-<i>.log")
+    p.add_argument("program")
+    p.add_argument("arguments", nargs=argparse.REMAINDER)
+    p.set_defaults(func=cmd_fleet_serve)
+    p = fsub.add_parser("stats", help="one-shot fleet state")
+    p.add_argument("--url", required=True, metavar="URL",
+                   help="base URL of a running fleet router (fetches URL/v1/fleet)")
+    p.add_argument("--as-json", action="store_true", help="dump the raw state as JSON")
+    p.set_defaults(func=cmd_fleet_stats)
+    p = fsub.add_parser("watch", help="poll a fleet router's state")
+    p.add_argument("--url", required=True, metavar="URL",
+                   help="base URL of a running fleet router")
+    p.add_argument("--interval", type=float, default=2.0, help="seconds between polls")
+    p.add_argument("--iterations", type=int, default=0,
+                   help="stop after N polls (0 = run until interrupted)")
+    p.set_defaults(func=cmd_fleet_watch)
+
+    for name, why in NOT_PORTED.items():
+        p = sub.add_parser(name, help=f"not ported: {why}")
+        p.add_argument("rest", nargs=argparse.REMAINDER)
+        p.set_defaults(func=lambda args, _n=name, _w=why: _not_ported(_n, _w))
+    return parser
+
+
+def _not_ported(name: str, why: str) -> int:
+    _err(f"pathway-tpu-torch {name}: not ported yet; it {why}")
+    return 3
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

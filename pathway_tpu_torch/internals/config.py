@@ -42,6 +42,10 @@ class EngineConfig:
     processes: int = 1
     process_id: int = 0
     first_port: int = 10000
+    # the metrics server of pw.run(with_http_server=True) listens on
+    # metrics_first_port + process_id (JAX's fixed 20000 + process id);
+    # 0 binds an ephemeral port, read back from run.METRICS_SERVER.port
+    metrics_first_port: int = 20000
 
     def __post_init__(self):
         if self.drain_coalesce_max < 1:
@@ -70,3 +74,20 @@ def install(config: EngineConfig) -> EngineConfig:
     global _active
     prev, _active = _active, config
     return prev
+
+
+# PATHWAY_LICENSE_KEY / PATHWAY_MONITORING_SERVER: kept for what reads
+# them (the OpenTelemetry exporter, ROADMAP A12); set through the two
+# functions below, as in JAX, never read from the environment
+license_key: str | None = None
+monitoring_server: str | None = None
+
+
+def set_license_key(key: str | None) -> None:
+    global license_key
+    license_key = key
+
+
+def set_monitoring_config(*, server_endpoint: str | None) -> None:
+    global monitoring_server
+    monitoring_server = server_endpoint

@@ -10,10 +10,11 @@ that ``run(config=...)`` takes. With ``processes > 1`` the run is one
 process of a group that connects a peer mesh (``engine/exchange.py``):
 static sources feed on process 0 only, connectors that do not partition
 their own input run there only, and every process takes part in each
-end-of-stream flush round. Persistence, the terminal monitor and the HTTP
-metrics server of the JAX runner are not carried (ROADMAP A13). A run whose monitoring level
-resolves to ``MonitoringLevel.NONE`` (what the REST servers pass) needs
-no monitor and runs.
+end-of-stream flush round. ``monitoring_level`` starts the live
+dashboard (``internals/monitoring.py``) for the levels that do not resolve
+to ``MonitoringLevel.NONE``, and ``with_http_server=True`` the
+per-process ``MetricsServer`` (``internals/http_server.py``) for the run,
+as in JAX. Persistence is not carried (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -29,12 +30,17 @@ from pathway_tpu_torch.internals.parse_graph import G
 
 # stats of the most recent completed run (inspection / tests / dashboards)
 LAST_RUN_STATS = None
+# the metrics server of the run in progress (pw.run(with_http_server=True))
+METRICS_SERVER = None
 
 
 class GraphRunner:
-    def __init__(self, targets: list[Node], *, config=None):
+    def __init__(self, targets: list[Node], *, config=None, monitoring_level=None,
+                 with_http_server: bool = False):
         self.targets = targets
         self.config = config if config is not None else config_mod.active()
+        self.monitoring_level = monitoring_level
+        self.with_http_server = with_http_server
 
     def run(self) -> None:
         prev = config_mod.install(self.config)
@@ -58,9 +64,19 @@ class GraphRunner:
             if exchange_ctx is not None:
                 exchange_ctx.close()
             raise
-        global LAST_RUN_STATS
+        global LAST_RUN_STATS, METRICS_SERVER
         LAST_RUN_STATS = sched.stats
+        monitor = metrics_server = None
         try:
+            from pathway_tpu_torch.internals.http_server import MetricsServer
+            from pathway_tpu_torch.internals.monitoring import maybe_start_monitor
+
+            monitor = maybe_start_monitor(sched.stats, self.monitoring_level)
+            if self.with_http_server:
+                port = self.config.metrics_first_port
+                metrics_server = MetricsServer(
+                    sched.stats, port=port + pid if port else 0).start()
+                METRICS_SERVER = metrics_server
             involved = {n.id for n in sched.order}
             for node in sched.order:
                 node.reset()
@@ -92,6 +108,7 @@ class GraphRunner:
             # waiting on this process's mesh until their timeout
             sched.teardown_exchanges()
             sched.shutdown()
+            self._stop_observers(monitor, metrics_server)
             raise
         for c in connectors:
             c.start(sched)
@@ -139,40 +156,47 @@ class GraphRunner:
 
             tracing.flush_traces()
             sched.stats.finished = True
+            self._stop_observers(monitor, metrics_server)
         for node in sched.order:
             finish = getattr(node, "finish", None)
             if finish is not None:
                 finish()
+
+    @staticmethod
+    def _stop_observers(monitor, metrics_server) -> None:
+        global METRICS_SERVER
+        if monitor is not None:
+            monitor.stop()
+        if metrics_server is not None:
+            metrics_server.stop()
+            if METRICS_SERVER is metrics_server:
+                METRICS_SERVER = None
 
 
 def run(
     *,
     config: "config_mod.EngineConfig | None" = None,
     terminate_on_error: bool | None = None,
+    monitoring_level: Any = None,
+    with_http_server: bool = False,
     **kwargs: Any,
 ) -> None:
     """Execute the dataflow: pump all registered outputs until input ends.
 
     ``config`` holds the engine's switches (``EngineConfig()``'s defaults
     are the JAX flags' defaults); ``terminate_on_error`` overrides its
-    field of that name, as JAX's argument does. JAX arguments the port
-    does not act on (``debug``, ``default_logging``, ...) are accepted and
-    ignored. ``monitoring_level`` is resolved as JAX resolves it (see
-    ``internals/monitoring.py``): a level that resolves to
-    ``MonitoringLevel.NONE`` runs without a monitor, any other raises, as
-    do ``persistence_config`` and ``with_http_server``, since nothing here
-    would honour them.
+    field of that name, as JAX's argument does. ``monitoring_level`` is
+    resolved as JAX resolves it (see ``internals/monitoring.py``): any
+    level but ``NONE`` starts the live dashboard, which needs ``rich``.
+    ``with_http_server=True`` serves the run's metrics on
+    ``config.metrics_first_port + process_id``. JAX arguments the port
+    does not act on (``debug``, ``default_logging``, ``license_key``, ...)
+    are accepted and ignored; ``persistence_config`` raises, since nothing
+    here would honour it.
     """
-    for name in ("persistence_config", "with_http_server"):
-        if kwargs.get(name):
-            raise NotImplementedError(
-                f"pw.run({name}=...) is not carried by the port yet (ROADMAP A13)")
-    from pathway_tpu_torch.internals.monitoring import MonitoringLevel, resolve_level
-
-    if resolve_level(kwargs.get("monitoring_level")) != MonitoringLevel.NONE:
+    if kwargs.get("persistence_config"):
         raise NotImplementedError(
-            f"pw.run(monitoring_level={kwargs['monitoring_level']!r}) starts the live "
-            "monitor, which the port does not carry yet (ROADMAP A13)")
+            "pw.run(persistence_config=...) is not carried by the port yet (ROADMAP A13)")
     cfg = config if config is not None else config_mod.EngineConfig()
     if terminate_on_error is not None:
         import dataclasses
@@ -181,7 +205,8 @@ def run(
     targets = list(G.sinks)
     if not targets:
         return
-    GraphRunner(targets, config=cfg).run()
+    GraphRunner(targets, config=cfg, monitoring_level=monitoring_level,
+                with_http_server=with_http_server).run()
 
 
 def run_all(**kwargs) -> None:

@@ -4,7 +4,10 @@
 * :mod:`~pathway_tpu_torch.serving.hashring`: the consistent-hash ring,
   keyed on prompt-head token blocks of the replicas' prefix-cache block;
 * :mod:`~pathway_tpu_torch.serving.replica`: :class:`InProcessReplica`, a
-  continuous ``DecoderChat`` of this process as a fleet member;
+  continuous ``DecoderChat`` of this process as a fleet member, and
+  :class:`HttpReplica`, a replica process of its own behind its REST routes
+  (:func:`spawn_replica_process`; ``python -m pathway_tpu_torch fleet
+  serve`` runs such a fleet);
 * :mod:`~pathway_tpu_torch.serving.router`: :class:`FleetRouter` (affinity
   routing, failover, in-flight re-queue) and :class:`RouterServer`;
 * :mod:`~pathway_tpu_torch.serving.fleet`: :class:`FleetManager` (health,
@@ -19,7 +22,13 @@ from __future__ import annotations
 
 from pathway_tpu_torch.serving.fleet import FleetManager
 from pathway_tpu_torch.serving.hashring import HashRing, affinity_block_tokens, head_block_key
-from pathway_tpu_torch.serving.replica import InProcessReplica, ReplicaError
+from pathway_tpu_torch.serving.replica import (
+    HttpReplica,
+    InProcessReplica,
+    ReplicaError,
+    free_port,
+    spawn_replica_process,
+)
 from pathway_tpu_torch.serving.router import FleetCompletion, FleetRouter, RouterServer
 
 _enabled = False
@@ -50,6 +59,7 @@ __all__ = [
     "FleetManager",
     "FleetRouter",
     "HashRing",
+    "HttpReplica",
     "InProcessReplica",
     "ReplicaError",
     "RouterServer",
@@ -57,5 +67,7 @@ __all__ = [
     "build_fleet",
     "configure",
     "fleet_enabled",
+    "free_port",
     "head_block_key",
+    "spawn_replica_process",
 ]

@@ -6,7 +6,8 @@
 
 * the health pass probes every member (``replica.healthy()``; the
   ``replica.health`` chaos site injects probe failures). A member that has
-  never probed healthy keeps ``boot_grace_s`` first; after it, a member
+  never probed healthy keeps ``boot_grace_s`` first, unless its process
+  has exited (a process replica that died booting); after it, a member
   failing ``fail_threshold`` probes in a row is drained (off the ring, its
   in-flight requests re-queue inside ``FleetCompletion.wait``), stopped,
   and respawned through ``ExponentialBackoffRetryStrategy``;
@@ -148,7 +149,11 @@ class FleetManager:
                     self._fail_counts[rid] = 0
                     self._ever_ready.add(rid)
                     continue
-                booting = (rid not in self._ever_ready
+                # a replica process that has exited is not booting: it is
+                # drained at once, not after its grace
+                proc = getattr(replica, "proc", None)
+                exited = proc is not None and proc.poll() is not None
+                booting = (rid not in self._ever_ready and not exited
                            and now - self._spawned_at.get(rid, float("-inf"))
                            < self.boot_grace_s)
                 if booting:
@@ -241,8 +246,7 @@ class FleetManager:
             burn = self._last_burn
             fails = dict(self._fail_counts)
         return {
-            "replicas": {rid: {"kind": getattr(r, "kind", "?"),
-                               "consecutive_failures": fails.get(rid, 0)}
+            "replicas": {rid: self._replica_info(r, fails.get(rid, 0))
                          for rid, r in self.router.replicas().items()},
             "size": len(self.router),
             "min": self.min_replicas,
@@ -252,6 +256,18 @@ class FleetManager:
             "events": events[-50:],
             "ring_members": self.router.ring.members(),
         }
+
+    @staticmethod
+    def _replica_info(replica, fails: int) -> dict:
+        """A member's kind and failure count; a process replica's URL and
+        pid too (what an operator needs to reach or signal it)."""
+        info = {"kind": getattr(replica, "kind", "?"), "consecutive_failures": fails}
+        if getattr(replica, "base_url", None):
+            info["url"] = replica.base_url
+        proc = getattr(replica, "proc", None)
+        if proc is not None:
+            info["pid"] = proc.pid
+        return info
 
     def run_in_thread(self) -> "FleetManager":
         if self._thread is not None:

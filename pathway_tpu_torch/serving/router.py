@@ -302,7 +302,14 @@ class RouterServer:
                 body = self.rfile.read(n) if n else b""
                 self._send(*outer._route_body(self.path, body))
 
-        self._httpd = ThreadingHTTPServer((self.host, self.port), Handler)
+        class Server(ThreadingHTTPServer):
+            # a burst of clients connecting at once must not overflow the
+            # listen backlog (the standard library's default is 5; the
+            # port's web server and aiohttp use 128)
+            request_queue_size = 128
+            daemon_threads = True
+
+        self._httpd = Server((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="fleet-router-http", daemon=True)

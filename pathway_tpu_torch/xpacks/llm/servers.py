@@ -83,13 +83,22 @@ def map_serving_errors(handler: Callable[[Table], Table]) -> Callable[[Table], T
 
 class BaseRestServer:
     """Route registry over a shared webserver (reference ``BaseRestServer``,
-    servers.py:16)."""
+    servers.py:16). ``profile_dir`` enables ``GET /debug/profile`` (JAX's
+    ``PATHWAY_TPU_PROFILE_DIR``, off by default): traces are written under
+    it (``internals/profiling.py``); build such a server on the thread that
+    imported torch, where the profiler's device tracing initialises."""
 
-    def __init__(self, host: str, port: int, **rest_kwargs):
+    def __init__(self, host: str, port: int, profile_dir: str | None = None,
+                 **rest_kwargs):
         from pathway_tpu_torch.io.http import PathwayWebserver
 
         self.host = host
         self.port = port
+        self.profile_dir = profile_dir
+        if profile_dir:
+            from pathway_tpu_torch.internals import profiling
+
+            profiling.prepare()  # the device tracing initialises on this thread
         self.webserver = PathwayWebserver(host, port)
         self.rest_kwargs = rest_kwargs
         self._thread: threading.Thread | None = None
@@ -119,16 +128,18 @@ class BaseRestServer:
 
     def start_observability_endpoints(self) -> None:
         """Register ``GET /metrics`` (OpenMetrics text over the unified
-        ``MetricsRegistry``), a registry-JSON ``/v1/statistics``,
-        ``/healthz`` and ``/readyz`` on the shared webserver. Registered
-        directly (not as dataflow routes), so they answer even while the
-        pipeline is starting or stalled; dataflow routes register later —
-        at connector start, inside ``pw.run`` — so a server that defines
-        its own ``/v1/statistics`` (e.g. :class:`QARestServer`) overrides
-        the registry JSON for that route while keeping ``/metrics``. The
-        ``/debug/profile`` route waits for the port's profiler (ROADMAP
-        A13)."""
+        ``MetricsRegistry``), a registry-JSON ``/v1/statistics``, the opt-in
+        ``GET /debug/profile?ms=N`` trace capture, ``/healthz`` and
+        ``/readyz`` on the shared webserver. Registered directly (not as
+        dataflow routes), so they answer even while the pipeline is
+        starting or stalled; dataflow routes register later — at connector
+        start, inside ``pw.run`` — so a server that defines its own
+        ``/v1/statistics`` (e.g. :class:`QARestServer`) overrides the
+        registry JSON for that route while keeping ``/metrics``. A capture
+        runs on its request's thread; the server's other requests go on
+        meanwhile."""
         from pathway_tpu_torch.engine import probes
+        from pathway_tpu_torch.internals import profiling
         from pathway_tpu_torch.internals import run as run_mod
         from pathway_tpu_torch.internals.http_server import openmetrics_text
         from pathway_tpu_torch.io.http import RestApiError
@@ -143,6 +154,10 @@ class BaseRestServer:
             return probes.unified_snapshot(
                 getattr(run_mod, "LAST_RUN_STATS", None)
             )
+
+        def profile_handler(payload):
+            ms = (payload or {}).get("ms", 100)
+            return profiling.capture_trace(ms, profile_dir=self.profile_dir)
 
         def healthz_handler(_payload):
             # liveness: answering at all IS the signal
@@ -163,6 +178,7 @@ class BaseRestServer:
         self.webserver._register(
             "/v1/statistics", ["GET", "POST"], statistics_handler
         )
+        self.webserver._register("/debug/profile", ["GET", "POST"], profile_handler)
         self.webserver._register("/healthz", ["GET"], healthz_handler)
         self.webserver._register("/readyz", ["GET"], readyz_handler)
 
@@ -172,9 +188,12 @@ class BaseRestServer:
         with_cache: bool = True,
         cache_backend=None,
         terminate_on_error: bool = False,
+        with_http_server: bool = False,
+        config=None,
         **kwargs,
     ):
-        """Start serving (reference ``run``, servers.py:68)."""
+        """Start serving (reference ``run``, servers.py:68).
+        ``with_http_server`` and ``config`` go to ``pw.run``."""
         self.start_observability_endpoints()
 
         def run_pipeline():
@@ -182,6 +201,8 @@ class BaseRestServer:
             pw.run(
                 monitoring_level=pw.MonitoringLevel.NONE,
                 terminate_on_error=terminate_on_error,
+                with_http_server=with_http_server,
+                config=config,
             )
 
         if threaded:

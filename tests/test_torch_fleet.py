@@ -11,12 +11,21 @@ tests/test_fleet.py.
 * a fleet of two ``InProcessReplica`` over the port's CPU ``DecoderChat``
   keeps each shared head on one replica, hits its prefix cache, and serves
   the streams of a single server and of JAX static ``generate``.
+* ``HttpReplica`` beside JAX's on one fake replica server (statuses,
+  payloads, ``healthy()``, ``ReplicaError``), the replica environment
+  contract of ``spawn_replica_process`` equal to JAX's, and the port's
+  ``HttpReplica`` over real CPU child processes: probed, scraped,
+  forwarded to and stopped; killed and respawned by a ``FleetManager``;
+  and behind ``python -m pathway_tpu_torch fleet serve``.
 
 Every wait is bounded.
 """
 
+import http.server
 import json
+import socketserver
 import threading
+import urllib.error
 import urllib.request
 
 import jax
@@ -311,6 +320,25 @@ def test_boot_grace_shields_never_ready_replica():
     assert manager.health_pass() == [ready_once.replica_id]
 
 
+def test_boot_grace_does_not_shield_an_exited_process():
+    """A process replica that died while booting is drained at once; a
+    live one still gets its grace."""
+    class _Proc:
+        def __init__(self, rc):
+            self.rc = rc
+
+        def poll(self):
+            return self.rc
+
+    now = {"t": 0.0}
+    manager, state = _manager(2, boot_grace_s=30.0, clock=lambda: now["t"])
+    dead, live = state["made"]
+    dead.alive = live.alive = False
+    dead.proc, live.proc = _Proc(1), _Proc(None)
+    assert manager.health_pass() == [dead.replica_id]
+    assert live.replica_id in manager.router.replicas() and len(manager.router) == 2
+
+
 def test_respawn_uses_bounded_backoff():
     sleeps, attempts, made = [], {"n": 0}, []
 
@@ -584,3 +612,308 @@ def test_dead_replica_is_drained_and_its_requests_fail_over(tparams):
             assert f.wait(WAIT) and f.text is not None
     finally:
         manager.shutdown()
+
+
+# ---- replicas as processes of their own (HttpReplica) ------------------------------
+# The port's HttpReplica beside JAX's, both aimed at one fake replica
+# server; then the port's against real CPU child processes
+# (``tests/torch_replica.py``), alone, under a FleetManager, and behind
+# ``python -m pathway_tpu_torch fleet serve``.
+
+class _FakeReplicaServer(http.server.BaseHTTPRequestHandler):
+    ready = True
+    stats: bytes = b'{"slo": {}, "server": {"n": 1}}'
+
+    def _send(self, status, body, ctype="application/json"):
+        self.send_response(status)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        if self.path == "/healthz":
+            self._send(200, b"ok\n", "text/plain")
+        elif self.path == "/readyz":
+            self._send(200 if self.ready else 503, b"ready\n" if self.ready else b"no\n",
+                       "text/plain")
+        elif self.path == "/v1/statistics":
+            self._send(200, self.stats)
+        else:
+            self._send(404, b'{"error": "nope"}')
+
+    def do_POST(self):
+        n = int(self.headers.get("Content-Length") or 0)
+        body = self.rfile.read(n)
+        if self.path == "/boom":
+            self._send(500, b'{"error": "boom"}')
+        else:
+            self._send(200, json.dumps({"path": self.path, "echo": json.loads(body)}).encode())
+
+    def log_message(self, *a):
+        pass
+
+
+@pytest.fixture
+def fake_replica():
+    srv = socketserver.ThreadingTCPServer(("127.0.0.1", 0), _FakeReplicaServer)
+    srv.daemon_threads = True
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    _FakeReplicaServer.ready = True
+    _FakeReplicaServer.stats = b'{"slo": {}, "server": {"n": 1}}'
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def _http_replicas(url):
+    from pathway_tpu.serving.replica import HttpReplica as JHttpReplica
+    from pathway_tpu_torch.serving import HttpReplica
+
+    return JHttpReplica("r", url, probe_timeout_s=2.0), HttpReplica("r", url, probe_timeout_s=2.0)
+
+
+def _outcome(fn):
+    try:
+        return ("ok", fn())
+    except Exception as exc:  # noqa: BLE001 - compared by kind
+        return ("error", type(exc).__name__, str(exc).split(":")[0])
+
+
+def test_http_replica_equals_jax_on_a_fake_replica(fake_replica):
+    j, t = _http_replicas(fake_replica)
+    body = json.dumps({"prompt": "hello"}).encode()
+    for route in ("/v1/pw_ai_answer", "/v1/retrieve", "/boom", "/missing"):
+        assert t.forward(route, body) == j.forward(route, body)
+    assert t.forward("/boom", body)[0] == 500
+    assert t.healthy() is j.healthy() is True
+    assert t.scrape() == j.scrape() == {"slo": {}, "server": {"n": 1}}
+    _FakeReplicaServer.ready = False  # live but not ready: not routable
+    assert t.healthy() is j.healthy() is False
+    _FakeReplicaServer.stats = b"not json"
+    assert _outcome(t.scrape) == _outcome(j.scrape) == ("error", "ReplicaError",
+                                                        "replica r statistics not JSON")
+    t.stop()  # no process: nothing to stop
+    assert t.kind == j.kind == "http"
+
+
+def test_http_replica_unreachable_equals_jax():
+    from pathway_tpu_torch.serving import free_port
+
+    j, t = _http_replicas(f"http://127.0.0.1:{free_port()}")
+    assert t.healthy() is j.healthy() is False
+    for fn in ("scrape",):
+        assert _outcome(getattr(t, fn)) == _outcome(getattr(j, fn))
+    assert _outcome(lambda: t.forward("/v1/retrieve", b"{}")) == _outcome(
+        lambda: j.forward("/v1/retrieve", b"{}"))
+    assert _outcome(t.scrape)[1] == "ReplicaError"
+
+
+def test_spawn_replica_process_env_contract_equals_jax(tmp_path, monkeypatch):
+    import subprocess
+    import sys
+
+    from pathway_tpu.serving.replica import spawn_replica_process as jspawn
+    from pathway_tpu_torch.serving import spawn_replica_process
+
+    monkeypatch.setenv("PATHWAY_TPU_METRICS", "1")  # only for JAX's snapshot
+    code = ("import json, os, sys; json.dump({k: v for k, v in os.environ.items() "
+            "if k.startswith('PATHWAY_') and not k.startswith('PATHWAY_TPU_')}, "
+            "open(sys.argv[1], 'w'))")
+    out = {}
+    for name, spawn in (("jax", jspawn), ("torch", spawn_replica_process)):
+        path = tmp_path / f"{name}.json"
+        proc = spawn([sys.executable, "-c", code, str(path)], replica_index=3, port=12345,
+                     run_id="run-1", env={"PATH": "/usr/bin:/bin", "X": "1"})
+        assert proc.wait(timeout=60) == 0
+        out[name] = json.loads(path.read_text())
+    assert out["torch"] == out["jax"] == {
+        "PATHWAY_THREADS": "1", "PATHWAY_PROCESSES": "1", "PATHWAY_PROCESS_ID": "3",
+        "PATHWAY_FIRST_PORT": "12345", "PATHWAY_RUN_ID": "run-1"}
+    assert isinstance(proc, subprocess.Popen)
+
+
+REPO = __import__("pathlib").Path(__file__).resolve().parent.parent
+
+
+def _child_env():
+    import os
+
+    return dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+
+
+def _spawn_child(idx, tag="r", log=None):
+    import sys
+
+    from pathway_tpu_torch.serving import HttpReplica, free_port, spawn_replica_process
+
+    port = free_port()
+    proc = spawn_replica_process(
+        [sys.executable, "-m", "tests.torch_replica", "--tag", tag, "--port", str(port)],
+        replica_index=idx, port=port, run_id="t", env=_child_env(), cwd=str(REPO),
+        stdout=log, stderr=log)
+    # a generous probe timeout: a loaded test host must not drain a live child
+    return HttpReplica(f"replica-{idx}", f"http://127.0.0.1:{port}", proc=proc,
+                       probe_timeout_s=10.0)
+
+
+def _wait(cond, what, timeout=90.0):
+    import time
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.1)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+@pytest.mark.timeout(180)
+def test_http_replica_against_a_real_cpu_child(tmp_path):
+    with open(tmp_path / "child.log", "wb") as log:
+        rep = _spawn_child(0, tag="c0", log=log)
+        try:
+            _wait(rep.healthy, "the child's /readyz")
+            snap = rep.scrape()
+            assert {"serving", "hbm", "slo"} <= set(snap)
+            status, body, ctype = rep.forward("/v1/pw_ai_answer",
+                                              json.dumps({"prompt": "hi"}).encode())
+            assert status == 200 and json.loads(body) == {"response": "c0:hi"} and "json" in ctype
+            assert rep.forward("/v1/nope", b"{}")[0] == 404
+        finally:
+            rep.stop()
+    assert rep.proc.poll() is not None and not rep.healthy()
+    with pytest.raises(ReplicaError):
+        rep.forward("/v1/pw_ai_answer", b"{}", timeout=5)
+
+
+@pytest.mark.timeout(240)
+def test_manager_respawns_a_killed_child_process(tmp_path):
+    import os
+    import signal as sig
+
+    log = open(tmp_path / "children.log", "wb")
+    seq = iter(range(100))
+    manager = FleetManager(lambda rid: _spawn_child(next(seq), log=log), replicas=2,
+                           boot_grace_s=90.0, sleep=lambda s: None).start()
+    srv = RouterServer(manager.router, manager=manager).start()
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        _wait(lambda: all(r.healthy() for r in manager.router.replicas().values()),
+              "both children")
+        manager.tick()
+        victim, rep = sorted(manager.router.replicas().items())[0]
+        os.kill(rep.proc.pid, sig.SIGKILL)
+        rep.proc.wait(timeout=30)
+        # the router fails over while the victim is still a member
+        req = urllib.request.Request(base + "/v1/pw_ai_answer",
+                                     data=json.dumps({"prompt": "q"}).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert json.loads(r.read()) == {"response": "r:q"}
+        assert manager.health_pass() == [victim]
+        state = manager.state()
+        assert state["respawns"] == 1 and len(state["replicas"]) == 2
+        assert all("url" in i and "pid" in i for i in state["replicas"].values())
+        _wait(lambda: all(r.healthy() for r in manager.router.replicas().values()),
+              "the respawned child")
+        assert victim not in manager.router.replicas()
+    finally:
+        srv.stop()
+        manager.shutdown()
+        log.close()
+    assert all(r.proc.poll() is not None for r in [rep])
+
+
+@pytest.mark.timeout(300)
+def test_cli_fleet_serve_over_cpu_child_processes(tmp_path):
+    import os
+    import signal as sig
+    import subprocess
+    import sys
+    import time
+
+    from pathway_tpu_torch.serving import free_port
+
+    port = free_port()
+    logs = tmp_path / "replicas"
+    fleet = subprocess.Popen(
+        [sys.executable, "-m", "pathway_tpu_torch", "fleet", "serve", "--fleet", "-n", "2",
+         "--port", str(port), "--boot-grace", "90", "--health-interval", "0.2",
+         "--replica-log-dir", str(logs), sys.executable, "-m", "tests.torch_replica"],
+        cwd=str(REPO), env=_child_env(), stderr=open(tmp_path / "fleet.log", "wb"))
+    base = f"http://127.0.0.1:{port}"
+
+    def state():
+        try:
+            with urllib.request.urlopen(base + "/v1/fleet", timeout=5) as r:
+                return json.loads(r.read())
+        except OSError:
+            return None
+
+    def all_ready(n):
+        s = state()
+        if s is None or s["size"] != n:
+            return False
+        from pathway_tpu_torch.serving import HttpReplica
+
+        return all(HttpReplica("x", i["url"]).healthy() for i in s["replicas"].values())
+
+    try:
+        _wait(lambda: all_ready(2), "two ready replicas")
+        answers = []
+        for q in ("a", "b", "c", "d"):
+            req = urllib.request.Request(base + "/v1/pw_ai_answer",
+                                         data=json.dumps({"prompt": q}).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                answers.append(json.loads(r.read())["response"])
+        assert answers == ["r:a", "r:b", "r:c", "r:d"]
+        # a replica the manager has not yet probed ready is still in its boot
+        # grace (90 s here): let a few health passes (every 0.2 s) see both
+        time.sleep(1.0)
+        pids = {i["pid"] for i in state()["replicas"].values()}
+        os.kill(sorted(pids)[0], sig.SIGKILL)
+        _wait(lambda: state()["respawns"] >= 1 and all_ready(2), "the respawn")
+        import contextlib
+        import io
+
+        from pathway_tpu_torch import cli
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(["fleet", "stats", "--url", base]) == 0
+        out = buf.getvalue()
+        assert out.startswith("fleet size 2") and out.count("kind=http") == 2
+        assert "respawn replica-2" in out
+        survivors = {i["pid"] for i in state()["replicas"].values()}
+    finally:
+        fleet.send_signal(sig.SIGTERM)
+        try:
+            rc = fleet.wait(timeout=60)
+        finally:
+            if fleet.poll() is None:
+                fleet.kill()
+    assert rc == 0
+    for pid in survivors:  # the fleet stopped its replicas
+        _wait(lambda: not os.path.exists(f"/proc/{pid}") or
+              open(f"/proc/{pid}/stat").read().split()[2] == "Z", f"replica {pid} to exit", 30)
+    assert len(list(logs.iterdir())) == 3
+
+
+@pytest.mark.timeout(300)
+def test_phase21_fleet_orchestration_over_cpu_replicas(tmp_path):
+    """``chip_smoke.py`` phase 21 (c)'s function over CPU replicas of
+    ``tests/torch_replica.py``: both fleets up, the bursts answered and
+    equal, the SIGKILL mid-burst answered or shed, the respawn, ``fleet
+    stats`` listing 2 members, both fleets and every replica stopped."""
+    import sys
+
+    import chip_smoke
+
+    launches = chip_smoke.run_fleet_processes(
+        "cpu", str(tmp_path), replica=[sys.executable, "-m", "tests.torch_replica"],
+        env=_child_env())
+    assert set(launches) == set(chip_smoke.counters()) and not any(launches.values())
+    logs = sorted(p.name for p in (tmp_path / "fleet2").iterdir())
+    assert logs == ["fleet.log", "replica-0.log", "replica-1.log", "replica-2.log"]

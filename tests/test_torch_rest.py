@@ -398,22 +398,24 @@ def test_serve_callable_equals_jax():
 def test_run_monitoring_levels(level, monkeypatch):
     """Every server passes ``MonitoringLevel.NONE``; ``None`` and the AUTO
     levels resolve to it off a terminal, as JAX resolves them; a level
-    that starts the live monitor raises (the port has none yet)."""
+    that asks for the live monitor starts it for the run and stops it
+    after, as JAX does."""
     import sys
 
     import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals import monitoring
 
     monkeypatch.setattr(sys.stderr, "isatty", lambda: False)
+    started = []
+    monkeypatch.setattr(monitoring.StatsMonitor, "start",
+                        lambda self: started.append(self.level))
     assert [m.name for m in pw.MonitoringLevel] == ["AUTO", "AUTO_ALL", "NONE", "IN_OUT", "ALL"]
     pw.clear_graph()
     t = pw.debug.table_from_rows(pw.schema_from_types(a=int), [(1,), (2,)])
     seen = []
     pw.io.subscribe(t, on_change=lambda key, row, time, is_addition: seen.append(row["a"]))
     arg = None if level is None else pw.MonitoringLevel[level]
-    if level in ("IN_OUT", "ALL"):
-        with pytest.raises(NotImplementedError, match="monitor"):
-            pw.run(monitoring_level=arg)
-    else:
-        pw.run(monitoring_level=arg)
-        assert sorted(seen) == [1, 2]
+    pw.run(monitoring_level=arg)
+    assert sorted(seen) == [1, 2]
+    assert started == ([pw.MonitoringLevel[level]] if level in ("IN_OUT", "ALL") else [])
     pw.clear_graph()

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Write the vectors of ``chip_smoke.py`` phase 14 (b)'s HNSW arm to an
-``.npz``: the first 4,096 corpus embeddings and the 64 query embeddings of
+``.npz``: the first ``HNSW_DOCS`` (1,024) corpus embeddings and the 64
+query embeddings of
 a full-width MiniLM-L6 (bf16, seeded random weights, bench.py's config2
 corpus, seed 7), f32, as the phase hands them to ``HnswIndex``.
 
