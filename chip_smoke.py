@@ -380,7 +380,33 @@ without printing a result:
    and tokens/s of 1 and 2 replicas and their ratio, each replica's peak
    ``max_memory_allocated`` and launches, and the respawn time; each
    fleet's and replica's output is under ``chiprun_out/phase21``. Prints
-   the script's wall.
+   the script's wall after the last phase:
+22. persistence: a streaming RAG ingest that stops or is killed and
+   resumes exactly once, over phase 4's MiniLM-L6 and the first 16,384
+   docs of its corpus in 8 CSV files (``persistent_id="docs"``) -> the
+   deferred embed UDF (no dedup) -> ``DataIndex``, a JSON-lines sink of
+   doc ids, and phase 4's 64 queries answered once the index holds every
+   doc. Each arm's run 1 sees files 1-4 and its run 2 (a fresh graph, the
+   same store) all 8: (a) ``persisting`` on a filesystem store: each run's
+   sink holds each of its docs once, the resumed index equals an
+   uninterrupted run's (16,384 rows, the same keys and device bytes), the
+   top-10 equal the uninterrupted run's but at score gaps < 1e-3, run 2
+   replays 8,256 rows and its ``flash_attn`` launches cover the replayed
+   and the new rows; (b) this script with ``--phase22-child`` running
+   (a)'s program streaming, SIGKILLed once its sink holds rows, then
+   restarted with all 8 files: (a)'s bars; (c) ``udf_caching``: run 2's
+   encodes are files 5-8's and the queries' only, the replayed rows'
+   vectors (``DiskCache`` hits) byte-equal to run 1's, its ``flash_attn``
+   launches those of its missed batches run again alone; (d)
+   ``operator_persisting``: an embed UDF giving CUDA tensors (not
+   deterministic, so its operator keeps them) -> groupby file -> count
+   and the sum of each vector's first component: run 2 restores the
+   operators, its replay cache's 16,384 tensors on the card, encodes files
+   5-8 only, and the groups over both runs' sinks equal an uninterrupted
+   run's within 1e-4 of their sums of magnitudes; with the index, run 2
+   falls back to input replay and meets (a)'s bars. Prints each run's
+   wall, ``flash_attn`` launches, replayed rows, replay s, restored
+   operators and the store's bytes.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -3936,22 +3962,23 @@ def c4_texts(n: int, seed: int = 11, words: int = 24) -> list[str]:
 
 class EncodeCount:
     """Counts the encodes a model runs (the batches of ``embed_submit``
-    that reach the device) by batch size; ``flash_attn`` must launch once
-    a layer for each."""
+    that reach the device) by batch size, and keeps their texts;
+    ``flash_attn`` must launch once a layer for each."""
 
     def __init__(self, model):
-        self.model, self.sizes = model, []
+        self.model, self.sizes, self.batches = model, [], []
         self._submit = model.embed_submit
 
         def submit(texts):
             if texts:
                 self.sizes.append(len(texts))
+                self.batches.append(list(texts))
             return self._submit(texts)
 
         model.embed_submit = submit
 
     def reset(self) -> None:
-        self.sizes = []
+        self.sizes, self.batches = [], []
 
     def close(self) -> None:
         self.model.embed_submit = self._submit
@@ -6562,6 +6589,516 @@ def run_fleet_processes(gpu: str, logdir: str, replica: list[str] | None = None,
     return launches
 
 
+# ---------------------------------------------------------------- phase 22
+# persistence on the card: a streaming RAG ingest (CSV files -> the deferred
+# embed UDF -> DataIndex) that stops or is killed and resumes exactly once,
+# over phase 4's MiniLM-L6 (bf16, seeded) and the first P22_DOCS docs of its
+# corpus in P22_FILES CSV files (phase 20's layout at half depth). Run 1 of
+# each arm sees files 1-4, run 2 (a fresh graph, the same store) all 8.
+# (a) persisting, a filesystem store: every doc id once in each run's sink,
+# the index holding every doc, the top-10 of phase 4's 64 queries equal an
+# uninterrupted one-run arm's but at score gaps < P22_SCORE_TOL, run 2's
+# flash_attn launches covering the replayed and the new rows; (b) a child
+# process streaming (a)'s program, SIGKILLed once its sink holds rows, then
+# restarted with all files: (a)'s bars; (c) udf_caching: run 2's replayed
+# rows DiskCache hits byte-equal to run 1's vectors, its flash_attn launches
+# those of its missed batches alone; (d) operator_persisting: an embed UDF
+# giving CUDA tensors (not deterministic, so its operator keeps them in its
+# replay cache) -> groupby file -> count and the sum of each vector's first
+# component: run 2 restores every operator, the replay cache's tensors back
+# on the card, embeds files 5-8 only and equals the uninterrupted run within
+# P22_SUM_TOL relative; with the index, run 2 falls back to input replay
+# and gives (a)'s answer.
+P22_FILES, P22_DOCS, P22_K, P22_SCORE_TOL, P22_SUM_TOL = 8, 16384, 10, 1e-3, 1e-4
+P22_TIMEOUT = 300.0  # a bound on each wait of the phase
+
+
+def p22_setup(tmp: str, docs: list[str], queries: list[str]) -> dict:
+    """Writes ``docs`` as 8 files and the query file under ``tmp``;
+    returns the spec every arm shares (a device and a model to add)."""
+    import csv
+
+    os.makedirs(os.path.join(tmp, "files"))
+    per = len(docs) // P22_FILES
+    files = []
+    for f in range(P22_FILES):
+        path = os.path.join(tmp, "files", f"part{f}.csv")
+        with open(path, "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["doc", "text"])
+            w.writerows((i, docs[i]) for i in range(f * per, (f + 1) * per))
+        files.append(path)
+    mp_write_csv(os.path.join(tmp, "queries"), ["q", "text"], list(enumerate(queries)), 1)
+    return {"tmp": tmp, "files": files, "q_dir": os.path.join(tmp, "queries"),
+            "n_docs": len(docs), "n_q": len(queries), "per_file": per, "k": P22_K,
+            "batch": RAG_BATCH, "knn": {}}
+
+
+def p22_stage(spec: dict, arm: str, upto: int) -> str:
+    """The docs directory of ``arm``, holding the first ``upto`` files
+    (hard links: the reader keys rows by path, so each arm keeps its own)."""
+    d = os.path.join(spec["tmp"], arm, "docs")
+    os.makedirs(d, exist_ok=True)
+    for path in spec["files"][:upto]:
+        dst = os.path.join(d, os.path.basename(path))
+        if not os.path.exists(dst):
+            os.link(path, dst)
+    return d
+
+
+def p22_program(pw, emb, spec: dict, docs_dir: str, out: str, *, index: bool = True,
+                mode: str = "static", vecs_seen: dict | None = None) -> None:
+    """CSV docs (persistent id ``docs``) -> the embed UDF -> the index and a
+    JSON-lines sink of doc ids (``out``-ids.jsonl); the queries (persistent
+    id ``queries``), once the index holds every doc, -> top-k ->
+    ``out``-replies.jsonl. ``vecs_seen`` gets each inserted doc's vector."""
+    DocSchema, QuerySchema = mp_doc_schemas(pw)
+    docs = pw.io.csv.read(docs_dir, schema=DocSchema, mode=mode, refresh_interval=0.1,
+                          persistent_id="docs")
+    vecs = docs.select(docs.doc, vec=emb(docs.text))
+    pw.io.jsonlines.write(vecs.select(vecs.doc), out + "-ids.jsonl")
+    if vecs_seen is not None:
+        pw.io.subscribe(vecs, on_change=lambda key, row, time, is_addition: vecs_seen.__setitem__(
+            row["doc"], np.asarray(row["vec"]).tobytes()) if is_addition else None)
+    if not index:
+        return
+    index_ = pw.indexing.DataIndex(vecs, pw.indexing.BruteForceKnn(
+        vecs.vec, dimensions=spec["dim"], reserved_space=spec["n_docs"], metric="cos",
+        **spec["knn"]))
+    total = vecs.reduce(n=pw.reducers.count())
+    queries = pw.io.csv.read(spec["q_dir"], schema=QuerySchema, mode="static",
+                             persistent_id="queries")
+    ready = queries.filter(total.ix_ref().n == spec["n_docs"])
+    qv = ready.select(ready.q, qv=emb(ready.text))
+    res = index_.query(qv.qv, number_of_matches=spec["k"], with_distances=True)
+    res = res.select(q=qv.restrict(res).q, docs=res.doc, dist=res._pw_dist)
+    pw.io.jsonlines.write(res, out + "-replies.jsonl")
+
+
+def p22_read(path: str) -> list[dict]:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.endswith("\n")]
+
+
+def p22_ids(out: str) -> dict:
+    """{doc: net count} of a run's id sink."""
+    net: dict = {}
+    for r in p22_read(out + "-ids.jsonl"):
+        net[r["doc"]] = net.get(r["doc"], 0) + r["diff"]
+    return {d: c for d, c in net.items() if c}
+
+
+def p22_replies(out: str) -> dict:
+    folded = mp_fold(p22_read(out + "-replies.jsonl"), ("q",), ("docs", "dist"))
+    return {k[0]: [(int(d), -float(s)) for d, s in zip(*v)] for k, v in folded.items()}
+
+
+def p22_index(pw) -> tuple[int, int, str]:
+    """(rows, device bytes of its tensors, sha256 of its sorted keys) of
+    the graph's index."""
+    import hashlib
+
+    from pathway_tpu_torch.engine.operators.external_index import ExternalIndexNode
+
+    node = next(n for n in pw.G.engine_graph.nodes if isinstance(n, ExternalIndexNode))
+    idx = node._index
+    keys = np.sort(np.asarray(idx._keys, dtype=np.uint64))
+    nbytes = sum(t.numel() * t.element_size() for t in (idx._corpus, idx._valid))
+    return len(idx), nbytes, hashlib.sha256(keys.tobytes()).hexdigest()
+
+
+def p22_sync() -> None:
+    import torch
+
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def p22_run(pw, cfg) -> tuple[float, int, dict]:
+    """One run: (wall s, flash_attn launches, the run's persistence stats)."""
+    from pathway_tpu_torch.internals import run as run_mod
+    from pathway_tpu_torch.models import flash_attention as FA
+
+    FA.flash_attn.launches = 0
+    p22_sync()
+    t0 = time.perf_counter()
+    pw.run(persistence_config=cfg)
+    p22_sync()
+    wall = time.perf_counter() - t0
+    return wall, FA.flash_attn.launches, dict(run_mod.LAST_PERSISTENCE_STATS or {})
+
+
+def p22_store_bytes(store: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(store) for f in fs)
+
+
+def p22_cfg(pw, store: str, mode: str = "persisting"):
+    return pw.persistence.Config(backend=pw.persistence.Backend.filesystem(store),
+                                 persistence_mode=mode)
+
+
+def p22_check_ids(out: str, n: int, what: str) -> None:
+    ids = p22_ids(out)
+    require(ids == {d: 1 for d in range(n)}, f"{what}: each of docs 0-{n - 1} once in the sink "
+            f"({len(ids)} live, {sum(1 for c in ids.values() if c != 1)} not once)")
+
+
+def p22_check_top(ref: dict, got: dict, what: str) -> None:
+    require(sorted(got) == sorted(ref) and len(ref) > 0
+            and all(len(r) == P22_K for r in got.values()),
+            f"{what}: each query answered once with {P22_K} docs")
+    agree = sum(ranks_agree(ref[q], got[q], P22_SCORE_TOL) for q in got)
+    require(agree == len(got), f"{what}: top-{P22_K} equal the uninterrupted arm's but at score "
+                               f"gaps < {P22_SCORE_TOL} ({agree}/{len(got)})")
+
+
+def p22_line(gpu: str, arm: str, runs: list, store: str) -> str:
+    return (f"persistence ({arm}) [{gpu}]: " + "; ".join(
+        f"{name} wall {w:.3f} s, flash_attn {fl}, replayed rows {st.get('replayed_rows', 0)}, "
+        f"replay {st.get('replay_s', 0.0):.4f} s, restored operators "
+        f"{st.get('restored_operators', 0)}, written {st.get('snapshot_bytes', 0)} log + "
+        f"{st.get('operator_state_bytes', 0)} operator bytes" for name, w, fl, st in runs)
+        + f"; store {p22_store_bytes(store)} bytes")
+
+
+def p22_persisting(pw, llm, model, spec: dict, gpu: str) -> tuple[int, dict]:
+    """(a), then the uninterrupted arm every arm is held against (the same
+    files, a fresh store); returns (flash_attn launches, its replies)."""
+    tmp = spec["tmp"]
+    emb = llm.SentenceTransformerEmbedder(model, max_batch_size=RAG_BATCH, deferred=True,
+                                          dedup=False)
+    d = p22_stage(spec, "a", 4)
+    runs, ix = [], {}
+    for name, upto, store in (("run 1", 4, "store"), ("run 2", P22_FILES, "store"),
+                              ("uninterrupted", P22_FILES, "store-whole")):
+        p22_stage(spec, "a", upto)
+        pw.clear_graph()
+        out = os.path.join(tmp, "a", name.replace(" ", ""))
+        p22_program(pw, emb, spec, d, out)
+        wall, fl, st = p22_run(pw, p22_cfg(pw, os.path.join(tmp, "a", store)))
+        runs.append((name, wall, fl, st))
+        ix[name] = p22_index(pw)
+        p22_check_ids(out, spec["per_file"] * upto, f"(a) {name}")
+    pw.clear_graph()
+    ref = p22_replies(os.path.join(tmp, "a", "uninterrupted"))
+    got, whole = ix["run 2"], ix["uninterrupted"]
+    require(got[0] == spec["n_docs"] and got == whole, f"(a): the resumed index holds {got[0]} rows, "
+            f"{got[1]} device bytes, keys {got[2][:12]}; the uninterrupted one {whole[0]}, "
+            f"{whole[1]}, {whole[2][:12]}")
+    p22_check_top(ref, p22_replies(os.path.join(tmp, "a", "run2")), "(a)")
+    require(runs[1][3]["replayed_rows"] == spec["n_docs"] // 2 + spec["n_q"],
+            f"(a) run 2 replayed {runs[1][3]['replayed_rows']} rows")
+    if spec["device"] != "cpu":
+        need = MINILM_LAYERS * (spec["n_docs"] // RAG_BATCH)
+        require(runs[1][2] >= need, f"(a) run 2's flash_attn launches {runs[1][2]} cover the "
+                                    f"replayed and new rows ({need})")
+    info(p22_line(gpu, "a", runs, os.path.join(tmp, "a", "store"))
+         + f"; index rows {got[0]}, index device bytes {got[1]} (uninterrupted {whole[1]})")
+    return sum(r[2] for r in runs), ref
+
+
+def p22_udf_caching(pw, llm, model, spec: dict, ref: dict, gpu: str) -> int:
+    """(c); returns its flash_attn launches."""
+    from pathway_tpu_torch.models import flash_attention as FA
+
+    tmp = spec["tmp"]
+    emb = llm.SentenceTransformerEmbedder(model, max_batch_size=RAG_BATCH, deferred=True,
+                                          dedup=False)
+    d = p22_stage(spec, "c", 4)
+    store = os.path.join(tmp, "c", "store")
+    runs, seen = [], []
+    for run, upto in ((1, 4), (2, P22_FILES)):
+        p22_stage(spec, "c", upto)
+        pw.clear_graph()
+        seen.append({})
+        p22_program(pw, emb, spec, d, os.path.join(tmp, "c", f"run{run}"), vecs_seen=seen[-1])
+        enc = EncodeCount(model)
+        try:
+            wall, fl, st = p22_run(pw, p22_cfg(pw, store, "udf_caching"))
+        finally:
+            enc.close()
+        runs.append((f"run {run}", wall, fl, st, enc.batches))
+    pw.clear_graph()
+    p22_check_ids(os.path.join(tmp, "c", "run2"), spec["n_docs"], "(c) run 2")
+    p22_check_top(ref, p22_replies(os.path.join(tmp, "c", "run2")), "(c)")
+    import csv
+
+    missed = [t for b in runs[1][4] for t in b]
+    new_texts = set()
+    for path in spec["files"][P22_FILES // 2:]:
+        with open(path, newline="") as fh:
+            new_texts.update(r["text"] for r in csv.DictReader(fh))
+    require(len(missed) == spec["n_docs"] // 2 + spec["n_q"]
+            and sum(t in new_texts for t in missed) == spec["n_docs"] // 2,
+            f"(c) run 2 encoded {len(missed)} rows: files 5-8's and the queries' only")
+    require(all(seen[1][i] == seen[0][i] for i in range(spec["n_docs"] // 2)),
+            "(c) the replayed rows' vectors (DiskCache hits) byte-equal to run 1's")
+    # the same batches straight through the model: files 5-8's (and the
+    # queries') alone
+    FA.flash_attn.launches = 0
+    model.embed_resolve([model.embed_submit(b) for b in runs[1][4]], P22_TIMEOUT)
+    p22_sync()
+    direct = FA.flash_attn.launches
+    require(runs[1][2] == direct, f"(c) run 2's flash_attn launches {runs[1][2]} equal its "
+                                  f"missed batches' alone ({direct})")
+    info(p22_line(gpu, "c", [r[:4] for r in runs], store)
+         + f"; run 2 encoded batches {[len(b) for b in runs[1][4]]}")
+    return sum(r[2] for r in runs)
+
+
+def p22_tensor_udf(pw, model):
+    """The embed UDF of (d): a batch's vectors as CUDA tensors, straight
+    from the encoder, one row each. Not deterministic, so its operator
+    keeps each row's value in its replay cache (operator state)."""
+    @pw.udf(batch=True, deterministic=False, max_batch_size=RAG_BATCH)
+    def embed_t(texts: list[str]) -> list[object]:
+        out, n = model.embed_device(list(texts))
+        return list(out[:n].unbind(0))
+
+    return embed_t
+
+
+def p22_groups_program(pw, udf, spec: dict, docs_dir: str, out: str) -> None:
+    """(d) without the index: the docs -> ``udf`` -> by file: the count
+    and the sums of each vector's first component and of its magnitude."""
+    DocSchema, _ = mp_doc_schemas(pw)
+    per = spec["per_file"]
+    docs = pw.io.csv.read(docs_dir, schema=DocSchema, mode="static", persistent_id="docs")
+    vecs = docs.select(docs.doc, vec=udf(docs.text))
+    firsts = vecs.select(file=pw.apply_with_type(lambda d: d // per, int, vecs.doc),
+                         v0=pw.apply_with_type(lambda v: float(v[0]), float, vecs.vec))
+    firsts = firsts.select(firsts.file, firsts.v0,
+                           a0=pw.apply_with_type(abs, float, firsts.v0))
+    groups = firsts.groupby(firsts.file).reduce(
+        firsts.file, n=pw.reducers.count(), s=pw.reducers.sum(firsts.v0),
+        a=pw.reducers.sum(firsts.a0))
+    pw.io.jsonlines.write(groups, out + "-groups.jsonl")
+
+
+def p22_groups(*outs: str) -> dict:
+    """{file: (n, s, a)} folded over the sinks of ``outs`` in order."""
+    rows = [r for o in outs for r in p22_read(o + "-groups.jsonl")]
+    return {k[0]: v for k, v in mp_fold(rows, ("file",), ("n", "s", "a")).items()}
+
+
+def p22_operator_persisting(pw, llm, model, spec: dict, ref: dict, gpu: str) -> int:
+    """(d); returns its flash_attn launches."""
+    from pathway_tpu_torch.engine.operators.core import RowwiseNode
+
+    tmp = spec["tmp"]
+    udf = p22_tensor_udf(pw, model)
+    d = p22_stage(spec, "d", 4)
+    runs, encoded, cache = [], [], None
+    for name, upto, store in (("run 1", 4, "store"), ("run 2", P22_FILES, "store"),
+                              ("uninterrupted", P22_FILES, "store-whole")):
+        p22_stage(spec, "d", upto)
+        pw.clear_graph()
+        p22_groups_program(pw, udf, spec, d, os.path.join(tmp, "d", name.replace(" ", "")))
+        rowwise = [n for n in pw.G.engine_graph.nodes
+                   if isinstance(n, RowwiseNode) and n.is_stateful()]
+        rows = []
+        real = model.embed_device
+
+        def counted(texts, _real=real):
+            rows.append(len(texts))
+            return _real(texts)
+
+        model.embed_device = counted
+        try:
+            wall, fl, st = p22_run(pw, p22_cfg(pw, os.path.join(tmp, "d", store),
+                                               "operator_persisting"))
+        finally:
+            del model.embed_device
+        runs.append((name, wall, fl, st))
+        encoded.append(sum(rows))
+        if name == "run 2":
+            require(len(rowwise) == 1, "(d): one stateful rowwise operator (the embed UDF's)")
+            cache = rowwise[0]._replay_cache
+    pw.clear_graph()
+    require(runs[1][3]["restored_operators"] >= 2,
+            f"(d) run 2 restored {runs[1][3]['restored_operators']} operators")
+    vals = [e[1]["vec"] for e in cache.values()]
+    dev = model.device
+    require(len(vals) == spec["n_docs"] and all(v.device == dev for v in vals),
+            f"(d) run 2's replay cache holds {len(vals)} rows, every one a tensor on {dev}")
+    require(encoded[1] == spec["n_docs"] // 2,
+            f"(d) run 2 encoded {encoded[1]} rows: files 5-8 only")
+    got = p22_groups(os.path.join(tmp, "d", "run1"), os.path.join(tmp, "d", "run2"))
+    want = p22_groups(os.path.join(tmp, "d", "uninterrupted"))
+    require(sorted(got) == sorted(want) == list(range(P22_FILES)) and all(
+        got[f][0] == want[f][0] == spec["per_file"]
+        and abs(got[f][1] - want[f][1]) <= P22_SUM_TOL * want[f][2] for f in want),
+        f"(d) the resumed groups equal the uninterrupted run's within {P22_SUM_TOL} of the "
+        f"sum of magnitudes: {got} vs {want}")
+    worst = max(abs(got[f][1] - want[f][1]) / want[f][2] for f in want)
+    info(p22_line(gpu, "d", runs, os.path.join(tmp, "d", "store"))
+         + f"; encoded rows {encoded}; worst group sum gap / sum of magnitudes {worst:.3e}")
+    # (d) with the index: the index keeps no snapshot, so run 2 replays its
+    # inputs (with JAX's warning) and answers as (a) does
+    emb = llm.SentenceTransformerEmbedder(model, max_batch_size=RAG_BATCH, deferred=True,
+                                          dedup=False)
+    d = p22_stage(spec, "d-index", 4)
+    runs_ix = []
+    for run, upto in ((1, 4), (2, P22_FILES)):
+        p22_stage(spec, "d-index", upto)
+        pw.clear_graph()
+        p22_program(pw, emb, spec, d, os.path.join(tmp, "d-index", f"run{run}"))
+        wall, fl, st = p22_run(pw, p22_cfg(pw, os.path.join(tmp, "d-index", "store"),
+                                           "operator_persisting"))
+        runs_ix.append((f"run {run}", wall, fl, st))
+    pw.clear_graph()
+    require(runs_ix[1][3]["restored_operators"] == 0, "(d) with the index: no operator restored")
+    p22_check_ids(os.path.join(tmp, "d-index", "run2"), spec["n_docs"],
+                  "(d) with the index, run 2")
+    p22_check_top(ref, p22_replies(os.path.join(tmp, "d-index", "run2")), "(d) with the index")
+    info(p22_line(gpu, "d with the index", runs_ix, os.path.join(tmp, "d-index", "store")))
+    return sum(r[2] for r in runs) + sum(r[2] for r in runs_ix)
+
+
+def p22_child(spec_path: str) -> int:
+    """(b)'s child: (a)'s program streaming until the stop marker exists,
+    then one more pass; writes its results as JSON to ``spec["result"]``."""
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.xpacks import llm
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    if spec["device"].startswith("cuda"):
+        mp_load_kernels()
+    model = mp_model(spec)
+    emb = llm.SentenceTransformerEmbedder(model, max_batch_size=spec["batch"], deferred=True,
+                                          dedup=False)
+    for b in (64, 128, 256, 512, 1024):  # the pow2 batch buckets
+        if b <= spec["batch"]:
+            model.embed_batch([f"warm {i}" for i in range(b)])
+    pw.clear_graph()
+    p22_program(pw, emb, spec, spec["docs_dir"], spec["out"], mode="streaming")
+    conns = list(pw.G.connectors)
+
+    def stopper():
+        while not os.path.exists(spec["stop"]):
+            time.sleep(0.05)
+        for c in conns:
+            c._stop.set()  # the reader ends its pass, then closes
+
+    threading.Thread(target=stopper, daemon=True).start()
+    wall, fl, st = p22_run(pw, p22_cfg(pw, spec["store"]))
+    out = {"wall_s": wall, "flash_attn": fl, "stats": st, "index": p22_index(pw)}
+    pw.clear_graph()
+    emb.close()
+    p22_sync()
+    tmp = spec["result"] + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump(out, fh)
+    os.replace(tmp, spec["result"])
+    return 0
+
+
+def p22_sigkill(spec: dict, ref: dict, gpu: str) -> int:
+    """(b); returns the restarted child's flash_attn launches."""
+    tmp = os.path.join(spec["tmp"], "b")
+    d = p22_stage(spec, "b", 4)
+    base = dict(spec, docs_dir=d, store=os.path.join(tmp, "store"), stop=os.path.join(tmp, "stop"))
+
+    def child(tag: str):
+        sp = dict(base, out=os.path.join(tmp, tag), result=os.path.join(tmp, f"{tag}.json"))
+        path = os.path.join(tmp, f"{tag}-spec.json")
+        with open(path, "w") as fh:
+            json.dump(sp, fh)
+        log = open(os.path.join(tmp, f"{tag}.log"), "w")
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase22-child",
+                                 path], stdout=log, stderr=subprocess.STDOUT, cwd=tmp)
+        return proc, log, sp
+
+    def tail(tag: str) -> str:
+        with open(os.path.join(tmp, f"{tag}.log")) as fh:
+            return fh.read()[-4000:]
+
+    t0 = time.perf_counter()
+    proc, log, sp = child("child1")
+    try:
+        deadline = time.monotonic() + P22_TIMEOUT
+        ids = sp["out"] + "-ids.jsonl"
+        while time.monotonic() < deadline and proc.poll() is None and not (
+                os.path.exists(ids) and p22_read(ids)):
+            time.sleep(0.05)
+        if proc.poll() is not None or not (os.path.exists(ids) and p22_read(ids)):
+            raise AssertionError(f"(b) child 1 put no row in its sink:\n{tail('child1')}")
+        at_kill = len(p22_read(ids))
+        proc.kill()  # SIGKILL
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(30)
+        log.close()
+    p22_stage(spec, "b", P22_FILES)
+    open(base["stop"], "w").close()
+    proc, log, sp = child("child2")
+    try:
+        proc.wait(timeout=P22_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        log.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"(b) the restarted child exited {proc.returncode}:\n"
+                             f"{tail('child2')}")
+    with open(sp["result"]) as fh:
+        res = json.load(fh)
+    p22_check_ids(sp["out"], spec["n_docs"], "(b) the restarted child")
+    p22_check_top(ref, p22_replies(sp["out"]), "(b)")
+    require(res["index"][0] == spec["n_docs"], f"(b) the restarted child's index holds "
+                                         f"{res['index'][0]} rows")
+    st = res["stats"]
+    info(f"persistence (b) [{gpu}]: child 1 killed with {at_kill} rows in its sink; the restart "
+         f"wall {res['wall_s']:.3f} s, flash_attn {res['flash_attn']}, replayed rows "
+         f"{st.get('replayed_rows', 0)}, replay {st.get('replay_s', 0.0):.4f} s; store "
+         f"{p22_store_bytes(base['store'])} bytes; {time.perf_counter() - t0:.1f} s with both "
+         f"children's start-up")
+    return res["flash_attn"]
+
+
+def p22_arms(pw, llm, model, spec: dict, gpu: str) -> dict:
+    """Phase 22's four arms in their order; {arm: flash_attn launches}."""
+    launches = {}
+    launches["a"], ref = p22_persisting(pw, llm, model, spec, gpu)
+    launches["b"] = p22_sigkill(spec, ref, gpu)
+    launches["c"] = p22_udf_caching(pw, llm, model, spec, ref, gpu)
+    launches["d"] = p22_operator_persisting(pw, llm, model, spec, ref, gpu)
+    return launches
+
+
+def run_persistence(gpu: str, out: dict, docs, queries) -> int:
+    """Phase 22 on the card; returns its flash_attn launches (the restarted
+    child's included)."""
+    import tempfile
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models.transformer import MINILM_L6
+    from pathway_tpu_torch.xpacks import llm
+
+    t22 = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = out["emb"]
+    model.embed_batch(docs[:RAG_BATCH])  # warm the batch bucket, outside the counts
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = p22_setup(tmp, docs[:P22_DOCS], queries)
+        spec.update(dim=MINILM_L6.hidden, device="cuda:0", model="minilm")
+        launches = p22_arms(pw, llm, model, spec, gpu)
+    require(all(v > 0 for v in launches.values()), "phase 22: every arm ran flash_attn")
+    info(f"persistence: phase 22 flash_attn launches {launches}; "
+         f"{time.perf_counter() - t22:.1f} s")
+    return sum(launches.values())
+
+
 def main() -> int:
     import torch
 
@@ -6741,6 +7278,10 @@ def main() -> int:
     dec = {n: dec[n] + ev[n] + fl[n] for n in dec}
     info(f"phase 21: {time.perf_counter() - t21:.1f} s")
 
+    # phase 22: persistence, a streaming RAG ingest that stops or is killed
+    # and resumes exactly once
+    launches += run_persistence(gpu, out, docs, queries)
+
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",
         "source": "pathway_tpu_torch/csrc/flash_attn.cu",
@@ -6781,4 +7322,6 @@ if __name__ == "__main__":
         sys.exit(mp_child(sys.argv[2]))
     if sys.argv[1:2] == ["--phase21-replica"]:
         sys.exit(p21_replica(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase22-child"]:
+        sys.exit(p22_child(sys.argv[2]))
     sys.exit(main())

@@ -89,6 +89,7 @@ from pathway_tpu_torch.internals import universe as _universe_mod
 from pathway_tpu_torch.internals.api import (
     ERROR,
     Pending,
+    PersistenceMode,
     Pointer,
     PyObjectWrapper,
     unwrap_py_object,
@@ -158,7 +159,7 @@ from pathway_tpu_torch.internals.udfs import (
     udf_async,
 )
 from pathway_tpu_torch.internals.universe import Universe
-from pathway_tpu_torch import debug, io  # noqa: E402
+from pathway_tpu_torch import debug, io, persistence  # noqa: E402
 from pathway_tpu_torch.stdlib import graphs, indexing, ml, ordered, statistical, temporal, utils  # noqa: E402
 from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer  # noqa: E402
 from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer  # noqa: E402
@@ -255,6 +256,8 @@ __all__ = [
     "left",
     "right",
     "MonitoringLevel",
+    "PersistenceMode",
+    "persistence",
     "UDFAsync",
     "UDFSync",
     "Schema",

@@ -13,13 +13,24 @@ Carried, with JAX's command names and options:
   PROGRAM as N supervised replica processes behind the prefix-affinity
   router (each started with ``--port <its port>`` appended, and JAX's
   environment contract); ``fleet stats --url`` and ``fleet watch --url``
-  read a running router's ``/v1/fleet``.
+  read a running router's ``/v1/fleet``;
+* ``replay [--record-path DIR] [--mode batch|speedrun]
+  [--continue-after-replay] PROGRAM ARGS...``: runs the Python file
+  PROGRAM (with ``sys.argv`` set to PROGRAM ARGS) in this process against
+  a recorded input stream. JAX's command sets the ``PATHWAY_REPLAY_STORAGE``
+  family of variables for a spawned program; the port builds the
+  ``pw.persistence.Config`` they describe (a filesystem store at DIR,
+  snapshot access ``replay``, the mode, stopping at the end of the log
+  unless asked to continue) and hands it to every ``pw.run`` of the
+  program that is given none (``internals.run.persistence_default``).
+  One process: ``spawn`` is not ported, so neither are ``--threads`` /
+  ``--processes``.
 
 JAX's ``PATHWAY_TPU_FLEET`` switch is the ``--fleet`` option here: without
 it ``fleet serve`` refuses with exit code 2, as the flag's default does.
 The parser is the standard library's ``argparse`` (JAX's is ``click``).
-``spawn``, ``spawn-from-env``, ``replay`` (which needs persistence),
-``tune`` and ``airbyte`` are not ported (ROADMAP A12, A13): they print so
+``spawn``, ``spawn-from-env``, ``tune`` and ``airbyte`` are not ported
+(ROADMAP A12, A13): they print so
 and exit with code 3. :func:`main` takes ``argv`` (the tests' way in) and
 returns the exit code.
 """
@@ -36,7 +47,6 @@ import urllib.request
 NOT_PORTED = {
     "spawn": "needs the multi-process launcher (ROADMAP A13)",
     "spawn-from-env": "needs the multi-process launcher (ROADMAP A13)",
-    "replay": "needs persistence (ROADMAP A13)",
     "tune": "needs the autotuner (ROADMAP A12)",
     "airbyte": "needs the airbyte connector (ROADMAP A13)",
 }
@@ -315,11 +325,52 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stop after N polls (0 = run until interrupted)")
     p.set_defaults(func=cmd_fleet_watch)
 
+    p = sub.add_parser("replay", help="replay PROGRAM against a recorded input stream")
+    p.add_argument("--record-path", default="record",
+                   help="directory from which the record is replayed")
+    p.add_argument("--mode", choices=["batch", "speedrun"], default="batch", help="replay mode")
+    p.add_argument("--continue-after-replay", action="store_true",
+                   help="keep processing live data after the replay finishes")
+    p.add_argument("program", help="the Python file to run")
+    p.add_argument("arguments", nargs=argparse.REMAINDER)
+    p.set_defaults(func=cmd_replay)
+
     for name, why in NOT_PORTED.items():
         p = sub.add_parser(name, help=f"not ported: {why}")
         p.add_argument("rest", nargs=argparse.REMAINDER)
         p.set_defaults(func=lambda args, _n=name, _w=why: _not_ported(_n, _w))
     return parser
+
+
+def replay_config(record_path: str, mode: str = "batch",
+                  continue_after_replay: bool = False):
+    """The persistence Config of ``replay`` (what JAX's command puts in
+    the environment)."""
+    from pathway_tpu_torch import persistence
+
+    return persistence.Config(
+        backend=persistence.Backend.filesystem(record_path),
+        persistence_mode="speedrun_replay" if mode == "speedrun" else mode,
+        snapshot_access="replay",
+        # replay-only runs stop at the end of the log unless asked to continue
+        continue_after_replay=continue_after_replay,
+    )
+
+
+def cmd_replay(args) -> int:
+    import runpy
+
+    from pathway_tpu_torch.internals import run as run_mod
+
+    cfg = replay_config(args.record_path, args.mode, args.continue_after_replay)
+    argv = sys.argv
+    sys.argv = [args.program, *args.arguments]
+    try:
+        with run_mod.persistence_default(cfg):
+            runpy.run_path(args.program, run_name="__main__")
+    finally:
+        sys.argv = argv
+    return 0
 
 
 def _not_ported(name: str, why: str) -> int:

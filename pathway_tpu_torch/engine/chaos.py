@@ -19,6 +19,8 @@ Sites in the port (grep for ``chaos.site(``):
                         supervision restarts the serving loop)
 * ``embed.h2d``       — the ingest pipeline's host-to-device staging
 * ``query.tick``      — one ``QueryServer`` tick's group dispatch
+* ``persist.put``     — a snapshot chunk's ``put_value`` (raised before
+                        the put: the rows stay buffered for the next chunk)
 * ``router.forward``  — the fleet router's dispatch to a replica
                         (request-scoped: the router fails over to the
                         next candidate)

@@ -58,16 +58,53 @@ class Node:
     always_step: bool = False
 
     # nodes whose reset() clears run outputs rather than dataflow state
-    # (capture / subscribe): not stateful, so no exchange is spliced
-    # before them (JAX's ``_persist_exempt``; the port has no persistence)
+    # (capture / subscribe / sink), and plan nodes whose members are all
+    # stateless: not stateful, so no exchange is spliced before them and
+    # operator persistence neither snapshots them nor degrades for them
+    # (JAX's ``_persist_exempt``, folded into this one flag)
     _output_side: bool = False
+
+    # --- operator persistence (reference: operator_snapshot.rs) ---
+    # attribute names holding this operator's run-scoped state; () = either
+    # stateless or not snapshottable (see is_stateful / _output_side)
+    _state_attrs: tuple[str, ...] = ()
 
     def is_stateful(self) -> bool:
         """Whether the operator keeps dataflow state across epochs: the
         multi-process splice routes its input rows to their owner process
-        first (``engine/exchange.py:splice_exchanges``)."""
+        first (``engine/exchange.py:splice_exchanges``), and
+        operator-persisting mode needs its snapshot to restore a run."""
         cls = type(self)
         return cls.reset is not Node.reset and not self._output_side
+
+    def state_snapshot(self) -> bytes | None:
+        """This operator's state for operator-persisting mode, as store
+        bytes (``engine.state.host_state``: a tensor in it in its host
+        form), or None if it is stateless / not snapshottable."""
+        if not self._state_attrs:
+            return None
+        import logging
+
+        from pathway_tpu_torch.engine.state import host_state
+
+        try:
+            return host_state({a: getattr(self, a) for a in self._state_attrs})
+        except Exception as exc:  # non-picklable state (e.g. closures)
+            logging.getLogger("pathway_tpu_torch").warning(
+                "operator %s state not snapshottable (%s); next run will "
+                "fall back to input-snapshot replay",
+                self,
+                exc,
+            )
+            return None
+
+    def state_restore(self, state: bytes) -> None:
+        """Restore state produced by :meth:`state_snapshot`; its tensors
+        come back on the devices they were on."""
+        from pathway_tpu_torch.engine.state import place_state
+
+        for attr, value in place_state(state).items():
+            setattr(self, attr, value)
 
 
 class FusedChainNode(Node):
@@ -93,6 +130,7 @@ class FusedChainNode(Node):
     graph stays untouched and later runs can plan differently.
     """
 
+    _output_side = True  # members are all stateless; reset() just chains
 
     def __init__(self, members: list[Node], stages: list[Callable]):
         # deliberately NOT calling Node.__init__: no fresh id, no trace

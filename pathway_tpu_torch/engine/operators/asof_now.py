@@ -23,6 +23,9 @@ class AsofNowJoinNode(JoinNode):
         super().__init__(*args, **kwargs)
         self._left_emitted: dict[int, dict[int, tuple]] = {}
 
+    _state_attrs = (
+        "_left", "_right", "_left_jk", "_right_jk", "_left_emitted",
+    )
 
     def reset(self):
         super().reset()

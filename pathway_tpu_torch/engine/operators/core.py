@@ -63,6 +63,7 @@ class InputNode(Node):
 class StatefulNode(Node):
     """Base for operators that materialize their output (chaining diffs)."""
 
+    _state_attrs = ("_in_states",)
 
     def __init__(self, graph, inputs, column_names, name=""):
         super().__init__(graph, inputs, column_names, name)
@@ -97,6 +98,8 @@ class RowwiseNode(Node):
     then fail to cancel downstream state (reference
     ``map_named_async_with_consistent_deletions``, ``operators.rs:320-380``).
     """
+
+    _state_attrs = ("_replay_cache",)
 
     def __init__(self, graph, input_node, expressions: dict[str, Any], name="Rowwise",
                  replay_retractions: bool = False):
@@ -590,6 +593,8 @@ class FusedNode(Node):
     every input contributed (needed when inputs advance asymmetrically).
     """
 
+    _state_attrs = ("_parts", "_emitted")
+
     def __init__(self, graph, inputs, slices: list[dict[str, str]], name="Fuse"):
         # slices[i]: output_name -> input_i column name
         out_cols = [n for s in slices for n in s]
@@ -670,6 +675,8 @@ class ReindexNode(Node):
 class ConcatNode(Node):
     """Union of disjoint-universe tables; duplicate keys are an error."""
 
+    _state_attrs = ("_seen",)
+
     def __init__(self, graph, inputs, name="Concat"):
         super().__init__(graph, inputs, inputs[0].column_names, name)
         self._seen: list[MultisetState] = [MultisetState() for _ in inputs]
@@ -705,6 +712,8 @@ class UniverseOpNode(StatefulNode):
     Output rows come from input 0; membership predicate over the other inputs'
     key sets decides inclusion. Changes on any side produce add/remove deltas.
     """
+
+    _state_attrs = ("_in_states", "_emitted")
 
     def __init__(self, graph, inputs, mode: str, name=None):
         super().__init__(graph, inputs, inputs[0].column_names, name or f"Universe[{mode}]")
@@ -754,6 +763,8 @@ class UniverseOpNode(StatefulNode):
 
 class UpdateRowsNode(StatefulNode):
     """``left.update_rows(right)``: right rows override left rows by key."""
+
+    _state_attrs = ("_in_states", "_emitted")
 
     def __init__(self, graph, left, right, name="UpdateRows"):
         super().__init__(graph, [left, right], left.column_names, name)
@@ -805,6 +816,8 @@ class UpdateRowsNode(StatefulNode):
 class UpdateCellsNode(StatefulNode):
     """``left.update_cells(right)``: override selected columns where right
     has the key (right universe ⊆ left universe)."""
+
+    _state_attrs = ("_in_states", "_emitted")
 
     def __init__(self, graph, left, right, update_columns: list[str], name="UpdateCells"):
         super().__init__(graph, [left, right], left.column_names, name)
@@ -862,6 +875,8 @@ class IxNode(StatefulNode):
     """Pointer-based gather: for each row of ``keys_input`` holding a pointer
     column, fetch the referenced row of ``source``. ``optional`` pads missing
     targets with None (reference ``Table.ix``)."""
+
+    _state_attrs = ("_in_states", "_emitted")
 
     def __init__(self, graph, keys_input, source, ptr_column: str, optional: bool, name="Ix"):
         super().__init__(graph, [keys_input, source], source.column_names, name)

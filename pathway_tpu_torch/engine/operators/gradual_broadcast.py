@@ -24,6 +24,8 @@ class GradualBroadcastNode(Node):
     """Inputs: main table node; threshold node with columns
     (__l__, __v__, __u__). Output: main columns + ``apx_value``."""
 
+    _state_attrs = ("_bounds", "_rows", "_assigned")
+
     def __init__(self, graph, input_node, threshold_node,
                  name="GradualBroadcast"):
         out_cols = list(input_node.column_names) + ["apx_value"]

@@ -29,6 +29,8 @@ class InstanceRecomputeNode(Node):
     pass one input; right_rows is then None.
     """
 
+    _state_attrs = ("_states", "_emitted")
+
     def __init__(
         self,
         graph,

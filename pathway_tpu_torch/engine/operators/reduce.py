@@ -27,6 +27,8 @@ class GroupbyNode(Node):
     reduced values; output key = pointer_from(grouping values[, instance]).
     """
 
+    _state_attrs = ("_groups", "_emitted")
+
     def __init__(
         self,
         graph,
@@ -205,6 +207,8 @@ class DeduplicateNode(Node):
     """Keep one row per instance, chosen by a user acceptor function
     ``acceptor(new_value, prev_accepted) -> bool`` (reference deduplicate,
     dataflow.rs:3101; stdlib/stateful/deduplicate.py)."""
+
+    _state_attrs = ("_accepted",)
 
     def __init__(
         self,

@@ -25,6 +25,7 @@ class RecomputeNode(StatefulNode):
     Subclasses implement ``compute(rows) -> {key: out_tuple}``.
     """
 
+    _state_attrs = ("_in_states", "_emitted")
 
     def __init__(self, graph, input_node, out_cols, name=""):
         super().__init__(graph, [input_node], out_cols, name)

@@ -57,6 +57,8 @@ def _record_temporal(node: Node, held_rows: int, min_threshold) -> None:
 class BufferNode(Node):
     """Postpone rows until watermark(time_col) >= row.threshold."""
 
+    _state_attrs = ("_held", "_watermark")
+
     def __init__(self, graph, input_node, threshold_col: str, time_col: str, name="Buffer"):
         super().__init__(graph, [input_node], input_node.column_names, name)
         self.threshold_col = threshold_col
@@ -138,6 +140,8 @@ class ForgetNode(Node):
     """Retract rows once watermark(time_col) >= row.threshold; optionally
     marks forgetting records instead of silently retracting."""
 
+    _state_attrs = ("_alive", "_watermark")
+
     def __init__(
         self,
         graph,
@@ -218,6 +222,8 @@ class ForgetNode(Node):
 class FreezeNode(Node):
     """Drop (ignore) updates arriving after their threshold passed."""
 
+    _state_attrs = ("_watermark",)
+
     def __init__(
         self,
         graph,
@@ -270,6 +276,8 @@ class SortNode(Node):
     vectorized analog of the reference's bidirectional-cursor incremental
     maintenance (prev_next.rs).
     """
+
+    _state_attrs = ("_rows", "_emitted")
 
     def __init__(self, graph, input_node, key_col: str, instance_col: str | None, name="Sort"):
         super().__init__(graph, [input_node], ["prev", "next"], name)

@@ -12,9 +12,22 @@ directions: gathered to the host for snapshots and checkpoints, and placed
 on a mesh for a restore. The two helpers at the end are that seam, so state
 moved across a topology change always means "the gathered bytes were
 identical, only the placement changed".
+
+Persisted state (operator snapshots, snapshot-log chunks, worker
+metadata, UDF cache values) is bytes from :func:`host_state` and comes
+back through :func:`place_state`. A tensor anywhere in it is stored as a
+CPU numpy array with its dtype and device (bf16 as its int16 bits) and is
+revived on that device, as the row exchange sends it
+(``engine/exchange.py``): a store never holds a pickled tensor storage, so
+no CUDA context is tied to it. The bytes open with :data:`STORE_MAGIC`, and
+the reader refuses any other package's classes: the JAX package's stores
+are not read here, nor this package's by JAX.
 """
 
 from __future__ import annotations
+
+import io
+import pickle
 
 import numpy as np
 import torch
@@ -135,3 +148,61 @@ def place_state_pytree(tree, mesh=None, specs=None):
     ``PartitionSpec``s (replicated where unspecified); ``mesh=None``
     returns the tree untouched."""
     return place_pytree(tree, mesh, specs)
+
+
+# ---- persisted state: the tensor host form ---------------------------------
+
+STORE_MAGIC = b"pathway_tpu_torch/1\n"
+
+
+class ForeignStoreError(ValueError):
+    """Bytes that this package did not write (another package's store)."""
+
+
+def revive_tensor(array: np.ndarray, dtype: str, device: str) -> torch.Tensor:
+    """A tensor from its host form, on ``device`` (which must exist)."""
+    t = torch.from_numpy(np.array(array, copy=True))
+    if dtype == "bfloat16":
+        t = t.view(torch.bfloat16)
+    return t.to(device)
+
+
+class _HostPickler(pickle.Pickler):
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor):
+            host = obj.detach().cpu().contiguous()
+            if host.dtype == torch.bfloat16:
+                host = host.view(torch.int16)
+            return revive_tensor, (host.numpy(), str(obj.dtype).removeprefix("torch."),
+                                   str(obj.device))
+        return NotImplemented
+
+
+class _StoreUnpickler(pickle.Unpickler):
+    # the JAX package (and JAX) by name; torch's storage rebuilders, which
+    # only a pickled tensor storage would name
+    _REFUSED = ("pathway_tpu", "jax", "jaxlib", "torch._utils", "torch.storage")
+
+    def find_class(self, module, name):
+        if any(module == r or module.startswith(r + ".") for r in self._REFUSED) or (
+                module.startswith("torch") and "Storage" in name):
+            raise pickle.UnpicklingError(f"a pathway_tpu_torch store names {module}.{name}")
+        return super().find_class(module, name)
+
+
+def host_state(obj) -> bytes:
+    """``obj`` as store bytes, every tensor in it in its host form."""
+    buf = io.BytesIO()
+    buf.write(STORE_MAGIC)
+    _HostPickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
+    return buf.getvalue()
+
+
+def place_state(data: bytes):
+    """The object :func:`host_state` stored, its tensors back on their
+    devices. Raises :class:`ForeignStoreError` on bytes without this
+    package's header and ``pickle.UnpicklingError`` on any class of
+    another package."""
+    if not data.startswith(STORE_MAGIC):
+        raise ForeignStoreError("not a pathway_tpu_torch store value")
+    return _StoreUnpickler(io.BytesIO(memoryview(data)[len(STORE_MAGIC):])).load()

@@ -76,6 +76,26 @@ def install(config: EngineConfig) -> EngineConfig:
     return prev
 
 
+# the persistence Config of the run in progress (pw.run(persistence_config=
+# ...)), read while it runs by what JAX reads get_persistence_config() for
+# (the UDF caches); None outside a run or for a run without one. JAX builds
+# its default from the PATHWAY_REPLAY_STORAGE family of variables; the port
+# reads none: the CLI's ``replay`` passes its Config to the program's runs
+_persistence = None
+
+
+def persistence():
+    return _persistence
+
+
+def install_persistence(cfg):
+    """Make ``cfg`` the running persistence Config; returns the one it
+    replaced."""
+    global _persistence
+    prev, _persistence = _persistence, cfg
+    return prev
+
+
 # PATHWAY_LICENSE_KEY / PATHWAY_MONITORING_SERVER: kept for what reads
 # them (the OpenTelemetry exporter, ROADMAP A12); set through the two
 # functions below, as in JAX, never read from the environment

@@ -36,6 +36,9 @@ class ParseGraph:
 
     def clear(self) -> None:
         self.__init__()
+        from pathway_tpu_torch import persistence
+
+        persistence._persistent_sources.clear()
 
 
 G = ParseGraph()

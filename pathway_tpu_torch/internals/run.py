@@ -14,11 +14,19 @@ end-of-stream flush round. ``monitoring_level`` starts the live
 dashboard (``internals/monitoring.py``) for the levels that do not resolve
 to ``MonitoringLevel.NONE``, and ``with_http_server=True`` the
 per-process ``MetricsServer`` (``internals/http_server.py``) for the run,
-as in JAX. Persistence is not carried (ROADMAP A13).
+as in JAX. ``persistence_config`` (a ``pw.persistence.Config``) makes the
+run persistent as JAX's does (``persistence/engine_store.py``): each
+process keeps its own snapshot log and metadata under its process id,
+operator-persisting mode restores every stateful operator or none, and the
+run's end snapshots operators and finalizes the store with the readers'
+offsets. ``LAST_PERSISTENCE_STATS`` holds the last persistent run's
+figures (store bytes written, rows replayed, replay seconds, operators
+restored).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 from pathway_tpu_torch.engine.graph import Node
@@ -32,22 +40,120 @@ from pathway_tpu_torch.internals.parse_graph import G
 LAST_RUN_STATS = None
 # the metrics server of the run in progress (pw.run(with_http_server=True))
 METRICS_SERVER = None
+# the persistence figures of the last persistent run (PersistenceManager.stats)
+LAST_PERSISTENCE_STATS = None
+# the persistence Config of runs that are given none (the CLI's ``replay``)
+_DEFAULT_PERSISTENCE = None
 
 
 class GraphRunner:
     def __init__(self, targets: list[Node], *, config=None, monitoring_level=None,
-                 with_http_server: bool = False):
+                 with_http_server: bool = False, persistence_config=None):
         self.targets = targets
         self.config = config if config is not None else config_mod.active()
         self.monitoring_level = monitoring_level
         self.with_http_server = with_http_server
+        self.persistence_config = persistence_config
+
+    @staticmethod
+    def _op_signature(idx: int, node: Node) -> str:
+        return f"{idx}:{node.name}:{','.join(node.column_names)}"
 
     def run(self) -> None:
         prev = config_mod.install(self.config)
+        prev_p = config_mod.install_persistence(self.persistence_config)
         try:
             self._run()
         finally:
             config_mod.install(prev)
+            config_mod.install_persistence(prev_p)
+
+    def _persistence_manager(self, sched):
+        """The run's PersistenceManager (None without a persistence config
+        or backend); in operator-persisting mode, every stateful operator's
+        snapshot restored, or none."""
+        pcfg = self.persistence_config
+        if pcfg is None or getattr(pcfg, "backend", None) is None:
+            return None
+        from pathway_tpu_torch.persistence.engine_store import PersistenceManager
+
+        manager = PersistenceManager(pcfg, worker_id=self.config.process_id,
+                                     total_workers=self.config.processes)
+        if manager.replay_inputs:
+            return manager
+        # operator-persisting mode: restore stateful operator snapshots
+        # instead of replaying input logs. All-or-nothing: restoring some
+        # operators while others start empty would silently drop
+        # pre-restart data, so any stateful node without a stored snapshot
+        # degrades the whole run to input-snapshot replay (safe, possibly
+        # slower).
+        staged: list[tuple[Node, bytes]] = []
+        missing: list[Node] = []
+        for idx, node in enumerate(sched.order):
+            if not node.is_stateful():
+                continue
+            state = manager.load_operator_state(self._op_signature(idx, node))
+            if state is None:
+                missing.append(node)
+            else:
+                staged.append((node, state))
+        if missing:
+            if manager.metadata.current.finalized_time is not None:
+                import logging
+
+                logging.getLogger("pathway_tpu_torch").warning(
+                    "operator_persisting: no stored state for %s; "
+                    "falling back to input-snapshot replay",
+                    ", ".join(map(str, missing[:5])),
+                )
+            manager.force_input_replay()
+        else:
+            for node, state in staged:
+                node.state_restore(state)
+            manager.stats["restored_operators"] = len(staged)
+        return manager
+
+    @staticmethod
+    def _attach_persistence(manager, connectors) -> None:
+        seen_ids: dict[str, int] = {}
+        for c in connectors:
+            if c.persistent_id is None:
+                # auto-generate ids from stable per-connector identity
+                # (node name + columns), not list position — adding or
+                # filtering other connectors must not shift a source's
+                # id between record and replay
+                sig = f"{c.node.name}:{','.join(c.node.column_names)}"
+                n = seen_ids.get(sig, 0)
+                seen_ids[sig] = n + 1
+                suffix = f"#{n}" if n else ""
+                c.persistent_id = f"_pw_auto_{sig}{suffix}"
+            c.setup_persistence(manager)
+
+    def _finish_persistence(self, manager, sched, connectors) -> None:
+        global LAST_PERSISTENCE_STATS
+        errors = [c._persist_error for c in connectors if c._persist_error is not None]
+        if errors:
+            # a store write that failed (no injected fault) fails the run
+            raise errors[0]
+        final_time = max(sched.current_time, 0)
+        if manager.mode == "operator_persisting":
+            # save even when this run degraded to input replay, so the
+            # next run can restore
+            for idx, node in enumerate(sched.order):
+                if not node.is_stateful():
+                    continue
+                state = node.state_snapshot()
+                if state is not None:
+                    manager.save_operator_state(self._op_signature(idx, node), state)
+        manager.finalize(
+            final_time,
+            offsets={
+                c.persistent_id: c.current_offset()
+                for c in connectors
+                if c.persistent_id is not None
+            },
+        )
+        LAST_PERSISTENCE_STATS = dict(manager.stats)
 
     def _run(self) -> None:
         exchange_ctx = None
@@ -83,6 +189,7 @@ class GraphRunner:
                 start = getattr(node, "start", None)
                 if start is not None:
                     start(self.config)
+            manager = self._persistence_manager(sched)
             # static sources (several processes: injected on process 0 only;
             # the exchange layer routes rows to their owner shards)
             static = [
@@ -96,6 +203,8 @@ class GraphRunner:
             if exchange_ctx is not None and pid != 0:
                 # connectors that do not partition their input run on process 0
                 connectors = [c for c in connectors if c.shardable]
+            if manager is not None:
+                self._attach_persistence(manager, connectors)
             for c in connectors:
                 sched.register_source(c.node, 0)
             for node, provider in static:
@@ -157,6 +266,8 @@ class GraphRunner:
             tracing.flush_traces()
             sched.stats.finished = True
             self._stop_observers(monitor, metrics_server)
+        if manager is not None:
+            self._finish_persistence(manager, sched, connectors)
         for node in sched.order:
             finish = getattr(node, "finish", None)
             if finish is not None:
@@ -179,6 +290,7 @@ def run(
     terminate_on_error: bool | None = None,
     monitoring_level: Any = None,
     with_http_server: bool = False,
+    persistence_config: Any = None,
     **kwargs: Any,
 ) -> None:
     """Execute the dataflow: pump all registered outputs until input ends.
@@ -189,14 +301,15 @@ def run(
     resolved as JAX resolves it (see ``internals/monitoring.py``): any
     level but ``NONE`` starts the live dashboard, which needs ``rich``.
     ``with_http_server=True`` serves the run's metrics on
-    ``config.metrics_first_port + process_id``. JAX arguments the port
-    does not act on (``debug``, ``default_logging``, ``license_key``, ...)
-    are accepted and ignored; ``persistence_config`` raises, since nothing
-    here would honour it.
+    ``config.metrics_first_port + process_id``. ``persistence_config``
+    (a ``pw.persistence.Config``) makes the run persistent; without one a
+    run takes the default that :func:`persistence_default` installed (the
+    CLI's ``replay``), else none. JAX arguments the port does not act on
+    (``debug``, ``default_logging``, ``license_key``, ...) are accepted and
+    ignored.
     """
-    if kwargs.get("persistence_config"):
-        raise NotImplementedError(
-            "pw.run(persistence_config=...) is not carried by the port yet (ROADMAP A13)")
+    if persistence_config is None:
+        persistence_config = _DEFAULT_PERSISTENCE
     cfg = config if config is not None else config_mod.EngineConfig()
     if terminate_on_error is not None:
         import dataclasses
@@ -206,7 +319,20 @@ def run(
     if not targets:
         return
     GraphRunner(targets, config=cfg, monitoring_level=monitoring_level,
-                with_http_server=with_http_server).run()
+                with_http_server=with_http_server,
+                persistence_config=persistence_config).run()
+
+
+@contextlib.contextmanager
+def persistence_default(cfg):
+    """Runs given no ``persistence_config`` take ``cfg`` while this holds
+    (how the CLI's ``replay`` hands its Config to a program)."""
+    global _DEFAULT_PERSISTENCE
+    prev, _DEFAULT_PERSISTENCE = _DEFAULT_PERSISTENCE, cfg
+    try:
+        yield cfg
+    finally:
+        _DEFAULT_PERSISTENCE = prev
 
 
 def run_all(**kwargs) -> None:

@@ -1,8 +1,7 @@
 """UDF system — ``@pw.udf``, executors, caching, retries.
 
 Parity with reference ``internals/udfs/``: ``UDF`` base class, sync/async/auto
-executors, capacity/timeout/retry wrappers, the in-memory cache (the
-persistent ``DiskCache`` waits for persistence, ROADMAP A13). The async
+executors, capacity/timeout/retry wrappers, disk & in-memory caches. The async
 executor is the device microbatching point: whole epochs' rows resolve together
 (reference async_apply, operators.rs:269-305).
 """
@@ -19,9 +18,13 @@ from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import expression as expr_mod
 from pathway_tpu_torch.internals.udfs.caches import (
     CacheStrategy,
+    DefaultCache,
+    DiskCache,
     InMemoryCache,
     with_batch_cache_strategy,
     with_cache_strategy,
+    with_deferred_batch_cache,
+    with_deferred_cache,
 )
 from pathway_tpu_torch.internals.udfs.executors import (
     AsyncExecutor,
@@ -56,6 +59,8 @@ __all__ = [
     "fully_async_executor",
     "async_options",
     "CacheStrategy",
+    "DefaultCache",
+    "DiskCache",
     "InMemoryCache",
     "AsyncRetryStrategy",
     "ExponentialBackoffRetryStrategy",
@@ -130,6 +135,8 @@ class UDF:
         fun = executor._wrap(fun)
         if self.cache_strategy is not None:
             fun = with_cache_strategy(fun, self.cache_strategy)
+        else:
+            fun = with_deferred_cache(fun)
         return fun, isinstance(executor, (AsyncExecutor, FullyAsyncExecutor)) or is_async
 
     def __call__(self, *args, **kwargs) -> expr_mod.ColumnExpression:
@@ -166,6 +173,10 @@ class UDF:
         if self.cache_strategy is not None:
             fun = with_batch_cache_strategy(fun, self.cache_strategy)
             submit = resolve = None
+        else:
+            # udf_caching mode, if on when the UDF first runs: a per-UDF
+            # DiskCache row by row, the two-phase path submitting misses only
+            fun, submit, resolve = with_deferred_batch_cache(fun, submit, resolve)
         rt = self._get_return_type()
         # a batched __wrapped__ is hinted list[X]; the per-row type is X
         if self.return_type is None and typing.get_origin(rt) is list:

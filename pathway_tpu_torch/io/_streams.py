@@ -5,6 +5,18 @@ The analog of the reference connector thread loop (``src/connectors/mod.rs``:
 A connector owns an engine InputNode; on ``start`` it spawns a thread that
 injects batches at increasing even commit times and advances its source
 frontier; ``stop`` requests shutdown.
+
+Persistence (as JAX's): a connector with a ``persistent_id`` in a run given
+a persistence config appends each commit's rows to its snapshot log, with
+``current_offset()`` (the reader's position) in the same chunk. On start it
+is rewound: the consolidated log is replayed at one commit time (unless
+operator state was restored instead), the reader is sought past the stored
+offset, and ``on_replay`` rebuilds the connector's own state from the
+replayed rows. The port seeks before ``on_replay`` (JAX after it): the file
+reader rebuilds its per-file row map from the rows and the sought file list.
+An injected ``persist.put`` fault leaves the rows buffered for the next
+commit's chunk and the reader goes on; any other failed store write ends
+the connector and fails the run.
 """
 
 from __future__ import annotations
@@ -45,8 +57,42 @@ class BaseConnector:
         self._time_mutex = threading.Lock()
         self._closed = False
         self._sched_closed = False
-        self.persistent_id: str | None = None  # persistence: ROADMAP A13
+        self.persistent_id: str | None = None
+        self._persistence = None  # PersistenceManager when persistence is on
+        self._snapshot_writer = None
+        self._persist_error: BaseException | None = None
         self._chaos_read = chaos.site("connector.read")
+
+    # -- persistence hooks (reference: Reader::seek + SnapshotEvent log) ----
+    def setup_persistence(self, manager) -> None:
+        self._persistence = manager
+        if self.persistent_id is not None and manager.do_record:
+            self._snapshot_writer = manager.writer_for(self.persistent_id)
+
+    def current_offset(self):
+        """Reader position to store with each snapshot chunk; None = source
+        is not seekable (replay alone restores it)."""
+        return None
+
+    def seek_offset(self, offset) -> None:
+        """Fast-forward the reader past data already in the snapshot."""
+
+    def on_replay(self, rows) -> None:
+        """Rebuild connector-side state (e.g. upsert maps) from the
+        consolidated snapshot rows about to be re-emitted."""
+
+    def _log_commit(self, rows, t: int) -> None:
+        from pathway_tpu_torch.engine.chaos import InjectedFault
+
+        w = self._snapshot_writer
+        w.write_rows(list(rows.rows()) if isinstance(rows, Batch) else list(rows))
+        try:
+            w.advance(t, offset=self.current_offset())
+        except InjectedFault:
+            pass  # raised before the put: the rows go with the next chunk
+        except BaseException as exc:
+            self._persist_error = exc
+            raise
 
     # -- session API used by run() implementations -------------------------
     def emit(
@@ -80,6 +126,8 @@ class BaseConnector:
         with self._time_mutex:
             t = next_commit_time()
             self.emit(t, rows)
+            if self._snapshot_writer is not None:
+                self._log_commit(rows, t)
             self.advance(t + 1)
             if self._sched is not None:
                 self._sched.stats.record_connector_commit(
@@ -118,6 +166,28 @@ class BaseConnector:
             if self._closed and not self._sched_closed:
                 self._closed = False
                 self._stop.set()
+        self._persist_error = None
+        if (
+            self._persistence is not None
+            and self.persistent_id is not None
+            and self._persistence.do_replay
+        ):
+            # replay-then-resume (reference connectors/mod.rs:296-425):
+            # emit the consolidated snapshot at one fresh commit time, seek
+            # the reader past logged data, then read realtime updates
+            rows, offset = self._persistence.rewind(self.persistent_id)
+            if offset is not None:
+                self.seek_offset(offset)
+            if rows:
+                self.on_replay(rows)
+            if rows and self._persistence.replay_inputs:
+                with self._time_mutex:
+                    t = next_commit_time()
+                    self.emit(t, rows)
+                    self.advance(t + 1)
+            if not self._persistence.continue_after_replay:
+                self.close()
+                return
         self._thread = threading.Thread(target=self._run_safe, daemon=True)
         self._thread.start()
         if self.heartbeat_ms is not None:
@@ -179,6 +249,9 @@ class BaseConnector:
             self._sched = None
             self._thread = None
             self._hb_thread = None
+            # a later run without a persistence config logs nothing
+            self._persistence = None
+            self._snapshot_writer = None
 
 
 # the commit clock lives in engine/clock.py (deferred-UDF drains share it);

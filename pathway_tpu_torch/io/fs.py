@@ -13,6 +13,16 @@ primary-keyed (upsert) source the rows whose key it owns, out of every
 file, so that one process holds every version of a key. ``write`` then
 writes one file a process, ``filename.{process_id}``, opened when the run
 starts.
+
+With ``persistent_id=`` the reader's offset is the seen-files map (path ->
+mtime), as in JAX, stored with every snapshot chunk; each process keeps its
+own log. On resume the streaming reader rebuilds what each file gave from
+the replayed rows (JAX's reader retracts nothing, so keeps no such map): a
+keyless file's rows by their ``(path, index)`` keys, an upsert source's
+keys by parsing again the files that did not change, the keys no such
+file gives being those of the files that went away or changed while the
+program was down. So a file changed or deleted meanwhile is retracted
+exactly once at the first poll.
 """
 
 from __future__ import annotations
@@ -136,6 +146,84 @@ class _FsConnector(BaseConnector):
 
     shardable = True  # files partition across processes by path hash
 
+    # persistence: the reader offset is the seen-files map (path -> mtime) —
+    # the posix analog of the reference's per-source OffsetAntichain
+    # (src/connectors/offset.rs); stored with every snapshot chunk.
+    def current_offset(self):
+        return dict(self._seen)
+
+    def seek_offset(self, offset) -> None:
+        if isinstance(offset, dict):
+            self._seen.update(offset)
+
+    def on_replay(self, rows) -> None:
+        pk = self.schema.primary_key_columns()
+        if pk:
+            for key, row, diff in rows:
+                if diff > 0:
+                    self._emitted_pk[key] = row
+        if not self._track:
+            return
+        if pk:
+            self._rebuild_pk_sources()
+        else:
+            self._rebuild_file_batches(rows)
+
+    def _rebuild_file_batches(self, rows) -> None:
+        """Each seen file's +1 batch, out of the replayed rows: its rows
+        are the keys ``(path, 0)``, ``(path, 1)``, ... while they last."""
+        live = {int(k): row for k, row, diff in rows if diff > 0}
+        cols = list(self.node.column_names)
+        for fp in self._seen:
+            got: list[tuple[int, tuple, int]] = []
+            start, step = 0, 1024
+            while True:
+                c_path = np.empty(step, dtype=object)
+                c_path[:] = fp
+                keys = keys_for_value_columns(
+                    [c_path, np.arange(start, start + step, dtype=object)], step).tolist()
+                for k in keys:
+                    row = live.get(k)
+                    if row is None:
+                        break
+                    got.append((k, row, 1))
+                if len(got) < start + step:
+                    break
+                start, step = start + step, step * 2
+            if got:
+                self._file_batch[fp] = Batch.from_rows(cols, got)
+
+    def _rebuild_pk_sources(self) -> None:
+        """Which file last set each replayed key. The seen files still on
+        disk unchanged are parsed again, in listing order; a key whose
+        replayed row one of them gives is that file's. The rest were set
+        by files that went away or changed: the first of those the next
+        poll meets retracts them all, in the poll that retracts or
+        re-reads every such file."""
+        present = [fp for fp in _list_files(self.path) if fp in self._seen]
+        unchanged = []
+        for fp in present:
+            try:
+                if os.path.getmtime(fp) <= self._seen[fp]:
+                    unchanged.append((fp, self._seen[fp]))
+            except OSError:
+                pass
+        entries, owners = self._parse_files(unchanged, {})
+        if entries:
+            keys = keys_for_value_columns(
+                [_object_col([e[1][j] for e in entries]) for j in range(len(entries[0][1]))],
+                len(entries)).tolist()
+            for (row, _src), key, fp in zip(entries, keys, owners):
+                if self._emitted_pk.get(key) == row:
+                    self._pk_src[key] = fp
+        gone = sorted(fp for fp in self._seen if fp not in {u for u, _ in unchanged})
+        for key in self._emitted_pk:
+            fp = self._pk_src.setdefault(key, gone[0] if gone else None)
+            if fp is not None:
+                self._file_keys.setdefault(fp, []).append(key)
+        for key in [k for k, fp in self._pk_src.items() if fp is None]:
+            del self._pk_src[key]
+
     def _owned(self) -> "tuple[int, int] | None":
         """(processes, process_id) of the run when it has several, else None."""
         cfg = config_mod.active()
@@ -194,6 +282,45 @@ class _FsConnector(BaseConnector):
             and fast_cols_eligible(self.fmt, self.csv_settings)
         ):
             return concat_batches(retract + self._read_fast_batch(seen, todo, cols))
+        entries, owners = self._parse_files(todo, seen)
+        if not entries:
+            return concat_batches(retract)
+        n = len(entries)
+        keys = keys_for_value_columns(
+            [_object_col([e[1][j] for e in entries]) for j in range(len(entries[0][1]))], n)
+        rows: list[tuple[int, tuple, int]] = []
+        if pk:
+            owned = self._owned()
+            for (row, _src), key_np, fp in zip(entries, keys, owners):
+                key = int(key_np)
+                if owned is not None and shard_of_key(key, owned[0]) != owned[1]:
+                    continue
+                if self._track:
+                    self._file_keys.setdefault(fp, []).append(key)
+                    self._pk_src[key] = fp
+                old = self._emitted_pk.get(key)
+                if old == row:
+                    continue
+                if old is not None:
+                    rows.append((key, old, -1))
+                self._emitted_pk[key] = row
+                rows.append((key, row, 1))
+        else:
+            rows = [(int(k), row, 1) for (row, _src), k in zip(entries, keys)]
+            if self._track:
+                start = 0
+                for j in range(1, n + 1):
+                    if j == n or owners[j] != owners[start]:
+                        self._file_batch[owners[start]] = Batch.from_rows(
+                            cols, rows[start:j])
+                        start = j
+        return concat_batches(retract + [Batch.from_rows(cols, rows)])
+
+    def _parse_files(self, todo, seen) -> tuple[list[tuple[tuple, tuple]], list[str]]:
+        """(row, key source values) of every row of the files ``todo``
+        holds, and the file each came from; ``seen`` takes each file read."""
+        cols = list(self.node.column_names)
+        pk = self.schema.primary_key_columns()
         # collect rows + key sources, then hash keys in ONE columnar native
         # pass — per-row hash_values dominated wordcount-class profiles
         entries: list[tuple[tuple, tuple]] = []  # (row, key source values)
@@ -227,38 +354,7 @@ class _FsConnector(BaseConnector):
                 entries.append((tuple(values[c] for c in cols),
                                 tuple(values[c] for c in pk) if pk else (fp, i)))
                 owners.append(fp)
-        if not entries:
-            return concat_batches(retract)
-        n = len(entries)
-        keys = keys_for_value_columns(
-            [_object_col([e[1][j] for e in entries]) for j in range(len(entries[0][1]))], n)
-        rows: list[tuple[int, tuple, int]] = []
-        if pk:
-            owned = self._owned()
-            for (row, _src), key_np, fp in zip(entries, keys, owners):
-                key = int(key_np)
-                if owned is not None and shard_of_key(key, owned[0]) != owned[1]:
-                    continue
-                if self._track:
-                    self._file_keys.setdefault(fp, []).append(key)
-                    self._pk_src[key] = fp
-                old = self._emitted_pk.get(key)
-                if old == row:
-                    continue
-                if old is not None:
-                    rows.append((key, old, -1))
-                self._emitted_pk[key] = row
-                rows.append((key, row, 1))
-        else:
-            rows = [(int(k), row, 1) for (row, _src), k in zip(entries, keys)]
-            if self._track:
-                start = 0
-                for j in range(1, n + 1):
-                    if j == n or owners[j] != owners[start]:
-                        self._file_batch[owners[start]] = Batch.from_rows(
-                            cols, rows[start:j])
-                        start = j
-        return concat_batches(retract + [Batch.from_rows(cols, rows)])
+        return entries, owners
 
     def _read_fast_batch(self, seen, todo, cols) -> list[Batch]:
         """Keyless bulk path: C++ parse each new file, then one columnar
@@ -312,10 +408,6 @@ def read(
     name: str | None = None,
     **kwargs,
 ) -> Table:
-    if persistent_id is not None:
-        raise NotImplementedError(
-            "persistent_id needs persistence, which the port does not carry "
-            "yet (ROADMAP A13)")
     path = os.fspath(path)
     if format in ("plaintext", "plaintext_by_file"):
         schema = schema_mod.schema_from_types(data=str)
@@ -338,7 +430,12 @@ def read(
         refresh_interval,
     )
     G.register_connector(conn)
-    return Table(node, schema, Universe())
+    table = Table(node, schema, Universe())
+    if persistent_id is not None:
+        from pathway_tpu_torch.persistence import register_persistent_source
+
+        register_persistent_source(persistent_id, conn)
+    return table
 
 
 class _FileWriter:

@@ -29,8 +29,8 @@ a live table, reconnecting and skipping the bytes it already consumed;
 ``write`` sends each change of a table as a JSON body from its own thread,
 retrying on the ``RetryPolicy``'s schedule; ``HttpStreamingSubject`` reads
 a long-lived response into ``pw.io.python.read``. All three use
-``urllib``. ``read(persistent_id=...)`` raises: persistence is not ported
-(ROADMAP A13).
+``urllib``. ``read(persistent_id=...)`` makes the stream persistent: its
+offset is the consumed byte count and row counter it already resumes from.
 """
 
 from __future__ import annotations
@@ -611,10 +611,6 @@ def read(
             f"schema is ignored by format={format!r}; pass format='json' "
             "to parse records into schema columns"
         )
-    if persistent_id is not None:
-        raise NotImplementedError(
-            "pw.io.http.read(persistent_id=...) needs persistence, which the port "
-            "does not carry yet (ROADMAP A13)")
     if format == "raw":
         schema = schema_mod.schema_from_types(data=bytes)
     elif format == "plaintext":
@@ -636,7 +632,12 @@ def read(
         resume_with_offset=resume_with_offset, sse=sse,
     )
     G.register_connector(conn)
-    return Table(node, schema, Universe())
+    table = Table(node, schema, Universe())
+    if persistent_id is not None:
+        from pathway_tpu_torch.persistence import register_persistent_source
+
+        register_persistent_source(persistent_id, conn)
+    return table
 
 
 class _QueuedHttpWriter:

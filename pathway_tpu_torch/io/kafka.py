@@ -10,8 +10,9 @@ Two backends behind one API:
 * an in-process :class:`InMemoryKafkaBroker` models streaming ingest for
   tests and benchmarks without a cluster.
 
-The port keeps no reader offsets: persistence (``persistent_id``) waits for
-ROADMAP A13, and passing one raises.
+With ``persistent_id=`` the reader's offset is the broker log position (the
+in-memory broker) or the per-partition position map (a real consumer),
+stored with every snapshot chunk, as in JAX.
 """
 
 from __future__ import annotations
@@ -70,6 +71,24 @@ class _BrokerConnector(BaseConnector):
         self._started = False
         # primary-keyed topics are upsert sessions (see run())
         self._emitted_pk: dict[int, tuple] = {}
+
+    def on_replay(self, rows) -> None:
+        if self.schema.primary_key_columns():
+            for key, row, diff in rows:
+                if diff > 0:
+                    self._emitted_pk[key] = row
+                else:
+                    self._emitted_pk.pop(key, None)
+
+    # persistence: the broker log position IS the reader offset — stored
+    # with every snapshot chunk so a restart resumes past replayed data
+    # instead of re-reading the topic from 0 (which would double every row)
+    def current_offset(self):
+        return self._offset
+
+    def seek_offset(self, offset) -> None:
+        if isinstance(offset, int):
+            self._offset = offset
 
     def run(self):
         from pathway_tpu_torch.io._utils import (
@@ -217,8 +236,9 @@ def make_kafka_consumer(settings: dict, topic: str,
 
 class _KafkaConnector(BaseConnector):
     """Real consumer loop (reference ``KafkaReader::read``,
-    ``data_storage.rs:692``): poll -> parse -> commit at a fresh engine
-    time."""
+    ``data_storage.rs:692``): poll -> parse -> commit at a fresh engine time;
+    the reader offset stored with each snapshot chunk is the per-partition
+    position map, and ``seek_offset`` resumes past replayed data."""
 
     heartbeat_ms = 500
 
@@ -234,6 +254,16 @@ class _KafkaConnector(BaseConnector):
         self._positions: dict[int, int] = {}  # partition -> next offset
         self._seek_to: dict[int, int] = {}
         self._consumer = None
+
+    # -- persistence hooks (per-partition offsets, the analog of the
+    # reference's OffsetAntichain for Kafka sources) ------------------------
+    def current_offset(self):
+        return dict(self._positions)
+
+    def seek_offset(self, offset) -> None:
+        if isinstance(offset, dict):
+            self._seek_to = {int(p): int(o) for p, o in offset.items()}
+            self._positions.update(self._seek_to)
 
     def _make_consumer(self):
         return make_kafka_consumer(
@@ -327,10 +357,6 @@ def read(
     """
     from pathway_tpu_torch.internals import schema as schema_mod
 
-    if persistent_id is not None:
-        raise NotImplementedError(
-            "persistent_id needs persistence, which the port does not carry "
-            "yet (ROADMAP A13)")
     if format == "raw":
         schema = schema_mod.schema_from_types(data=bytes)
     if schema is None:
@@ -350,7 +376,12 @@ def read(
             f"InMemoryKafkaBroker, got {type(rdkafka_settings).__name__}"
         )
     G.register_connector(conn)
-    return Table(node, schema, Universe())
+    table = Table(node, schema, Universe())
+    if persistent_id is not None:
+        from pathway_tpu_torch.persistence import register_persistent_source
+
+        register_persistent_source(persistent_id, conn)
+    return table
 
 
 def write(

@@ -75,13 +75,42 @@ class _PythonConnector(BaseConnector):
         self.schema = schema
         self._counter = 0
         self._emitted_keys: dict[int, tuple] = {}
+        self._processed = 0  # persistence offset: entries consumed so far
+        self._skip = 0
+
+    # persistence: offset = number of subject entries consumed; on resume the
+    # subject's deterministic replay is skipped up to it (snapshot replay
+    # restores the data itself — reference PythonReader + SnapshotEvent log)
+    def current_offset(self):
+        return self._processed
+
+    def seek_offset(self, offset) -> None:
+        if isinstance(offset, int):
+            self._skip = offset
+            self._processed = offset
+            self._counter = offset
+
+    def on_replay(self, rows) -> None:
+        # rebuild the upsert map so post-restart updates/removals retract the
+        # replayed row rather than duplicating its key
+        if self.schema.primary_key_columns():
+            for key, row, diff in rows:
+                if diff > 0:
+                    self._emitted_keys[key] = row
 
     def flush(self, buffer: list[tuple[Any, dict, int]]) -> None:
+        if self._skip > 0:
+            n = min(self._skip, len(buffer))
+            self._skip -= n
+            buffer = buffer[n:]
+            if not buffer:
+                return
         cols = list(self.node.column_names)
         dtypes = {n: c.dtype for n, c in self.schema.__columns__.items()}
         pk = self.schema.primary_key_columns()
         rows = []
         for key_override, values, diff in buffer:
+            self._processed += 1
             parsed = parse_record_fields(values, cols, dtypes, self.schema)
             if key_override is not None:
                 key = key_override
@@ -124,12 +153,12 @@ def read(
     name: str | None = None,
     **kwargs,
 ) -> Table:
-    if persistent_id is not None:
-        raise NotImplementedError(
-            "persistent_id needs persistence, which the port does not carry "
-            "yet (ROADMAP A13)")
     cols = list(schema.column_names())
     node = InputNode(G.engine_graph, cols, name="python-connector")
     conn = _PythonConnector(node, subject, schema)
     G.register_connector(conn)
+    if persistent_id is not None:
+        from pathway_tpu_torch.persistence import register_persistent_source
+
+        register_persistent_source(persistent_id, conn)
     return Table(node, schema, Universe())

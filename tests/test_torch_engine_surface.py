@@ -79,12 +79,14 @@ def test_missing_names_equal_the_roadmap_list():
 def test_roadmap_items_come_in_the_port_order():
     """Joins first, then the temporal operators, sort, iterate, the
     gradual broadcast and the file connectors, then several processes,
-    then the rest of the device seams."""
+    then the rest of the device seams; persistence before the rest of
+    ``io/`` and ``stdlib/``."""
     order = list(_listed())
     assert order[:6] == ["joins", "temporal and windows", "sort", "iterate",
                          "gradual broadcast and the file connectors",
                          "several processes"]
     assert order[6] == "the rest of the device seams"
+    assert order[8:10] == ["persistence", "the rest of `io/` and `stdlib/`"]
 
 
 def test_the_port_has_what_the_slice_carries():
@@ -100,7 +102,8 @@ def test_the_port_has_what_the_slice_carries():
                  "clear_graph", "EngineConfig", "io", "debug", "indexing",
                  "DateTimeNaive", "DateTimeUtc", "Duration", "AsofJoinResult",
                  "IntervalJoinResult", "WindowJoinResult", "temporal", "ordered",
-                 "statistical", "iterate", "iterate_universe", "graphs"):
+                 "statistical", "iterate", "iterate_universe", "graphs",
+                 "persistence", "PersistenceMode"):
         assert name in _public(T), name
     for name in ("SortedIndex", "build_sorted_index", "retrieve_prev_next_values",
                  "sort_from_index", "sorting"):

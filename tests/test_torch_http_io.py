@@ -5,8 +5,8 @@ with the same injected openers and senders, the same local servers and
 the same bars; the rows and the sent bodies must be equal. On top:
 ``RetryPolicy``'s delays, ``write`` against a real local server (bodies
 and retries), ``HttpStreamingSubject`` through ``pw.io.python.read``
-against a local chunked server, and the port's refusal of
-``persistent_id``. Every wait is bounded and every test has a timeout."""
+against a local chunked server, and ``persistent_id`` naming the reader's
+snapshot log. Every wait is bounded and every test has a timeout."""
 
 import http.server
 import io as io_mod
@@ -429,10 +429,18 @@ def test_endpoint_examples_and_streaming_subject(pkg):
 
 
 def test_http_read_persistent_id_raises_in_the_port():
+    """``persistent_id=`` raised until persistence came to the port; now
+    the reader's offset is its consumed bytes and row counter."""
     import pathway_tpu_torch as pw
 
-    with pytest.raises(NotImplementedError, match="persistence"):
-        pw.io.http.read("http://x", format="raw", persistent_id="p")
+    pw.clear_graph()
+    pw.io.http.read("http://x", format="raw", persistent_id="p")
+    (conn,) = pw.G.connectors
+    assert conn.persistent_id == "p"
+    assert pw.persistence.get_persistent_sources() == {"p": conn}
+    conn.seek_offset((12, 3))
+    assert conn.current_offset() == (12, 3)
+    pw.clear_graph()
 
 
 def test_http_names_equal_jax():

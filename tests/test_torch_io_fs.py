@@ -477,13 +477,19 @@ def test_native_parsers_raise_on_a_failed_build(tmp_path, monkeypatch):
 
 # ---------------------------------------------- what the port does its own way
 def test_persistent_id_raises(tmp_path):
+    """``persistent_id=`` raised until persistence came to the port; now
+    it names the reader's snapshot log (``tests/test_torch_persistence.py``
+    resumes from it)."""
     import pathway_tpu_torch as TPW
 
     TPW.clear_graph()
-    with pytest.raises(NotImplementedError, match="persistence"):
-        TPW.io.csv.read(str(tmp_path), schema=_wn(TPW), persistent_id="p")
-    with pytest.raises(NotImplementedError, match="persistence"):
-        TPW.io.plaintext.read(str(tmp_path), persistent_id="p")
+    TPW.io.csv.read(str(tmp_path), schema=_wn(TPW), persistent_id="p")
+    TPW.io.plaintext.read(str(tmp_path), persistent_id="q")
+    sources = TPW.persistence.get_persistent_sources()
+    assert sorted(sources) == ["p", "q"]
+    assert [c.persistent_id for c in TPW.G.connectors] == ["p", "q"]
+    TPW.clear_graph()
+    assert TPW.persistence.get_persistent_sources() == {}
 
 
 @pytest.mark.parametrize("fmt", ["csv", "json"])

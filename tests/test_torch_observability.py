@@ -530,7 +530,7 @@ def test_cli_fleet_serve_is_off_by_default(capsys):
     assert not serving.fleet_enabled()
 
 
-@pytest.mark.parametrize("name", ["spawn", "spawn-from-env", "replay", "tune", "airbyte"])
+@pytest.mark.parametrize("name", ["spawn", "spawn-from-env", "tune", "airbyte"])
 def test_cli_commands_not_ported_exit_nonzero(name, capsys):
     assert tcli.main([name, "anything"]) == 3
     assert "not ported" in capsys.readouterr().err
