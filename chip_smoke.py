@@ -372,7 +372,7 @@ without printing a result:
    and with 2 replicas, each replica this script with
    ``--phase21-replica`` (phase 6's server on ``cuda:0`` behind a REST
    server, the kernels loaded from phase 2's build), both fleets booted at
-   once: 32 questions over the router's ``/v1/pw_ai_answer``, 8 behind
+   once: 16 questions over the router's ``/v1/pw_ai_answer``, 4 behind
    each of 4 shared 256-byte heads (the heads' first, then the rest),
    answers of 2 replicas equal 1 replica's; then a replica SIGKILLed 0.3 s
    into a burst: every request answered or shed, the replica drained and
@@ -406,7 +406,33 @@ without printing a result:
    run's within 1e-4 of their sums of magnitudes; with the index, run 2
    falls back to input replay and meets (a)'s bars. Prints each run's
    wall, ``flash_attn`` launches, replayed rows, replay s, restored
-   operators and the store's bytes.
+   operators and the store's bytes;
+23. a CDC-fed index shared through an export, over phase 4's MiniLM-L6:
+   program A reads ``pw.io.debezium`` over the in-process broker (16,384
+   creates of phase 4's first docs, then 2,048 seeded text updates and
+   1,024 deletes in commits of 512 while it streams) and
+   ``pw.io.sqlite.read(mode="streaming")`` over a sqlite3 file of the next
+   4,096 docs (after its first poll a writer commits 512 updates and 256
+   deletes), embeds both through the deferred embed UDF into
+   ``pw.export_table`` and ``pw.io.postgres.write_snapshot`` of (doc_id,
+   source) through a sqlite3 connection factory, and takes a
+   ``consistent_handoff()`` once 4,096 rows are in. Program B, a fresh
+   graph once A ended, ``pw.import_table(follow=True)`` into a brute-force
+   ``DataIndex`` on the card, answers phase 4's 64 queries one at a time
+   through ``pw.io.python``. Bars: the final export holds 19,200 rows with
+   the keys and final texts of a plain-Python model of the changes and
+   vectors within cosine 0.9999 of direct encodes; the handoff's snapshot
+   plus its queued updates equal the final export by cell bytes; the
+   export compacted; the sink equals the model's live set; B imported the
+   export byte for byte; each top-10 equals a direct
+   ``BruteForceKnnIndex`` but at gaps < 1e-3, no deleted doc returned,
+   scores those of the final vectors, recall@10 >= 0.9 against exact f32
+   scoring; ``flash_attn`` launched for every encode. Prints A's rows/s,
+   the handoff's frontier and rows, the compactions, B's import wall and
+   query p50 / p99, the launches. Then 3,500 CUDA tensor rows, each
+   updated by a retraction holding a distinct tensor of equal bytes,
+   through an export (which compacts), an import and a ``LiveTable``:
+   each row once, at its new value, on the card.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -5915,13 +5941,13 @@ def run_multiprocess(gpu: str, docs, queries, truth) -> int:
 # into clustering_via_lsh (cosine bucketer over 384 dims, 10 hashes a band,
 # 4 bands, seed 0; k = 64) and knn_classifier (64 queries, k = 10); the
 # fuzzy join over ML_FUZZY_DOCS doc texts. (b): rag_eval's dataset of 64
-# questions. (c): 32 questions, 8 on each of 4 shared 256-byte heads,
+# questions. (c): 16 questions, 4 on each of 4 shared 256-byte heads,
 # through `python -m pathway_tpu_torch fleet serve` over 1 and 2 replica
 # processes.
 ML_BATCH, ML_K, ML_M, ML_L, ML_SEED, ML_KNN_K = 1024, 64, 10, 4, 0, 10
 ML_TIE_REL, ML_MAX_DISAGREE, ML_FUZZY_DOCS, ML_FUZZY_MIN = 1e-3, 0.01, 512, 0.95
 EVAL_N, EVAL_HELD = 64, 8
-P21_HEADS, P21_PER_HEAD, P21_HEAD_LEN = 4, 8, 256
+P21_HEADS, P21_PER_HEAD, P21_HEAD_LEN = 4, 4, 256
 P21_TIMEOUT = 300.0  # a bound on each wait: a boot, a burst, a respawn, a stop
 # a replica not ready this long after its start is drained and respawned
 # (JAX's CLI default; a replica boots in 20-40 s)
@@ -7099,6 +7125,539 @@ def run_persistence(gpu: str, out: dict, docs, queries) -> int:
     return sum(launches.values())
 
 
+# ---------------------------------------------------------------- phase 23
+# a CDC-fed index shared through an export, over phase 4's MiniLM-L6 (bf16,
+# seeded). Program A: pw.io.debezium over the in-process broker (topic
+# docs, primary key doc_id) carries P23_DBZ creates, then, while the run
+# streams, P23_UPD updates rewriting a doc's text and P23_DEL deletes in a
+# seeded order, in commits of P23_CHUNK; pw.io.sqlite.read(mode="streaming")
+# reads a sqlite3 file holding the next P23_SQL docs, and after its first
+# poll a writer commits P23_SQL_UPD updates and P23_SQL_DEL deletes. Both go
+# through the deferred embed UDF (flash_attn) into pw.export_table and
+# pw.io.postgres.write_snapshot of (doc_id, source) over a sqlite3
+# connection factory. A consistent_handoff() is taken once P23_HANDOFF_AT
+# rows are in. Program B, a fresh graph once A ended: pw.import_table(follow=
+# True) into a brute-force DataIndex on the card, phase 4's 64 queries one
+# at a time through pw.io.python. The texts of updates come from the corpus
+# past the docs read.
+P23_DBZ, P23_SQL, P23_UPD, P23_DEL, P23_SQL_UPD, P23_SQL_DEL = 16384, 4096, 2048, 1024, 512, 256
+P23_CHUNK, P23_HANDOFF_AT, P23_K, P23_BATCH = 512, 4096, 10, 1024
+P23_COS_MIN, P23_TIE_TOL, P23_SCORE_TOL = 0.9999, 1e-3, 2e-2
+# B's replies against a host model of the bf16 index on B's own inputs: the
+# card and the host may normalise a query a last f32 place apart, which can
+# flip one bf16 rounding, one bf16 ulp of a query cell (2^-12 at 0.05) times
+# a corpus cell (<= 0.2): 5e-5 at most. Summation order alone moves ~1e-7.
+P23_SIM_TOL = 5e-5
+P23_TENSOR_ROWS = 3500  # updated tensor rows: 10,500 history entries, past compaction
+P23_TIMEOUT = 300.0  # a bound on each wait of the phase
+
+
+def p23_spec(**kw) -> dict:
+    spec = {"dbz": P23_DBZ, "sql": P23_SQL, "upd": P23_UPD, "del": P23_DEL,
+            "sql_upd": P23_SQL_UPD, "sql_del": P23_SQL_DEL, "chunk": P23_CHUNK,
+            "handoff_at": P23_HANDOFF_AT, "k": P23_K, "batch": P23_BATCH, "knn": {},
+            "tensor_rows": P23_TENSOR_ROWS, "timeout": P23_TIMEOUT}
+    spec.update(kw)
+    return spec
+
+
+def p23_envelope(op: str, before=None, after=None) -> bytes:
+    return json.dumps({"payload": {"op": op, "before": before, "after": after}}).encode()
+
+
+def p23_plan(spec: dict, docs: list[str], seed: int = 23) -> dict:
+    """The changes of the phase and a plain-Python model of their end: the
+    create envelopes, the later ones (updates and deletes in a seeded
+    order), the sqlite rows and the writer's statements, and the final
+    ``{doc_id: (text, source)}``."""
+    rng = np.random.default_rng(seed)
+    n_dbz, n_sql = spec["dbz"], spec["sql"]
+    state = {i: (docs[i], "debezium") for i in range(n_dbz)}
+    sql_rows = [(n_dbz + j, docs[n_dbz + j], "sqlite") for j in range(n_sql)]
+    state.update({i: (t, s) for i, t, s in sql_rows})
+    creates = [p23_envelope("c", after={"doc_id": i, "text": state[i][0], "source": "debezium"})
+               for i in range(n_dbz)]
+    pick = rng.permutation(n_dbz)
+    base = n_dbz + n_sql
+    ops = [("u", int(i), docs[base + j]) for j, i in enumerate(pick[:spec["upd"]])]
+    ops += [("d", int(i), None) for i in pick[spec["upd"]:spec["upd"] + spec["del"]]]
+    changes = []
+    for o in rng.permutation(len(ops)):
+        op, i, text = ops[o]
+        before = {"doc_id": i, "text": state[i][0], "source": "debezium"}
+        if op == "u":
+            changes.append(p23_envelope("u", before, dict(before, text=text)))
+            state[i] = (text, "debezium")
+        else:
+            changes.append(p23_envelope("d", before))
+            del state[i]
+    spick = n_dbz + rng.permutation(n_sql)
+    sbase = base + spec["upd"]
+    sql_upd = [(docs[sbase + j], int(i)) for j, i in enumerate(spick[:spec["sql_upd"]])]
+    sql_del = [(int(i),) for i in spick[spec["sql_upd"]:spec["sql_upd"] + spec["sql_del"]]]
+    for text, i in sql_upd:
+        state[i] = (text, "sqlite")
+    for (i,) in sql_del:
+        del state[i]
+    return {"creates": creates, "changes": changes, "sql_rows": sql_rows,
+            "sql_upd": sql_upd, "sql_del": sql_del, "final": state,
+            "n_events": n_dbz + len(changes) + n_sql + len(sql_upd) + len(sql_del)}
+
+
+def p23_doc_schema(pw):
+    class DocSchema(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        text: str
+        source: str
+
+    return DocSchema
+
+
+def p23_program_a(pw, llm, model, spec: dict, plan: dict, tmp: str) -> dict:
+    """Program A (see above): runs it to its end and returns the export,
+    the handoff taken mid-stream with its queued updates, the sink's path,
+    the wall and the encodes."""
+    import sqlite3
+    import threading
+
+    from pathway_tpu_torch.internals.exported import _FINISHED
+    from pathway_tpu_torch.io.kafka import InMemoryKafkaBroker
+
+    db, sink = os.path.join(tmp, "docs.db"), os.path.join(tmp, "sink.db")
+    with sqlite3.connect(db) as c:
+        c.execute("CREATE TABLE docs (doc_id INTEGER PRIMARY KEY, text TEXT, source TEXT)")
+        c.executemany("INSERT INTO docs VALUES (?, ?, ?)", plan["sql_rows"])
+    with sqlite3.connect(sink) as c:
+        # keyed as a Postgres table behind write_snapshot would be
+        c.execute("CREATE TABLE live (doc_id INTEGER PRIMARY KEY, source TEXT)")
+    pw.clear_graph()
+    broker = InMemoryKafkaBroker()
+    for p in plan["creates"]:
+        broker.produce("docs", p)
+    schema = p23_doc_schema(pw)
+    emb = llm.SentenceTransformerEmbedder(model, max_batch_size=spec["batch"], deferred=True)
+    dbz = pw.io.debezium.read(broker, "docs", schema=schema)
+    sql = pw.io.sqlite.read(db, "docs", schema, mode="streaming")
+    docs_t = dbz.concat(sql)
+    vecs = docs_t.select(docs_t.doc_id, docs_t.text, docs_t.source, vec=emb(docs_t.text))
+    exported = pw.export_table(vecs)
+    pw.io.postgres.write_snapshot(vecs.select(vecs.doc_id, vecs.source), table_name="live",
+                                  primary_key=["doc_id"],
+                                  connection_factory=lambda: sqlite3.connect(sink))
+    # the live {doc_id: text}, applied an epoch at a time, retractions first
+    live, pending, lock = {}, [], threading.Lock()
+    counts = {"rows": 0, "sqlite": 0}
+
+    def on_change(key, row, time, is_addition):
+        pending.append((row["doc_id"], row["text"], row["source"], is_addition))
+
+    def on_time_end(time):
+        with lock:
+            for d, t, _s, add in pending:
+                if not add and live.get(d) == t:
+                    del live[d]
+            for d, t, s, add in pending:
+                if add:
+                    live[d] = t
+                    counts["rows"] += 1
+                    counts["sqlite"] += s == "sqlite"
+            pending.clear()
+
+    pw.io.subscribe(vecs, on_change=on_change, on_time_end=on_time_end)
+    conns = list(pw.G.connectors)
+    poller = next(c for c in conns if type(c).__name__ == "_SqliteConnector")
+    want = {i: t for i, (t, _s) in plan["final"].items()}
+    got: dict = {}
+
+    def feed():
+        deadline = time.time() + spec["timeout"]
+
+        def wait(cond, what):
+            while True:
+                with lock:
+                    if cond():
+                        return
+                if time.time() > deadline:
+                    raise TimeoutError(f"phase 23: {what}")
+                time.sleep(0.005)
+
+        try:
+            wait(lambda: counts["rows"] >= spec["handoff_at"], "the handoff's rows")
+            got["handoff"] = exported.consistent_handoff()
+            got["handoff_rows_seen"] = counts["rows"]
+            wait(lambda: counts["sqlite"] >= spec["sql"], "the sqlite reader's first poll")
+            with sqlite3.connect(db) as c:
+                c.executemany("UPDATE docs SET text = ? WHERE doc_id = ?", plan["sql_upd"])
+                c.executemany("DELETE FROM docs WHERE doc_id = ?", plan["sql_del"])
+            # the later envelopes in commits of spec["chunk"], each produced
+            # once the reader took the one before
+            reader = next(c for c in conns if type(c).__name__ == "_DebeziumConnector")
+            n0 = len(plan["creates"])
+            wait(lambda: reader._offset >= n0, "the creates read")
+            changes = plan["changes"]
+            for s in range(0, len(changes), spec["chunk"]):
+                for p in changes[s : s + spec["chunk"]]:
+                    broker.produce("docs", p)
+                end = n0 + min(s + spec["chunk"], len(changes))
+                wait(lambda end=end: reader._offset >= end, "the reader's pace")
+            broker.close()  # the Debezium reader drains the log and ends
+            wait(lambda: live == want, "A's live rows equal the model's")
+        except BaseException as exc:  # noqa: BLE001 - raised after the run
+            got["error"] = exc
+            broker.close()
+            for c in conns:
+                c._stop.set()
+        finally:
+            poller._stop.set()  # the sqlite reader ends its pass and closes
+
+    counter = EncodeCount(model)
+    feeder = threading.Thread(target=feed, daemon=True)
+    t0 = time.perf_counter()
+    feeder.start()
+    pw.run()
+    wall = time.perf_counter() - t0
+    feeder.join(spec["timeout"])
+    counter.close()
+    if "error" in got:
+        raise got["error"]
+    frontier, h_rows, q = got["handoff"]
+    queued = []
+    while True:
+        item = q.get(timeout=spec["timeout"])
+        if item is _FINISHED:
+            break
+        queued.append(item)
+    return {"exported": exported, "handoff": (frontier, h_rows, queued),
+            "handoff_rows_seen": got["handoff_rows_seen"], "sink": sink, "wall_s": wall,
+            "encodes": list(counter.sizes)}
+
+
+def p23_check_a(a: dict, plan: dict, model, spec: dict) -> dict:
+    """A's bars: the final export against the model and direct encodes, the
+    handoff plus its queued updates against the final export, compaction,
+    the Postgres sink. Returns the final rows by doc id."""
+    import sqlite3
+    from collections import Counter
+
+    from pathway_tpu_torch.engine.value import hash_values
+    from pathway_tpu_torch.persistence.snapshot import row_identities
+
+    exported, final = a["exported"], plan["final"]
+    snap = exported.snapshot_at(exported.frontier())
+    n_want = spec["dbz"] - spec["del"] + spec["sql"] - spec["sql_del"]
+    require(len(final) == n_want and len(snap) == n_want,
+            f"phase 23: A's final export holds {n_want} rows ({len(snap)})")
+    rows = {}
+    for key, (doc_id, text, source, vec) in snap:
+        rows[doc_id] = (key, text, source, np.asarray(vec, dtype=np.float32),
+                        np.asarray(vec).tobytes())
+    require(len(rows) == len(snap) and set(rows) == set(final),
+            "phase 23: the export's docs are the model's, each live once")
+    require(all(k == hash_values(d) and (t, s) == final[d]
+                for d, (k, t, s, _v, _b) in rows.items()),
+            "phase 23: every exported row has the model's key and final text (no retracted "
+            "or pre-update row)")
+    ids = sorted(rows)
+    texts = [final[d][0] for d in ids]
+    direct = np.concatenate([model.embed_batch(texts[s : s + spec["batch"]])
+                             for s in range(0, len(texts), spec["batch"])]).astype(np.float32)
+    got = np.stack([rows[d][3] for d in ids])
+    cos = np.sum(got * direct, axis=1) / (np.linalg.norm(got, axis=1)
+                                          * np.linalg.norm(direct, axis=1))
+    require(cos.min() >= P23_COS_MIN,
+            f"phase 23: exported vectors within cosine {P23_COS_MIN} of direct encodes "
+            f"(min {cos.min():.6f})")
+    frontier, h_rows, queued = a["handoff"]
+    require(a["handoff_rows_seen"] >= spec["handoff_at"] and frontier < exported.frontier(),
+            "phase 23: the handoff was taken mid-stream")
+    rid = row_identities([r for _k, r in h_rows] + [r for _t, _k, r, _d in queued]
+                         + [r for _k, r in snap])
+    net: Counter = Counter()
+    for (k, _r), i in zip(h_rows, rid):
+        net[(k, i)] += 1
+    for (_t, k, _r, d), i in zip(queued, rid[len(h_rows):]):
+        net[(k, i)] += d
+    net = Counter({kr: n for kr, n in net.items() if n})
+    final_ids = Counter((k, i) for (k, _r), i in zip(snap, rid[len(h_rows) + len(queued):]))
+    require(net == final_ids, "phase 23: the handoff's snapshot plus its queued updates equal "
+            "the final export by cell bytes")
+    require(exported.compactions >= 1, "phase 23: the export compacted its history")
+    with sqlite3.connect(a["sink"]) as c:
+        sink_rows = sorted(c.execute("SELECT doc_id, source FROM live").fetchall())
+    require(sink_rows == sorted((d, s) for d, (_t, s) in final.items()),
+            "phase 23: the Postgres snapshot sink equals the model's live set")
+    return {"rows": rows, "ids": ids, "direct": direct, "cos_min": float(cos.min()),
+            "handoff_frontier": frontier, "handoff_rows": len(h_rows),
+            "handoff_queued": len(queued), "final_frontier": exported.frontier(),
+            "history": len(exported._history), "compactions": exported.compactions}
+
+
+def p23_program_b(pw, llm, model, spec: dict, exported, queries: list[str], n_rows: int) -> dict:
+    """Program B: the import into a brute-force DataIndex, then the queries
+    one at a time once every row is in. Returns the imported rows, the
+    replies by query, the import's wall and each query's latency."""
+    import threading
+
+    pw.clear_graph()
+    qemb = llm.SentenceTransformerEmbedder(model, max_batch_size=spec["batch"], deferred=False)
+    imported = pw.import_table(exported)
+    index = pw.indexing.DataIndex(imported, pw.indexing.BruteForceKnn(
+        imported.vec, dimensions=model.cfg.hidden, reserved_space=n_rows + 512, metric="cos",
+        **spec["knn"]))
+    ready = threading.Event()
+    answered = [threading.Event() for _ in queries]
+    state = {"rows": {}, "replies": {}, "lat": {}, "sent": {}, "qvecs": {}, "import_s": None}
+    lock = threading.Lock()
+
+    class QuerySchema(pw.Schema):
+        qid: int
+        text: str
+
+    class Queries(pw.io.python.ConnectorSubject):
+        def run(self):
+            if not ready.wait(spec["timeout"]):
+                raise TimeoutError("phase 23: the import never completed")
+            for i, q in enumerate(queries):
+                state["sent"][i] = time.perf_counter()
+                self.next(qid=i, text=q)
+                self.commit()
+                if not answered[i].wait(spec["timeout"]):
+                    raise TimeoutError(f"phase 23: query {i} was not answered")
+
+    qt = pw.io.python.read(Queries(), schema=QuerySchema)
+    qv = qt.select(qt.qid, qv=qemb(qt.text))
+    res = index.query_as_of_now(qv.qv, number_of_matches=spec["k"], with_distances=True)
+    res = res.select(res.doc_id, res._pw_dist, qid=qv.restrict(res).qid)
+
+    now = time.perf_counter
+
+    def on_row(key, row, time, is_addition):
+        with lock:
+            if is_addition:
+                state["rows"][key.value] = (row["doc_id"], np.asarray(row["vec"]).tobytes())
+            else:
+                state["rows"].pop(key.value, None)
+            if len(state["rows"]) >= n_rows and not ready.is_set():
+                state["import_s"] = now() - t0
+                ready.set()
+
+    def on_reply(key, row, time, is_addition):
+        if is_addition:
+            i = row["qid"]
+            state["lat"][i] = now() - state["sent"][i]
+            state["replies"][i] = (list(row["doc_id"]), list(row["_pw_dist"]))
+            answered[i].set()
+
+    def on_query(key, row, time, is_addition):
+        if is_addition:
+            state["qvecs"][row["qid"]] = np.asarray(row["qv"], dtype=np.float32)
+
+    pw.io.subscribe(imported, on_change=on_row)
+    pw.io.subscribe(qv, on_change=on_query)
+    pw.io.subscribe(res, on_change=on_reply)
+    counter = EncodeCount(model)
+    t0 = now()
+    pw.run()
+    wall = now() - t0
+    counter.close()
+    state.update(wall_s=wall, encodes=list(counter.sizes))
+    return state
+
+
+def p23_check_b(b: dict, a_rows: dict, ids: list, direct: np.ndarray, model, spec: dict,
+                queries: list[str], final: dict) -> dict:
+    """B's bars: the import equal to the final export; every reply equal to
+    a direct BruteForceKnnIndex over the final vectors but at gaps under
+    P23_TIE_TOL, and to a host model of the bf16 index on B's own inputs
+    but at gaps under P23_SIM_TOL; no deleted doc; recall@10 against exact
+    f32 scoring no lower than the host model's, which is the most the bf16
+    index can reach on these vectors."""
+    import torch
+
+    from pathway_tpu_torch import BruteForceKnnIndex
+
+    imported = {k: (d, v) for k, (d, v) in b["rows"].items()}
+    require(len(imported) == len(a_rows) and all(
+        imported.get(k) == (d, raw) for d, (k, _t, _s, _v, raw) in a_rows.items()),
+        "phase 23: B imported the final export (keys, docs and vector bytes)")
+    nq, k = len(queries), spec["k"]
+    require(sorted(b["replies"]) == list(range(nq)) and sorted(b["qvecs"]) == list(range(nq)),
+            f"phase 23: all {nq} queries answered")
+    # each query encoded alone, as B's blocking UDF did (a bf16 encode's
+    # rounding follows its batch)
+    qvecs = np.stack([model.embed_batch([q])[0] for q in queries]).astype(np.float32)
+    ref = BruteForceKnnIndex(model.cfg.hidden, reserved_space=len(ids), metric="cos",
+                             device=model.device)
+    ref.add(ids, direct)
+    want = ref.search(qvecs, k)
+    pos = {d: j for j, d in enumerate(ids)}
+    exact = (qvecs / np.linalg.norm(qvecs, axis=1, keepdims=True)) @ (
+        direct / np.linalg.norm(direct, axis=1, keepdims=True)).T
+    truth = np.argsort(-exact, axis=1, kind="stable")[:, :k]
+    # the host model of the index: B's imported vectors and B's query
+    # vectors, unit rows in f32, rounded to bf16, products and sums in f64
+    unit = lambda x: x / np.linalg.norm(x, axis=1, keepdims=True)  # noqa: E731
+    bf = lambda x: torch.from_numpy(np.ascontiguousarray(x)).bfloat16().double().numpy()  # noqa: E731
+    sim = bf(unit(np.stack([b["qvecs"][i] for i in range(nq)]))) @ bf(
+        unit(np.stack([a_rows[d][3] for d in ids]))).T
+    sim_top = np.argsort(-sim, axis=1, kind="stable")[:, :k]
+    agree, sim_agree, hits, host_hits, worst, sim_worst, deleted = 0, 0, 0, 0, 0.0, 0.0, 0
+    for i in range(nq):
+        docs_i, dists = b["replies"][i]
+        deleted += len(set(docs_i) - set(final))
+        got = [(d, -s) for d, s in zip(docs_i, dists)]
+        agree += ranks_agree(want[i], got, P23_TIE_TOL)
+        sim_agree += ranks_agree([(ids[j], float(sim[i, j])) for j in sim_top[i]], got,
+                                 P23_SIM_TOL)
+        truth_i = {ids[j] for j in truth[i]}
+        hits += len(set(docs_i) & truth_i)
+        host_hits += len({ids[j] for j in sim_top[i]} & truth_i)
+        for d, s in got:
+            if d in pos:
+                worst = max(worst, abs(float(exact[i, pos[d]]) - s))
+                sim_worst = max(sim_worst, abs(float(sim[i, pos[d]]) - s))
+    recall, host_recall = hits / (nq * k), host_hits / (nq * k)
+    require(deleted == 0, f"phase 23: no reply holds a deleted doc ({deleted})")
+    require(agree == nq, f"phase 23: every top-{k} equals the direct index's but at gaps < "
+            f"{P23_TIE_TOL} ({agree}/{nq})")
+    require(worst <= P23_SCORE_TOL,
+            f"phase 23: reply scores are the final vectors' within {P23_SCORE_TOL} ({worst:.2e})")
+    require(sim_agree == nq and sim_worst <= P23_SIM_TOL,
+            f"phase 23: every top-{k} and its scores equal the host model of the bf16 index "
+            f"but at gaps < {P23_SIM_TOL} ({sim_agree}/{nq}, scores {sim_worst:.2e})")
+    info(f"  recall@10 against exact f32 scoring {recall:.4f}; the host model of the bf16 "
+         f"index {host_recall:.4f}")
+    require(hits >= host_hits - 1,
+            f"phase 23: recall@10 against exact f32 scoring {recall:.4f} is the host model's "
+            f"{host_recall:.4f} but for one near-tie")
+    lat = sorted(b["lat"].values())
+    return {"recall": recall, "host_recall": host_recall, "agree": agree,
+            "sim_agree": sim_agree, "score_diff": worst, "sim_score_diff": sim_worst,
+            "p50_ms": 1e3 * float(np.percentile(lat, 50)),
+            "p99_ms": 1e3 * float(np.percentile(lat, 99))}
+
+
+def p23_tensor_cells(pw, dev, n: int, timeout: float) -> dict:
+    """An export, an import and a LiveTable of tensor cells on ``dev``: n
+    rows at time 2, each updated at time 4 by a retraction holding a
+    distinct tensor of the old bytes and an insertion of a new value (3n
+    history entries: past 10,000 the export compacts). The snapshot, the
+    handoff, the import and the live table must each hold every row once
+    at its new value, on ``dev``."""
+    import torch
+
+    from pathway_tpu_torch.engine.operators.core import InputNode
+    from pathway_tpu_torch.internals.table import Table
+    from pathway_tpu_torch.internals.universe import Universe
+    from pathway_tpu_torch.io._streams import StaticStreamConnector
+    from pathway_tpu_torch.persistence.snapshot import row_identities
+
+    def vec(x):
+        return torch.full((8,), float(x), device=dev)
+
+    rows = [(k, (k, vec(k)), 2, 1) for k in range(n)]
+    rows += [e for k in range(n) for e in ((k, (k, vec(k)), 4, -1), (k, (k, vec(k + 0.5)), 4, 1))]
+
+    def source():
+        node = InputNode(pw.G.engine_graph, ["doc", "vec"], name="tensor-cells")
+        pw.G.register_connector(StaticStreamConnector(node, rows, ["doc", "vec"]))
+        return Table(node, pw.schema_from_types(doc=int, vec=torch.Tensor), Universe())
+
+    want = [(k, k, [k + 0.5] * 8) for k in range(n)]
+
+    def values(pairs):
+        on_dev = all(r[1].device == torch.device(dev) for _k, r in pairs)
+        return on_dev, sorted((int(k), r[0], r[1].tolist()) for k, r in pairs)
+
+    pw.clear_graph()
+    exported = pw.export_table(source())
+    pw.run()
+    snap = exported.snapshot_at(exported.frontier())
+    _f, h_rows, _q = exported.consistent_handoff()
+    require(values(snap) == (True, want) and exported.compactions >= 1,
+            f"phase 23: an export of {n} updated tensor rows on {dev} keeps each row once at "
+            f"its new value ({exported.compactions} compactions)")
+    require(row_identities([r for _k, r in h_rows]) == row_identities([r for _k, r in snap]),
+            "phase 23: the tensor export's handoff equals its snapshot")
+    pw.clear_graph()
+    got = {}
+    pw.io.subscribe(pw.import_table(exported), on_change=lambda key, row, time, is_addition:
+                    got.__setitem__(key.value, (row["doc"], row["vec"])) if is_addition
+                    else got.pop(key.value, None))
+    pw.run()
+    require(values(list(got.items())) == (True, want),
+            "phase 23: the tensor export imports into a second graph")
+    pw.clear_graph()
+    lt = pw.LiveTable(source())
+    require(lt.wait(timeout) and not lt.failed(), "phase 23: a LiveTable of tensor rows ran")
+    require(values(list(lt._rows.items())) == (True, want),
+            "phase 23: the LiveTable keeps each updated tensor row once at its new value")
+    pw.clear_graph()
+    return {"tensor_rows": n, "tensor_compactions": exported.compactions}
+
+
+def p23_phase(pw, llm, model, spec: dict, docs: list[str], queries: list[str], tmp: str,
+              gpu: str) -> dict:
+    """Phase 23's programs and bars; returns the figures it prints and its
+    flash_attn launches with the encodes they must cover."""
+    from pathway_tpu_torch.models import flash_attention as FA
+
+    plan = p23_plan(spec, docs)
+    model.embed_batch(docs[: spec["batch"]])  # warm the batch bucket, outside the counts
+    l0 = FA.flash_attn.launches
+    a = p23_program_a(pw, llm, model, spec, plan, tmp)
+    la = FA.flash_attn.launches - l0
+    ca = p23_check_a(a, plan, model, spec)
+    l0 = FA.flash_attn.launches
+    b = p23_program_b(pw, llm, model, spec, a["exported"], queries, len(ca["rows"]))
+    lb = FA.flash_attn.launches - l0
+    cb = p23_check_b(b, ca["rows"], ca["ids"], ca["direct"], model, spec, queries, plan["final"])
+    cells = p23_tensor_cells(pw, model.device, spec["tensor_rows"], spec["timeout"])
+    pw.clear_graph()
+    out = {"launches": la + lb, "encodes": len(a["encodes"]) + len(b["encodes"]),
+           "a_rows_per_s": plan["n_events"] / a["wall_s"], "a_wall_s": a["wall_s"],
+           "n_events": plan["n_events"], "b_wall_s": b["wall_s"], "import_s": b["import_s"],
+           **ca, **cb, **cells}
+    for drop in ("rows", "ids", "direct"):
+        out.pop(drop)
+    info(f"cdc share [{gpu}]: A {plan['n_events']} events (envelopes and sqlite rows) in "
+         f"{a['wall_s']:.3f} s, {out['a_rows_per_s']:.1f} rows/s, {len(ca['ids'])} live rows, "
+         f"min cosine to direct encodes {ca['cos_min']:.6f}")
+    info(f"cdc share [{gpu}]: handoff at frontier {ca['handoff_frontier']} with "
+         f"{ca['handoff_rows']} rows + {ca['handoff_queued']} queued updates (final frontier "
+         f"{ca['final_frontier']}); compactions {ca['compactions']}, history "
+         f"{ca['history']} entries")
+    info(f"cdc share [{gpu}]: B import {b['import_s']:.3f} s of a {b['wall_s']:.3f} s run; "
+         f"{len(queries)} queries one at a time p50 {cb['p50_ms']:.3f} ms p99 "
+         f"{cb['p99_ms']:.3f} ms; recall@10 {cb['recall']:.4f} (host model of the bf16 "
+         f"index {cb['host_recall']:.4f}); top-{spec['k']} equal the direct index "
+         f"{cb['agree']}/{len(queries)}, the host model {cb['sim_agree']}/{len(queries)} "
+         f"(scores within {cb['sim_score_diff']:.2e}); flash_attn launches {la} (A) + {lb} (B) over "
+         f"{out['encodes']} encodes")
+    return out
+
+
+def run_cdc_share(gpu: str, out: dict, docs, queries) -> int:
+    """Phase 23 on the card; returns its flash_attn launches."""
+    import tempfile
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.xpacks import llm
+
+    t23 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = p23_phase(pw, llm, out["emb"], p23_spec(), docs, queries, tmp, gpu)
+    require(res["launches"] >= MINILM_LAYERS * res["encodes"],
+            f"phase 23: every encode went through flash_attn ({res['launches']} >= "
+            f"{MINILM_LAYERS} x {res['encodes']})")
+    info(f"cdc share: phase 23 flash_attn launches {res['launches']}; "
+         f"{time.perf_counter() - t23:.1f} s")
+    return res["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -7281,6 +7840,11 @@ def main() -> int:
     # phase 22: persistence, a streaming RAG ingest that stops or is killed
     # and resumes exactly once
     launches += run_persistence(gpu, out, docs, queries)
+
+    # phase 23: a CDC-fed index shared through an export (Debezium and
+    # SQLite into the embed UDF, export_table, import_table in a second
+    # program, a Postgres snapshot sink)
+    launches += run_cdc_share(gpu, out, docs, queries)
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",

@@ -77,8 +77,14 @@ k-means on the card, ``knn_classifier``, the fuzzy join) and
 ``pw.utils`` are JAX's; ``pw.run(monitoring_level=..., with_http_server=
 True)`` draws the live dashboard and serves the run's metrics;
 ``python -m pathway_tpu_torch`` is the CLI (``stats``, ``watch``, ``fleet
-serve`` over replica processes). Persistence is not ported yet (ROADMAP
-A13). The pandas-backed datetime types load on first use, so a program
+serve`` over replica processes, ``replay``). ``pw.persistence`` logs the
+sources and operator state and resumes a run exactly once. ``pw.io``
+carries JAX's connectors but Airbyte (the object stores, S3 and its
+vendors, Debezium, Delta Lake, SQLite, Postgres and the thin writers,
+each behind JAX's client seam); ``pw.export_table`` / ``pw.import_table``
+hand a live table to a second program, ``Table.live()`` keeps one in the
+background (``LiveTable``), and ``pw.stateful.deduplicate`` is JAX's.
+The pandas-backed datetime types load on first use, so a program
 without datetimes runs without pandas.
 """
 
@@ -160,7 +166,16 @@ from pathway_tpu_torch.internals.udfs import (
 )
 from pathway_tpu_torch.internals.universe import Universe
 from pathway_tpu_torch import debug, io, persistence  # noqa: E402
-from pathway_tpu_torch.stdlib import graphs, indexing, ml, ordered, statistical, temporal, utils  # noqa: E402
+from pathway_tpu_torch.stdlib import graphs, indexing, ml, ordered, stateful, statistical, temporal, utils  # noqa: E402
+from pathway_tpu_torch.internals.interactive import (  # noqa: E402
+    LiveTable,
+    enable_interactive_mode,
+)
+from pathway_tpu_torch.internals.exported import (  # noqa: E402
+    ExportedTable,
+    export_table,
+    import_table,
+)
 from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer  # noqa: E402
 from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer  # noqa: E402
 from pathway_tpu_torch.internals.iterate import iterate, iterate_universe  # noqa: E402
@@ -287,6 +302,12 @@ __all__ = [
     "fill_error",
     "iterate",
     "iterate_universe",
+    "LiveTable",
+    "enable_interactive_mode",
+    "ExportedTable",
+    "export_table",
+    "import_table",
+    "stateful",
     "graphs",
     "run",
     "run_all",

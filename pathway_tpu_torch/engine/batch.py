@@ -134,11 +134,11 @@ class Batch:
             except TypeError:
                 pass  # list rows / odd key types: python path below
             else:
-                cols = {}
-                for name, cl in zip(names, col_lists):
-                    a = np.empty(n, dtype=object)
-                    a[:] = cl
-                    cols[name] = a
+                # fromiter keeps each cell as it is: a slice assignment
+                # would have numpy convert array-like cells (a CUDA tensor
+                # raises there, a host one is copied element by element)
+                cols = {name: np.fromiter(cl, dtype=object, count=n)
+                        for name, cl in zip(names, col_lists)}
                 return Batch(keys, cols, diffs)
         keys = np.empty(n, dtype=np.uint64)
         diffs = np.empty(n, dtype=np.int64)

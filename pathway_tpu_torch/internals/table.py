@@ -714,6 +714,19 @@ class Table(Joinable):
         except Exception:
             return repr(self)
 
+    # LiveTable / interactive hook (reference table.py:2565)
+    def live(self):
+        from pathway_tpu_torch.internals.interactive import (
+            LiveTable,
+            get_interactive_controller,
+        )
+
+        lt = LiveTable(self)
+        ctl = get_interactive_controller()
+        if ctl is not None and ctl.enabled:
+            ctl.register(lt)
+        return lt
+
     # engine-level: external index query (stdlib.indexing uses this)
     def _external_index_as_of_now(
         self,

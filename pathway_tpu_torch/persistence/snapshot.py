@@ -119,8 +119,9 @@ class SnapshotLogReader:
 
         def consume(chunk: dict) -> None:
             nonlocal offset
-            for k, row, diff in chunk["rows"]:
-                ck = (k, _row_key(row))
+            ids = row_identities([row for _k, row, _d in chunk["rows"]])
+            for (k, row, diff), rid in zip(chunk["rows"], ids):
+                ck = (k, rid)
                 if ck not in counts:
                     counts[ck] = 0
                     first[ck] = row
@@ -182,13 +183,40 @@ class SnapshotLogReader:
             self.backend.remove_key(key)
 
 
-def _row_key(row: tuple):
-    """A hashable identity of a row's values (JAX consolidates by the row
-    tuple itself; a tensor or array cell, which does not hash by value,
-    is identified here by its dtype, shape and bytes)."""
-    if not any(isinstance(v, (np.ndarray, torch.Tensor, list)) for v in row):
-        return row
-    return tuple(_cell_key(v) for v in row)
+def _has_array(row: tuple) -> bool:
+    return any(isinstance(v, (np.ndarray, torch.Tensor, list)) for v in row)
+
+
+def row_identities(rows: list[tuple]) -> list:
+    """A hashable identity of each row's values. JAX consolidates by the
+    row tuple itself; a row with a tensor or array cell, which does not
+    hash by value, is identified here by each such cell's dtype, shape and
+    bytes. The CUDA tensor cells of all ``rows`` (each object once) are
+    flattened, joined a device and copied to the host at once: one
+    device-to-host transfer a device a call, not one a cell."""
+    if not any(_has_array(r) for r in rows):
+        return rows
+    on_card: dict[torch.device, dict[int, torch.Tensor]] = {}
+    for row in rows:
+        for v in row:
+            if isinstance(v, torch.Tensor) and v.is_cuda:
+                on_card.setdefault(v.device, {})[id(v)] = v
+    blobs: dict[int, bytes] = {}
+    for by_id in on_card.values():
+        tensors = list(by_id.values())
+        flat = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+        host = torch.cat(flat).cpu().numpy().tobytes()
+        at = 0
+        for t, f in zip(tensors, flat):
+            blobs[id(t)] = host[at : at + f.numel()]
+            at += f.numel()
+
+    def cell(v):
+        if id(v) in blobs and isinstance(v, torch.Tensor):
+            return ("t", str(v.dtype), tuple(v.shape), blobs[id(v)])
+        return _cell_key(v)
+
+    return [tuple(cell(v) for v in r) if _has_array(r) else r for r in rows]
 
 
 def _cell_key(v):

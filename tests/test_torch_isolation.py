@@ -125,6 +125,18 @@ def test_source_scan_sees_the_rag_apps():
         assert pkg / rel in files, rel
 
 
+def test_source_scan_sees_the_connectors_and_exports():
+    files = set(_sources())
+    pkg = ROOT / "pathway_tpu_torch"
+    for rel in ("io/_object_store.py", "io/s3.py", "io/s3_csv.py", "io/minio.py",
+                "io/pyfilesystem.py", "io/gdrive.py", "io/debezium.py", "io/deltalake.py",
+                "io/sqlite.py", "io/postgres.py", "io/nats.py", "io/mongodb.py",
+                "io/elasticsearch.py", "io/bigquery.py", "io/pubsub.py", "io/logstash.py",
+                "io/slack.py", "io/redpanda.py", "internals/exported.py",
+                "internals/interactive.py", "stdlib/stateful/__init__.py"):
+        assert pkg / rel in files, rel
+
+
 def test_rag_app_udfs_raise_without_cuda(monkeypatch):
     """The reranker and answer-LLM UDFs run on the card unless asked."""
     from pathway_tpu_torch.xpacks.llm import EncoderReranker

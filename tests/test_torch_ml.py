@@ -882,14 +882,15 @@ def test_phase21_heads_split_over_two_replicas():
     from pathway_tpu_torch.serving.router import FleetRouter
 
     firsts, rest = chip_smoke.p21_prompts()
-    assert len(firsts) == 4 and len(rest) == 28
+    per = chip_smoke.P21_PER_HEAD - 1  # the questions behind a head's first
+    assert len(firsts) == 4 and len(rest) == 4 * per
     router = FleetRouter()
     for rid in ("replica-0", "replica-1"):
         router.ring.add(rid)
     owners = [router.ring.lookup(router.route_key(p)) for p in firsts]
     assert sorted(owners) == ["replica-0", "replica-0", "replica-1", "replica-1"]
     for h, first in enumerate(firsts):
-        group = rest[h * 7:(h + 1) * 7]
+        group = rest[h * per:(h + 1) * per]
         assert all(p[:256] == first[:256] for p in group)
         assert {router.ring.lookup(router.route_key(p)) for p in group} == {owners[h]}
     assert serving.affinity_block_tokens() == 64
