@@ -38,7 +38,7 @@ without printing a result:
 6. the answer-LLM main path at full GPT-2-small width, bf16, seeded random
    weights, a byte-level tokenizer: ``DecoderChat(continuous=True)`` over a
    paged KV pool with the paged decode kernel, flash chunked prefill and
-   int8 weights through the wq kernel serves 48 greedy requests; launch
+   int8 weights through the wq kernel serves 32 greedy requests; launch
    counts must show every decode step, prefill piece and layer product
    went through its kernel; 8 requests are held against the port's static
    ``generate``; then a short run with int8 K/V, a dense-pool run (whole-
@@ -48,7 +48,7 @@ without printing a result:
 7. shared-prompt serving through the prefix cache at the same width: the
    chunk and decode kernels over rows whose leading blocks are shared,
    against their plain versions; a paged pool serves a warm-up request and
-   then 48 more at once behind one 256-token head (every one a hit of 4
+   then 32 more at once behind one 256-token head (every one a hit of 4
    shared blocks, every suffix piece and decode step through its kernel),
    beside the same 49 prompts with the cache off; a dense pool's arena
    serves 16 requests behind a 128-token head; a paged tier 1 of 3 blocks
@@ -81,7 +81,7 @@ without printing a result:
    dense pool of 16 slots with prompts of 16-480 tokens: ``pool_decode_spec``
    with the auto draft (3 layers, k = 3) and with a full-depth draft against
    ``pool_decode_chunk`` greedy, equal streams but where the plain run's
-   top-2 logit gap is under 1e-4; (b) phase 6's 48 requests (bf16, int8
+   top-2 logit gap is under 1e-4; (b) phase 6's 32 requests (bf16, int8
    weights through ``wq_matmul``, paged pool with the paged kernel) served
    with spec and autotune off, with the defaults, and with an 11-layer
    draft (autotune off): all first tokens equal to the spec-off arm, at
@@ -94,8 +94,8 @@ without printing a result:
 11. telemetry on the card (metrics are on by default, as in JAX, so
    phases 4-10 ran with them): (a) phase 6's 48-request burst on one
    server with metrics on, then off: streams equal token for token,
-   no span and an empty registry when off, 48 complete ordered decode
-   spans when on, the registry's TTFT histogram (48 observations, p50
+   no span and an empty registry when off, 32 complete ordered decode
+   spans when on, the registry's TTFT histogram (32 observations, p50
    within one log-2 bucket of the requests' own), the occupancy gauge
    equal to ``occupancy()``, the fragmentation in [0, 1); decode tokens/s
    and TTFT p50 on against off; (b) the HBM ledger of that server: the
@@ -110,7 +110,7 @@ without printing a result:
 12. supervision and the query server (the JAX defaults: the degradation
    ladder on, chaos off, no restarts): (a) phase 6's burst with the
    defaults against ``degradation=False``, on, then off: streams equal
-   48/48, tokens/s and TTFT p50 ratios; (b) ``decode`` chaos at rate 0.05
+   32/32, tokens/s and TTFT p50 ratios; (b) ``decode`` chaos at rate 0.05
    (seed 0) with ``serve_restarts=8``, ``serve_retries=3``: the burst, and
    16 requests on a dense pool (whole-prompt causal ``flash_attn``
    admissions in distinct buckets, prefix cache off) in three rounds;
@@ -135,7 +135,7 @@ without printing a result:
    kernel entry points;
 13. the serving features JAX keeps off by default, at phase 6's settings:
    (a) phase 6's burst with ``disagg`` off, then on (budget 1):
-   streams equal 48/48, ``kv_migrated_blocks`` the sum of the handed-off
+   streams equal 32/32, ``kv_migrated_blocks`` the sum of the handed-off
    rows' block counts, ``lane_stats()`` back to zero; decode tokens/s, TTFT
    p50 and TPOT p99 from the request spans; (b) ``tenant_sched`` with one
    tenant and no budget (streams equal), then tenants ``a:3,b:1``, 24
@@ -146,7 +146,7 @@ without printing a result:
    the scheduling-off server's, the a:b ratio of the first 16 admissions; a dense pool of 8
    slots under 16 requests (phase 12 (b)'s prompts) preempts with streams
    equal; (c) two ``InProcessReplica`` behind a ``FleetRouter`` at
-   affinity 4: 48 requests behind 4 heads of 256 tokens (each head on one
+   affinity 4: 32 requests behind 4 heads of 256 tokens (each head on one
    replica, every later request a prefix hit, streams equal a single
    server's), ``router.forward`` chaos at 0.2 (every request terminal,
    answered streams equal), one ``FleetManager.tick()`` under
@@ -267,7 +267,7 @@ without printing a result:
    beside the same program into ``pw.io.null.write`` and the direct path
    (the texts through the model in the UDF's batches), one rep of each in
    turns: every doc written once, vectors within cosine 0.9999 of the
-   direct ones; (b) the first 1,024 docs one file each,
+   direct ones; (b) the first 512 docs one file each,
    ``pw.io.fs.read(format="binary", with_metadata=True, mode="streaming")``
    into a ``DocumentStore`` served by ``DocumentStoreServer`` on port 0,
    once for each of ``BruteForceKnnFactory``, ``UsearchKnnFactory``,
@@ -277,7 +277,7 @@ without printing a result:
    recall@10 against exact f32 scoring; brute force >= 0.9, exhaustive IVF
    equal to brute force but at near-ties, the hybrid's replies equal an
    RRF computed on the host from its two sub-indexes' own replies over two
-   more routes), then 64 files out and 128 in, waited for until the
+   more routes), then 32 files out and 64 in, waited for until the
    store lists exactly the files left: 4 new docs' own texts find them,
    no deleted doc returned; (c) ``BruteForceKnnFactory(mesh=)`` and
    ``IvfKnnFactory(mesh=, nprobe=n_cells)`` over 4 virtual positions of the
@@ -342,7 +342,8 @@ without printing a result:
    ``torch.cuda.max_memory_allocated``; (b)'s rounds, the Iterate nodes'
    step seconds and ``op_step_seconds``, and the components;
 21. ``pw.ml``, ``rag_eval`` with the observability routes, and the fleet
-   over processes: (a) phase 4's 32,768 docs (and its 64 queries) through
+   over processes: (a) phase 4's first 16,384 docs (half the corpus, for
+   the script's time; and its 64 queries) through
    the embed UDF (batches of 1,024) into
    ``clustering_via_lsh(generate_cosine_lsh_bucketer(384, M=10, L=4,
    seed=0), k=64)`` (the representatives' k-means on the card) and
@@ -356,9 +357,10 @@ without printing a result:
    against copies with one word changed matches at least 95% to their
    original. Prints docs/s of the program, the representatives' count, the
    card k-means ms (CUDA events), the fuzzy join's s and the
-   ``flash_attn`` launches; (b) ``rag_eval.generate_qa_dataset(64,
-   seed=0)`` through ``run_rag_eval`` over a ``BaseRAGQuestionAnswerer``
-   (MiniLM-L6 bf16, phase 6's server): 64 answered, 8 of them against the
+   ``flash_attn`` launches; (b) ``rag_eval.generate_qa_dataset(32,
+   seed=0)`` through ``run_rag_eval`` over a
+   ``BaseRAGQuestionAnswerer`` (MiniLM-L6 bf16, phase 6's server): 32
+   answered, 8 of them against the
    static path: at least 7/8 first tokens equal, and each stream equal up
    to a near-tie (where it parts, the served token within 0.1 of the
    static top logit; accuracy printed, not judged: the weights are
@@ -372,7 +374,7 @@ without printing a result:
    and with 2 replicas, each replica this script with
    ``--phase21-replica`` (phase 6's server on ``cuda:0`` behind a REST
    server, the kernels loaded from phase 2's build), both fleets booted at
-   once: 16 questions over the router's ``/v1/pw_ai_answer``, 4 behind
+   once: 8 questions over the router's ``/v1/pw_ai_answer``, 2 behind
    each of 4 shared 256-byte heads (the heads' first, then the rest),
    answers of 2 replicas equal 1 replica's; then a replica SIGKILLed 0.3 s
    into a burst: every request answered or shed, the replica drained and
@@ -432,7 +434,48 @@ without printing a result:
    query p50 / p99, the launches. Then 3,500 CUDA tensor rows, each
    updated by a retraction holding a distinct tensor of equal bytes,
    through an export (which compacts), an import and a ``LiveTable``:
-   each row once, at its new value, on the card.
+   each row once, at its new value, on the card;
+24. training on the card (``pathway_tpu_torch.models.train``: the dense
+   forward, no kernel in a step; AdamW with optax's defaults): (a) the
+   contrastive step at full MiniLM-L6 width (bf16 compute, f32 params, lr
+   2e-5) over 20 distinct batches of 64 (query, doc) pairs of phase 4's
+   corpus (the query a doc's first half of words; phase 4's tokenizer and
+   buckets): at step 1 every leaf's gradient finite and non-zero but the
+   pooler's (mean pooling never reads it; zero in JAX too), ``qkv_w`` and
+   ``attn_out_w`` non-zero in every layer; no ``flash_attn`` launch in a
+   step; a held batch's loss lower after the 20 steps; one f32 step on 8
+   pairs equal to the CPU's (loss within 1e-5, every param within 1e-4,
+   TF32 off and restored); the dp=4 x tp=2 step over ``[cuda:0] * 8`` (a
+   tensor a position) against the unsharded step, two steps each: losses
+   within 1e-3 relative, the second lower, replicas bitwise equal; then the
+   trained params through ``FusedRAGPipeline`` (the ``flash_attn`` kernel)
+   over the 32,768 docs: 64 docs' embeddings within cosine 0.9999 of the
+   training forward's, recall@10 against exact f32 scoring printed (no
+   bar). (b) the causal-LM step at GPT-2-small width (bf16 compute, f32
+   params, the byte tokenizer): 10 steps of the corpus's text in 8 rows
+   of 256 tokens, row 0 left-padded by 64: every leaf's gradient finite at
+   step 1, the repeated batch's loss falling, no ``flash_attn`` launch; the
+   dp=2 x tp=4 step (the 50,257-row ``wte`` replicated) against the
+   unsharded one as in (a). (c) ``tests/test_rag_eval.py``'s answer gate:
+   its decoder (vocab 97, hidden 64, 2 layers, 4 heads, ffn 128, f32)
+   trained from scratch on the card on its 4,000 training facts (lr 3e-3,
+   batches of 64 from ``np.random.default_rng(0)``, stopping once the loss
+   is under 0.21 at a multiple of 30 steps, at most 900; final loss < 0.3);
+   ``flash_chunk_attn_paged`` and ``paged_attn_decode`` against their plain
+   versions at its 4 heads x 16 (f32); ``run_rag_eval`` over the 40 held-out
+   facts through BM25 top-1 and a continuous ``DecoderChat`` (paged, the
+   paged kernel, flash prefill, 6 new tokens): ``accuracy_contains`` >= 0.6
+   and every decode step and prefill piece through its kernel. (d)
+   ``python -m pathway_tpu_torch spawn -n 2`` running this script with
+   ``--phase24-child``: 4,096 of phase 4's docs in 8 CSV files through the
+   embed UDF on ``cuda:0`` into JSON lines, in a ``pw.run()`` given no
+   config: the two children's shares disjoint and covering every doc, the
+   vectors within cosine 0.9999 of a direct encode; then ``spawn-from-env``
+   (``PATHWAY_SPAWN_ARGS='-n 1 -t 1'``) running a ``pw.debug`` program (a
+   CSV round trip); both start after (a) and run beside (b) and (c), for
+   the script's time. Prints each objective's step ms (CUDA events), tokens/s
+   and peak ``max_memory_allocated``, the gate's steps, wall, final loss,
+   accuracy and launches, and the phase's wall.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -465,7 +508,8 @@ N_DOCS, INGEST_BATCH, N_QUERIES, TOP_K, RERANK_K = 32768, 4096, 64, 10, 32
 # the decoder main path: GPT-2 small, 16 slots, chunks of 16 steps, 64 new
 # tokens, prompts up to 512 tokens in pieces of 64, paged blocks of 64
 # (cache_len 512 + 64 + 5 * 16 = 656, rounded up to 704)
-N_REQUESTS, MAX_NEW, N_SLOTS, CACHE_LEN, BLOCK, PIECE = 48, 64, 16, 704, 64, 64
+# 32 requests a burst (48 until the script's time asked for less)
+N_REQUESTS, MAX_NEW, N_SLOTS, CACHE_LEN, BLOCK, PIECE = 32, 64, 16, 704, 64, 64
 # the card's bf16 noise against the port's static path: first-token logits
 # (spread ~0.55 with random weights) within 0.1; at least 7 of 8 first
 # tokens and 3 of 8 whole streams equal
@@ -1404,7 +1448,7 @@ def run_shared_prompt(gpu: str, tok, common) -> dict:
     total = {n: 0 for n in counters()}
     paged = dict(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True, flash_prefill=True)
 
-    # paged tier 1: a warm-up request, then 48 at once behind one head
+    # paged tier 1: a warm-up request, then N_REQUESTS at once behind one head
     rng = np.random.default_rng(71)
     lens = rng.integers(16, 225, N_REQUESTS + 1).tolist()
     prompts = shared_prompts(SHARED_HEAD, lens, seed=70)
@@ -1420,7 +1464,7 @@ def run_shared_prompt(gpu: str, tok, common) -> dict:
     st, ln = out["stats"], out["launches"]
     suffix_pieces = sum(-(-k // PIECE) for k in lens[1:])
     for on, (w, o, _) in arms.items():
-        info(f"shared-prompt paged run [{gpu}], cache {'on' if on else 'off'}: 48 "
+        info(f"shared-prompt paged run [{gpu}], cache {'on' if on else 'off'}: {N_REQUESTS} "
              f"requests behind a {SHARED_HEAD}-token head in {o['wall_s']:.3f} s wall "
              f"(warm-up request {w['wall_s']:.3f} s); decode {o['tok_per_s']:.1f} "
              f"tokens/s; TTFT p50 {o['ttft_p50_s'] * 1e3:.1f} ms; "
@@ -2085,7 +2129,7 @@ def run_spec_serving(gpu: str, tok, common) -> dict:
                 f"{name}: the spec streams agree with spec off")
 
     # 10c: autotune on against off, spec off, 6 seeded waves of 8
-    prompts = make_prompts(N_REQUESTS, 16, 480, seed=13)
+    prompts = make_prompts(48, 16, 480, seed=13)
     gaps = np.random.default_rng(13).uniform(0.05, 0.5, 5).tolist()
     waves = {}
     for on in (True, False):
@@ -2474,6 +2518,9 @@ def run_supervision_serving(dev, gpu: str, common) -> dict:
     serve(off, make_prompts(4, 16, 200, seed=99))
     off.server.prefix_reset()
     chats = {True: on, False: off}
+    # the ladder's own host time: every read of the "on" arm timed
+    timed = TimedLadder(on.server._degrade)
+    on.server._degrade = timed
     runs = []
     for arm in (True, False):
         out = serve(chats[arm], prompts)
@@ -2492,16 +2539,11 @@ def run_supervision_serving(dev, gpu: str, common) -> dict:
     info(f"supervision (a) cost [{gpu}]: decode tokens/s on {tps[True]:.1f} / off "
          f"{tps[False]:.1f} (on/off {tps[True] / tps[False]:.4f}); TTFT p50 ms on "
          f"{ttft[True]:.1f} / off {ttft[False]:.1f} (on/off {ttft[True] / ttft[False]:.4f})")
-    # the ladder's own host time: one more burst with every read timed
-    timed = TimedLadder(on.server._degrade)
-    on.server._degrade = timed
-    out = serve(on, prompts)
-    add_launches(total, out)
+    on_wall = runs[0][1]["wall_s"]
     info(f"supervision (a) ladder reads timed [{gpu}]: {timed.calls} reads, "
-         f"{timed.seconds * 1e3:.3f} ms host time in a {out['wall_s']:.3f} s burst "
-         f"({100 * timed.seconds / out['wall_s']:.4f}% of wall, "
+         f"{timed.seconds * 1e3:.3f} ms host time in the {on_wall:.3f} s burst with "
+         f"degradation on ({100 * timed.seconds / on_wall:.4f}% of wall, "
          f"{timed.seconds / max(timed.calls, 1) * 1e6:.2f} us a read)")
-    require([r.tokens for r in out["reqs"]] == ref, "(a) the timed run's streams are equal")
     free_chats(on, off)
     del on, off, chats
     ttft_p50_ms = ttft[True]
@@ -4712,7 +4754,7 @@ def run_rag_apps(dev, gpu: str, out: dict, docs, queries, common) -> dict:
 # texts asked for (FS_PROBES each); (c) the brute-force and IVF factories
 # routed over FS_MESH virtual positions of the card.
 # one rep of (a)'s arms (a second did not fit the script's time with phase 21)
-FS_FILES, FS_REPS, FS_DOCS, FS_NEW, FS_GONE, FS_PROBES, FS_MESH = 8, 1, 1024, 128, 64, 4, 4
+FS_FILES, FS_REPS, FS_DOCS, FS_NEW, FS_GONE, FS_PROBES, FS_MESH = 8, 1, 512, 64, 32, 4, 4
 FS_REFRESH = 0.5  # s between the streaming reader's scans: its default
 FS_FACTORIES = ("brute_force", "usearch", "ivf", "ivf_exhaustive", "hybrid")
 
@@ -4936,7 +4978,7 @@ def fs_config2(pw, llm, model, docs, queries, gpu: str, tmp: str) -> None:
     from pathway_tpu_torch.stdlib.indexing.hybrid_index import canonical_ranking, rrf_fuse
 
     # truth: exact f32 host scoring of the port's own embeddings of the corpus
-    corpus_v = np.concatenate([model.embed_batch(docs[s : s + RAG_BATCH])
+    corpus_v = np.concatenate([model.embed_batch(docs[s : min(s + RAG_BATCH, FS_DOCS)])
                                for s in range(0, FS_DOCS, RAG_BATCH)]).astype(np.float32)
     q_v = model.embed_batch(queries).astype(np.float32)
     truth = np.argsort(-(q_v @ corpus_v.T), axis=1, kind="stable")[:, :TOP_K]
@@ -5937,17 +5979,18 @@ def run_multiprocess(gpu: str, docs, queries, truth) -> int:
 
 # ---------------------------------------------------------------- phase 21
 # pw.ml, rag_eval with the observability routes, and the fleet over
-# processes. (a): phase 4's corpus through the embed UDF (batches of 1,024)
+# processes. (a): phase 4's first 16,384 docs through the embed UDF (batches of 1,024)
 # into clustering_via_lsh (cosine bucketer over 384 dims, 10 hashes a band,
 # 4 bands, seed 0; k = 64) and knn_classifier (64 queries, k = 10); the
-# fuzzy join over ML_FUZZY_DOCS doc texts. (b): rag_eval's dataset of 64
-# questions. (c): 16 questions, 4 on each of 4 shared 256-byte heads,
+# fuzzy join over ML_FUZZY_DOCS doc texts. (b): rag_eval's dataset of 32
+# questions. (c): 8 questions, 2 on each of 4 shared 256-byte heads,
 # through `python -m pathway_tpu_torch fleet serve` over 1 and 2 replica
 # processes.
 ML_BATCH, ML_K, ML_M, ML_L, ML_SEED, ML_KNN_K = 1024, 64, 10, 4, 0, 10
 ML_TIE_REL, ML_MAX_DISAGREE, ML_FUZZY_DOCS, ML_FUZZY_MIN = 1e-3, 0.01, 512, 0.95
-EVAL_N, EVAL_HELD = 64, 8
-P21_HEADS, P21_PER_HEAD, P21_HEAD_LEN = 4, 4, 256
+ML_DOCS = 16384  # (a)'s depth: the corpus's first half, for the script's time
+EVAL_N, EVAL_HELD = 32, 8
+P21_HEADS, P21_PER_HEAD, P21_HEAD_LEN = 4, 2, 256
 P21_TIMEOUT = 300.0  # a bound on each wait: a boot, a burst, a respawn, a stop
 # a replica not ready this long after its start is drained and respawned
 # (JAX's CLI default; a replica boots in 20-40 s)
@@ -7658,6 +7701,712 @@ def run_cdc_share(gpu: str, out: dict, docs, queries) -> int:
     return res["launches"]
 
 
+# ---------------------------------------------------------------- phase 24
+P24_STEPS, P24_PAIRS, P24_LR = 20, 64, 2e-5        # (a): JAX's learning rate
+P24_LM_STEPS, P24_LM_ROWS, P24_LM_SEQ, P24_LM_PAD = 10, 8, 256, 64  # (b)
+P24_GATE_CAP, P24_GATE_EVERY, P24_GATE_STOP = 900, 30, 0.21          # (c): the fixture's
+P24_GATE_SEQ, P24_GATE_BATCH, P24_GATE_LR, P24_GATE_MIN = 144, 64, 3e-3, 0.6
+P24_GATE_TEMPLATE = "context: {context}\nquestion: {query}\nanswer:"
+P24_SPAWN_DOCS, P24_TIMEOUT = 4096, 300.0                           # (d)
+P24_REL_TOL = 1e-3  # sharded against unsharded losses, bf16 compute
+
+
+class P24CharTokenizer:
+    """``tests/test_rag_eval.py``'s tokenizer: printable ASCII to ids
+    1..95, pad 0, no EOS."""
+
+    eos_id = None
+
+    def encode(self, text):
+        return [max(1, min(95, ord(c) - 31)) for c in text]
+
+    def decode(self, ids):
+        return "".join(chr(int(i) + 31) for i in ids if int(i) > 0)
+
+
+def p24_threefry(key, counts) -> tuple:
+    """JAX's threefry2x32 (20 rounds) of ``key`` over the 64-bit counts
+    ``0 .. counts - 1`` (high words 0), in numpy."""
+    def rotl(x, r):
+        return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+    k = [np.uint32(key[0]), np.uint32(key[1])]
+    k.append(k[0] ^ k[1] ^ np.uint32(0x1BD11BDA))
+    x = [np.zeros(counts, np.uint32) + k[0], np.arange(counts, dtype=np.uint32) + k[1]]
+    for i in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = rotl(x[1], r) ^ x[0]
+        x[0] = x[0] + k[(i + 1) % 3]
+        x[1] = x[1] + k[(i + 2) % 3] + np.uint32(i + 1)
+    return x[0], x[1]
+
+
+def p24_jax_normal(key, shape) -> np.ndarray:
+    """``jax.random.normal(key, shape)`` in f32 (threefry bits, JAX's
+    uniform on (-1, 1), XLA's single-precision erfinv polynomial): equal to
+    JAX's draws within 5e-7 (``log1p`` rounds differently)."""
+    b1, b2 = p24_threefry(key, int(np.prod(shape)))
+    f = (((b1 ^ b2) >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    x = np.maximum(lo, f * (np.float32(1) - lo) + lo)
+    w = -np.log1p(-x * x)
+    small = w < 5
+    w = np.where(small, w - np.float32(2.5), np.sqrt(w) - np.float32(3))
+    p = np.zeros_like(x)
+    for a, b in zip((2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                     0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941),
+                    (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                     0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)):
+        p = np.where(small, np.float32(a), np.float32(b)) + p * w
+    return (np.float32(np.sqrt(2)) * p * x).astype(np.float32).reshape(shape)
+
+
+def p24_fixture_params(cfg) -> dict:
+    """The gate fixture's initial decoder weights: JAX's
+    ``decoder.init_params(jax.random.PRNGKey(0), cfg)`` drawn in numpy
+    (the keys of ``jax.random.split(key, 8)``, each leaf's normal times its
+    scale), in the port's layout, on the CPU."""
+    import torch
+
+    b1, b2 = p24_threefry((0, 0), 8)
+    keys = list(zip(b1, b2))
+    n, h, i = cfg.layers, cfg.hidden, cfg.intermediate
+
+    def normal(k, shape, scale=0.02):
+        return torch.from_numpy(p24_jax_normal(keys[k], shape) * np.float32(scale))
+
+    def const(v, *shape):
+        return torch.full(shape, float(v), dtype=torch.float32)
+
+    return {
+        "wte": normal(0, (cfg.vocab_size, h)),
+        "wpe": normal(1, (cfg.max_position, h), 0.01),
+        "layers": {
+            "ln1_scale": const(1, n, h), "ln1_bias": const(0, n, h),
+            "qkv_w": normal(2, (n, h, 3 * h)), "qkv_b": const(0, n, 3 * h),
+            "attn_out_w": normal(3, (n, h, h)), "attn_out_b": const(0, n, h),
+            "ln2_scale": const(1, n, h), "ln2_bias": const(0, n, h),
+            "mlp_in_w": normal(4, (n, h, i)), "mlp_in_b": const(0, n, i),
+            "mlp_out_w": normal(5, (n, i, h)), "mlp_out_b": const(0, n, h),
+        },
+        "ln_f_scale": const(1, h), "ln_f_bias": const(0, h),
+    }
+
+
+def p24_decoder_view(sample) -> str:
+    """What the served decoder sees of a sample (the gate's
+    ``_decoder_view``): the template over the doc with its path tag, in the
+    chat's user/assistant wrapping."""
+    context = f"{sample.doc} (path: {sample.path})"
+    rag = P24_GATE_TEMPLATE.format(context=context, query=sample.question)
+    return f"user: {rag}\nassistant:"
+
+
+def p24_step_ms(step, state, batches) -> tuple:
+    """``step`` over ``batches`` with a CUDA event pair around each call;
+    returns the state, the losses (tensors, read once at the end) and each
+    step's device-timeline ms."""
+    import torch
+
+    events, losses = [], []
+    for batch in batches:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, loss = step(state, batch)
+        e1.record()
+        events.append((e0, e1))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    return state, [float(v) for v in losses], [a.elapsed_time(b) for a, b in events]
+
+
+def p24_leaves(params: dict) -> dict:
+    """A params tree's leaves by ``group/name`` (the trees are two deep)."""
+    return {f"{k}/{k2}" if k2 else k: t for k, v in params.items()
+            for k2, t in (v.items() if isinstance(v, dict) else [("", v)])}
+
+
+def p24_grad_check(loss, params, what: str, unread=()) -> None:
+    """Every leaf's gradient finite; non-zero but for the ``unread`` leaves
+    (which the objective never reads: zero in JAX too); the attention
+    projections non-zero in every layer."""
+    import torch
+
+    from pathway_tpu_torch.models import count_params
+
+    flat = p24_leaves(params)
+    names, leaves = list(flat), list(flat.values())
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    zero = [n for n, g in zip(names, grads) if not bool(g.abs().max() > 0)]
+    layers = params["layers"]["qkv_w"].shape[0]
+    attn = {n: g for n, g in zip(names, grads) if n in ("layers/qkv_w", "layers/attn_out_w")}
+    per_layer = all(bool(g[i].abs().max() > 0) for g in attn.values() for i in range(layers))
+    info(f"  {what}: {len(leaves)} leaves ({count_params(params):,} params), all "
+         f"finite {finite}; zero gradients {zero or 'none'} (expected: {list(unread) or 'none'})")
+    require(finite and sorted(zero) == sorted(unread) and len(attn) == 2 and per_layer,
+            f"{what}: every leaf's gradient finite, non-zero but for the leaves the loss "
+            f"never reads, qkv_w and attn_out_w non-zero in every layer")
+
+
+def p24_sharded(init, make_step, cfg, specs, batch, dp: int, tp: int, dev) -> dict:
+    """dp x tp over ``[dev] * 8`` (a tensor a position, as distinct cards
+    would hold) against the unsharded step, two steps each from one seed:
+    losses, bitwise-equal replicas, shards of their boxes."""
+    import torch
+
+    from pathway_tpu_torch.models import train as TT
+    from pathway_tpu_torch.models import transformer as TTr
+    from pathway_tpu_torch.parallel.mesh import _box, make_mesh, place_pytree
+
+    state, tx = init()
+    copy = TTr.map_params(lambda t: t.detach().clone(), state.params)
+    plain = TT.TrainState(copy, tx.init(copy), 0)
+    pstep = make_step(cfg, tx)
+    mesh = make_mesh([dev] * 8, dp=dp, tp=tp)
+    params = place_pytree(state.params, mesh, specs, share=False)
+    del state
+    state = TT.TrainState(params, tx.init(params), 0)
+    step = make_step(cfg, tx)
+    state, losses, ms = p24_step_ms(step, state, [batch, batch])
+    plain, plain_losses, plain_ms = p24_step_ms(pstep, plain, [batch, batch])
+    equal = boxed = True
+    flat = p24_leaves(params)
+    for st in flat.values():
+        by_box = {}
+        for p in range(mesh.size):
+            box = _box(mesh, st.spec, st.global_shape, p)
+            shard = st.shards[st.index[p]]
+            boxed &= tuple(shard.shape) == tuple(n for _, n in box)
+            equal &= bool(torch.equal(by_box.setdefault(box, shard), shard))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    out = {"losses": losses, "plain_losses": plain_losses, "rel": rel, "equal": equal,
+           "boxed": boxed, "ms": ms, "plain_ms": plain_ms,
+           "positions": len({id(t) for st in flat.values() for t in st.shards})}
+    del state, plain, params
+    return out
+
+
+def p24_pairs(docs, tok, lo: int, n: int) -> dict:
+    """(query, doc) pairs ``lo .. lo + n`` of the corpus: the query is the
+    doc's first half of words; phase 4's tokenizer and buckets."""
+    import torch
+
+    from pathway_tpu_torch.models.tokenizer import pad_to_buckets
+
+    texts = docs[lo:lo + n]
+    qs = [" ".join(t.split()[: len(t.split()) // 2]) for t in texts]
+    out = {}
+    for side, xs in (("q", qs), ("d", texts)):
+        ids, mask = pad_to_buckets(*tok(xs))
+        out[f"{side}_ids"] = torch.from_numpy(ids[:n].astype(np.int64))
+        out[f"{side}_mask"] = torch.from_numpy(mask[:n].astype(np.int64))
+    return out
+
+
+def p24_contrastive(dev, gpu: str, docs, queries) -> int:
+    """(a); returns its flash_attn launches (the trained-params ingest)."""
+    import dataclasses
+
+    import torch
+
+    from pathway_tpu_torch import FusedRAGPipeline, HashTokenizer, SentenceEmbedderModel
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.models import train as TT
+    from pathway_tpu_torch.models import transformer as TTr
+    from pathway_tpu_torch.models.tokenizer import pad_to_buckets
+
+    cfg = TTr.MINILM_L6  # bf16 compute, f32 params
+    tok = HashTokenizer(max_length=64)
+
+    def to(batch, d=dev):
+        return {k: v.to(d) for k, v in batch.items()}
+
+    batches = [to(p24_pairs(docs, tok, i * P24_PAIRS, P24_PAIRS)) for i in range(P24_STEPS)]
+    held = to(p24_pairs(docs, tok, P24_STEPS * P24_PAIRS, P24_PAIRS))
+    state, tx = TT.init_train_state(0, cfg, learning_rate=P24_LR, device=dev)
+    step = TT.make_train_step(cfg, tx)
+    with torch.no_grad():
+        held0 = float(TT.contrastive_loss(state.params, held, cfg))
+    p24_grad_check(TT.contrastive_loss(state.params, batches[0], cfg), state.params,
+                   "(a) step 1", unread=("pooler/w", "pooler/b"))
+    FA.flash_attn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, ms = p24_step_ms(step, state, batches)
+    peak = torch.cuda.max_memory_allocated()
+    require(FA.flash_attn.launches == 0, "(a) no flash_attn launch during a step")
+    with torch.no_grad():
+        held1 = float(TT.contrastive_loss(state.params, held, cfg))
+    tokens = sum(int(b["q_mask"].sum()) + int(b["d_mask"].sum()) for b in batches[1:])
+    step_ms = statistics.median(ms[1:])
+    info(f"(a) contrastive MiniLM-L6 (bf16 compute, f32 params, lr {P24_LR}) [{gpu}]: "
+         f"{P24_STEPS} steps of {P24_PAIRS} pairs; step {step_ms:.3f} ms median (CUDA "
+         f"events; first {ms[0]:.3f}); {tokens / (sum(ms[1:]) / 1e3):.1f} live tokens/s; "
+         f"peak max_memory_allocated {peak / 2**20:.1f} MiB; losses {losses[0]:.4f} -> "
+         f"{losses[-1]:.4f}; held batch {held0:.4f} -> {held1:.4f}")
+    require(held1 < held0, "(a) the held batch's loss fell over the 20 steps")
+
+    # one f32 step, card against CPU, TF32 off for the check
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        small = p24_pairs(docs, tok, 0, 8)
+        outs = []
+        for d in (dev, "cpu"):
+            s, t = TT.init_train_state(0, c32, learning_rate=P24_LR, device=d)
+            s, loss = TT.make_train_step(c32, t)(s, to(small, d))
+            outs.append((float(loss), [x.detach().cpu() for x in TT.param_leaves(s.params)]))
+        (l_card, p_card), (l_cpu, p_cpu) = outs
+        diffs = [float((a - b).abs().max()) for a, b in zip(p_card, p_cpu)]
+        info(f"  (a) one f32 step card vs CPU (TF32 off) [{gpu}]: loss {l_card:.7f} vs "
+             f"{l_cpu:.7f}; "
+             f"max param diff {max(diffs):.3e} over {len(diffs)} leaves")
+        require(abs(l_card - l_cpu) <= 1e-5 and max(diffs) <= 1e-4,
+                "(a) the f32 step on the card equals the CPU's (loss 1e-5, params 1e-4)")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+    sh = p24_sharded(lambda: TT.init_train_state(0, cfg, learning_rate=P24_LR, device=dev),
+                     TT.make_train_step, cfg, TTr.param_partition_specs(cfg), batches[0], 4, 2,
+                     dev)
+    info(f"  (a) dp=4 x tp=2 over [cuda:0] * 8 ({sh['positions']} shard tensors) [{gpu}]: "
+         f"losses {sh['losses']} vs unsharded {sh['plain_losses']} (max rel "
+         f"{sh['rel']:.2e}); step ms {[round(x, 3) for x in sh['ms']]} vs "
+         f"{[round(x, 3) for x in sh['plain_ms']]}; replicas bitwise equal {sh['equal']}")
+    require(sh["rel"] <= P24_REL_TOL and sh["losses"][1] < sh["losses"][0] and sh["equal"]
+            and sh["boxed"], "(a) the sharded step equals the unsharded one, replicas equal")
+
+    # the trained params served through the flash_attn kernel
+    trained = TTr.map_params(lambda t: t.detach(), state.params)
+    model = SentenceEmbedderModel(cfg, params=trained, max_length=64, device=dev)
+    probe = docs[:64]
+    ids, mask = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                 for a in pad_to_buckets(*tok(probe)))
+    kernel_vecs = model.embed_batch(probe)
+
+    def min_cos(params):
+        with torch.no_grad():
+            v = TT._embed(params, ids, mask, cfg)[:64].float().cpu().numpy()
+        return float(np.min(np.sum(v * kernel_vecs, axis=1) / (
+            np.linalg.norm(v, axis=1) * np.linalg.norm(kernel_vecs, axis=1))))
+
+    # the same weights the kernel reads (the embedder stores every leaf in
+    # bf16, layernorms included, as JAX's), and the f32 masters
+    cos, cos_f32 = min_cos(model.params), min_cos(trained)
+    FA.flash_attn.launches = 0
+    pipe = FusedRAGPipeline(model, None, reserved_space=len(docs), doc_seq=32)
+    keys = [f"k{i}" for i in range(len(docs))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, len(docs), INGEST_BATCH):
+        pipe.add(keys[s:s + INGEST_BATCH], docs[s:s + INGEST_BATCH])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    res = pipe.retrieve(queries, k=TOP_K)
+    launches = FA.flash_attn.launches
+    corpus_v = np.concatenate([model.embed_batch(docs[s:s + INGEST_BATCH])
+                               for s in range(0, len(docs), INGEST_BATCH)])
+    q_v = model.embed_batch(queries)
+    truth = np.argsort(-(q_v @ corpus_v.T), axis=1, kind="stable")[:, :TOP_K]
+    recall = sum(len({int(k[1:]) for k, _ in row} & set(truth[i].tolist()))
+                 for i, row in enumerate(res)) / (len(queries) * TOP_K)
+    info(f"  (a) trained params through FusedRAGPipeline [{gpu}]: {len(docs)} docs in "
+         f"{ingest_s:.3f} s ({len(docs) / ingest_s:.1f} docs/s); flash_attn launches "
+         f"{launches}; min cosine over 64 docs of the kernel's embeddings vs the training "
+         f"forward's on the served (bf16-stored) weights {cos:.6f}, on the f32 masters "
+         f"{cos_f32:.6f}; "
+         f"recall@10 against exact f32 scoring {recall:.4f} (no bar; random weights "
+         f"gave 0.8922 in phase 23)")
+    require(launches >= cfg.layers * (len(docs) // INGEST_BATCH + 1),
+            "(a) the trained-params ingest went through flash_attn")
+    require(cos >= 0.9999, "(a) kernel embeddings within cosine 0.9999 of training's")
+    pipe.close()
+    model.close()
+    return launches
+
+
+def p24_lm_batch(tok, docs, dev) -> dict:
+    """(b)'s batch: the corpus's text in 8 rows of 256 byte tokens, the
+    first row left-padded by 64."""
+    import torch
+
+    ids = tok.encode(" ".join(docs[:2048]))[: P24_LM_ROWS * P24_LM_SEQ]
+    ids = torch.tensor(ids, dtype=torch.int64).view(P24_LM_ROWS, P24_LM_SEQ)
+    mask = torch.ones_like(ids)
+    ids[0, :P24_LM_PAD] = 0
+    mask[0, :P24_LM_PAD] = 0
+    return {"ids": ids.to(dev), "mask": mask.to(dev)}
+
+
+def p24_lm(dev, gpu: str, docs) -> None:
+    """(b)."""
+    import torch
+
+    from pathway_tpu_torch.models import decoder as D
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.models import train as TT
+    from pathway_tpu_torch.parallel.mesh import make_mesh, spec_dropping_nondividing
+
+    cfg = D.GPT2_SMALL  # bf16 compute, f32 params
+    batch = p24_lm_batch(byte_tokenizer(), docs, dev)
+    state, tx = TT.init_decoder_train_state(0, cfg, device=dev)
+    step = TT.make_decoder_train_step(cfg, tx)
+    p24_grad_check(TT.lm_loss(state.params, batch, cfg), state.params, "(b) step 1")
+    FA.flash_attn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, ms = p24_step_ms(step, state, [batch] * P24_LM_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = int(batch["mask"].sum())
+    step_ms = statistics.median(ms[1:])
+    info(f"(b) causal LM GPT-2 small (bf16 compute, f32 params, lr 3e-4) [{gpu}]: "
+         f"{P24_LM_STEPS} steps of {P24_LM_ROWS} x {P24_LM_SEQ} tokens (row 0 left-padded "
+         f"by {P24_LM_PAD}); step {step_ms:.3f} ms median (CUDA events; first {ms[0]:.3f}); "
+         f"{tokens / (step_ms / 1e3):.1f} tokens/s; peak max_memory_allocated "
+         f"{peak / 2**20:.1f} MiB; losses {[round(x, 4) for x in losses]}")
+    require(FA.flash_attn.launches == 0, "(b) no flash_attn launch during a step")
+    require(losses[-1] < losses[0], "(b) the loss on the repeated batch fell")
+    mesh = make_mesh([dev] * 8, dp=2, tp=4)
+
+    def lenient(node, sp):
+        return {k: lenient(v, sp[k]) if isinstance(v, dict)
+                else spec_dropping_nondividing(sp[k], tuple(v.shape), mesh)
+                for k, v in node.items()}
+
+    # the 50,257-row wte replicates over tp=4
+    specs = lenient(state.params, D.param_partition_specs(cfg))
+    del state, tx, step
+    sh = p24_sharded(lambda: TT.init_decoder_train_state(0, cfg, device=dev),
+                     TT.make_decoder_train_step, cfg, specs, batch, 2, 4, dev)
+    info(f"  (b) dp=2 x tp=4 over [cuda:0] * 8 ({sh['positions']} shard tensors) [{gpu}]: "
+         f"losses {sh['losses']} vs unsharded {sh['plain_losses']} (max rel "
+         f"{sh['rel']:.2e}); step ms {[round(x, 3) for x in sh['ms']]} vs "
+         f"{[round(x, 3) for x in sh['plain_ms']]}; replicas bitwise equal {sh['equal']}")
+    require(sh["rel"] <= P24_REL_TOL and sh["losses"][1] < sh["losses"][0] and sh["equal"]
+            and sh["boxed"], "(b) the sharded LM step equals the unsharded one, replicas equal")
+    torch.cuda.empty_cache()
+
+
+def p24_gate_batches(train, rng, tok, dev):
+    """The ``trained_decoder`` fixture's batches: 64 training samples drawn
+    with ``rng``, the decoder's view and the answer, cut to 144 tokens."""
+    import torch
+
+    while True:
+        idx = rng.integers(0, len(train), P24_GATE_BATCH)
+        seqs, lens = [], []
+        for i in idx:
+            s = train[int(i)]
+            ids = tok.encode(p24_decoder_view(s) + " " + s.answer)[:P24_GATE_SEQ]
+            lens.append(len(ids))
+            seqs.append(ids + [0] * (P24_GATE_SEQ - len(ids)))
+        mask = (np.arange(P24_GATE_SEQ)[None, :] < np.array(lens)[:, None]).astype(np.int64)
+        yield {"ids": torch.tensor(seqs, dtype=torch.int64).to(dev),
+               "mask": torch.from_numpy(mask).to(dev)}
+
+
+def p24_small_kernels(dev, cfg, block: int) -> dict:
+    """``flash_chunk_attn_paged`` and ``paged_attn_decode`` against their
+    plain versions at the gate decoder's shapes: f32, 4 heads x 16."""
+    import torch
+
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.models import paged_attention as PA
+
+    g = torch.Generator().manual_seed(24)
+    nh, hd, M = cfg.heads, cfg.head_dim, 176 // block
+    errs = {}
+    B = 8
+    n_blocks = B * M + 1
+    q = torch.randn((B, nh, hd), generator=g).to(dev)
+    kb, vb = (torch.randn((n_blocks, nh, block, hd), generator=g).to(dev) for _ in range(2))
+    kb[0] = vb[0] = 0
+    lens = torch.randint(1, M * block + 1, (B,), generator=g)
+    lens[0] = 0
+    tbl = (torch.randperm(n_blocks - 1, generator=g)[: B * M] + 1).reshape(B, M)
+    for b in range(B):
+        tbl[b, (int(lens[b]) + block - 1) // block:] = 0
+    tbl = tbl.to(torch.int32).to(dev)
+    mask = (torch.arange(M * block)[None, :] < lens[:, None]).to(torch.int32).to(dev)
+    args = (q, kb, vb, None, None, tbl, mask)
+    out = PA.paged_attn_decode(*args)
+    ref = PA.paged_attn_decode_reference(*args)
+    errs["paged_attn_decode"] = float((out - ref).abs().max())
+    for start in (0, 64, 128):
+        T = 16
+        qc = torch.randn((nh, T, hd), generator=g).to(dev)
+        row = tbl[1:2].clone()
+        row_mask = (torch.arange(M * block) < start + T).to(torch.int32).to(dev)
+        row_mask[start // 2::7] = 0
+        o = FA.flash_chunk_attn_paged(qc, kb, vb, None, None, row[0], row_mask, start)
+        r = FA.flash_chunk_attn_paged_reference(qc, kb, vb, None, None, row[0], row_mask, start)
+        errs["flash_chunk_attn_paged"] = max(errs.get("flash_chunk_attn_paged", 0.0),
+                                             float((o - r).abs().max()))
+    torch.cuda.synchronize()
+    return errs
+
+
+def p24_gate(dev, gpu: str) -> dict:
+    """(c); returns its launches of the five kernel entry points."""
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import DecoderChat
+    from pathway_tpu_torch.models import decoder as D
+    from pathway_tpu_torch.models import train as TT
+    from pathway_tpu_torch.stdlib.indexing.bm25 import TantivyBM25Factory
+    from pathway_tpu_torch.xpacks.llm import rag_eval
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.question_answering import (
+        BaseRAGQuestionAnswerer,
+        SimpleContextProcessor,
+    )
+
+    pool = rag_eval.generate_qa_dataset(4040, seed=1)
+    evals, train = pool[:40], pool[40:]
+    require(not {s.answer for s in evals} & {s.answer for s in train},
+            "(c) the eval facts are disjoint from the training facts")
+    tok = P24CharTokenizer()
+    cfg = D.DecoderConfig(vocab_size=97, hidden=64, layers=2, heads=4, intermediate=128,
+                          max_position=P24_GATE_SEQ + 16, dtype=torch.float32)
+    tx = TT.AdamW(P24_GATE_LR)
+
+    def fixture_state(d):
+        params = D.map_params(lambda t: t.to(d), p24_fixture_params(cfg))
+        return TT.TrainState(params, tx.init(params), 0)
+
+    first = next(p24_gate_batches(train, np.random.default_rng(0), tok, "cpu"))
+    outs = []
+    for d in (dev, "cpu"):
+        s, loss = TT.make_decoder_train_step(cfg, tx)(fixture_state(d),
+                                                      {k: v.to(d) for k, v in first.items()})
+        outs.append((float(loss), [x.detach().cpu() for x in TT.param_leaves(s.params)]))
+    diff = max(float((a - b).abs().max()) for a, b in zip(outs[0][1], outs[1][1]))
+    info(f"  (c) one f32 step card vs CPU (TF32 off) [{gpu}]: loss {outs[0][0]:.7f} vs "
+         f"{outs[1][0]:.7f}; max param diff {diff:.3e}")
+    require(abs(outs[0][0] - outs[1][0]) <= 1e-5 and diff <= 1e-4,
+            "(c) the f32 LM step on the card equals the CPU's (loss 1e-5, params 1e-4)")
+    state = fixture_state(dev)
+    step = TT.make_decoder_train_step(cfg, tx)
+    batches = p24_gate_batches(train, np.random.default_rng(0), tok, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, steps, seen = None, 0, []
+    for steps in range(1, P24_GATE_CAP + 1):
+        state, loss = step(state, next(batches))
+        if steps % P24_GATE_EVERY == 0:
+            seen.append(round(float(loss), 4))
+            if seen[-1] < P24_GATE_STOP:
+                break
+    loss = float(loss)
+    train_s = time.perf_counter() - t0
+    info(f"(c) the RAG gate's decoder (vocab 97, hidden 64, 2 layers, 4 heads, ffn 128, f32; "
+         f"JAX's PRNGKey(0) init) trained on the card [{gpu}]: {steps} steps of "
+         f"{P24_GATE_BATCH} x {P24_GATE_SEQ} in {train_s:.3f} s ({train_s / steps * 1e3:.3f} "
+         f"ms a step, host clock); final loss {loss:.4f} (< 0.3); every {P24_GATE_EVERY} "
+         f"steps {seen}")
+    require(loss < 0.3, "(c) the decoder learned the answer-copy task")
+    block = 16
+    errs = p24_small_kernels(dev, cfg, block)
+    info(f"  (c) kernels vs plain at 4 heads x 16, f32 [{gpu}]: max abs err {errs} (atol 1e-4)")
+    require(all(v <= ATOL["float32"] for v in errs.values()),
+            "(c) paged_attn_decode and flash_chunk_attn_paged agree at head_dim 16")
+    trained = D.map_params(lambda t: t.detach(), state.params)
+    chat = DecoderChat(params=trained, cfg=cfg, tokenizer=tok, max_new_tokens=6,
+                       continuous=True, n_slots=8, chunk_steps=8,
+                       max_prompt_tokens=P24_GATE_SEQ, prefill_chunk=64,
+                       spec_decode=False, chunk_autotune=False, paged_kv=True,
+                       paged_kv_block=block, paged_kernel=True, flash_prefill=True,
+                       device=dev)
+    pw.clear_graph()
+    store = DocumentStore(rag_eval.docs_table(evals), retriever_factory=TantivyBM25Factory())
+    qa = BaseRAGQuestionAnswerer(chat, store, search_topk=1, prompt_template=P24_GATE_TEMPLATE,
+                                 context_processor=SimpleContextProcessor())
+    for f in counters().values():
+        f.launches = 0
+    s0 = dict(chat.server.stats)
+    t0 = time.perf_counter()
+    out = rag_eval.run_rag_eval(qa, evals)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    ln = {n: f.launches for n, f in counters().items()}
+    st = {k: v - s0[k] for k, v in chat.server.stats.items()}
+    pw.clear_graph()
+    chat.close()
+    info(f"  (c) run_rag_eval over BM25 top-1 and the continuous DecoderChat (paged, paged "
+         f"kernel, flash prefill, 6 new tokens) [{gpu}]: {out['n']} questions in "
+         f"{eval_s:.3f} s; accuracy_contains {out['accuracy_contains']:.3f} (>= "
+         f"{P24_GATE_MIN}), exact {out['accuracy_exact']:.3f}; {st['decode_steps']} decode "
+         f"steps, {st['prefill_chunks']} prefill pieces; launches {ln}")
+    require(out["n"] == len(evals), "(c) every question answered")
+    require(out["accuracy_contains"] >= P24_GATE_MIN, "(c) the answer gate: accuracy >= 0.6")
+    require(ln["paged_attn_decode"] >= cfg.layers * st["decode_steps"] > 0,
+            "(c) every decode step and layer went through paged_attn_decode")
+    require(ln["flash_chunk_attn_paged"] >= cfg.layers * st["prefill_chunks"] > 0,
+            "(c) every prefill piece and layer went through flash_chunk_attn_paged")
+    return ln
+
+
+def p24_child(spec_path: str) -> int:
+    """A child of (d) under ``spawn``: CSV docs -> the embed UDF on the
+    card -> a JSON-lines sink, in a ``pw.run()`` given no config (spawn's
+    is the default). Writes its launches to a file of its own."""
+    import uuid
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import SentenceEmbedderModel
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.models.transformer import MINILM_L6
+    from pathway_tpu_torch.xpacks import llm
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    if spec["device"].startswith("cuda"):
+        mp_load_kernels()
+    model = SentenceEmbedderModel(MINILM_L6, max_length=64, device=spec["device"])
+    emb = llm.SentenceTransformerEmbedder(model, max_batch_size=RAG_BATCH)
+    DocSchema, _ = mp_doc_schemas(pw)
+    docs = pw.io.csv.read(spec["src"], schema=DocSchema, mode="static")
+    pw.io.jsonlines.write(docs.select(docs.doc, vec=emb(docs.text)), spec["out"])
+    FA.flash_attn.launches = 0
+    pw.run()
+    with open(os.path.join(spec["results"], f"{uuid.uuid4().hex}.json"), "w") as fh:
+        json.dump({"flash_attn": FA.flash_attn.launches}, fh)
+    return 0
+
+
+P24_DEBUG_PROG = """import sys
+import pathway_tpu_torch as pw
+t = pw.debug.table_from_markdown('word | n\\nalpha | 1\\nbeta | 2')
+pw.debug.table_to_csv(t, sys.argv[1])
+pw.clear_graph()
+back = pw.debug.table_from_csv(sys.argv[1])
+pw.debug.compute_and_print(back.select(back.word, m=back.n * 10), include_id=False)
+"""
+
+
+def p24_spawn_start(dev, docs) -> dict:
+    """(d), started: ``spawn -n 2`` over this script's ``--phase24-child``
+    and ``spawn-from-env`` over a ``pw.debug`` program, both at once, each
+    with its output in a file; the caller goes on meanwhile."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="p24-")
+    src, results = os.path.join(tmp, "csv"), os.path.join(tmp, "results")
+    os.makedirs(results)
+    mp_write_csv(src, ["doc", "text"], list(enumerate(docs[:P24_SPAWN_DOCS])), FS_FILES)
+    spec = {"src": src, "out": os.path.join(tmp, "vecs.jsonl"), "results": results,
+            "device": str(dev), "tmp": tmp}
+    spec_path = os.path.join(tmp, "spec.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    prog = os.path.join(tmp, "debug_prog.py")
+    with open(prog, "w") as fh:
+        fh.write(P24_DEBUG_PROG)
+    cli = [sys.executable, "-m", "pathway_tpu_torch"]
+    runs = {
+        "spawn": (cli + ["spawn", "-n", "2", "--first-port", str(mp_free_port()),
+                         os.path.join(root, "chip_smoke.py"), "--phase24-child", spec_path],
+                  None),
+        "spawn-from-env": (cli + ["spawn-from-env", sys.executable, prog,
+                                  os.path.join(tmp, "t.csv")],
+                           dict(os.environ, PATHWAY_SPAWN_ARGS="-n 1 -t 1")),
+    }
+    spec["procs"] = {}
+    for name, (argv, env) in runs.items():
+        out = open(os.path.join(tmp, f"{name}.out"), "w+")
+        spec["procs"][name] = (subprocess.Popen(argv, cwd=root, env=env, stdout=out,
+                                                stderr=subprocess.STDOUT), out)
+    spec["t0"] = time.perf_counter()
+    return spec
+
+
+def p24_spawn_finish(spec: dict, dev, gpu: str, docs) -> int:
+    """(d), waited for (bounded; every process stopped) and checked;
+    returns the children's flash_attn launches."""
+    from pathway_tpu_torch import SentenceEmbedderModel
+    from pathway_tpu_torch.models.transformer import MINILM_L6
+
+    codes, outs, walls = {}, {}, {}
+    try:
+        for name, (proc, out) in spec["procs"].items():
+            left = max(1.0, P24_TIMEOUT - (time.perf_counter() - spec["t0"]))
+            try:
+                codes[name] = proc.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                codes[name] = None
+            walls[name] = time.perf_counter() - spec["t0"]
+            out.seek(0)
+            outs[name] = out.read()
+    finally:
+        for proc, out in spec["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    if codes["spawn"] != 0:
+        info(outs["spawn"][-6000:])
+    require(codes["spawn"] == 0, "(d) spawn --processes 2 exited 0")
+    shares = []
+    for p in range(2):
+        with open(f"{spec['out']}.{p}") as fh:
+            shares.append({r["doc"]: r["vec"] for r in map(json.loads, fh) if r["diff"] == 1})
+    ids = [set(s) for s in shares]
+    require(not ids[0] & ids[1] and ids[0] | ids[1] == set(range(P24_SPAWN_DOCS)),
+            "(d) the children's shares are disjoint and cover all 4,096 docs")
+    got = {**shares[0], **shares[1]}
+    vecs = np.asarray([got[i] for i in range(P24_SPAWN_DOCS)], dtype=np.float32)
+    model = SentenceEmbedderModel(MINILM_L6, max_length=64, device=dev)
+    direct = np.concatenate([model.embed_batch(docs[s:s + RAG_BATCH])
+                             for s in range(0, P24_SPAWN_DOCS, RAG_BATCH)])
+    model.close()
+    cos = np.sum(vecs * direct, axis=1) / (np.linalg.norm(vecs, axis=1)
+                                           * np.linalg.norm(direct, axis=1))
+    launches = 0
+    for name in os.listdir(spec["results"]):
+        with open(os.path.join(spec["results"], name)) as fh:
+            launches += json.load(fh)["flash_attn"]
+    info(f"(d) python -m pathway_tpu_torch spawn -n 2 [{gpu}]: {P24_SPAWN_DOCS} docs in "
+         f"{FS_FILES} CSV files -> embed UDF on {dev} -> JSON lines, done "
+         f"{walls['spawn']:.1f} s after its start (the children's start included; (b) and "
+         f"(c) ran meanwhile); shares {len(ids[0])} + {len(ids[1])}; min cosine to a direct "
+         f"encode {cos.min():.6f}; flash_attn launches {launches}")
+    require(cos.min() >= C4_COS_MIN, f"(d) vectors within cosine {C4_COS_MIN} of a direct encode")
+    require(len(os.listdir(spec["results"])) == 2 and launches >= MINILM_LAYERS * 2,
+            "(d) both children embedded through flash_attn")
+    lines = [ln.split() for ln in outs["spawn-from-env"].strip().splitlines()]
+    info(f"  (d) spawn-from-env (PATHWAY_SPAWN_ARGS='-n 1 -t 1') running a pw.debug program "
+         f"[{gpu}]: "
+         f"exit {codes['spawn-from-env']} after {walls['spawn-from-env']:.1f} s, printed "
+         f"{[ln for ln in lines if len(ln) == 2]}")
+    require(codes["spawn-from-env"] == 0 and ["alpha", "10"] in lines
+            and ["beta", "20"] in lines, "(d) spawn-from-env ran the pw.debug program")
+    return launches
+
+
+def run_training(dev, gpu: str, docs, queries) -> tuple[int, dict]:
+    """Phase 24; returns (a)'s and (d)'s flash_attn launches and (c)'s
+    launches of the five entry points. (d)'s processes run while (b) and
+    (c) train and serve (the script's time); (a)'s steps are timed alone."""
+    t0 = time.perf_counter()
+    launches = p24_contrastive(dev, gpu, docs, queries)
+    t1 = time.perf_counter()
+    spawned = p24_spawn_start(dev, docs)
+    p24_lm(dev, gpu, docs)
+    t2 = time.perf_counter()
+    gate = p24_gate(dev, gpu)
+    t3 = time.perf_counter()
+    launches += p24_spawn_finish(spawned, dev, gpu, docs)
+    t4 = time.perf_counter()
+    info(f"phase 24 [{gpu}]: {t4 - t0:.1f} s ((a) {t1 - t0:.1f}; with (d) running: (b) "
+         f"{t2 - t1:.1f}, (c) {t3 - t2:.1f}; then (d) {t4 - t3:.1f})")
+    return launches, gate
+
+
 def main() -> int:
     import torch
 
@@ -7670,6 +8419,9 @@ def main() -> int:
     from pathway_tpu_torch.models.tokenizer import pad_to_buckets
     from pathway_tpu_torch.models.transformer import MINILM_L6
 
+    def done(n: int) -> None:  # where the script's time goes, for the next cut
+        info(f"phase {n} done at {time.perf_counter() - T_START:.1f} s [{gpu}]")
+
     # phase 1: device
     gpu = gpu_line()
     info(f"gpu: {gpu}")
@@ -7678,6 +8430,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
 
+    done(1)
     # phase 2: build (the CUDA kernels, the C++ tokenizers and the engine's
     # C++ loops at once)
     t0 = time.perf_counter()
@@ -7689,6 +8442,7 @@ def main() -> int:
     info(f"build: {time.perf_counter() - t0:.1f} s for {sorted(kernels.KERNELS)}, "
          f"{tok_lib.name} and {engine_lib.name}")
 
+    done(2)
     # phase 3: kernel vs plain
     worst = check_flash_attn(dev)
     docs, queries = corpus()
@@ -7699,6 +8453,7 @@ def main() -> int:
          f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}), "
          f"max abs err over all cases {worst:.3e}")
 
+    done(3)
     # phase 4: main path (warm the libraries first, outside the count)
     run_main_path(dev, docs[:512], queries[:16], MINILM_L6, batch=256,
                   rerank_k=8, n_lat=2)
@@ -7719,6 +8474,7 @@ def main() -> int:
         raise AssertionError(f"recall@10 {out['recall_at_10']:.4f} < 0.9")
     check_against_cpu(out["emb"], MINILM_L6, docs, queries)
 
+    done(4)
     # phase 5: the decoder's kernels against their plain versions, timed
     rows = {"paged_attn_decode": check_paged_decode(dev)}
     rows["flash_chunk_attn"], rows["flash_chunk_attn_paged"] = check_flash_chunk(dev)
@@ -7738,33 +8494,40 @@ def main() -> int:
     info(f"paged_attn_decode [{gpu}]: split plans "
          + "; ".join(f"{c}: {ms:.4f} ms" for c, ms in rows["paged_attn_decode"]["split_ms"].items()))
 
+    done(5)
     # phase 6: the answer-LLM main path
     params, tok, common = decoder_setup(dev)
     dec = run_decoder(dev, gpu, params, tok, common)
 
+    done(6)
     # phase 7: shared-prompt serving through the prefix cache
     check_shared_blocks(dev)
     shared = run_shared_prompt(gpu, tok, common)
     dec = {n: dec[n] + shared[n] for n in dec}
 
+    done(7)
     # phase 8: ingest through the embedder seam at full MiniLM-L6 width
     seam_launches = run_ingest_seam(dev, gpu, docs)
 
+    done(8)
     # phase 9: checkpoints on the card
     ckpt = run_checkpoints(dev, gpu, docs)
     dec = {n: dec[n] + ckpt[n] for n in dec}
 
+    done(9)
     # phase 10: spec decode and chunk autotune, the default decode schedule
     check_spec_pool(dev, gpu, params, tok)
     spec = run_spec_serving(gpu, tok, common)
     dec = {n: dec[n] + spec[n] for n in dec}
 
+    done(10)
     # phase 11: telemetry on the card, metrics on (the default) against off
     tele = run_telemetry_serving(dev, gpu, common)
     dec = {n: dec[n] + tele[n] for n in dec}
     seam_launches += run_telemetry_ingest(dev, gpu, docs)
     launches += check_query_dispatches(out["pipe"], queries)
 
+    done(11)
     # phase 12: supervision and the query server
     sup = run_supervision_serving(dev, gpu, common)
     sup["flash_attn"] += run_ingest_chaos(dev, gpu, docs) + run_query_server(out["pipe"], gpu)
@@ -7772,6 +8535,7 @@ def main() -> int:
     require(all(v > 0 for v in sup.values()), "phase 12 drove all five kernel entry points")
     dec = {n: dec[n] + sup[n] for n in dec}
 
+    done(12)
     # phase 13: disaggregated lanes, tenant scheduling, the serving fleet
     lanes = run_lanes_tenants_fleet(dev, gpu, common)
     info(f"lanes, tenants and fleet: phase 13 launches {lanes}")
@@ -7780,6 +8544,7 @@ def main() -> int:
             "phase 13 drove flash_chunk_attn_paged, paged_attn_decode and wq_matmul")
     dec = {n: dec[n] + lanes[n] for n in dec}
 
+    done(13)
     # phase 14: the RAG retrieval variants at phase 4's settings
     variants = run_int8_encoders(dev, gpu, docs, queries, out["pipe"])
     run_ann(dev, gpu, docs, queries)
@@ -7795,6 +8560,7 @@ def main() -> int:
     launches += variants + late
     dec = {n: dec[n] + listwise[n] for n in dec}
 
+    done(14)
     # phase 15: the parallel layer and the serving mesh
     t15 = time.perf_counter()
     trivial = run_mesh_trivial(dev, gpu, common)
@@ -7807,28 +8573,34 @@ def main() -> int:
          f"{time.perf_counter() - t15:.1f} s")
     dec = {n: dec[n] + mesh_launches[n] for n in dec}
 
+    done(15)
     # phase 16: the dataflow engine's config-4 program at full width
     launches += run_engine_config4(dev, gpu)
 
+    done(16)
     # phase 17: BASELINE configs 2 and 3 through pw.run() and the REST servers
     rag = run_rag_apps(dev, gpu, out, docs, queries, common)
     dec = {n: dec[n] + rag[n] for n in dec}
 
+    done(17)
     # phase 18: BASELINE configs 1, 2 and 5 through the file connectors and
     # the index factories
     files = run_file_connectors(dev, gpu, out, docs, queries)
     dec = {n: dec[n] + files[n] for n in dec}
 
+    done(18)
     # phase 19: an event-time windowed embed stream through pw.temporal
     launches += run_temporal_stream(dev, gpu)
 
+    done(19)
     # phase 20: two processes sharing the card (the row exchange, iterate)
     launches += run_multiprocess(gpu, docs, queries, out["truth"])
 
+    done(20)
     # phase 21: pw.ml, rag_eval with the observability routes, the fleet
     # over processes
     t21 = time.perf_counter()
-    launches += run_ml(dev, gpu, out, docs, queries)
+    launches += run_ml(dev, gpu, out, docs[:ML_DOCS], queries)
     ev = run_rag_eval_phase(dev, gpu, out, common)
     fl = run_fleet_processes(gpu, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                                "chiprun_out", "phase21"))
@@ -7837,14 +8609,25 @@ def main() -> int:
     dec = {n: dec[n] + ev[n] + fl[n] for n in dec}
     info(f"phase 21: {time.perf_counter() - t21:.1f} s")
 
+    done(21)
     # phase 22: persistence, a streaming RAG ingest that stops or is killed
     # and resumes exactly once
     launches += run_persistence(gpu, out, docs, queries)
 
+    done(22)
     # phase 23: a CDC-fed index shared through an export (Debezium and
     # SQLite into the embed UDF, export_table, import_table in a second
     # program, a Postgres snapshot sink)
     launches += run_cdc_share(gpu, out, docs, queries)
+
+    done(23)
+    # phase 24: training on the card (contrastive and causal LM, dp x tp
+    # sharded steps, the RAG answer gate on a decoder trained here, spawn)
+    trained, gate = run_training(dev, gpu, docs, queries)
+    launches += trained
+    dec = {n: dec[n] + gate[n] for n in dec}
+
+    done(24)
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",
@@ -7888,4 +8671,6 @@ if __name__ == "__main__":
         sys.exit(p21_replica(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase22-child"]:
         sys.exit(p22_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase24-child"]:
+        sys.exit(p24_child(sys.argv[2]))
     sys.exit(main())

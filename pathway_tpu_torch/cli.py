@@ -22,16 +22,31 @@ Carried, with JAX's command names and options:
   ``pw.persistence.Config`` they describe (a filesystem store at DIR,
   snapshot access ``replay``, the mode, stopping at the end of the log
   unless asked to continue) and hands it to every ``pw.run`` of the
-  program that is given none (``internals.run.persistence_default``).
-  One process: ``spawn`` is not ported, so neither are ``--threads`` /
-  ``--processes``.
+  program that is given none (``internals.run.persistence_default``);
+* ``spawn [-t N] [-n N] [--first-port P] [--record] [--record-path DIR]
+  [--repository-url URL] [--branch B] PROGRAM ARGS...``: N child
+  processes, each running the Python file in-process (PROGRAM, or its
+  first argument when PROGRAM is a Python interpreter, as in JAX's
+  ``spawn python main.py``). JAX's command sets ``PATHWAY_PROCESSES`` /
+  ``PATHWAY_PROCESS_ID`` / ``PATHWAY_FIRST_PORT`` / ``PATHWAY_THREADS``
+  (and, with ``--record``, the ``PATHWAY_REPLAY_STORAGE`` family) for the
+  program and its library reads them; the port's library reads none, so
+  each child hands its own ``EngineConfig(processes=, process_id=,
+  first_port=, threads=)`` (and the record's ``pw.persistence.Config``) to
+  every ``pw.run`` of the program given none
+  (``internals.run.config_default``). The children still get JAX's
+  variables and the shared ``PATHWAY_RUN_ID``, for programs that read
+  them. The exit code is 0 when every child exits 0, else 1. A
+  ``--repository-url`` is cloned into a temporary venv as JAX does, which
+  needs GitPython (without it the command logs so and exits 1, as JAX's);
+* ``spawn-from-env PROGRAM ARGS...``: ``spawn`` with its options read from
+  ``PATHWAY_SPAWN_ARGS``.
 
 JAX's ``PATHWAY_TPU_FLEET`` switch is the ``--fleet`` option here: without
 it ``fleet serve`` refuses with exit code 2, as the flag's default does.
 The parser is the standard library's ``argparse`` (JAX's is ``click``).
-``spawn``, ``spawn-from-env``, ``tune`` and ``airbyte`` are not ported
-(ROADMAP A12, A13): they print so
-and exit with code 3. :func:`main` takes ``argv`` (the tests' way in) and
+``tune`` and ``airbyte`` are not ported (ROADMAP A): they print so and
+exit with code 3. :func:`main` takes ``argv`` (the tests' way in) and
 returns the exit code.
 """
 
@@ -39,14 +54,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
+import os
+import shlex
 import signal
+import subprocess
 import sys
 import time
 import urllib.request
 
 NOT_PORTED = {
-    "spawn": "needs the multi-process launcher (ROADMAP A13)",
-    "spawn-from-env": "needs the multi-process launcher (ROADMAP A13)",
     "tune": "needs the autotuner (ROADMAP A12)",
     "airbyte": "needs the airbyte connector (ROADMAP A13)",
 }
@@ -335,6 +352,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("arguments", nargs=argparse.REMAINDER)
     p.set_defaults(func=cmd_replay)
 
+    p = sub.add_parser("spawn", help="launch PROGRAM as a multi-process run")
+    p.add_argument("-t", "--threads", metavar="N", type=int, default=1,
+                   help="number of threads per process")
+    p.add_argument("-n", "--processes", metavar="N", type=int, default=1,
+                   help="number of processes")
+    p.add_argument("--first-port", type=int, metavar="PORT", default=10000,
+                   help="first port of the processes' exchange")
+    p.add_argument("--record", action="store_true", help="record data in the input connectors")
+    p.add_argument("--record-path", default="record",
+                   help="directory in which the record is saved")
+    p.add_argument("--repository-url", default=None,
+                   help="github repository to spawn the program from")
+    p.add_argument("--branch", default=None, help="branch if not the default")
+    p.add_argument("program", help="the Python file to run (or a Python interpreter and it)")
+    p.add_argument("arguments", nargs=argparse.REMAINDER)
+    p.set_defaults(func=cmd_spawn)
+
+    p = sub.add_parser("spawn-from-env",
+                       help="spawn with the options in $PATHWAY_SPAWN_ARGS")
+    p.add_argument("program")
+    p.add_argument("arguments", nargs=argparse.REMAINDER)
+    p.set_defaults(func=cmd_spawn_from_env)
+
     for name, why in NOT_PORTED.items():
         p = sub.add_parser(name, help=f"not ported: {why}")
         p.add_argument("rest", nargs=argparse.REMAINDER)
@@ -371,6 +411,125 @@ def cmd_replay(args) -> int:
     finally:
         sys.argv = argv
     return 0
+
+
+# ------------------------------------------------------------------- spawn
+
+# what a spawned child runs: the program file in-process under its config
+_CHILD = ("import sys; from pathway_tpu_torch.cli import run_child; "
+          "sys.exit(run_child(sys.argv[1], sys.argv[2], sys.argv[3:]))")
+
+
+def _program_file(program: str, arguments: list[str]) -> tuple[str, list[str]]:
+    """The Python file to run and its arguments: ``PROGRAM ARGS`` where
+    PROGRAM is the file, or ``python FILE ARGS`` (JAX's usual form)."""
+    if os.path.basename(program).startswith("python") and arguments:
+        return arguments[0], list(arguments[1:])
+    return program, list(arguments)
+
+
+def spawn_program(*, threads: int, processes: int, first_port: int, program: str,
+                  arguments, record: bool = False, record_path: str = "record",
+                  repository_url: str | None = None, branch: str | None = None) -> int:
+    """Start ``processes`` children of one run and wait for them all;
+    returns 0 when every child exited 0, else 1."""
+    import uuid
+
+    python = sys.executable
+    if repository_url is not None:
+        try:
+            import git
+        except ImportError:
+            logging.error("To run the code from a Git repository please install GitPython")
+            return 1
+        import tempfile
+        import venv
+
+        # JAX's checkout: the repository in a temporary directory with a
+        # fresh venv holding its requirements; the children run there
+        root = tempfile.mkdtemp(prefix="pathway-spawn-")
+        repo_dir, venv_dir = os.path.join(root, "repository"), os.path.join(root, "venv")
+        repo = git.Repo.clone_from(repository_url, repo_dir)
+        if branch is not None:
+            repo.git.checkout(branch)
+        venv.create(venv_dir, with_pip=True)
+        requirements = os.path.join(repo_dir, "requirements.txt")
+        if os.path.exists(requirements):
+            if subprocess.run([os.path.join(venv_dir, "bin", "pip"), "install", "-r",
+                               requirements], stderr=subprocess.STDOUT).returncode:
+                raise RuntimeError("Failed to install dependencies")
+        python = os.path.join(venv_dir, "bin", "python")
+        os.chdir(repo_dir)
+    path, args = _program_file(program, list(arguments))
+    run_id = str(uuid.uuid4())
+    _err(f"Preparing {processes} process{'' if processes == 1 else 'es'} "
+         f"({processes * threads} total worker{'' if processes * threads == 1 else 's'})")
+    children: list[subprocess.Popen] = []
+    try:
+        for pid in range(processes):
+            spec = dict(threads=threads, processes=processes, process_id=pid,
+                        first_port=first_port, record_path=record_path if record else None)
+            env = dict(os.environ, PATHWAY_THREADS=str(threads),
+                       PATHWAY_PROCESSES=str(processes), PATHWAY_FIRST_PORT=str(first_port),
+                       PATHWAY_PROCESS_ID=str(pid), PATHWAY_RUN_ID=run_id)
+            if record:
+                env.update(PATHWAY_REPLAY_STORAGE=record_path, PATHWAY_SNAPSHOT_ACCESS="record")
+            children.append(subprocess.Popen(
+                [python, "-c", _CHILD, json.dumps(spec), path, *args], env=env))
+        for child in children:
+            child.wait()
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.terminate()
+                child.wait()
+    # a child killed by a signal has a negative code: any non-zero fails the run
+    return 0 if all(c.returncode == 0 for c in children) else 1
+
+
+def record_config(record_path: str):
+    """The persistence Config of ``spawn --record`` (what JAX builds from
+    ``PATHWAY_REPLAY_STORAGE`` and ``PATHWAY_SNAPSHOT_ACCESS=record``)."""
+    from pathway_tpu_torch import persistence
+
+    return persistence.Config(backend=persistence.Backend.filesystem(record_path),
+                              snapshot_access="record", continue_after_replay=True)
+
+
+def run_child(spec_json: str, path: str, arguments) -> int:
+    """One spawned child: ``path`` run as ``__main__`` with ``sys.argv`` set
+    to it and its arguments, every ``pw.run`` given no config taking this
+    child's ``EngineConfig`` (and, when recording, the record's Config)."""
+    import contextlib
+    import runpy
+
+    from pathway_tpu_torch.internals import config as config_mod
+    from pathway_tpu_torch.internals import run as run_mod
+
+    spec = json.loads(spec_json)
+    cfg = config_mod.EngineConfig(processes=spec["processes"], process_id=spec["process_id"],
+                                  first_port=spec["first_port"], threads=spec["threads"])
+    sys.argv = [path, *arguments]
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(run_mod.config_default(cfg))
+        if spec["record_path"] is not None:
+            stack.enter_context(run_mod.persistence_default(record_config(spec["record_path"])))
+        runpy.run_path(path, run_name="__main__")
+    return 0
+
+
+def cmd_spawn(args) -> int:
+    return spawn_program(threads=args.threads, processes=args.processes,
+                         first_port=args.first_port, program=args.program,
+                         arguments=args.arguments, record=args.record,
+                         record_path=args.record_path, repository_url=args.repository_url,
+                         branch=args.branch)
+
+
+def cmd_spawn_from_env(args) -> int:
+    argv = [*shlex.split(os.environ.get("PATHWAY_SPAWN_ARGS", "")), args.program,
+            *args.arguments]
+    return main(["spawn", *argv])
 
 
 def _not_ported(name: str, why: str) -> int:

@@ -25,10 +25,14 @@ from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.internals.universe import Universe
 
 __all__ = [
+    "table_from_csv",
     "table_from_markdown",
     "table_from_pandas",
+    "table_from_parquet",
     "table_from_rows",
+    "table_to_csv",
     "table_to_pandas",
+    "table_to_parquet",
     "compute_and_print",
     "compute_and_print_update_stream",
     "table_to_dicts",
@@ -230,6 +234,21 @@ def table_from_pandas(
     return _static_table_from_keyed_rows(cols, schema, rows)
 
 
+def table_from_csv(path: str, **kwargs) -> Table:
+    """A static table of a CSV file (read by pandas), as
+    :func:`table_from_pandas` makes it; ``kwargs`` go to it."""
+    import pandas as pd
+
+    return table_from_pandas(pd.read_csv(path), **kwargs)
+
+
+def table_from_parquet(path: str, **kwargs) -> Table:
+    """A static table of a parquet file (read by pandas through pyarrow)."""
+    import pandas as pd
+
+    return table_from_pandas(pd.read_parquet(path), **kwargs)
+
+
 def _format_value(v) -> str:
     if v is None:
         return "None"
@@ -255,6 +274,18 @@ def table_to_pandas(table: Table, *, include_id: bool = True) -> "pd.DataFrame":
     if include_id:
         df.index = pd.Index(keys, name="id")
     return df
+
+
+def table_to_csv(table: Table, path: str, **kwargs) -> None:
+    """The table's rows, without ids, in key order, to a CSV file;
+    ``kwargs`` go to ``DataFrame.to_csv``."""
+    table_to_pandas(table, include_id=False).to_csv(path, index=False, **kwargs)
+
+
+def table_to_parquet(table: Table, path: str, **kwargs) -> None:
+    """The table's rows, without ids, in key order, to a parquet file
+    (``kwargs`` are accepted and not used, as in JAX)."""
+    table_to_pandas(table, include_id=False).to_parquet(path, index=False)
 
 
 def compute_and_print(

@@ -44,13 +44,15 @@ METRICS_SERVER = None
 LAST_PERSISTENCE_STATS = None
 # the persistence Config of runs that are given none (the CLI's ``replay``)
 _DEFAULT_PERSISTENCE = None
+# the EngineConfig of runs that are given none (a ``spawn`` child's)
+_DEFAULT_CONFIG = None
 
 
 class GraphRunner:
     def __init__(self, targets: list[Node], *, config=None, monitoring_level=None,
                  with_http_server: bool = False, persistence_config=None):
         self.targets = targets
-        self.config = config if config is not None else config_mod.active()
+        self.config = config if config is not None else _DEFAULT_CONFIG or config_mod.active()
         self.monitoring_level = monitoring_level
         self.with_http_server = with_http_server
         self.persistence_config = persistence_config
@@ -296,8 +298,10 @@ def run(
     """Execute the dataflow: pump all registered outputs until input ends.
 
     ``config`` holds the engine's switches (``EngineConfig()``'s defaults
-    are the JAX flags' defaults); ``terminate_on_error`` overrides its
-    field of that name, as JAX's argument does. ``monitoring_level`` is
+    are the JAX flags' defaults; without one a run takes the default that
+    :func:`config_default` installed, as a ``spawn`` child does);
+    ``terminate_on_error`` overrides its field of that name, as JAX's
+    argument does. ``monitoring_level`` is
     resolved as JAX resolves it (see ``internals/monitoring.py``): any
     level but ``NONE`` starts the live dashboard, which needs ``rich``.
     ``with_http_server=True`` serves the run's metrics on
@@ -310,7 +314,7 @@ def run(
     """
     if persistence_config is None:
         persistence_config = _DEFAULT_PERSISTENCE
-    cfg = config if config is not None else config_mod.EngineConfig()
+    cfg = config if config is not None else _DEFAULT_CONFIG or config_mod.EngineConfig()
     if terminate_on_error is not None:
         import dataclasses
 
@@ -321,6 +325,19 @@ def run(
     GraphRunner(targets, config=cfg, monitoring_level=monitoring_level,
                 with_http_server=with_http_server,
                 persistence_config=persistence_config).run()
+
+
+@contextlib.contextmanager
+def config_default(cfg):
+    """Runs given no ``config`` (and the ``debug`` helpers' captures) take
+    ``cfg`` while this holds: how the CLI's ``spawn`` hands each child its
+    ``EngineConfig(processes=, process_id=, first_port=, threads=)``."""
+    global _DEFAULT_CONFIG
+    prev, _DEFAULT_CONFIG = _DEFAULT_CONFIG, cfg
+    try:
+        yield cfg
+    finally:
+        _DEFAULT_CONFIG = prev
 
 
 @contextlib.contextmanager

@@ -384,6 +384,63 @@ def read(
     return table
 
 
+def read_from_upstash(
+    endpoint: str,
+    username: str,
+    password: str,
+    topic: str,
+    *,
+    read_only_new: bool = False,
+    schema=None,
+    format: str = "raw",  # noqa: A002
+    **kwargs,
+) -> Table:
+    """Read from Upstash-hosted Kafka (reference ``io/kafka/__init__.py``
+    upstash wrapper): SASL-SCRAM settings over the standard reader."""
+    rdkafka_settings = {
+        "bootstrap.servers": endpoint,
+        "security.protocol": "SASL_SSL",
+        "sasl.mechanism": "SCRAM-SHA-256",
+        "sasl.username": username,
+        "sasl.password": password,
+        "auto.offset.reset": "latest" if read_only_new else "earliest",
+    }
+    return read(rdkafka_settings, topic=topic, schema=schema, format=format,
+                start_from_latest=read_only_new, **kwargs)
+
+
+def simple_read(
+    server: Any,
+    topic: str,
+    *,
+    read_only_new: bool = False,
+    schema=None,
+    format: str = "raw",  # noqa: A002
+    autocommit_duration_ms: int | None = 1500,
+    json_field_paths: dict | None = None,
+    parallel_readers: int | None = None,
+    persistent_id: str | None = None,
+    **kwargs,
+) -> Table:
+    """Read from Kafka with just a server address (or an
+    ``InMemoryKafkaBroker``) and a topic (reference
+    ``io/kafka/__init__.py:299``); starts from the beginning unless
+    ``read_only_new``."""
+    if isinstance(server, InMemoryKafkaBroker):
+        return read(server, topic=topic, schema=schema, format=format,
+                    autocommit_duration_ms=autocommit_duration_ms,
+                    persistent_id=persistent_id, start_from_latest=read_only_new, **kwargs)
+    rdkafka_settings = {
+        "bootstrap.servers": server,
+        "session.timeout.ms": "60000",
+        "auto.offset.reset": "latest" if read_only_new else "earliest",
+    }
+    return read(rdkafka_settings, topic=topic, schema=schema, format=format,
+                autocommit_duration_ms=autocommit_duration_ms,
+                json_field_paths=json_field_paths, parallel_readers=parallel_readers,
+                persistent_id=persistent_id, **kwargs)
+
+
 def write(
     table: Table,
     rdkafka_settings: Any,

@@ -162,3 +162,62 @@ def read(
 
         register_persistent_source(persistent_id, conn)
     return Table(node, schema, Universe())
+
+
+class InteractiveCsvPlayer(ConnectorSubject):
+    """Jupyter-widget CSV stepper (reference ``io/python/__init__.py:472``):
+    a slider releases CSV rows into the stream as it advances. Without
+    ``panel`` / ``IPython`` it plays the whole file at once, as JAX's."""
+
+    def __init__(self, csv_file: str = "") -> None:
+        super().__init__()
+        import queue
+
+        import pandas as pd
+
+        self.q: "queue.Queue" = queue.Queue()
+        self.df = pd.read_csv(csv_file)
+        self._widgets = False
+        try:
+            import panel as pn
+            from IPython.display import display
+
+            state = pn.widgets.Spinner(value=0, width=0)
+            int_slider = pn.widgets.IntSlider(name="Row position in csv", start=0,
+                                              end=len(self.df), step=1, value=0)
+
+            def updatecallback(target, event):
+                if event.new > event.old:
+                    target.value = event.new
+                    self.q.put_nowait(target.value)
+
+            int_slider.link(state, callbacks={"value": updatecallback})
+            self.state = state
+            self.int_slider = int_slider
+            display(pn.Row(state, int_slider, f"{len(self.df)} rows in csv"))
+            self._widgets = True
+        except Exception:
+            # headless (no panel / IPython, or no notebook): release everything
+            self.q.put_nowait(len(self.df))
+
+    def run(self) -> None:
+        import queue
+
+        last_streamed_idx = -1
+        while True:
+            try:
+                new_pos = self.q.get(timeout=0.5)
+            except queue.Empty:
+                if not self._widgets:
+                    break
+                c = self._connector
+                if c is not None and c.should_stop():
+                    break
+                continue
+            for i in range(last_streamed_idx + 1, min(new_pos, len(self.df))):
+                self.next(**self.df.iloc[i].to_dict())
+            self.commit()
+            last_streamed_idx = max(last_streamed_idx, new_pos - 1)
+            if last_streamed_idx >= len(self.df) - 1:
+                break
+        self.close()

@@ -1,5 +1,6 @@
 """Models of the port: tokenizers, encoder, flash attention, embedder,
-cross-encoder and the HF checkpoint loaders (``models.checkpoint``)."""
+cross-encoder, the HF checkpoint loaders (``models.checkpoint``) and the
+training steps (``models.train``)."""
 
 from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
 from pathway_tpu_torch.models.embedder import SentenceEmbedderModel
@@ -14,9 +15,19 @@ from pathway_tpu_torch.models.tokenizer import (
     load_tokenizer,
     pad_to_buckets,
 )
+from pathway_tpu_torch.models.train import (
+    TrainState,
+    contrastive_loss,
+    init_decoder_train_state,
+    init_train_state,
+    lm_loss,
+    make_decoder_train_step,
+    make_train_step,
+)
 from pathway_tpu_torch.models.transformer import (
     MINILM_L6,
     TransformerConfig,
+    count_params,
     encode,
     init_params,
 )
@@ -26,14 +37,22 @@ __all__ = [
     "HashTokenizer",
     "MINILM_L6",
     "SentenceEmbedderModel",
+    "TrainState",
     "TransformerConfig",
     "WordPieceTokenizer",
+    "contrastive_loss",
+    "count_params",
     "encode",
     "flash_attn",
     "flash_attn_reference",
     "from_jax_params",
+    "init_decoder_train_state",
     "init_params",
+    "init_train_state",
+    "lm_loss",
     "load_tokenizer",
+    "make_decoder_train_step",
+    "make_train_step",
     "pad_to_buckets",
     "to_numpy",
 ]

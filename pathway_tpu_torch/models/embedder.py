@@ -384,7 +384,8 @@ class SentenceEmbedderModel:
         self.max_length = max_length
         if params is None:
             params = init_params(seed, cfg)
-        params = map_params(lambda p: p.to(self.device), params)
+        # serving never differentiates: trained leaves come in without autograd
+        params = map_params(lambda p: p.detach().to(self.device), params)
         self.weight_quant = parse_weight_quant(weight_quant)
         if self.weight_quant:
             # scales from the full-precision params; the compute-dtype cast

@@ -94,6 +94,12 @@ def flash_attn(q, k, v, mask, *, causal=True, sm_scale=None):
         return flash_attn_reference(q, k, v, mask, causal=causal,
                                     sm_scale=sm_scale)
     _check_kernel_args(q, k, v, mask)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        # the kernel has no backward (nor has JAX's: no custom_vjp); its
+        # output would cut the graph and leave the QKV weights without a
+        # gradient, so training runs the dense core (encode(flash=False))
+        raise RuntimeError("flash_attn: the kernel has no backward; differentiate "
+                           "through the dense core (encode(..., flash=False))")
     from pathway_tpu_torch import kernels
 
     B, nh, S, hd = q.shape

@@ -10,7 +10,10 @@ Attention goes through the ``core(q, k, v)`` seam. By default the core is
 ``flash_attn(causal=False)``: the hand-written CUDA kernel for tensors on
 the card, its plain version for tensors on the CPU. The other products
 (QKV, attention out, MLP) are ``torch.matmul``, as the JAX package left
-them to XLA.
+them to XLA. ``encode(..., flash=False)`` takes :func:`dense_core`
+instead, JAX's default dense inner (the ``-1e9`` pad bias and XLA's
+dot-product attention) as plain torch ops. Training goes through it: the
+kernel has no backward, as the JAX kernel has no ``custom_vjp``.
 
 Weight-only int8 (``quantize_encoder_params``, JAX's
 ``PATHWAY_TPU_WEIGHT_QUANT=int8`` encoder seam): the four stacked layer
@@ -26,6 +29,7 @@ expression is the unquantized one.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -343,6 +347,27 @@ def _layer(x, lp, cfg: TransformerConfig, core):
     return _layer_rest(x, _attention(x, lp, cfg, core), lp, cfg)
 
 
+def dense_core(attention_mask, cfg: TransformerConfig):
+    """The dense attention inner of JAX's ``encode(flash=False)``
+    (``jax.nn.dot_product_attention`` with the additive pad bias): f32
+    scores of the compute-dtype q and k, times ``1/sqrt(head_dim)``, plus
+    ``-1e9`` (cast to the compute dtype, as JAX's bias) at pad columns; an
+    f32 softmax cast to the compute dtype; its product with v rounded to
+    the compute dtype. A row with no live column gets the same bias on
+    every column, so it averages v, as in JAX. Plain torch ops, so autograd
+    runs through them; nothing here launches a kernel of the port."""
+    bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9)
+    bias = bias.to(cfg.dtype).float()
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+
+    def core(q, k, v):
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + bias
+        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+        return torch.matmul(probs.float(), v.float()).to(cfg.dtype)
+
+    return core
+
+
 def embed_inputs(params: dict, input_ids, cfg: TransformerConfig,
                  token_type_ids=None):
     """Word + position + type embeddings, layernormed, in compute dtype.
@@ -367,19 +392,23 @@ def embed_inputs(params: dict, input_ids, cfg: TransformerConfig,
 
 def encode(params: dict, input_ids, attention_mask, cfg: TransformerConfig,
            token_type_ids=None, *, n_layers: int | None = None,
-           core=None) -> torch.Tensor:
+           core=None, flash: bool = True) -> torch.Tensor:
     """Encoder forward. Returns final hidden states (B, S, H) float32.
 
     ``n_layers`` truncates the depth to the first ``n_layers`` stacked
     layers. ``core`` replaces the attention inner; by default it is
     ``flash_attn(q, k, v, attention_mask, causal=False)``, the CUDA
-    kernel on the card. Rows whose mask is all zero (bucket padding) come
-    out of that core as zeros, where a dense softmax would average them:
-    only live rows are comparable across the two. A sharded ``params``
-    tree (:func:`shard_encoder_params`) is gathered first."""
+    kernel on the card, or with ``flash=False`` :func:`dense_core` (JAX's
+    default path, and the one training differentiates). Rows whose mask is
+    all zero (bucket padding) come out of the flash core as zeros, where
+    the dense core averages them: only live rows are comparable across the
+    two. A sharded ``params`` tree (:func:`shard_encoder_params`) is
+    gathered first."""
     if isinstance(params["embeddings"]["word"], ShardedTensor):
         params = gather_pytree(params)
     x = embed_inputs(params, input_ids, cfg, token_type_ids)
+    if core is None and not flash:
+        core = dense_core(attention_mask, cfg)
     if core is None:
         mask = attention_mask.to(torch.int32).contiguous()
 

@@ -281,29 +281,39 @@ class ShardedTensor:
     # -- placement ---------------------------------------------------------
 
     @classmethod
-    def place(cls, t: torch.Tensor, mesh: Mesh, spec) -> "ShardedTensor":
+    def place(cls, t: torch.Tensor, mesh: Mesh, spec, *, share: bool = True) -> "ShardedTensor":
         """Split ``t`` by ``spec`` over ``mesh``: each distinct (device,
-        slice) becomes its own contiguous tensor on that device."""
+        slice) becomes its own contiguous tensor on that device. With
+        ``share=False`` every position gets its own tensor, as positions on
+        distinct cards would, though several sit on one device (how the
+        tests and the card's smoke run keep dp replicas apart). The shards
+        are new leaves: ``t``'s autograd history is not carried."""
         spec = P(*spec)
+        t = t.detach()
         shards, index, seen = [], [], {}
         for p, dev in enumerate(mesh.devices):
-            key = (str(dev), _box(mesh, spec, tuple(t.shape), p))
+            box = _box(mesh, spec, tuple(t.shape), p)
+            key = (str(dev), box) if share else p
             if key not in seen:
                 seen[key] = len(shards)
-                shards.append(_narrow(t, key[1]).to(dev).clone(
+                shards.append(_narrow(t, box).to(dev).clone(
                     memory_format=torch.contiguous_format))
             index.append(seen[key])
         return cls(shards, index, mesh, spec, t.shape)
 
     def _assemble(self, positions, box) -> torch.Tensor:
-        out = torch.empty([n for _, n in box], dtype=self.dtype, device=self.device)
+        """The ``box`` of the global tensor, from the shards of
+        ``positions``. Differentiable: each distinct shard among them gets
+        the gradient of its own box (a box's replicas each the same)."""
+        js, boxes = [], []
         for p in positions:
-            pbox = _box(self.mesh, self.spec, self.global_shape, p)
-            dst = out
-            for dim, ((s, n), (s0, _)) in enumerate(zip(pbox, box)):
-                dst = dst.narrow(dim, s - s0, n)
-            dst.copy_(self.shards[self.index[p]].to(out.device))
-        return out
+            j = self.index[p]
+            if j not in js:
+                js.append(j)
+                pbox = _box(self.mesh, self.spec, self.global_shape, p)
+                boxes.append(tuple((s - s0, n) for (s, n), (s0, _) in zip(pbox, box)))
+        return _Assemble.apply(tuple(boxes), tuple(n for _, n in box), self.device,
+                               *(self.shards[j] for j in js))
 
     def gather(self) -> torch.Tensor:
         """The global tensor, on shard 0's device."""
@@ -415,6 +425,63 @@ class ShardedTensor:
     __hash__ = object.__hash__
 
 
+class _Assemble(torch.autograd.Function):
+    """Shards copied into one tensor; each box from the first shard that
+    holds it. The backward hands every shard the gradient of its box."""
+
+    @staticmethod
+    def forward(ctx, boxes, shape, device, *shards):
+        out = torch.empty(shape, dtype=shards[0].dtype, device=device)
+        done = set()
+        for box, shard in zip(boxes, shards):
+            if box not in done:
+                done.add(box)
+                _narrow(out, box).copy_(shard.to(device))
+        ctx.boxes = boxes
+        ctx.devices = [t.device for t in shards]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, None, None, *(_narrow(grad, box).to(dev).contiguous()
+                                    for box, dev in zip(ctx.boxes, ctx.devices)))
+
+
+def reduce_replica_grads(tree, axis: str = DATA_AXIS) -> None:
+    """GSPMD's gradient all-reduce over ``axis`` for every sharded leaf of a
+    nested dict, after a backward in which each ``axis`` replica computed
+    on its share of the batch (through :meth:`ShardedTensor.local`): the
+    positions that differ only in their ``axis`` coordinate hold one box,
+    and each of their distinct shards gets the sum of their gradients (in
+    position order), so an optimiser step keeps the replicas bitwise
+    equal. A shard shared by several positions (one device, one box)
+    already summed their gradients in autograd and is counted once."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            reduce_replica_grads(v, axis)
+        return
+    if not isinstance(tree, ShardedTensor):
+        return
+    mesh = tree.mesh
+    groups: dict = {}
+    for p in range(mesh.size):
+        key = tuple(v for a, v in mesh.coords(p).items() if a != axis)
+        js = groups.setdefault(key, [])
+        if tree.index[p] not in js:
+            js.append(tree.index[p])
+    for js in groups.values():
+        grads = [tree.shards[j].grad for j in js]
+        if len(js) < 2 or all(g is None for g in grads):
+            continue
+        dev = tree.shards[js[0]].device
+        total = None
+        for g in grads:
+            if g is not None:
+                total = g.to(dev) if total is None else total + g.to(dev)
+        for j in js:
+            tree.shards[j].grad = total.to(tree.shards[j].device, copy=True)
+
+
 def _rewrap(outs: list, lead: ShardedTensor):
     first = outs[0]
     if isinstance(first, torch.Tensor):
@@ -475,11 +542,12 @@ def all_reduce_sum(shards) -> torch.Tensor:
     return out
 
 
-def place_pytree(tree, mesh: Mesh | None, specs=None):
+def place_pytree(tree, mesh: Mesh | None, specs=None, *, share: bool = True):
     """Each tensor leaf of a nested dict placed by its entry in ``specs`` (a
     matching nest of :class:`PartitionSpec` / None; replicated where
-    missing). ``mesh=None`` returns the tree untouched; a one-position mesh
-    moves the leaves to its device as plain tensors."""
+    missing; ``share`` as :meth:`ShardedTensor.place`). ``mesh=None``
+    returns the tree untouched; a one-position mesh moves the leaves to its
+    device as plain tensors."""
     if mesh is None:
         return tree
 
@@ -491,7 +559,7 @@ def place_pytree(tree, mesh: Mesh | None, specs=None):
             return node
         if mesh_is_trivial(mesh):
             return node.to(mesh.devices[0])
-        return ShardedTensor.place(node, mesh, P() if sp is None else sp)
+        return ShardedTensor.place(node, mesh, P() if sp is None else sp, share=share)
 
     return walk(tree, specs)
 

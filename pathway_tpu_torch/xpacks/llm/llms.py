@@ -282,7 +282,8 @@ class DecoderChat(BaseChat):
         self.wq_kernel = bool(self.weight_quant) and bool(wq_kernel)
         if self.wq_kernel:
             cfg = dataclasses.replace(cfg, wq_kernel=True)
-        params = D.map_params(lambda t: t.to(self.device), params)
+        # serving never differentiates: trained leaves come in without autograd
+        params = D.map_params(lambda t: t.detach().to(self.device), params)
         if self.weight_quant:
             self.params = D.quantize_params(params, cfg)
         else:

@@ -137,6 +137,30 @@ def test_source_scan_sees_the_connectors_and_exports():
         assert pkg / rel in files, rel
 
 
+def test_source_scan_sees_training_and_the_launcher():
+    files = set(_sources())
+    pkg = ROOT / "pathway_tpu_torch"
+    for rel in ("models/train.py", "cli.py", "internals/run.py", "debug/__init__.py",
+                "io/kafka.py", "io/python.py"):
+        assert pkg / rel in files, rel
+    assert ROOT / "tools" / "run_phase24.py" in files
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    """The train states are made on the card unless asked for the CPU."""
+    from pathway_tpu_torch.models import train as TT
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(vocab_size=64, hidden=16, layers=1, heads=2, intermediate=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TT.init_train_state(0, cfg)
+    dcfg, _params, _tok = _tiny_decoder()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TT.init_decoder_train_state(0, dcfg)
+    state, _tx = TT.init_train_state(0, cfg, device="cpu")
+    assert state.params["layers"]["qkv_w"].device.type == "cpu"
+
+
 def test_rag_app_udfs_raise_without_cuda(monkeypatch):
     """The reranker and answer-LLM UDFs run on the card unless asked."""
     from pathway_tpu_torch.xpacks.llm import EncoderReranker

@@ -43,6 +43,65 @@ KNN = {"device": "cpu"}
 """
 
 
+# How a streaming program paces itself without fixed sleeps: each process
+# keeps the live rows a subscribe saw in ``marks/<name>.<PID>`` (written
+# whole, then renamed), every process reads all the marks, and a feeder
+# waits, with a bound, until they show what it needs; on timeout it raises
+# with what it saw, after stopping the connectors so that the run ends.
+MARKS = """
+import glob, json, os, time
+os.makedirs("marks", exist_ok=True)
+FAILED = []
+WAIT_S = 60.0
+
+def live_rows(name):
+    rows = {}
+    path = os.path.join("marks", f"{name}.{PID}")
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            rows[repr(key)] = row
+        elif repr(rows.get(repr(key))) == repr(row):
+            del rows[repr(key)]
+        tmp = os.path.join("marks", f".{name}.{PID}")
+        with open(tmp, "w") as f:
+            json.dump(list(rows.values()), f, default=str)
+        os.replace(tmp, path)
+
+    with open(path, "w") as f:
+        f.write("[]")
+    return on_change
+
+def marks(name):
+    out = []
+    for path in sorted(glob.glob(os.path.join("marks", f"{name}.*"))):
+        with open(path) as f:
+            out.append(json.load(f))
+    return out
+
+def wait_for(cond, what, seen):
+    deadline = time.monotonic() + WAIT_S
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"process {PID}: waited {WAIT_S} s for {what}; saw {seen()}")
+        time.sleep(0.02)
+
+def feed_then_stop(feeder, connectors):
+    try:
+        feeder()
+    except Exception as exc:
+        FAILED.append(exc)
+    finally:
+        for c in connectors:
+            c._stop.set()
+            c.close()
+
+def raise_failure():
+    if FAILED:
+        raise FAILED[0]
+"""
+
+
 def _free_port() -> int:
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -80,7 +139,7 @@ def _spawn(script: str, cwd, processes: int = 2, threads: int = 1, tries: int = 
     0. ``meanwhile()`` runs here while they do. A port range that another
     process took between the probe and the bind (``EADDRINUSE``) is
     retried with a fresh one."""
-    src = HEADER + textwrap.dedent(script)
+    src = HEADER + textwrap.dedent(script).replace("MARKS", MARKS)
     for attempt in range(tries):
         procs = _start(src, cwd, processes, threads)
         if meanwhile is not None:
@@ -103,7 +162,8 @@ def _jax_run(script: str, cwd, monkeypatch):
     monkeypatch.chdir(cwd)
     JPW.clear_graph()
     try:
-        exec(textwrap.dedent(script), {"pw": JPW, "RUN": {}, "PID": 0, "KNN": {}})
+        exec(textwrap.dedent(script).replace("MARKS", MARKS),
+             {"pw": JPW, "RUN": {}, "PID": 0, "KNN": {}})
     finally:
         JPW.clear_graph()
 
@@ -266,7 +326,8 @@ def test_two_process_join(tmp_path, monkeypatch):
 
 
 STREAMING = """
-import json, threading, time
+import json, threading
+MARKS
 
 class S(pw.Schema):
     word: str
@@ -274,21 +335,23 @@ class S(pw.Schema):
 t = pw.io.jsonlines.read("in", schema=S, mode="streaming")
 counts = t.groupby(t.word).reduce(t.word, c=pw.reducers.count())
 pw.io.jsonlines.write(counts, "out.jsonl")
+pw.io.subscribe(counts, on_change=live_rows("counts"))
 connectors = list(pw.G.connectors)
 
+def counted():
+    return sum(row["c"] for rows in marks("counts") for row in rows)
+
 def feeder():
-    time.sleep(1.0)
+    wait_for(lambda: counted() == 2, "the seed file's 2 words counted", counted)
     if PID == 0:
         with open("late/late1.jsonl", "w") as f:
             f.write(json.dumps({"word": "alpha"}) + "\\n")
             f.write(json.dumps({"word": "gamma"}) + "\\n")
-    time.sleep(2.0)
-    for c in connectors:
-        c._stop.set()
-        c.close()
+    wait_for(lambda: counted() == 4, "the late file's 2 words counted", counted)
 
-threading.Thread(target=feeder, daemon=True).start()
+threading.Thread(target=feed_then_stop, args=(feeder, connectors), daemon=True).start()
 pw.run(**RUN)
+raise_failure()
 """
 
 
@@ -307,8 +370,9 @@ def test_two_process_streaming_updates(tmp_path, monkeypatch):
 
 
 KNN_PROGRAM = """
-import os, shutil, threading, time
+import os, shutil, threading
 from importlib import import_module
+MARKS
 idx = import_module(pw.__name__ + ".stdlib.indexing")
 
 class D(pw.Schema):
@@ -325,20 +389,28 @@ index = idx.DataIndex(docs, idx.BruteForceKnn(docs.vec, dimensions=8, **KNN))
 res = index.query_as_of_now(qs.qvec, number_of_matches=1).select(pw.this.doc)
 joined = qs.join(res, qs.id == res.id, id=qs.id).select(qs.qid, hit=res.doc)
 pw.io.jsonlines.write(joined, "out.jsonl")
+pw.io.subscribe(docs, on_change=live_rows("docs"))
+pw.io.subscribe(joined, on_change=live_rows("hits"))
 connectors = list(pw.G.connectors)
 
+def n_docs():
+    return sum(len(rows) for rows in marks("docs"))
+
+def n_hits():
+    return sum(len(rows) for rows in marks("hits"))
+
 def feeder():
-    time.sleep(1.5)  # every doc file ingested and broadcast by now
+    # every doc read (the exchange broadcasts it to each index in the same
+    # lockstep epoch), then the queries
+    wait_for(lambda: n_docs() == 20, "all 20 docs read", n_docs)
     if PID == 0:
         for f in sorted(os.listdir("staged")):
             shutil.move(os.path.join("staged", f), os.path.join("qs", f))
-    time.sleep(1.5)
-    for c in connectors:
-        c._stop.set()
-        c.close()
+    wait_for(lambda: n_hits() == 4, "a hit for each of the 4 queries", n_hits)
 
-threading.Thread(target=feeder, daemon=True).start()
+threading.Thread(target=feed_then_stop, args=(feeder, connectors), daemon=True).start()
 pw.run(**RUN)
+raise_failure()
 """
 
 

@@ -5,9 +5,9 @@ on the CPU (``[cpu] * 8``), the counterpart of the conftest's 8 host
 devices that the JAX side runs on.
 
 Not carried over from ``tests/test_parallel.py``:
-``test_dp_tp_sharded_train_step`` waits for ``models/train.py`` (ROADMAP
-A12), and ``test_graft_entry_contracts`` drives the JAX package's graft
-entry, which has no port counterpart.
+``test_dp_tp_sharded_train_step`` is in ``tests/test_torch_train.py``
+beside the port's training steps, and ``test_graft_entry_contracts``
+drives the JAX package's graft entry, which has no port counterpart.
 """
 
 import numpy as np
