@@ -126,7 +126,7 @@ without printing a result:
    (e) phase 8's defaults seam with ``embed.h2d`` chaos at 0.2, with and
    without retries: resolved batches byte-equal to chaos off, spent
    budgets raise ``InjectedFault`` at resolve as the site's schedule says;
-   (f) ``QueryServer`` at its defaults under 256 Poisson queries (half
+   (f) ``QueryServer`` at its defaults under 128 Poisson queries (half
    retrieve k=10, half rerank k=32) from 8 threads at twice the per-call
    path's rate: keys equal the per-call path's but at near-ties, fewer
    dispatches than requests, latencies of both paths; the rerank cascade
@@ -267,7 +267,7 @@ without printing a result:
    beside the same program into ``pw.io.null.write`` and the direct path
    (the texts through the model in the UDF's batches), one rep of each in
    turns: every doc written once, vectors within cosine 0.9999 of the
-   direct ones; (b) the first 512 docs one file each,
+   direct ones; (b) the first 256 docs one file each,
    ``pw.io.fs.read(format="binary", with_metadata=True, mode="streaming")``
    into a ``DocumentStore`` served by ``DocumentStoreServer`` on port 0,
    once for each of ``BruteForceKnnFactory``, ``UsearchKnnFactory``,
@@ -342,7 +342,7 @@ without printing a result:
    ``torch.cuda.max_memory_allocated``; (b)'s rounds, the Iterate nodes'
    step seconds and ``op_step_seconds``, and the components;
 21. ``pw.ml``, ``rag_eval`` with the observability routes, and the fleet
-   over processes: (a) phase 4's first 16,384 docs (half the corpus, for
+   over processes: (a) phase 4's first 8,192 docs (a quarter of the corpus, for
    the script's time; and its 64 queries) through
    the embed UDF (batches of 1,024) into
    ``clustering_via_lsh(generate_cosine_lsh_bucketer(384, M=10, L=4,
@@ -357,9 +357,9 @@ without printing a result:
    against copies with one word changed matches at least 95% to their
    original. Prints docs/s of the program, the representatives' count, the
    card k-means ms (CUDA events), the fuzzy join's s and the
-   ``flash_attn`` launches; (b) ``rag_eval.generate_qa_dataset(32,
+   ``flash_attn`` launches; (b) ``rag_eval.generate_qa_dataset(16,
    seed=0)`` through ``run_rag_eval`` over a
-   ``BaseRAGQuestionAnswerer`` (MiniLM-L6 bf16, phase 6's server): 32
+   ``BaseRAGQuestionAnswerer`` (MiniLM-L6 bf16, phase 6's server): 16
    answered, 8 of them against the
    static path: at least 7/8 first tokens equal, and each stream equal up
    to a near-tie (where it parts, the served token within 0.1 of the
@@ -475,7 +475,37 @@ without printing a result:
    CSV round trip); both start after (a) and run beside (b) and (c), for
    the script's time. Prints each objective's step ms (CUDA events), tokens/s
    and peak ``max_memory_allocated``, the gate's steps, wall, final loss,
-   accuracy and launches, and the phase's wall.
+   accuracy and launches, and the phase's wall;
+25. the autotuner with its trials on the card, and an Airbyte source
+   through ``pw.sql``: (a) ``tuning.Autotuner`` over ``shared_prefix_chat``
+   with phase 6's server settings as base flags under JAX's names (paged
+   KV, the paged kernel, flash prefill, int8 weights, the wq kernel),
+   phase 6's GPT-2 small params with the profile's char tokenizer, 4
+   candidates (the baseline one of them), 2 halving rounds from scale 0.5,
+   seed 0, and the SLO leg and chaos drill (``decode.admit`` at 0.25) of
+   its validation: every trial builds its server and ends ``terminal_ok``
+   (or was aborted); each trial's server shows every prefill piece, plain
+   decode step, draft step and layer product through
+   ``flash_chunk_attn_paged``, ``paged_attn_decode`` and ``wq_matmul``
+   (phase 10's counting); after each trial the chaos and SLO settings are
+   back to their defaults; the winner's artifact loads, a
+   ``DecoderChat(tuned_config=...)`` holds the winner's values, and its
+   greedy streams over 8 prompts equal those of a chat given the values
+   explicitly (both with spec and chunk autotune off unless the winner sets
+   them: plain decode on a paged pool is schedule-invariant). Each trial's
+   flags, scale and headline are printed, the winner against the baseline
+   printed, not judged; (b) ``retraction_heavy_ingest`` at its own size
+   (JAX's tiny encoder, 3 candidates, one round): every batch through
+   ``flash_attn``; (c) a connector script written into a temporary
+   directory emits 4,096 RECORD messages of phase 4's corpus, read by
+   ``pw.io.airbyte.read(mode="static")`` through an
+   ``ExecutableAirbyteSource``; ``pw.sql`` keeps 2,048 (``doc_id % 3 <> 1
+   AND doc_id < 3072``); a ``pw.transformer`` adds the word count; phase
+   4's MiniLM-L6 as the embed UDF feeds a ``DataIndex`` on the card, which
+   phase 4's first 8 queries ask once every kept doc is in, in one
+   ``pw.run()``: the kept rows and word counts equal a host model, the
+   vectors within cosine 0.9999 of direct encodes, ``flash_attn`` launched
+   for every encode, each top-10 equal a direct index but at gaps < 1e-3.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -2409,7 +2439,9 @@ def check_query_dispatches(pipe, queries) -> int:
 # per-call scores at that rank lie within one bf16 ulp of 1.0 (an encode
 # at another batch height rounds differently)
 TIE_TOL = 8e-3
-N_QS = 256  # phase 12 (f): half retrieve (k = TOP_K), half rerank (k = RERANK_K)
+# phase 12 (f): half retrieve (k = TOP_K), half rerank (k = RERANK_K); 256
+# until the script's time took phase 25
+N_QS = 128
 
 
 def bounded_serve(chat, prompts, timeout: float = 600.0, groups=None, **kw) -> dict:
@@ -4746,15 +4778,16 @@ def run_rag_apps(dev, gpu: str, out: dict, docs, queries, common) -> dict:
 # bf16 and corpus: (a) its 32,768 docs in 8 CSV files read statically
 # through the embed UDF at batches of 1,024 into a JSON-lines file, beside
 # the same program into the null sink and the direct path, FS_REPS reps of
-# the three arms in turns; (b) its first 1,024
-# docs (4,096 took the uSearch arm's host HNSW 65-110 s), one file each,
-# watched by pw.io.fs.read into a DocumentStore served over REST, once a
-# factory; 64 queries one at a time at k = 10, then 64 files out (every
-# 16th) and 128 in, and the new and deleted docs' own
-# texts asked for (FS_PROBES each); (c) the brute-force and IVF factories
-# routed over FS_MESH virtual positions of the card.
+# the three arms in turns; (b) its first FS_DOCS docs (256; 4,096 took the
+# uSearch arm's host HNSW 65-110 s, then 1,024 and, until the script's time
+# took phase 25, 512), one file each, watched by pw.io.fs.read into a
+# DocumentStore served over REST, once a factory; 64 queries one at a time
+# at k = 10, then FS_GONE files out (evenly spaced) and FS_NEW in, and the
+# new and deleted docs' own texts asked for (FS_PROBES each); (c) the
+# brute-force and IVF factories routed over FS_MESH virtual positions of
+# the card.
 # one rep of (a)'s arms (a second did not fit the script's time with phase 21)
-FS_FILES, FS_REPS, FS_DOCS, FS_NEW, FS_GONE, FS_PROBES, FS_MESH = 8, 1, 512, 64, 32, 4, 4
+FS_FILES, FS_REPS, FS_DOCS, FS_NEW, FS_GONE, FS_PROBES, FS_MESH = 8, 1, 256, 64, 32, 4, 4
 FS_REFRESH = 0.5  # s between the streaming reader's scans: its default
 FS_FACTORIES = ("brute_force", "usearch", "ivf", "ivf_exhaustive", "hybrid")
 
@@ -5979,17 +6012,19 @@ def run_multiprocess(gpu: str, docs, queries, truth) -> int:
 
 # ---------------------------------------------------------------- phase 21
 # pw.ml, rag_eval with the observability routes, and the fleet over
-# processes. (a): phase 4's first 16,384 docs through the embed UDF (batches of 1,024)
+# processes. (a): phase 4's first ML_DOCS docs through the embed UDF (batches of 1,024)
 # into clustering_via_lsh (cosine bucketer over 384 dims, 10 hashes a band,
 # 4 bands, seed 0; k = 64) and knn_classifier (64 queries, k = 10); the
-# fuzzy join over ML_FUZZY_DOCS doc texts. (b): rag_eval's dataset of 32
-# questions. (c): 8 questions, 2 on each of 4 shared 256-byte heads,
+# fuzzy join over ML_FUZZY_DOCS doc texts. (b): rag_eval's dataset of
+# EVAL_N questions. (c): 8 questions, 2 on each of 4 shared 256-byte heads,
 # through `python -m pathway_tpu_torch fleet serve` over 1 and 2 replica
 # processes.
 ML_BATCH, ML_K, ML_M, ML_L, ML_SEED, ML_KNN_K = 1024, 64, 10, 4, 0, 10
 ML_TIE_REL, ML_MAX_DISAGREE, ML_FUZZY_DOCS, ML_FUZZY_MIN = 1e-3, 0.01, 512, 0.95
-ML_DOCS = 16384  # (a)'s depth: the corpus's first half, for the script's time
-EVAL_N, EVAL_HELD = 32, 8
+# (a)'s depth, a quarter of the corpus, and (b)'s questions: each halved
+# twice from 32,768 docs and 64 questions for the script's time
+ML_DOCS = 8192
+EVAL_N, EVAL_HELD = 16, 8
 P21_HEADS, P21_PER_HEAD, P21_HEAD_LEN = 4, 2, 256
 P21_TIMEOUT = 300.0  # a bound on each wait: a boot, a burst, a respawn, a stop
 # a replica not ready this long after its start is drained and respawned
@@ -8407,6 +8442,390 @@ def run_training(dev, gpu: str, docs, queries) -> tuple[int, dict]:
     return launches, gate
 
 
+# ---------------------------------------------------------------- phase 25
+# the autotuner with its trials on the card, and an Airbyte source through
+# pw.sql and a row transformer into the embed UDF. (a) shared_prefix_chat
+# with phase 6's server settings as base flags (JAX's names), phase 6's
+# GPT-2 small params with the profile's char tokenizer, P25_TRIALS
+# candidates (the baseline one of them), P25_ROUNDS halving rounds from
+# scale P25_SCALE, seed 0, the chaos drill at the Autotuner's default rate;
+# (b) retraction_heavy_ingest at its own size (JAX's tiny encoder); (c)
+# P25_RECORDS RECORD messages of phase 4's corpus from a connector script,
+# P25_SQL keeping about half, the first P25_QUERIES of phase 4's queries.
+P25_BASE = {"PATHWAY_TPU_PAGED_KV": "1", "PATHWAY_TPU_PAGED_KERNEL": "1",
+            "PATHWAY_TPU_FLASH_PREFILL": "1", "PATHWAY_TPU_WEIGHT_QUANT": "int8",
+            "PATHWAY_TPU_WQ_KERNEL": "1"}
+P25_TRIALS, P25_ROUNDS, P25_SCALE, P25_INGEST_TRIALS = 4, 2, 0.5, 3
+P25_RECORDS, P25_QUERIES, P25_K, P25_TIE_TOL = 4096, 8, 10, 1e-3
+P25_TIMEOUT = 300.0  # a bound on (c)'s wait for its docs
+P25_SQL = "SELECT doc_id, text FROM docs WHERE doc_id % 3 <> 1 AND doc_id < 3072"
+P25_CONNECTOR = r'''
+import argparse, json, sys
+
+p = argparse.ArgumentParser()
+p.add_argument("action")
+p.add_argument("--config")
+p.add_argument("--catalog")
+p.add_argument("--state")
+a = p.parse_args()
+
+def emit(m):
+    sys.stdout.write(json.dumps(m) + "\n")
+
+if a.action == "spec":
+    emit({"type": "SPEC", "spec": {"connectionSpecification": {}}})
+elif a.action == "discover":
+    emit({"type": "CATALOG", "catalog": {"streams": [
+        {"name": "docs", "supported_sync_modes": ["full_refresh"]}]}})
+elif a.action == "read":
+    with open(json.load(open(a.config))["docs"]) as f:
+        docs = json.load(f)
+    for i, text in enumerate(docs):
+        emit({"type": "RECORD", "record": {"stream": "docs",
+                                           "data": {"doc_id": i, "text": text}}})
+    emit({"type": "STATE", "state": {"done": len(docs)}})
+'''
+
+
+class P25Trials:
+    """While open, every ``DecoderChat`` the tuner builds is recorded at
+    its close (its server's stats, the spec settings and the kernel
+    launches over its life), and every trial checks after it ends that the
+    chaos and SLO settings are back to their defaults."""
+
+    def __init__(self):
+        self.chats: list[dict] = []
+        self.restored: list[bool] = []
+
+    def __enter__(self):
+        import torch
+
+        from pathway_tpu_torch.engine import chaos, slo
+        from pathway_tpu_torch.tuning import profiles
+        from pathway_tpu_torch.xpacks.llm import llms
+
+        chats, restored = self.chats, self.restored
+        defaults = (chaos.settings(), slo.settings())
+        self._real_chat, self._real_trial = llms.DecoderChat, profiles.run_trial
+
+        class Recorded(self._real_chat):
+            def __init__(self, *a, **kw):
+                self._p25_before = {n: f.launches for n, f in counters().items()}
+                super().__init__(*a, **kw)
+
+            def close(self):
+                super().close()
+                torch.cuda.synchronize()
+                srv = self.server
+                chats.append({
+                    "stats": dict(srv.stats), "spec": srv.spec_decode, "k": srv.spec_k,
+                    "draft": srv.spec_draft_layers, "layers": srv.cfg.layers,
+                    "launches": {n: f.launches - self._p25_before[n]
+                                 for n, f in counters().items()}})
+
+        def checked(*a, **kw):
+            try:
+                return self._real_trial(*a, **kw)
+            finally:
+                restored.append((chaos.settings(), slo.settings()) == defaults)
+
+        llms.DecoderChat, profiles.run_trial = Recorded, checked
+        return self
+
+    def __exit__(self, *exc):
+        from pathway_tpu_torch.tuning import profiles
+        from pathway_tpu_torch.xpacks.llm import llms
+
+        llms.DecoderChat, profiles.run_trial = self._real_chat, self._real_trial
+
+
+def p25_trial_lines(profile, result) -> None:
+    for t in result.trials:
+        m = t["metrics"] or {}
+        info(f"  trial {json.dumps(t['flags'], sort_keys=True)} scale {t['scale']}: "
+             f"{profile.headline} {m.get(profile.headline)}, score {t['score']}, "
+             f"terminal_ok {m.get('terminal_ok')}, aborted {m.get('aborted')}, wall_s "
+             f"{m.get('wall_s')}" + (f", error {m['error']}" if "error" in m else ""))
+    for r in result.rejected:
+        info(f"  rejected {json.dumps(r['flags'], sort_keys=True)}: {r['reason']}")
+    info(f"  winner {json.dumps(result.winner, sort_keys=True)}: score "
+         f"{result.winner_score} against the baseline's {result.baseline_score} (printed, "
+         f"not judged: noise-bound)")
+    for t in result.trials:
+        m = t["metrics"] or {}
+        require("error" not in m and (m.get("aborted") or m.get("terminal_ok")),
+                f"trial {json.dumps(t['flags'], sort_keys=True)} at scale {t['scale']} "
+                f"built its server and ended terminal_ok (or was aborted)")
+
+
+def p25_tuner(dev, gpu: str, params) -> dict:
+    """Phase 25 (a); returns its launches of the five entry points."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from pathway_tpu_torch import DecoderChat, tuning
+    from pathway_tpu_torch.internals import config as config_mod
+    from pathway_tpu_torch.models import decoder as D
+    from pathway_tpu_torch.tuning import profiles
+
+    t0 = time.perf_counter()
+    profile = dataclasses.replace(tuning.PROFILES["shared_prefix_chat"], base_flags=P25_BASE)
+    cfg = D.GPT2_SMALL
+    # phase 6's params on the card once; each trial's chat serves them in
+    # bf16 with int8 weights
+    resources = (D.map_params(lambda t: t.to(dev), params), cfg, profiles._CharTok())
+    for f in counters().values():
+        f.launches = 0
+    with P25Trials() as rec:
+        tuner = tuning.Autotuner(profile, seed=0, max_trials=P25_TRIALS, rounds=P25_ROUNDS,
+                                 base_scale=P25_SCALE, resources=resources, device=dev)
+        result = tuner.run()
+    info(f"tune (a) {profile.name} at GPT-2 small [{gpu}]: {len(result.trials)} trials, "
+         f"{len(rec.chats)} servers with the validation legs, "
+         f"{time.perf_counter() - t0:.1f} s; base flags {json.dumps(P25_BASE, sort_keys=True)}")
+    p25_trial_lines(profile, result)
+    for leg in ("slo", "chaos"):
+        m = result.validation.get(leg) or {}
+        info(f"  validation {leg}: terminal_ok {m.get('terminal_ok')}, shed {m.get('shed')}, "
+             f"failures {m.get('failures')}, restarts {m.get('restarts')}, "
+             f"{profile.headline} {m.get(profile.headline)}")
+    require(len(rec.restored) == len(rec.chats) and all(rec.restored),
+            f"after each of the {len(rec.restored)} trials the chaos and SLO settings are "
+            f"back to their defaults")
+    for i, c in enumerate(rec.chats):
+        st, ln, L = c["stats"], c["launches"], c["layers"]
+        plain = st["decode_steps"] - st["spec_cycles"]
+        wq_need = (4 * (c["draft"] * c["k"] + L) * st["spec_cycles"]
+                   + 4 * L * (plain + st["prefill_chunks"]))
+        ok = (ln["flash_chunk_attn_paged"] >= L * st["prefill_chunks"] > 0
+              and ln["paged_attn_decode"] >= L * plain and ln["wq_matmul"] >= wq_need
+              and (st["spec_dispatches"] > 0) <= c["spec"])
+        if not ok:
+            info(f"  server {i}: stats {st}; launches {ln}; spec {c['spec']}")
+        require(ok, f"trial server {i}: every prefill piece, decode step and layer product "
+                    f"went through flash_chunk_attn_paged, paged_attn_decode and wq_matmul")
+    launches = {n: sum(c["launches"][n] for c in rec.chats) for n in counters()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tuning.save_artifact(result, os.path.join(tmp, "tuned.json"))
+        flags = config_mod.load_tuned_config(path)
+        require(flags == result.winner, f"the artifact loads with the winner's flags {flags}")
+        base = dict(params=resources[0], cfg=cfg, tokenizer=profiles._CharTok(),
+                    max_new_tokens=profile.max_new, temperature=0.0,
+                    max_prompt_tokens=profile.prompt_cap, continuous=True,
+                    n_slots=profile.n_slots, chunk_steps=profile.chunk_steps, device=dev,
+                    **config_mod.knob_arguments(P25_BASE)["DecoderChat"])
+        winner = config_mod.knob_arguments(flags).get("DecoderChat", {})
+        # plain decode on a paged pool is schedule-invariant: both chats
+        # pin spec and chunk autotune off unless the winner sets them
+        pins = {k: v for k, v in (("spec_decode", False), ("chunk_autotune", False))
+                if k not in winner}
+        prompts = profiles._prompts(profile, 8, profiles._profile_rng(profile, 5))
+        got = {}
+        for name, kw in (("tuned", dict(tuned_config=path)), ("explicit", winner)):
+            for f in counters().values():
+                f.launches = 0
+            chat = DecoderChat(**base, **pins, **kw)
+            try:
+                if name == "tuned":
+                    require(all(chat.knobs[a] == v for a, v in winner.items()),
+                            f"DecoderChat(tuned_config=...) has the winner's values {winner}")
+                reqs = chat.submit_batch(prompts)
+                done = [r.done.wait(120.0) and r.text is not None for r in reqs]
+                require(all(done), f"({name}) the 8 requests finished")
+                got[name] = [r.tokens for r in reqs]
+            finally:
+                chat.close()
+            torch.cuda.synchronize()
+            launches = {n: launches[n] + f.launches for n, f in counters().items()}
+        snap = config_mod.tuned_config_snapshot()
+        info(f"  tuned chat: knobs from the artifact {winner}, pins {pins}; "
+             f"unified_snapshot()['tuning'] flags {snap['flags']}, shadowed_by_args "
+             f"{snap['shadowed_by_args']}")
+        require(got["tuned"] == got["explicit"],
+                "the tuned chat's 8 greedy streams equal the explicit chat's token for token")
+    config_mod.clear_tuned_configs()
+    info(f"tune (a): launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def p25_ingest_tuner(dev, gpu: str) -> int:
+    """Phase 25 (b); returns its flash_attn launches."""
+    from pathway_tpu_torch import tuning
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.models.embedder import SentenceEmbedderModel
+    from pathway_tpu_torch.tuning import profiles
+
+    t0 = time.perf_counter()
+    profile = tuning.PROFILES["retraction_heavy_ingest"]
+    encodes = [0]
+    real = SentenceEmbedderModel.embed_submit
+
+    def counted(self, texts):
+        encodes[0] += bool(texts)
+        return real(self, texts)
+
+    FA.flash_attn.launches = 0
+    SentenceEmbedderModel.embed_submit = counted
+    try:
+        result = tuning.Autotuner(profile, seed=0, max_trials=P25_INGEST_TRIALS, rounds=1,
+                                  device=dev).run()
+    finally:
+        SentenceEmbedderModel.embed_submit = real
+    launches = FA.flash_attn.launches
+    layers = profiles._INGEST_CFG["layers"]
+    info(f"tune (b) {profile.name}, JAX's tiny encoder [{gpu}]: {len(result.trials)} trials, "
+         f"{encodes[0]} encodes, flash_attn launches {launches}; "
+         f"{time.perf_counter() - t0:.1f} s")
+    p25_trial_lines(profile, result)
+    require(launches >= layers * encodes[0] > 0,
+            f"(b) every batch went through flash_attn ({launches} >= {layers} x {encodes[0]})")
+    return launches
+
+
+def p25_airbyte_sql(dev, gpu: str, out: dict, docs, queries) -> int:
+    """Phase 25 (c); returns its flash_attn launches."""
+    import tempfile
+    import threading
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import BruteForceKnnIndex
+    from pathway_tpu_torch.io.airbyte import ExecutableAirbyteSource
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.xpacks import llm
+
+    t0 = time.perf_counter()
+    model = out["emb"]
+    texts, q_texts = docs[:P25_RECORDS], queries[:P25_QUERIES]
+    model.embed_batch(texts[:RAG_BATCH])  # warm the batch bucket, outside the counts
+    kept = {i: (texts[i], len(texts[i].split())) for i in range(P25_RECORDS)
+            if i % 3 != 1 and i < 3072}
+    rows, replies, lock = {}, {}, threading.Lock()
+    counter = EncodeCount(model)
+    FA.flash_attn.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(os.path.join(tmp, "docs.json"), "w") as f:
+                json.dump(texts, f)
+            script = os.path.join(tmp, "connector.py")
+            with open(script, "w") as f:
+                f.write(P25_CONNECTOR)
+            pw.clear_graph()
+            source = ExecutableAirbyteSource(f"{sys.executable} {script}",
+                                             config={"docs": os.path.join(tmp, "docs.json")},
+                                             streams=["docs"])
+            raw = pw.io.airbyte.read(streams=["docs"], mode="static", _source=source)
+            table = raw.select(doc_id=pw.this.data["doc_id"].as_int(unwrap=True),
+                               text=pw.this.data["text"].as_str(unwrap=True))
+            sel = pw.sql(P25_SQL, docs=table)
+
+            @pw.transformer
+            class words:
+                class table(pw.ClassArg):
+                    text = pw.input_attribute()
+
+                    @pw.output_attribute
+                    def n_words(self) -> int:
+                        return len(self.text.split())
+
+            tagged = sel.with_columns(n_words=words(table=sel).table.n_words)
+            emb = llm.SentenceTransformerEmbedder(model, max_batch_size=RAG_BATCH)
+            vecs = tagged.select(tagged.doc_id, tagged.n_words, vec=emb(tagged.text))
+            index = pw.indexing.DataIndex(vecs, pw.indexing.BruteForceKnn(
+                vecs.vec, dimensions=model.cfg.hidden, reserved_space=P25_RECORDS,
+                metric="cos", device=model.device))
+            indexed = threading.Event()
+
+            class Queries(pw.io.python.ConnectorSubject):
+                def run(self):  # asked once every kept doc is in the index
+                    if not indexed.wait(P25_TIMEOUT):
+                        raise TimeoutError("the kept docs never all reached the index")
+                    for q in q_texts:
+                        self.next(q=q)
+                    self.commit()
+
+            qt = pw.io.python.read(Queries(), schema=pw.schema_from_types(q=str))
+            res = index.query_as_of_now(qt.select(qt.q, qv=emb(qt.q)).qv,
+                                        number_of_matches=P25_K, with_distances=True)
+            res = res.select(res.doc_id, res._pw_dist, q=qt.restrict(res).q)
+
+            def on_row(key, row, time, is_addition):
+                with lock:
+                    if is_addition:
+                        rows[key.value] = (row["doc_id"], row["n_words"], row["vec"])
+                    else:
+                        rows.pop(key.value, None)
+                    if len(rows) >= len(kept):
+                        indexed.set()
+
+            def on_reply(key, row, time, is_addition):
+                with lock:
+                    if is_addition:
+                        replies[row["q"]] = list(zip(row["doc_id"], row["_pw_dist"]))
+
+            pw.io.subscribe(vecs, on_change=on_row)
+            pw.io.subscribe(res, on_change=on_reply)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter()
+            pw.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+    finally:
+        counter.close()
+    launches = FA.flash_attn.launches
+    n_encodes = len(counter.sizes)
+    got = {d: (w, v) for d, w, v in rows.values()}
+    info(f"airbyte (c) {P25_RECORDS} RECORD messages -> pw.io.airbyte.read -> pw.sql "
+         f"({P25_SQL!r}) -> pw.transformer -> embed UDF -> DataIndex [{gpu}]: "
+         f"{len(got)} rows kept, pw.run() {wall:.3f} s ({P25_RECORDS / wall:.1f} records/s); "
+         f"{n_encodes} encodes, flash_attn launches {launches}")
+    require(len(rows) == len(got) == len(kept) and sorted(got) == sorted(kept),
+            f"(c) the kept rows are the host model's {len(kept)}")
+    require(all(got[d][0] == kept[d][1] for d in kept),
+            "(c) the transformer's n_words equals the host model's for every row")
+    ids = sorted(kept)
+    direct = np.concatenate([model.embed_batch([kept[d][0] for d in ids[s:s + RAG_BATCH]])
+                             for s in range(0, len(ids), RAG_BATCH)]).astype(np.float32)
+    vec = np.asarray([got[d][1] for d in ids], dtype=np.float32)
+    cos = np.sum(vec * direct, axis=1) / (np.linalg.norm(vec, axis=1)
+                                          * np.linalg.norm(direct, axis=1))
+    require(cos.min() >= C4_COS_MIN,
+            f"(c) vectors within cosine {C4_COS_MIN} of direct encodes (min {cos.min():.6f})")
+    require(launches >= MINILM_LAYERS * n_encodes > 0,
+            f"(c) every encode went through flash_attn ({launches} >= {MINILM_LAYERS} x "
+            f"{n_encodes})")
+    ref = BruteForceKnnIndex(model.cfg.hidden, reserved_space=len(ids), metric="cos",
+                             device=model.device)
+    ref.add(ids, direct)
+    want = dict(zip(q_texts, ref.search(model.embed_batch(q_texts), P25_K)))
+    agree = sum(q in replies and ranks_agree(want[q], [(d, -s) for d, s in replies[q]],
+                                             P25_TIE_TOL) for q in q_texts)
+    info(f"  top-{P25_K} of {P25_QUERIES} queries equal a direct index but at gaps < "
+         f"{P25_TIE_TOL}: {agree}/{P25_QUERIES}; phase {time.perf_counter() - t0:.1f} s")
+    require(agree == P25_QUERIES, "(c) the replies equal the direct index's")
+    pw.clear_graph()
+    return launches
+
+
+def run_tuning_airbyte(dev, gpu: str, params, out: dict, docs, queries) -> tuple[dict, int]:
+    """Phase 25; returns (a)'s launches of the five entry points and (b)'s
+    and (c)'s flash_attn launches."""
+    t0 = time.perf_counter()
+    tuned = p25_tuner(dev, gpu, params)
+    t1 = time.perf_counter()
+    launches = p25_ingest_tuner(dev, gpu)
+    t2 = time.perf_counter()
+    launches += p25_airbyte_sql(dev, gpu, out, docs, queries)
+    t3 = time.perf_counter()
+    info(f"phase 25 [{gpu}]: {t3 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, "
+         f"(c) {t3 - t2:.1f})")
+    return tuned, launches
+
+
 def main() -> int:
     import torch
 
@@ -8628,6 +9047,13 @@ def main() -> int:
     dec = {n: dec[n] + gate[n] for n in dec}
 
     done(24)
+    # phase 25: the autotuner with its trials on the card; an Airbyte
+    # source through pw.sql and a row transformer into the embed UDF
+    tuned, p25_launches = run_tuning_airbyte(dev, gpu, params, out, docs, queries)
+    launches += p25_launches
+    dec = {n: dec[n] + tuned[n] for n in dec}
+
+    done(25)
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",

@@ -77,11 +77,16 @@ k-means on the card, ``knn_classifier``, the fuzzy join) and
 ``pw.utils`` are JAX's; ``pw.run(monitoring_level=..., with_http_server=
 True)`` draws the live dashboard and serves the run's metrics;
 ``python -m pathway_tpu_torch`` is the CLI (``stats``, ``watch``, ``fleet
-serve`` over replica processes, ``replay``). ``pw.persistence`` logs the
+serve`` over replica processes, ``replay``, ``spawn``, ``tune``,
+``airbyte``). ``tuning`` is the autotuner: its trials serve on the card,
+and its artifact configures ``DecoderChat``, ``SentenceEmbedderModel``,
+``QueryServer`` and ``EngineConfig`` through their ``tuned_config=``. ``pw.persistence`` logs the
 sources and operator state and resumes a run exactly once. ``pw.io``
-carries JAX's connectors but Airbyte (the object stores, S3 and its
-vendors, Debezium, Delta Lake, SQLite, Postgres and the thin writers,
-each behind JAX's client seam); ``pw.export_table`` / ``pw.import_table``
+carries JAX's connectors (the object stores, S3 and its vendors,
+Debezium, Delta Lake, SQLite, Postgres, Airbyte and the thin writers, each
+behind JAX's client seam); ``pw.sql``, ``pw.transformer`` (row
+transformers with ``pw.ClassArg``), ``pw.load_yaml`` and
+``pw.asynchronous`` are JAX's; ``pw.export_table`` / ``pw.import_table``
 hand a live table to a second program, ``Table.live()`` keeps one in the
 background (``LiveTable``), and ``pw.stateful.deduplicate`` is JAX's.
 The pandas-backed datetime types load on first use, so a program
@@ -179,6 +184,18 @@ from pathway_tpu_torch.internals.exported import (  # noqa: E402
 from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer  # noqa: E402
 from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer  # noqa: E402
 from pathway_tpu_torch.internals.iterate import iterate, iterate_universe  # noqa: E402
+from pathway_tpu_torch import asynchronous  # noqa: E402
+from pathway_tpu_torch.internals.row_transformer import (  # noqa: E402
+    ClassArg,
+    attribute,
+    input_attribute,
+    input_method,
+    method,
+    output_attribute,
+    transformer,
+)
+from pathway_tpu_torch.internals.sql import sql  # noqa: E402
+from pathway_tpu_torch.internals.yaml_loader import load_yaml  # noqa: E402
 from pathway_tpu_torch.stdlib.temporal import (  # noqa: E402
     AsofJoinResult,
     IntervalJoinResult,
@@ -321,6 +338,16 @@ __all__ = [
     "utils",
     "AsyncTransformer",
     "pandas_transformer",
+    "asynchronous",
+    "ClassArg",
+    "attribute",
+    "input_attribute",
+    "input_method",
+    "method",
+    "output_attribute",
+    "transformer",
+    "sql",
+    "load_yaml",
     "set_license_key",
     "set_monitoring_config",
     "ordered",

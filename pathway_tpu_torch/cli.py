@@ -42,12 +42,22 @@ Carried, with JAX's command names and options:
 * ``spawn-from-env PROGRAM ARGS...``: ``spawn`` with its options read from
   ``PATHWAY_SPAWN_ARGS``.
 
+* ``tune PROFILE [--out PATH] [--seed N] [--trials N] [--scale F]
+  [--rounds N] [--smoke] [--device DEV]``: the autotuner
+  (``pathway_tpu_torch.tuning``) over one workload profile, its trials on
+  the card (``--device cpu`` for the CPU), the winner saved as a
+  tuned-config artifact in JAX's format; prints JAX's summary JSON, and on
+  stderr how to load the artifact (``tuned_config=<path>``). Exit code 2
+  for an unknown profile, 3 when validation rejects every candidate;
+* ``airbyte create-source CONNECTION [--image IMAGE]``: JAX's starter YAML
+  connection config for an Airbyte source.
+
 JAX's ``PATHWAY_TPU_FLEET`` switch is the ``--fleet`` option here: without
 it ``fleet serve`` refuses with exit code 2, as the flag's default does.
-The parser is the standard library's ``argparse`` (JAX's is ``click``).
-``tune`` and ``airbyte`` are not ported (ROADMAP A): they print so and
-exit with code 3. :func:`main` takes ``argv`` (the tests' way in) and
-returns the exit code.
+JAX's ``PATHWAY_TPU_TUNE_SEED`` / ``PATHWAY_TPU_TUNE_TRIALS`` defaults of
+``tune`` are 0 here (the ``Autotuner``'s). The parser is the standard
+library's ``argparse`` (JAX's is ``click``). :func:`main` takes ``argv``
+(the tests' way in) and returns the exit code.
 """
 
 from __future__ import annotations
@@ -62,12 +72,6 @@ import subprocess
 import sys
 import time
 import urllib.request
-
-NOT_PORTED = {
-    "tune": "needs the autotuner (ROADMAP A12)",
-    "airbyte": "needs the airbyte connector (ROADMAP A13)",
-}
-
 
 def _out(msg: str = "") -> None:
     print(msg, flush=True)
@@ -375,10 +379,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("arguments", nargs=argparse.REMAINDER)
     p.set_defaults(func=cmd_spawn_from_env)
 
-    for name, why in NOT_PORTED.items():
-        p = sub.add_parser(name, help=f"not ported: {why}")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
-        p.set_defaults(func=lambda args, _n=name, _w=why: _not_ported(_n, _w))
+    p = sub.add_parser("tune", help="search the tunable knobs for a workload PROFILE")
+    p.add_argument("profile")
+    p.add_argument("--out", default=None, metavar="PATH",
+                   help="write the winning tuned-config JSON here "
+                        "[default: tuned-<profile>.json]")
+    p.add_argument("--seed", type=int, default=None, help="search seed [default: 0]")
+    p.add_argument("--trials", type=int, default=None,
+                   help="cap the candidate pool (baseline + N-1 candidates) "
+                        "[default: 0 = full ladder]")
+    p.add_argument("--scale", type=float, default=1.0,
+                   help="trace-scale multiplier for the first halving round [default: 1.0]")
+    p.add_argument("--rounds", type=int, default=3,
+                   help="successive-halving rounds [default: 3]")
+    p.add_argument("--smoke", action="store_true",
+                   help="seconds-scale CI invocation: 2 trials, 1 round, half-scale traces")
+    p.add_argument("--device", default=None,
+                   help="where the trials run [default: the CUDA card]; cpu for the CPU")
+    p.set_defaults(func=cmd_tune)
+
+    airbyte = sub.add_parser("airbyte", help="Airbyte connector scaffolding")
+    asub = airbyte.add_subparsers(dest="airbyte_command", required=True)
+    p = asub.add_parser("create-source",
+                        help="write a starter YAML connection config for an Airbyte source")
+    p.add_argument("connection")
+    p.add_argument("--image", default="airbyte/source-faker:0.1.4",
+                   help="any public Docker Airbyte source image")
+    p.set_defaults(func=cmd_airbyte_create_source)
     return parser
 
 
@@ -532,9 +559,69 @@ def cmd_spawn_from_env(args) -> int:
     return main(["spawn", *argv])
 
 
-def _not_ported(name: str, why: str) -> int:
-    _err(f"pathway-tpu-torch {name}: not ported yet; it {why}")
-    return 3
+# -------------------------------------------------------------------- tune
+
+def cmd_tune(args) -> int:
+    """Search the tunable knobs for a workload profile, validate survivors
+    under the SLO watchdog and a chaos drill, and save the winner as a
+    tuned-config artifact. Exit code 2 for an unknown profile, 3 when
+    validation rejects every candidate (the defaults stay in force)."""
+    from pathway_tpu_torch import tuning
+
+    profile = args.profile
+    if profile not in tuning.PROFILES:
+        _err(f"unknown profile {profile!r}; available: {sorted(tuning.PROFILES)}")
+        return 2
+    trials, rounds, scale = args.trials, args.rounds, args.scale
+    if args.smoke:
+        trials = 2 if trials is None else trials
+        rounds = min(rounds, 1)
+        scale = min(scale, 0.5)
+    tuner = tuning.Autotuner(profile, seed=args.seed or 0, max_trials=trials or 0,
+                             base_scale=scale, rounds=rounds, device=args.device)
+    try:
+        result = tuner.run()
+    except tuning.TuneError as exc:
+        _err(f"tune failed: {exc}")
+        return 3
+    path = args.out or f"tuned-{profile}.json"
+    tuning.save_artifact(result, path)
+    art = tuning.to_artifact(result)
+    _out(json.dumps({
+        "profile": art["profile"],
+        "headline": art["headline"],
+        "direction": art["direction"],
+        "flags": art["flags"],
+        "score": art["score"],
+        "baseline_score": art["baseline_score"],
+        "trials": len(result.trials),
+        "rejected": len(result.rejected),
+        "artifact": path,
+    }, indent=2, sort_keys=True))
+    _err(f"load it with tuned_config={path!r} (DecoderChat, SentenceEmbedderModel, "
+         f"QueryServer, EngineConfig)")
+    return 0
+
+
+# ----------------------------------------------------------------- airbyte
+
+def cmd_airbyte_create_source(args) -> int:
+    """JAX's scaffold: a starter YAML connection config for an Airbyte
+    source. Running the source itself needs docker or a local connector;
+    the scaffold is written here."""
+    import pathlib
+
+    path = pathlib.Path(args.connection)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(
+        "source:\n"
+        f"  docker_image: {args.image}\n"
+        "  config:\n"
+        "    # fill in source-specific configuration here\n"
+        "streams: []\n"
+    )
+    _out(f"Connection `{path.stem}` with source `{args.image}` created successfully")
+    return 0
 
 
 def main(argv=None) -> int:

@@ -56,6 +56,11 @@ def configure(rate: float = 0.0, seed: int = 0, sites: str = "") -> None:
     _sites = str(sites)
 
 
+def settings() -> dict:
+    """The current :func:`configure` arguments, to restore them later."""
+    return {"rate": _rate, "seed": _seed, "sites": _sites}
+
+
 class InjectedFault(RuntimeError):
     """A fault raised by an armed chaos site, never by real code, so
     tests and the error log can attribute it unambiguously."""

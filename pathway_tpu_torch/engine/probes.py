@@ -457,10 +457,12 @@ def serving_snapshot() -> dict:
 
 def unified_snapshot(scheduler_stats=None) -> dict:
     """Scheduler, serving, the engine's operators, device memory, the SLO
-    watchdog's state and the raw registry in one dict. ``scheduler`` is the
-    snapshot of the ``SchedulerStats`` the caller passes (a run's
+    watchdog's state, the tuned configs loaded in this process and the raw
+    registry in one dict. ``scheduler`` is the snapshot of the
+    ``SchedulerStats`` the caller passes (a run's
     ``pw.internals.run.LAST_RUN_STATS``; None by default)."""
     from pathway_tpu_torch.engine import slo
+    from pathway_tpu_torch.internals.config import tuned_config_snapshot
 
     sched = scheduler_stats
     if sched is not None and hasattr(sched, "snapshot"):
@@ -471,6 +473,7 @@ def unified_snapshot(scheduler_stats=None) -> dict:
         "engine": engine_snapshot(),
         "hbm": hbm_stats(),
         "slo": slo.slo_snapshot(),
+        "tuning": tuned_config_snapshot(),
         "registry": REGISTRY.snapshot(),
     }
 

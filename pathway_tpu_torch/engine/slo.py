@@ -429,6 +429,11 @@ def configure(ttft_p95_ms: float = 0.0, e2e_p95_ms: float = 0.0,
     reset_watchdog()
 
 
+def settings() -> dict:
+    """The current :func:`configure` arguments, to restore them later."""
+    return dict(_settings)
+
+
 def default_objectives() -> list[Objective]:
     """The objectives :func:`configure` declared."""
     s = _settings

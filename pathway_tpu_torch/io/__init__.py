@@ -14,13 +14,14 @@ connector and ``read`` / ``write``), the file connectors (``fs``, ``csv``,
 ``subscribe``. A backend whose client package is absent raises a clear
 error at call time; each takes an injected client (``_client=``,
 ``AwsS3Settings(client=)``, ``connection_factory=``, ``_table=``,
-``_provider=``) as JAX's does. ``airbyte`` is not ported yet (ROADMAP
-A13).
+``_provider=``) as JAX's does; ``airbyte`` runs an Airbyte connector (a
+local executable, a docker image, a Cloud Run job, or ``_source=``).
 """
 
 from __future__ import annotations
 
 from pathway_tpu_torch.io import (
+    airbyte,
     bigquery,
     csv,
     debezium,
@@ -52,6 +53,7 @@ from pathway_tpu_torch.io._utils import CsvParserSettings, OnChangeCallback, OnF
 
 __all__ = [
     "CsvParserSettings",
+    "airbyte",
     "bigquery",
     "csv",
     "debezium",

@@ -61,6 +61,7 @@ from pathway_tpu_torch.engine.probes import (
     record_hbm,
     record_stage,
 )
+from pathway_tpu_torch.internals.config import apply_tuned_config
 from pathway_tpu_torch.internals.retries import ExponentialBackoffRetryStrategy
 from pathway_tpu_torch.models import flash_attention as FA
 from pathway_tpu_torch.models.decoder import params_device_bytes
@@ -353,7 +354,9 @@ class SentenceEmbedderModel:
     ``pipeline_queue`` and ``fused_h2d`` set the ingest pipeline, and
     ``serve_restarts`` / ``serve_retries`` its retry budget (``serve_retries``
     retries when ``serve_restarts > 0``, else none); their defaults are the
-    JAX flag defaults. ``weight_quant="int8"`` stores int8 weights (None,
+    JAX flag defaults; ``tuned_config`` (a tuner artifact's path) sets
+    ``pipeline_depth`` / ``pipeline_queue`` where they are left at
+    ``None``. ``weight_quant="int8"`` stores int8 weights (None,
     the default, full precision); ``late_proj`` fixes the ``(hidden, dc)``
     projection of the token path and of its pipelines' late-interaction
     bank (by default the port's seeded ``late_projection``). ``mesh`` (a
@@ -369,14 +372,15 @@ class SentenceEmbedderModel:
         device=None,
         *,
         pipeline: bool = True,
-        pipeline_depth: int = 2,
-        pipeline_queue: int = 8,
+        pipeline_depth: int | None = None,
+        pipeline_queue: int | None = None,
         fused_h2d: bool = True,
         serve_restarts: int = 0,
         serve_retries: int = 1,
         weight_quant: str | None = None,
         late_proj: torch.Tensor | None = None,
         mesh=None,
+        tuned_config: str | None = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -407,8 +411,14 @@ class SentenceEmbedderModel:
         for dev, nbytes in params_device_bytes(self.params).items():
             record_hbm("weights.embedder", nbytes, device=dev, owner=self.hbm_owner)
         self.pipeline = bool(pipeline)
-        self.pipeline_depth = int(pipeline_depth)
-        self.pipeline_queue = int(pipeline_queue)
+        # the tuned config's values where the caller passed none, else
+        # JAX's defaults (depth 2, queue 8)
+        knobs = apply_tuned_config(tuned_config, "SentenceEmbedderModel", dict(
+            pipeline_depth=pipeline_depth, pipeline_queue=pipeline_queue))
+        self.pipeline_depth = int(2 if knobs["pipeline_depth"] is None
+                                  else knobs["pipeline_depth"])
+        self.pipeline_queue = int(8 if knobs["pipeline_queue"] is None
+                                  else knobs["pipeline_queue"])
         self.fused_h2d = bool(fused_h2d)
         self.h2d_retries = int(serve_retries) if int(serve_restarts) > 0 else 0
         self._pipeline: _IngestPipeline | None = None

@@ -22,8 +22,10 @@ With ``serve_restarts > 0`` a failing group fails only its own requests
 a crashed tick fails its batch and the loop goes on, up to
 ``serve_restarts`` times; with the default 0 the first error latches the
 server, as in JAX. Each group dispatch is the ``query.tick`` chaos site
-(``engine/chaos.py``). The defaults are the JAX flag defaults. The server
-is opt-in: a pipeline called directly is unchanged.
+(``engine/chaos.py``). The defaults are the JAX flag defaults;
+``tuned_config`` (a tuner artifact's path) sets ``tick_ms`` and
+``max_batch`` where the caller leaves them at ``None``. The server is
+opt-in: a pipeline called directly is unchanged.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from collections import deque
 import torch
 
 from pathway_tpu_torch.engine import chaos, probes, tracing
+from pathway_tpu_torch.internals.config import apply_tuned_config
 from pathway_tpu_torch.internals.errors import get_global_error_log
 
 
@@ -78,9 +81,16 @@ class QueryServer:
     """Coalesces concurrent retrieve / retrieve-rerank requests into
     batched pipeline calls, one per ``(kind, k)`` group per tick."""
 
-    def __init__(self, pipeline, *, tick_ms: float = 2.0, max_batch: int = 64,
-                 queue_bound: int = 256, serve_restarts: int = 0):
+    def __init__(self, pipeline, *, tick_ms: float | None = None,
+                 max_batch: int | None = None, queue_bound: int = 256,
+                 serve_restarts: int = 0, tuned_config: str | None = None):
         self._pipe = pipeline
+        # a tuned config's values where the caller passed none, else JAX's
+        # defaults (2 ms, 64)
+        knobs = apply_tuned_config(tuned_config, "QueryServer",
+                                   dict(tick_ms=tick_ms, max_batch=max_batch))
+        tick_ms = 2.0 if knobs["tick_ms"] is None else knobs["tick_ms"]
+        max_batch = 64 if knobs["max_batch"] is None else knobs["max_batch"]
         self.tick_s = float(tick_ms) / 1e3
         self.max_batch = max(1, int(max_batch))
         self.queue_bound = max(1, int(queue_bound))

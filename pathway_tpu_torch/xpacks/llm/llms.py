@@ -105,6 +105,7 @@ from pathway_tpu_torch.engine.probes import (
     record_spec_many,
     record_stage,
 )
+from pathway_tpu_torch.internals import config as config_mod
 from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.errors import get_global_error_log
 from pathway_tpu_torch.internals.expression import ColumnExpression
@@ -206,7 +207,11 @@ class DecoderChat(BaseChat):
     continuous server's supervision, ``disagg`` / ``disagg_prefill_budget``
     its prefill lane and ``tenant_sched`` / ``tenant_budget`` /
     ``tenant_weights`` its tenant scheduler (defaults: the JAX flag
-    defaults, all off)."""
+    defaults, all off), ``batch_admit`` / ``prefill_overlap`` its admission
+    (on, as JAX's). ``tuned_config`` (the path of an artifact of ``python
+    -m pathway_tpu_torch tune``, or of JAX's tuner) fills every knob
+    argument left at ``None`` with the artifact's value: an argument the
+    caller passes wins; ``knobs`` holds the knob arguments as resolved."""
 
     def __init__(
         self,
@@ -251,13 +256,39 @@ class DecoderChat(BaseChat):
         mesh=None,
         weight_quant: str | bool | None = None,
         wq_kernel: bool | None = None,
-        serve_restarts: int = 0,
-        serve_retries: int = 1,
+        serve_restarts: int | None = None,
+        serve_retries: int | None = None,
         request_deadline_ms: float = 0.0,
         serve_queue: int = 0,
         degradation: bool = True,
         device=None,
+        batch_admit: bool | None = None,
+        prefill_overlap: bool | None = None,
+        tuned_config: str | None = None,
     ):
+        # the server's knobs as passed (None: not passed), the artifact's
+        # values filled in where the caller passed nothing
+        serve_kw = config_mod.apply_tuned_config(tuned_config, "DecoderChat", dict(
+            pipeline_depth=pipeline_depth, chunked_prefill=chunked_prefill,
+            prefill_chunk=prefill_chunk, eager_refill=eager_refill,
+            batch_admit=batch_admit, prefill_overlap=prefill_overlap,
+            prefix_cache=prefix_cache, prefix_cache_mb=prefix_cache_mb,
+            prefix_block=prefix_block, spec_decode=spec_decode,
+            spec_draft_layers=spec_draft_layers, spec_k=spec_k,
+            chunk_autotune=chunk_autotune, kv_quant=kv_quant, paged_kv=paged_kv,
+            paged_kv_block=paged_kv_block, paged_kv_blocks=paged_kv_blocks,
+            paged_kernel=paged_kernel, flash_prefill=flash_prefill, disagg=disagg,
+            disagg_prefill_budget=disagg_prefill_budget, tenant_sched=tenant_sched,
+            tenant_budget=tenant_budget, tenant_weights=tenant_weights,
+            prefix_t2_mb=prefix_t2_mb, serve_restarts=serve_restarts,
+            serve_retries=serve_retries, request_deadline_ms=request_deadline_ms,
+            serve_queue=serve_queue, degradation=degradation,
+            weight_quant=weight_quant, wq_kernel=wq_kernel))
+        # the knob arguments as resolved: the caller's, else the artifact's
+        # (None where neither set one: the server's default)
+        self.knobs = dict(serve_kw)
+        weight_quant = serve_kw.pop("weight_quant")
+        wq_kernel = serve_kw.pop("wq_kernel")
         greedy = float(temperature) == 0.0 and top_k is None and top_p is None
         super().__init__(
             batch=True,
@@ -318,36 +349,7 @@ class DecoderChat(BaseChat):
                 default_max_new=self.max_new_tokens,
                 temperature=self.temperature, top_k=self.top_k,
                 top_p=self.top_p, seed=seed,
-                pipeline_depth=pipeline_depth,
-                chunked_prefill=chunked_prefill,
-                prefill_chunk=prefill_chunk,
-                eager_refill=eager_refill,
-                prefix_cache=prefix_cache,
-                prefix_cache_mb=prefix_cache_mb,
-                prefix_block=prefix_block,
-                spec_decode=spec_decode,
-                spec_draft_layers=spec_draft_layers,
-                spec_k=spec_k,
-                chunk_autotune=chunk_autotune,
-                kv_quant=kv_quant,
-                paged_kv=paged_kv,
-                paged_kv_block=paged_kv_block,
-                paged_kv_blocks=paged_kv_blocks,
-                paged_kernel=paged_kernel,
-                flash_prefill=flash_prefill,
-                disagg=disagg,
-                disagg_prefill_budget=disagg_prefill_budget,
-                tenant_sched=tenant_sched,
-                tenant_budget=tenant_budget,
-                tenant_weights=tenant_weights,
-                prefix_t2_mb=prefix_t2_mb,
-                mesh=mesh,
-                serve_restarts=serve_restarts,
-                serve_retries=serve_retries,
-                request_deadline_ms=request_deadline_ms,
-                serve_queue=serve_queue,
-                degradation=degradation,
-                hbm_owner=self.hbm_owner,
+                mesh=mesh, hbm_owner=self.hbm_owner, **serve_kw,
             )
             # the two-phase engine protocol exists in continuous mode only:
             # as class methods they would put batch-static chats on the
@@ -586,12 +588,14 @@ class _ContinuousServer:
                  prefix_t2_mb: float | None = None,
                  mesh=None,
                  chunk_autotune: bool | None = None,
-                 serve_restarts: int = 0,
-                 serve_retries: int = 1,
+                 serve_restarts: int | None = None,
+                 serve_retries: int | None = None,
                  request_deadline_ms: float = 0.0,
                  serve_queue: int = 0,
                  degradation: bool = True,
-                 hbm_owner: str | None = None):
+                 hbm_owner: str | None = None,
+                 batch_admit: bool | None = None,
+                 prefill_overlap: bool | None = None):
         asked: dict = {}
         for name, on, what in _UNPORTED:
             if on(asked[name]):
@@ -646,6 +650,11 @@ class _ContinuousServer:
         self.prefill_chunk = max(8, next_pow2(
             64 if prefill_chunk is None else int(prefill_chunk), 8))
         self.eager_refill = True if eager_refill is None else bool(eager_refill)
+        # same-bucket whole-prompt admissions share one pool_admit_batch
+        # (off: one pool_admit each); the decode chunk dispatches before
+        # each tick's admission work (off: after it). JAX's defaults: on
+        self.batch_admit = True if batch_admit is None else bool(batch_admit)
+        self.prefill_overlap = True if prefill_overlap is None else bool(prefill_overlap)
         self.paged_kv = bool(paged_kv)
         self.paged_kernel = bool(self.paged_kv and paged_kernel)
         self.flash_prefill = bool(flash_prefill)
@@ -765,9 +774,9 @@ class _ContinuousServer:
         # supervision, all read once here: restarts and per-request
         # isolation only when supervised; deadlines and the queue bound
         # shed instead of blocking; the ladder follows the SLO watchdog
-        self._restart_budget = max(0, int(serve_restarts))
+        self._restart_budget = max(0, int(serve_restarts or 0))
         self._supervised = self._restart_budget > 0
-        self._retry_budget = max(0, int(serve_retries))
+        self._retry_budget = max(0, 1 if serve_retries is None else int(serve_retries))
         self._deadline_s = float(request_deadline_ms) / 1e3
         self._queue_bound = max(0, int(serve_queue))
         self._default_max_new = int(default_max_new)
@@ -818,7 +827,10 @@ class _ContinuousServer:
                       "kv_migrated_blocks": 0}
         # in-flight chunk records, oldest first
         self._inflight: deque = deque()
-        self._occ_published = 0  # the chunk count at the last gauge write
+        # (chunks, useful steps) at the last gauge write: a write on the 1st
+        # or an 8th chunk comes before that chunk's steps are counted, so the
+        # idle write compares both
+        self._occ_published = (0, 0)
         self.thread = threading.Thread(target=self._run_safe, daemon=True,
                                        name="pathway:decoder-serve")
         self.thread.start()
@@ -1404,6 +1416,8 @@ class _ContinuousServer:
                 m = 1 << ((len(grp) - o).bit_length() - 1)
                 groups.append(grp[o:o + m])
                 o += m
+        if not self.batch_admit:
+            groups = [[item] for item in direct]
         for part in groups:
             ids = to_device(np.concatenate([p[1] for p in part], axis=0), dev)
             mask = to_device(np.concatenate([p[2] for p in part], axis=0), dev)
@@ -1840,7 +1854,7 @@ class _ContinuousServer:
             for t in seen:
                 probes.REGISTRY.gauge_set("tenant_queue_depth", float(depths.get(t, 0)),
                                           server=tag, tenant=t)
-        self._occ_published = self.stats["chunks"]
+        self._occ_published = (self.stats["chunks"], self.stats["steps"])
 
     def _spec_account(self, emit, lanes) -> None:
         """Count one drained spec dispatch (``emit`` (n_cycles, B), the
@@ -1993,7 +2007,7 @@ class _ContinuousServer:
         inflight = self._inflight
         while not self._stop:
             # decode FIRST: newcomer admission overlaps the in-flight chunk
-            dispatched = self._dispatch_decode(active)
+            dispatched = self.prefill_overlap and self._dispatch_decode(active)
             if self._degrade is not None:
                 # one rate-limited watchdog read per tick
                 self._degradation_level = self._degrade.maybe_evaluate()
@@ -2037,7 +2051,7 @@ class _ContinuousServer:
                 # idle, or only pieces waiting for a staging promotion
                 # (the stage worker sets wake)
                 self._spec_flush()
-                if self._occ_published != self.stats["chunks"]:
+                if self._occ_published != (self.stats["chunks"], self.stats["steps"]):
                     self._publish_occupancy(active)
                 self.wake.clear()
                 self.wake.wait(timeout=0.002 if held else 0.05)

@@ -82,7 +82,7 @@ def _serve(tparams, prompts, **kw):
             assert r.done.wait(WAIT), "request hung"
         end = time.monotonic() + WAIT
         while (srv.lane_stats() != {"prefill": 0, "decode": 0}
-               or srv._occ_published != srv.stats["chunks"]):
+               or srv._occ_published != (srv.stats["chunks"], srv.stats["steps"])):
             assert time.monotonic() < end, "the lanes never quiesced"
             time.sleep(0.002)
         return reqs, dict(srv.stats), srv

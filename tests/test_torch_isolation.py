@@ -501,3 +501,30 @@ def test_server_constructs_spec_decode_and_chunk_autotune():
     finally:
         chat.close()
     assert not srv.thread.is_alive()
+
+
+def test_source_scan_sees_the_tuner_and_the_sql_surface():
+    files = set(_sources())
+    pkg = ROOT / "pathway_tpu_torch"
+    for rel in ("tuning/__init__.py", "tuning/profiles.py", "tuning/search.py",
+                "io/airbyte.py", "internals/row_transformer.py", "internals/sql.py",
+                "internals/yaml_loader.py", "asynchronous.py",
+                "engine/operators/row_transformer.py"):
+        assert pkg / rel in files, rel
+
+
+def test_yaml_and_google_are_imported_lazily():
+    """The card's machine has no ``yaml``: importing the package, the
+    Airbyte reader and the YAML loader must not need it (nor
+    ``google.oauth2``)."""
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.modules['yaml'] = None; sys.modules['google'] = None\n"
+            "import pathway_tpu_torch as pw, pathway_tpu_torch.io.airbyte\n"
+            "import pathway_tpu_torch.internals.yaml_loader\n"
+            "print(pw.load_yaml.__name__, pw.io.airbyte.read.__name__)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split() == ["load_yaml", "read"]

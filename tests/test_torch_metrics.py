@@ -289,7 +289,7 @@ def test_unified_snapshot_and_roofline():
     _serving(TP, np.random.default_rng(5))
     TP.record_hbm("weights.decoder", 1000)
     uni = TP.unified_snapshot()
-    assert set(uni) == {"scheduler", "serving", "engine", "hbm", "slo", "registry"}
+    assert set(uni) == {"scheduler", "serving", "engine", "hbm", "slo", "tuning", "registry"}
     assert uni["scheduler"] is None
     assert uni["serving"] == TP.serving_snapshot()
     assert uni["engine"] == TP.engine_snapshot()

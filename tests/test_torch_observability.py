@@ -32,6 +32,7 @@ import time
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 import torch
 
@@ -532,12 +533,19 @@ def test_cli_fleet_serve_is_off_by_default(capsys):
 
 @pytest.mark.parametrize("name", ["spawn", "spawn-from-env", "tune", "airbyte"])
 def test_cli_commands_not_ported_exit_nonzero(name, capsys, tmp_path):
-    """``tune`` and ``airbyte`` are not ported: exit code 3. ``spawn`` and
-    ``spawn-from-env`` are: a program file that does not exist fails their
-    child, exit code 1."""
-    if name in tcli.NOT_PORTED:
-        assert tcli.main([name, "anything"]) == 3
-        assert "not ported" in capsys.readouterr().err
+    """No command is left unported: ``tune`` with an unknown profile exits
+    2 (JAX's code), ``airbyte`` with an unknown subcommand is a usage
+    error (2), and ``spawn`` / ``spawn-from-env`` with a program file that
+    does not exist fail their child, exit code 1. None prints "not
+    ported"."""
+    if name == "tune":
+        assert tcli.main([name, "anything"]) == 2
+        assert "unknown profile" in capsys.readouterr().err
+    elif name == "airbyte":
+        with pytest.raises(SystemExit) as exc:
+            tcli.main([name, "anything"])
+        assert exc.value.code == 2
+        assert "not ported" not in capsys.readouterr().err
     else:
         assert tcli.main([name, str(tmp_path / "missing.py")]) == 1
         assert "not ported" not in capsys.readouterr().err
@@ -572,3 +580,86 @@ def test_prepare_opens_one_empty_session_once(tmp_path, monkeypatch):
     BaseRestServer("127.0.0.1", 0, profile_dir=str(tmp_path))
     BaseRestServer("127.0.0.1", 0, profile_dir=str(tmp_path))
     assert len(sessions) == 1 and tprof._prepared
+
+
+# ------------------------------------------------- the occupancy gauge
+
+_OCC_CFG = None
+
+
+def _occ_chat(paged: bool):
+    from pathway_tpu_torch.models import decoder as TD
+    from pathway_tpu_torch.xpacks.llm import DecoderChat
+
+    global _OCC_CFG
+    if _OCC_CFG is None:
+        cfg = TD.DecoderConfig(vocab_size=128, hidden=32, layers=2, heads=4,
+                               intermediate=64, max_position=128, dtype=torch.float32)
+        _OCC_CFG = (cfg, TD.init_params(torch.Generator().manual_seed(0), cfg))
+    cfg, params = _OCC_CFG
+    tok = type("Tok", (), {"eos_id": None,
+                           "encode": staticmethod(lambda s: [ord(c) % 96 + 1 for c in s]),
+                           "decode": staticmethod(lambda ids: "".join(
+                               chr(int(i) % 96 + 32) for i in ids))})()
+    kw = dict(paged_kv=True, paged_kv_block=8) if paged else {}
+    return DecoderChat(params=params, cfg=cfg, tokenizer=tok, max_new_tokens=8,
+                       max_prompt_tokens=32, continuous=True, n_slots=4, chunk_steps=4,
+                       pipeline_depth=2, prefill_chunk=8, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("burst", [24, 32, 48])
+def test_occupancy_gauge_equals_server_occupancy_after_a_burst(burst, paged):
+    """After a burst the loop goes idle and writes the gauge, so
+    ``serving_snapshot()['occupancy']`` holds ``round(occupancy(), 4)``
+    (phase 11 (a)'s bar, with its bounded wait). The gauge is also written
+    on the 1st and every 8th chunk before that chunk's useful steps are
+    counted: a burst whose last chunk is one of those must still be
+    published when the loop goes idle."""
+    chat = _occ_chat(paged)
+    try:
+        srv = chat.server
+        prompts = [f"request {k:02d} " + "x" * (k % 7) for k in range(burst)]
+        reqs = chat.submit_batch(prompts)
+        for r in reqs:
+            assert r.done.wait(120.0)
+        assert all(len(r.tokens) == 8 for r in reqs)
+        end = time.monotonic() + 10.0
+        want = None
+        while time.monotonic() < end:
+            want = round(srv.occupancy(), 4)
+            if tprobes.serving_snapshot()["occupancy"].get(srv._trace_tag) == want:
+                break
+            time.sleep(0.005)
+        assert tprobes.serving_snapshot()["occupancy"].get(srv._trace_tag) == want
+    finally:
+        chat.close()
+
+
+def test_occupancy_gauge_republished_when_the_last_chunk_was_published_early():
+    """The idle write keys on the steps it published as well as the chunk:
+    a last chunk numbered 8k + 1 wrote the gauge before its own useful
+    steps were counted, and the idle loop must write it again."""
+    chat = _occ_chat(False)
+    try:
+        srv = chat.server
+        reqs = chat.submit_batch(["one", "two"])
+        for r in reqs:
+            assert r.done.wait(60.0)
+        end = time.monotonic() + 10.0
+        while time.monotonic() < end and tprobes.serving_snapshot()["occupancy"].get(
+                srv._trace_tag) != round(srv.occupancy(), 4):
+            time.sleep(0.005)
+        # the state a publish on chunk 8k + 1 leaves: the gauge written
+        # with the steps before that chunk's lanes were counted
+        srv._publish_occupancy(np.zeros(srv.n_slots, dtype=bool))
+        srv.stats["steps"] += 1
+        srv.wake.set()
+        end = time.monotonic() + 10.0
+        while time.monotonic() < end and tprobes.serving_snapshot()["occupancy"].get(
+                srv._trace_tag) != round(srv.occupancy(), 4):
+            time.sleep(0.005)
+        assert tprobes.serving_snapshot()["occupancy"].get(srv._trace_tag) == round(
+            srv.occupancy(), 4)
+    finally:
+        chat.close()

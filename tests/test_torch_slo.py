@@ -257,7 +257,7 @@ def test_samplers_read_the_registry():
 
 def test_slo_section_in_unified_snapshot():
     snap = probes.unified_snapshot()
-    assert set(snap) == {"scheduler", "serving", "engine", "hbm", "slo", "registry"}
+    assert set(snap) == {"scheduler", "serving", "engine", "hbm", "slo", "tuning", "registry"}
     assert snap["slo"] == slo.slo_snapshot() == jslo.SloWatchdog([]).state()
     # a declared objective is sampled by the snapshot (a scrape judges)
     probes.REGISTRY.remove("ttft_seconds")

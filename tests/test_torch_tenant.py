@@ -252,7 +252,7 @@ def test_tenant_seam_reaches_tenant_depths(tparams, truth):
         _wait(ra + rb + rd)
         assert [r.tokens for r in ra + rb + rd] == [truth[p] for p in PROMPTS[:4]]
         assert srv.tenant_depths() == {}
-        _until(lambda: srv._occ_published == srv.stats["chunks"], "the idle gauges")
+        _until(lambda: srv._occ_published == (srv.stats["chunks"], srv.stats["steps"]), "the idle gauges")
         depth = probes.REGISTRY.labelled("tenant_queue_depth", "tenant", kind="gauge")
         assert depth == {"a": 0.0, "b": 0.0, "default": 0.0}
     finally:

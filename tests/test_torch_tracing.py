@@ -193,7 +193,7 @@ def _events(span):
 def _wait_idle_gauges(srv):
     """The occupancy gauge catches up when the loop goes idle."""
     for _ in range(WAIT * 100):
-        if srv._occ_published == srv.stats["chunks"]:
+        if srv._occ_published == (srv.stats["chunks"], srv.stats["steps"]):
             return
         time.sleep(0.01)
     raise AssertionError("the serving loop did not go idle")
