@@ -38,7 +38,7 @@ without printing a result:
 6. the answer-LLM main path at full GPT-2-small width, bf16, seeded random
    weights, a byte-level tokenizer: ``DecoderChat(continuous=True)`` over a
    paged KV pool with the paged decode kernel, flash chunked prefill and
-   int8 weights through the wq kernel serves 32 greedy requests; launch
+   int8 weights through the wq kernel serves 24 greedy requests; launch
    counts must show every decode step, prefill piece and layer product
    went through its kernel; 8 requests are held against the port's static
    ``generate``; then a short run with int8 K/V, a dense-pool run (whole-
@@ -48,7 +48,7 @@ without printing a result:
 7. shared-prompt serving through the prefix cache at the same width: the
    chunk and decode kernels over rows whose leading blocks are shared,
    against their plain versions; a paged pool serves a warm-up request and
-   then 32 more at once behind one 256-token head (every one a hit of 4
+   then 24 more at once behind one 256-token head (every one a hit of 4
    shared blocks, every suffix piece and decode step through its kernel),
    beside the same 49 prompts with the cache off; a dense pool's arena
    serves 16 requests behind a 128-token head; a paged tier 1 of 3 blocks
@@ -81,7 +81,7 @@ without printing a result:
    dense pool of 16 slots with prompts of 16-480 tokens: ``pool_decode_spec``
    with the auto draft (3 layers, k = 3) and with a full-depth draft against
    ``pool_decode_chunk`` greedy, equal streams but where the plain run's
-   top-2 logit gap is under 1e-4; (b) phase 6's 32 requests (bf16, int8
+   top-2 logit gap is under 1e-4; (b) phase 6's 24 requests (bf16, int8
    weights through ``wq_matmul``, paged pool with the paged kernel) served
    with spec and autotune off, with the defaults, and with an 11-layer
    draft (autotune off): all first tokens equal to the spec-off arm, at
@@ -92,9 +92,9 @@ without printing a result:
    tokens per dispatch, the latch, spec dispatches and the histogram of
    chunk steps;
 11. telemetry on the card (metrics are on by default, as in JAX, so
-   phases 4-10 ran with them): (a) phase 6's 48-request burst on one
+   phases 4-10 ran with them): (a) phase 6's 24-request burst on one
    server with metrics on, then off: streams equal token for token,
-   no span and an empty registry when off, 32 complete ordered decode
+   no span and an empty registry when off, 24 complete ordered decode
    spans when on, the registry's TTFT histogram (32 observations, p50
    within one log-2 bucket of the requests' own), the occupancy gauge
    equal to ``occupancy()``, the fragmentation in [0, 1); decode tokens/s
@@ -110,7 +110,7 @@ without printing a result:
 12. supervision and the query server (the JAX defaults: the degradation
    ladder on, chaos off, no restarts): (a) phase 6's burst with the
    defaults against ``degradation=False``, on, then off: streams equal
-   32/32, tokens/s and TTFT p50 ratios; (b) ``decode`` chaos at rate 0.05
+   24/24, tokens/s and TTFT p50 ratios; (b) ``decode`` chaos at rate 0.05
    (seed 0) with ``serve_restarts=8``, ``serve_retries=3``: the burst, and
    16 requests on a dense pool (whole-prompt causal ``flash_attn``
    admissions in distinct buckets, prefix cache off) in three rounds;
@@ -135,10 +135,10 @@ without printing a result:
    kernel entry points;
 13. the serving features JAX keeps off by default, at phase 6's settings:
    (a) phase 6's burst with ``disagg`` off, then on (budget 1):
-   streams equal 32/32, ``kv_migrated_blocks`` the sum of the handed-off
+   streams equal 24/24, ``kv_migrated_blocks`` the sum of the handed-off
    rows' block counts, ``lane_stats()`` back to zero; decode tokens/s, TTFT
    p50 and TPOT p99 from the request spans; (b) ``tenant_sched`` with one
-   tenant and no budget (streams equal), then tenants ``a:3,b:1``, 24
+   tenant and no budget (streams equal), then tenants ``a:3,b:1``, 12
    requests each at once, under a budget of 12 answers' tokens: every
    request terminal, streams equal to scheduling off, preemptions and an
    unpark onto the parked row, ``kv_parked_bytes`` 0, every block back in
@@ -146,7 +146,7 @@ without printing a result:
    the scheduling-off server's, the a:b ratio of the first 16 admissions; a dense pool of 8
    slots under 16 requests (phase 12 (b)'s prompts) preempts with streams
    equal; (c) two ``InProcessReplica`` behind a ``FleetRouter`` at
-   affinity 4: 32 requests behind 4 heads of 256 tokens (each head on one
+   affinity 4: 24 requests behind 4 heads of 256 tokens (each head on one
    replica, every later request a prefix hit, streams equal a single
    server's), ``router.forward`` chaos at 0.2 (every request terminal,
    answered streams equal), one ``FleetManager.tick()`` under
@@ -505,7 +505,36 @@ without printing a result:
    phase 4's first 8 queries ask once every kept doc is in, in one
    ``pw.run()``: the kept rows and word counts equal a host model, the
    vectors within cosine 0.9999 of direct encodes, ``flash_attn`` launched
-   for every encode, each top-10 equal a direct index but at gaps < 1e-3.
+   for every encode, each top-10 equal a direct index but at gaps < 1e-3;
+26. the lock sanitizer under serving, the OpenTelemetry exporter and the
+   last modules on the card: (a) ``analysis.runtime.configure(enabled=True)``
+   and ``enable()``, then a continuous ``DecoderChat`` at phase 6's settings
+   (paged KV, the paged kernel, flash prefill, int8 weights through the wq
+   kernel) serves 16 greedy requests while two threads send 32 retrieves to
+   a ``QueryServer`` on phase 4's pipeline; no sanitizer report, every lock
+   the two servers built a ``SanitizedLock``, the streams equal a
+   sanitizer-off server's (plain ``threading`` locks) token for token,
+   every decode step, prefill piece and layer product through its kernel and
+   every retrieve's encode through ``flash_attn``; a seeded inversion on two
+   named locks after the burst is reported; both arms' tokens/s printed, not
+   judged. (b) with a recording stand-in for the OpenTelemetry SDK in
+   ``sys.modules`` and ``pw.set_monitoring_config(server_endpoint=...)``,
+   ``pw.demo.replay_csv`` streams 512 docs of phase 4's corpus (one commit
+   a row) from a CSV file through the embed UDF into a ``DataIndex`` on the
+   card, and phase 4's first 8 queries ask once every doc is in, in one
+   ``pw.run()``: the rows equal the CSV, the vectors within cosine 0.9999 of
+   direct encodes, each top-10 equal a direct index's but at gaps < 1e-3,
+   every encode through ``flash_attn``; the recorder holds one
+   ``pathway-tpu.run`` span naming the ``llm`` xpack; then 8 requests to
+   (a)'s chat give one exported span each with JAX's ``pathway_tpu.*``
+   attribute keys and the ring span's events; the exporter's time a span is
+   printed. (c) a stand-in ``openai`` module answers ``OpenAIChat``'s
+   chat-completions calls with the text of the page whose index the image
+   carries; ``SlideParser(llm=OpenAIChat(...), page_renderer=...)`` reads 8
+   decks of 4 PIL pages inside a ``DocumentStore`` whose chunks go through
+   the embed UDF on the card, then 8 retrieves: the chunks and their page
+   metadata equal a host model, one vision call a page, each page's text
+   retrieves that page first, every encode through ``flash_attn``.
 
 The last two lines of stdout are the kernels JSON line and the result
 line ``{"ok": true, "device": {...}}``. Imports neither JAX nor the JAX
@@ -539,7 +568,7 @@ N_DOCS, INGEST_BATCH, N_QUERIES, TOP_K, RERANK_K = 32768, 4096, 64, 10, 32
 # tokens, prompts up to 512 tokens in pieces of 64, paged blocks of 64
 # (cache_len 512 + 64 + 5 * 16 = 656, rounded up to 704)
 # 32 requests a burst (48 until the script's time asked for less)
-N_REQUESTS, MAX_NEW, N_SLOTS, CACHE_LEN, BLOCK, PIECE = 32, 64, 16, 704, 64, 64
+N_REQUESTS, MAX_NEW, N_SLOTS, CACHE_LEN, BLOCK, PIECE = 24, 64, 16, 704, 64, 64
 # the card's bf16 noise against the port's static path: first-token logits
 # (spread ~0.55 with random weights) within 0.1; at least 7 of 8 first
 # tokens and 3 of 8 whole streams equal
@@ -2444,11 +2473,13 @@ TIE_TOL = 8e-3
 N_QS = 128
 
 
-def bounded_serve(chat, prompts, timeout: float = 600.0, groups=None, **kw) -> dict:
+def bounded_serve(chat, prompts, timeout: float = 600.0, groups=None, after_submit=None,
+                  **kw) -> dict:
     """One run of ``prompts`` submitted at once through DecoderChat, every
     kernel count set to 0 just before and read just after; ``groups``
     (``(tenant, prompts)`` pairs) submits each group with its tenant
-    instead, one right after another. Failed and shed requests are
+    instead, one right after another; ``after_submit`` is called with the
+    requests once all are submitted. Failed and shed requests are
     allowed, but every request must be terminal within ``timeout``
     seconds."""
     import torch
@@ -2461,6 +2492,8 @@ def bounded_serve(chat, prompts, timeout: float = 600.0, groups=None, **kw) -> d
     reqs = []
     for tenant, batch in groups or [("default", prompts)]:
         reqs += chat.submit_batch(batch, tenant=tenant, **kw)
+    if after_submit is not None:
+        after_submit(reqs)
     end = time.monotonic() + timeout
     for r in reqs:
         if not r.done.wait(max(0.0, end - time.monotonic())):
@@ -2670,7 +2703,24 @@ def run_supervision_serving(dev, gpu: str, common) -> dict:
     del chat
     deadline_ms = ttft_p50_ms / 2
     chat = DecoderChat(request_deadline_ms=deadline_ms, **paged, **common)
-    out = bounded_serve(chat, prompts)
+    stalled = {}
+
+    def stall(reqs):
+        # a loop stalled past every deadline, made certain: with the
+        # admission lock held it admits nothing, so each request still
+        # queued (N_REQUESTS > N_SLOTS) is past its deadline at the sweep
+        # that follows. Left to the host's timing, the sweep and the
+        # in-flight sheds that free slots race, and the queue may drain
+        # into slots before its deadline. The stall starts once the slots
+        # are full, as in a burst the card is still serving.
+        first = min(r.deadline for r in reqs) - 0.1
+        while chat.server.free and time.monotonic() < first:
+            time.sleep(0.005)
+        with chat.server.lock:
+            stalled["queued"] = len(chat.server.queue)
+            time.sleep(max(0.0, max(r.deadline for r in reqs) - time.monotonic()) + 0.05)
+
+    out = bounded_serve(chat, prompts, after_submit=stall)
     add_launches(total, out)
     reasons: dict = {}
     for r in out["reqs"]:
@@ -2679,8 +2729,10 @@ def run_supervision_serving(dev, gpu: str, common) -> dict:
     late = [s for s in chat.recent_traces() if s["id"] in ids and any(
         e["name"] == "admit" and e["t_ms"] > deadline_ms + 1.0 for e in s["events"])]
     info(f"supervision (c) request_deadline_ms={deadline_ms:.1f} [{gpu}]: outcomes "
-         f"{reasons}; admissions after their deadline {len(late)}")
-    require(reasons.get("shed:deadline", 0) >= 1, "(c) some requests shed as deadline")
+         f"{reasons}; {stalled['queued']} queued when the loop stalled past the deadlines; "
+         f"admissions after their deadline {len(late)}")
+    require(reasons.get("shed:deadline", 0) >= stalled["queued"] >= 1,
+            "(c) every request queued through the stall shed as deadline")
     require(not late, "(c) no request admitted after its deadline")
     require(all(r.tokens == w for r, w in zip(out["reqs"], ref) if r.text is not None),
             "(c) served requests equal their streams in (a)")
@@ -8826,6 +8878,564 @@ def run_tuning_airbyte(dev, gpu: str, params, out: dict, docs, queries) -> tuple
     return tuned, launches
 
 
+# ---------------------------------------------------------------- phase 26
+P26_REQUESTS, P26_RETRIEVES, P26_WRITE_REQUESTS = 16, 32, 8
+# (b)'s feed commits one row an epoch: on the H100, 4,096 docs took
+# 41.7-57.1 s and 2,048 docs 39.1 s of pw.run() at 52.3-98.3 docs/s
+# (PERF.md), over the phase's ~30 s
+P26_DOCS, P26_QUERIES, P26_K, P26_TIE_TOL = 512, 8, 10, 1e-3
+P26_DECKS, P26_PAGES = 8, 4
+P26_TIMEOUT = 300.0  # a bound on each wait of the phase
+P26_ENDPOINT = "localhost:4317"  # handed to the recording exporter, never dialled
+P26_OTEL_MODULES = (
+    "opentelemetry", "opentelemetry.trace", "opentelemetry.sdk",
+    "opentelemetry.sdk.resources", "opentelemetry.sdk.trace",
+    "opentelemetry.sdk.trace.export", "opentelemetry.exporter",
+    "opentelemetry.exporter.otlp", "opentelemetry.exporter.otlp.proto",
+    "opentelemetry.exporter.otlp.proto.grpc",
+    "opentelemetry.exporter.otlp.proto.grpc.trace_exporter",
+)
+
+
+class P26Recorder:
+    """A recording stand-in for the OpenTelemetry SDK, installed in
+    ``sys.modules`` while open: the machine with the card may lack the
+    ``opentelemetry`` packages, and the phase must not depend on a
+    collector. Every finished span is kept as (name, attributes, events)."""
+
+    def __init__(self):
+        import threading
+
+        self.spans: list[tuple] = []
+        self.lock = threading.Lock()
+        self._tls = threading.local()
+        self._saved: dict = {}
+
+    def __enter__(self):
+        import importlib.machinery
+        import types
+        from contextlib import contextmanager
+
+        rec = self
+
+        class Span:
+            def __init__(self, name):
+                self.name, self.attributes, self.events = name, {}, []
+
+            def set_attribute(self, k, v):
+                self.attributes[k] = v
+
+            def add_event(self, name, attributes):
+                self.events.append((name, dict(attributes)))
+
+        class Tracer:
+            @contextmanager
+            def start_as_current_span(self, name):
+                span = Span(name)
+                stack = rec._stack()
+                stack.append(span)
+                try:
+                    yield span
+                finally:
+                    stack.pop()
+                    with rec.lock:
+                        rec.spans.append((span.name, span.attributes, span.events))
+
+        class Provider:
+            def __init__(self, resource=None):
+                self.resource = resource
+
+            def add_span_processor(self, processor):
+                self.processor = processor
+
+            def shutdown(self):
+                pass
+
+        mods = {name: types.ModuleType(name) for name in P26_OTEL_MODULES}
+        mods["opentelemetry.trace"].get_tracer = lambda name, tracer_provider=None: Tracer()
+        mods["opentelemetry.trace"].get_current_span = (
+            lambda: rec._stack()[-1] if rec._stack() else Span("none"))
+        mods["opentelemetry"].trace = mods["opentelemetry.trace"]
+        mods["opentelemetry.sdk.resources"].Resource = types.SimpleNamespace(
+            create=lambda attrs: dict(attrs))
+        mods["opentelemetry.sdk.trace"].TracerProvider = Provider
+        mods["opentelemetry.sdk.trace.export"].BatchSpanProcessor = lambda exporter: exporter
+        mods["opentelemetry.exporter.otlp.proto.grpc.trace_exporter"].OTLPSpanExporter = (
+            lambda endpoint: endpoint)
+        for name, mod in mods.items():
+            mod.__spec__ = importlib.machinery.ModuleSpec(name, None)
+            self._saved[name] = sys.modules.get(name)
+            sys.modules[name] = mod
+        return self
+
+    def _stack(self) -> list:
+        stack = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = self._tls.stack = []
+        return stack
+
+    def __exit__(self, *exc):
+        for name, mod in self._saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+
+    def mark(self) -> int:
+        with self.lock:
+            return len(self.spans)
+
+    def since(self, mark: int) -> list[tuple]:
+        with self.lock:
+            return list(self.spans[mark:])
+
+
+def p26_serve_arm(chat, qs, prompts, queries) -> dict:
+    """One burst: ``prompts`` through ``chat``'s entry points while two
+    threads send ``queries`` to the query server ``qs`` one at a time; every
+    kernel count set to 0 just before, read just after."""
+    import threading
+
+    import torch
+
+    from pathway_tpu_torch.engine import probes
+
+    for f in counters().values():
+        f.launches = 0
+    s0 = dict(chat.server.stats)
+    d0 = probes.dispatch_counts().get("fused_retrieve", 0)
+    answers, errors = {}, []
+
+    def client(part):
+        try:
+            for q in part:
+                answers[q] = qs.submit(q, TOP_K).wait(P26_TIMEOUT)
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(queries[i::2],)) for i in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    reqs = chat.submit_batch(prompts)
+    texts = chat.resolve_batch([reqs])[0]
+    torch.cuda.synchronize()
+    decode_wall = time.perf_counter() - t0
+    for t in threads:
+        t.join(P26_TIMEOUT)
+    torch.cuda.synchronize()
+    require(not errors and not any(t.is_alive() for t in threads),
+            f"(a) every retrieve answered ({errors[:1]})")
+    if chat.server.failed is not None:
+        raise AssertionError(f"the serving loop died: {chat.server.failed!r}")
+    require(all(t is not None and len(r.tokens) == MAX_NEW for r, t in zip(reqs, texts)),
+            f"(a) every request finished with {MAX_NEW} tokens")
+    return {"tokens": [list(r.tokens) for r in reqs],
+            "tok_per_s": sum(len(r.tokens) for r in reqs) / decode_wall,
+            "answers": answers,
+            "launches": {n: f.launches for n, f in counters().items()},
+            "stats": {k: v - s0[k] for k, v in chat.server.stats.items()},
+            "retrieve_dispatches": probes.dispatch_counts().get("fused_retrieve", 0) - d0}
+
+
+def p26_sanitized_serving(gpu: str, common, pipe, queries):
+    """Phase 26 (a); returns its launches and the sanitizer-on chat, kept
+    open for (b)."""
+    import threading
+
+    from pathway_tpu_torch import DecoderChat, QueryServer
+    from pathway_tpu_torch.analysis import runtime
+
+    prompts = make_prompts(P26_REQUESTS, 16, 480, seed=26)
+    qtexts = (queries * (P26_RETRIEVES // len(queries) + 1))[:P26_RETRIEVES]
+    kw = dict(paged_kv=True, paged_kv_block=BLOCK, paged_kernel=True, flash_prefill=True,
+              **common)
+    arms = {}
+    chat_on = None
+    for on in (True, False):
+        runtime.configure(enabled=on)
+        runtime.reset()
+        if on:
+            runtime.enable()
+        chat = DecoderChat(**kw)
+        qs = QueryServer(pipe)
+        locks = [chat.server.lock, qs._cond._lock, qs._stats_lock]
+        try:
+            arms[on] = p26_serve_arm(chat, qs, prompts, qtexts)
+            arms[on]["locks"] = locks
+            arms[on]["reports"] = runtime.reports()
+        finally:
+            qs.shutdown()
+            if on:
+                runtime.disable()
+                runtime.configure(enabled=False)
+                chat_on = chat
+            else:
+                chat.close()
+    on, off = arms[True], arms[False]
+    # the zero above is not vacuous: the same sanitizer reports a seeded
+    # A -> B, B -> A inversion on two named locks
+    runtime.configure(enabled=True)
+    a, b = runtime.make_lock("phase26.A"), runtime.make_lock("phase26.B")
+    runtime.configure(enabled=False)
+
+    def nest(x, y):
+        with x:
+            with y:
+                pass
+
+    nest(a, b)
+    t = threading.Thread(target=nest, args=(b, a))
+    t.start()
+    t.join(P26_TIMEOUT)
+    seeded = runtime.reports("order-inversion")
+    runtime.reset()
+    st, ln = on["stats"], on["launches"]
+    info(f"sanitizer (a) [{gpu}]: {P26_REQUESTS} requests x {MAX_NEW} tokens with "
+         f"{P26_RETRIEVES} retrieves from 2 threads; sanitizer on {on['tok_per_s']:.1f} "
+         f"tokens/s, off {off['tok_per_s']:.1f} tokens/s (on/off {on['tok_per_s'] / off['tok_per_s']:.4f}); "
+         f"reports on {len(on['reports'])}; seeded inversion reports {len(seeded)}; "
+         f"launches on {ln}, retrieve dispatches {on['retrieve_dispatches']}")
+    require(on["reports"] == [], "(a) no sanitizer report under the burst")
+    require(all(isinstance(lk, runtime.SanitizedLock) for lk in on["locks"]),
+            "(a) every lock the two servers built is a SanitizedLock")
+    require(not any(isinstance(lk, runtime.SanitizedLock) for lk in off["locks"]),
+            "(a) the sanitizer-off servers hold plain threading locks")
+    require(len(seeded) >= 1 and {seeded[0]["first"], seeded[0]["second"]}
+            == {"phase26.A", "phase26.B"}, "(a) the seeded inversion is reported")
+    require(on["tokens"] == off["tokens"], f"(a) the {P26_REQUESTS} streams equal the "
+            "sanitizer-off server's token for token")
+    require(sorted(on["answers"]) == sorted(set(qtexts))
+            and all(len(v) == TOP_K for v in on["answers"].values()),
+            f"(a) every retrieve answered with {TOP_K} keys")
+    require(ln["paged_attn_decode"] >= 12 * st["decode_steps"] > 0,
+            "(a) every decode step and layer went through paged_attn_decode")
+    require(ln["flash_chunk_attn_paged"] >= 12 * st["prefill_chunks"] > 0,
+            "(a) every prefill piece and layer went through flash_chunk_attn_paged")
+    require(ln["wq_matmul"] >= 48 * (st["decode_steps"] + st["prefill_chunks"]),
+            "(a) every layer product went through wq_matmul")
+    require(ln["flash_attn"] >= MINILM_LAYERS * on["retrieve_dispatches"] > 0,
+            "(a) every retrieve's encode went through flash_attn")
+    return ln, chat_on
+
+
+def p26_demo_exporter(gpu: str, out: dict, docs, queries, chat, rec) -> dict:
+    """Phase 26 (b): ``pw.demo.replay_csv`` into the embed UDF and a
+    ``DataIndex`` on the card with the exporter on, then requests to (a)'s
+    chat; returns the launches."""
+    import tempfile
+    import threading
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import BruteForceKnnIndex
+    from pathway_tpu_torch.engine import tracing
+    from pathway_tpu_torch.xpacks import llm
+
+    model = out["emb"]
+    texts, q_texts = docs[:P26_DOCS], queries[:P26_QUERIES]
+    rows, replies, lock = {}, {}, threading.Lock()
+    export_s = [0.0, 0]
+    real_export = tracing._export_otel
+
+    def timed_export(span_dict):
+        t = time.perf_counter()
+        real_export(span_dict)
+        export_s[0] += time.perf_counter() - t
+        export_s[1] += 1
+
+    tracing._export_otel = timed_export
+    tracing._telemetry = None  # built anew, against the recorder
+    pw.set_monitoring_config(server_endpoint=P26_ENDPOINT)
+    counter = EncodeCount(model)
+    for f in counters().values():
+        f.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "docs.csv")
+            import csv
+
+            with open(path, "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(["doc_id", "text"])
+                w.writerows((i, t) for i, t in enumerate(texts))
+            pw.clear_graph()
+
+            class Doc(pw.Schema):
+                doc_id: int
+                text: str
+
+            table = pw.demo.replay_csv(path, schema=Doc, input_rate=0)
+            emb = llm.SentenceTransformerEmbedder(model, max_batch_size=RAG_BATCH)
+            vecs = table.select(table.doc_id, table.text, vec=emb(table.text))
+            index = pw.indexing.DataIndex(vecs, pw.indexing.BruteForceKnn(
+                vecs.vec, dimensions=model.cfg.hidden, reserved_space=P26_DOCS,
+                metric="cos", device=model.device))
+            indexed = threading.Event()
+
+            class Queries(pw.io.python.ConnectorSubject):
+                def run(self):  # asked once every doc is in the index
+                    if not indexed.wait(P26_TIMEOUT):
+                        raise TimeoutError("the demo stream never reached the index whole")
+                    for q in q_texts:
+                        self.next(q=q)
+                    self.commit()
+
+            qt = pw.io.python.read(Queries(), schema=pw.schema_from_types(q=str))
+            res = index.query_as_of_now(qt.select(qt.q, qv=emb(qt.q)).qv,
+                                        number_of_matches=P26_K, with_distances=True)
+            res = res.select(res.doc_id, res._pw_dist, q=qt.restrict(res).q)
+
+            def on_row(key, row, time, is_addition):
+                with lock:
+                    if is_addition:
+                        rows[row["doc_id"]] = (row["text"], row["vec"])
+                    if len(rows) >= P26_DOCS:
+                        indexed.set()
+
+            def on_reply(key, row, time, is_addition):
+                with lock:
+                    if is_addition:
+                        replies[row["q"]] = list(zip(row["doc_id"], row["_pw_dist"]))
+
+            pw.io.subscribe(vecs, on_change=on_row)
+            pw.io.subscribe(res, on_change=on_reply)
+            mark = rec.mark()
+            torch.cuda.synchronize()
+            t_run = time.perf_counter()
+            pw.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+            run_spans = [s for s in rec.since(mark) if s[0] == "pathway-tpu.run"]
+            spans_in_run, export_in_run = export_s[1], export_s[0]
+        n_encodes = len(counter.sizes)
+        launches = {n: f.launches for n, f in counters().items()}
+        # 8 requests to (a)'s chat, each finished span exported once
+        mark = rec.mark()
+        reqs = chat.submit_batch(make_prompts(P26_WRITE_REQUESTS, 16, 200, seed=27))
+        chat.resolve_batch([reqs])
+        for r in reqs:
+            require(r.done.wait(P26_TIMEOUT), "(b) a request finished")
+        decode_spans = [s for s in rec.since(mark) if s[0] == "pathway_tpu.decode"]
+        ring = {str(t["id"]): t for t in chat.recent_traces()}
+        launches = {n: launches[n] + f.launches for n, f in counters().items()}
+    finally:
+        counter.close()
+        tracing._export_otel = real_export
+        pw.set_monitoring_config(server_endpoint=None)
+        tracing._telemetry = None
+    info(f"demo + exporter (b) [{gpu}]: pw.demo.replay_csv of {P26_DOCS} docs -> embed UDF "
+         f"-> DataIndex, {P26_QUERIES} queries, one pw.run() {wall:.3f} s "
+         f"({P26_DOCS / wall:.1f} docs/s); {n_encodes} encodes, flash_attn launches "
+         f"{launches['flash_attn']}; exporter: {spans_in_run} spans in the run, "
+         f"{export_in_run * 1e3:.3f} ms exporting ({export_in_run / wall * 100:.4f}% of the "
+         f"run's wall, {export_in_run / max(spans_in_run, 1) * 1e6:.2f} us a span)")
+    require(sorted(rows) == list(range(P26_DOCS))
+            and all(rows[i][0] == texts[i] for i in range(P26_DOCS)),
+            "(b) the rows equal the CSV's")
+    direct = np.concatenate([model.embed_batch(texts[s:s + RAG_BATCH])
+                             for s in range(0, P26_DOCS, RAG_BATCH)]).astype(np.float32)
+    vec = np.asarray([rows[i][1] for i in range(P26_DOCS)], dtype=np.float32)
+    cos = np.sum(vec * direct, axis=1) / (np.linalg.norm(vec, axis=1)
+                                          * np.linalg.norm(direct, axis=1))
+    require(cos.min() >= C4_COS_MIN,
+            f"(b) vectors within cosine {C4_COS_MIN} of direct encodes (min {cos.min():.6f})")
+    require(launches["flash_attn"] >= MINILM_LAYERS * n_encodes > 0,
+            "(b) every encode went through flash_attn")
+    ref = BruteForceKnnIndex(model.cfg.hidden, reserved_space=P26_DOCS, metric="cos",
+                             device=model.device)
+    ref.add(list(range(P26_DOCS)), direct)
+    want = dict(zip(q_texts, ref.search(model.embed_batch(q_texts), P26_K)))
+    agree = sum(q in replies and ranks_agree(want[q], [(d, -s) for d, s in replies[q]],
+                                             P26_TIE_TOL) for q in q_texts)
+    require(agree == P26_QUERIES,
+            f"(b) each top-{P26_K} equals a direct index's but at gaps < {P26_TIE_TOL} "
+            f"({agree}/{P26_QUERIES})")
+    require(len(run_spans) == 1 and run_spans[0][1]["operators"] > 0
+            and "llm" in run_spans[0][1]["xpacks"].split(","),
+            f"(b) one pathway-tpu.run span naming the llm xpack ({run_spans[:1]})")
+    keys_ok = all(
+        {"pathway_tpu.request_id", "pathway_tpu.server"}
+        | {f"pathway_tpu.{k}" for k in ring[s[1]["pathway_tpu.request_id"]]["metrics"]}
+        == set(s[1]) and [e[0] for e in s[2]]
+        == [e["name"] for e in ring[s[1]["pathway_tpu.request_id"]]["events"]]
+        for s in decode_spans if s[1]["pathway_tpu.request_id"] in ring)
+    ids = [s[1]["pathway_tpu.request_id"] for s in decode_spans]
+    info(f"  exporter: {len(decode_spans)} decode spans for {P26_WRITE_REQUESTS} requests, "
+         f"attribute keys {sorted(decode_spans[0][1]) if decode_spans else []}")
+    require(len(decode_spans) == P26_WRITE_REQUESTS == len(set(ids))
+            and all(i in ring for i in ids) and keys_ok,
+            "(b) one exported span per finished request, with JAX's attribute keys")
+    pw.clear_graph()
+    return launches
+
+
+def p26_page(idx: int):
+    """A slide page image whose first pixel carries its index (the fake
+    vision model reads it back)."""
+    import PIL.Image
+
+    px = np.full((48, 64, 3), 255, dtype=np.uint8)
+    px[0, 0] = (idx // 256, idx % 256, 7)
+    px[8:40, 8:56] = (idx * 37) % 256
+    return PIL.Image.fromarray(px)
+
+
+def p26_fake_openai(texts: list[str], calls: list):
+    """A stand-in ``openai`` module: chat completions over a vision message
+    answer with the text of the page whose index the image's first pixel
+    carries (the PNG is decoded from the message's data URL)."""
+    import base64
+    import importlib.machinery
+    import io
+    import types
+
+    import PIL.Image
+
+    class Completions:
+        async def create(self, **kw):
+            url = kw["messages"][-1]["content"][1]["image_url"]["url"]
+            img = PIL.Image.open(io.BytesIO(base64.b64decode(url.split(",", 1)[1])))
+            r, g, _ = img.convert("RGB").getpixel((0, 0))
+            calls.append((kw["model"], r * 256 + g))
+            content = f"slide {r * 256 + g}: {texts[r * 256 + g]}"
+            return types.SimpleNamespace(choices=[types.SimpleNamespace(
+                message=types.SimpleNamespace(content=content))])
+
+    class AsyncOpenAI:
+        def __init__(self, **kw):
+            self.chat = types.SimpleNamespace(completions=Completions())
+
+    mod = types.ModuleType("openai")
+    mod.__spec__ = importlib.machinery.ModuleSpec("openai", None)
+    mod.AsyncOpenAI = AsyncOpenAI
+    return mod
+
+
+def p26_slides(gpu: str, out: dict, docs) -> int:
+    """Phase 26 (c): 8 decks of 4 pages through ``SlideParser`` with an
+    ``OpenAIChat`` inside a ``DocumentStore``, the chunks through the embed
+    UDF on the card, then a retrieve; returns the flash_attn launches."""
+    import threading
+
+    import torch
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.models import flash_attention as FA
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnFactory
+    from pathway_tpu_torch.xpacks import llm
+    from pathway_tpu_torch.xpacks.llm.parsers import SlideParser
+
+    model = out["emb"]
+    n = P26_DECKS * P26_PAGES
+    texts = docs[:n]
+    decks = {f"deck{d}".encode(): [p26_page(d * P26_PAGES + p) for p in range(P26_PAGES)]
+             for d in range(P26_DECKS)}
+    host = sorted((f"slide {d * P26_PAGES + p}: {texts[d * P26_PAGES + p]}",
+                   (f"deck{d}.pdf", p + 1, P26_PAGES))
+                  for d in range(P26_DECKS) for p in range(P26_PAGES))
+    calls: list = []
+    saved = sys.modules.get("openai")
+    sys.modules["openai"] = p26_fake_openai(texts, calls)
+    chunks, replies, lock = {}, {}, threading.Lock()
+    q_idx = [0, 5, 10, 15, 20, 25, 30, 31]
+    counter = EncodeCount(model)
+    FA.flash_attn.launches = 0
+    try:
+        pw.clear_graph()
+        schema = pw.schema_from_types(data=bytes, _metadata=pw.Json)
+        deck_table = pw.debug.table_from_rows(schema, [
+            (k, pw.Json({"path": f"{k.decode()}.pdf"})) for k in decks])
+        parser = SlideParser(llm=llm.llms.OpenAIChat(model="gpt-4o-mini"),
+                             page_renderer=lambda data: decks[data])
+        emb = llm.SentenceTransformerEmbedder(model, max_batch_size=RAG_BATCH)
+        store = llm.DocumentStore(deck_table, retriever_factory=BruteForceKnnFactory(
+            dimensions=model.cfg.hidden, embedder=emb, reserved_space=n, metric="cos",
+            device=model.device), parser=parser)
+        indexed = threading.Event()
+
+        class Queries(pw.io.python.ConnectorSubject):
+            def run(self):  # asked once every chunk is in
+                if not indexed.wait(P26_TIMEOUT):
+                    raise TimeoutError("the slide chunks never all reached the store")
+                for i in q_idx:
+                    self.next(query=f"slide {i}: {texts[i]}", k=1, metadata_filter=None,
+                              filepath_globpattern=None)
+                self.commit()
+
+        qt = pw.io.python.read(Queries(), schema=llm.DocumentStore.RetrieveQuerySchema)
+        res = store.retrieve_query(qt)
+        res = res.select(res.result, query=qt.restrict(res).query)
+
+        def on_chunk(key, row, time, is_addition):
+            with lock:
+                if is_addition:
+                    m = row["metadata"].value
+                    chunks[key.value] = (row["text"], (m["path"], m["page_number"],
+                                                       m["page_count"]))
+                if len(chunks) >= n:
+                    indexed.set()
+
+        def on_reply(key, row, time, is_addition):
+            with lock:
+                if is_addition:
+                    replies[row["query"]] = row["result"].value
+
+        pw.io.subscribe(store.chunked_docs, on_change=on_chunk)
+        pw.io.subscribe(res, on_change=on_reply)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pw.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        counter.close()
+        if saved is None:
+            sys.modules.pop("openai", None)
+        else:
+            sys.modules["openai"] = saved
+    launches, n_encodes = FA.flash_attn.launches, len(counter.sizes)
+    got = sorted(chunks.values())
+    info(f"slides (c) [{gpu}]: {P26_DECKS} decks x {P26_PAGES} pages -> SlideParser("
+         f"OpenAIChat) -> DocumentStore -> embed UDF, {len(q_idx)} retrieves; pw.run() "
+         f"{wall:.3f} s; {len(calls)} vision calls, {n_encodes} encodes, flash_attn "
+         f"launches {launches}")
+    require(got == host, "(c) the chunks and their page metadata equal the host model's")
+    require(len(calls) == n and all(m == "gpt-4o-mini" for m, _ in calls),
+            "(c) one vision call a page, with the chat's model")
+    top = {q: (r[0]["text"], r[0]["metadata"]["page_number"]) for q, r in replies.items()
+           if r}
+    require(all(top.get(f"slide {i}: {texts[i]}") == (f"slide {i}: {texts[i]}",
+                                                         i % P26_PAGES + 1)
+                for i in q_idx), "(c) each page's own text retrieves that page first")
+    require(launches >= MINILM_LAYERS * n_encodes > 0,
+            "(c) every encode went through flash_attn")
+    pw.clear_graph()
+    return launches
+
+
+def run_sanitizer_demo_slides(gpu: str, common, out: dict, docs, queries) -> dict:
+    """Phase 26; returns the launches of the five entry points."""
+    t0 = time.perf_counter()
+    a, chat = p26_sanitized_serving(gpu, common, out["pipe"], queries)
+    t1 = time.perf_counter()
+    try:
+        with P26Recorder() as rec:
+            b = p26_demo_exporter(gpu, out, docs, queries, chat, rec)
+    finally:
+        chat.close()
+    t2 = time.perf_counter()
+    c = p26_slides(gpu, out, docs)
+    t3 = time.perf_counter()
+    info(f"phase 26 [{gpu}]: {t3 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, "
+         f"(c) {t3 - t2:.1f})")
+    launches = {n: a[n] + b[n] for n in a}
+    launches["flash_attn"] += c
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -9054,6 +9664,14 @@ def main() -> int:
     dec = {n: dec[n] + tuned[n] for n in dec}
 
     done(25)
+    # phase 26: serving under the lock sanitizer, the demo stream into the
+    # index with the OpenTelemetry exporter on, slides through a client UDF
+    p26 = run_sanitizer_demo_slides(gpu, common, out, docs, queries)
+    launches += p26["flash_attn"]
+    dec = {n: dec[n] + (p26[n] if n != "flash_attn" else 0) for n in dec}
+    info(f"phase 26 launches {p26}")
+
+    done(26)
 
     kernel_rows = [{
         "name": "flash_attn", "route": "cuda",

@@ -171,7 +171,7 @@ from pathway_tpu_torch.internals.udfs import (
 )
 from pathway_tpu_torch.internals.universe import Universe
 from pathway_tpu_torch import debug, io, persistence  # noqa: E402
-from pathway_tpu_torch.stdlib import graphs, indexing, ml, ordered, stateful, statistical, temporal, utils  # noqa: E402
+from pathway_tpu_torch.stdlib import graphs, indexing, ml, ordered, stateful, statistical, temporal, utils, viz  # noqa: E402
 from pathway_tpu_torch.internals.interactive import (  # noqa: E402
     LiveTable,
     enable_interactive_mode,
@@ -185,6 +185,7 @@ from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer  #
 from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer  # noqa: E402
 from pathway_tpu_torch.internals.iterate import iterate, iterate_universe  # noqa: E402
 from pathway_tpu_torch import asynchronous  # noqa: E402
+from pathway_tpu_torch import demo  # noqa: E402
 from pathway_tpu_torch.internals.row_transformer import (  # noqa: E402
     ClassArg,
     attribute,
@@ -332,6 +333,8 @@ __all__ = [
     "G",
     "clear_graph",
     "debug",
+    "demo",
+    "viz",
     "io",
     "indexing",
     "ml",

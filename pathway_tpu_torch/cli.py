@@ -73,6 +73,8 @@ import sys
 import time
 import urllib.request
 
+from pathway_tpu_torch.internals.config import environ_snapshot, launcher_env
+
 def _out(msg: str = "") -> None:
     print(msg, flush=True)
 
@@ -496,9 +498,10 @@ def spawn_program(*, threads: int, processes: int, first_port: int, program: str
         for pid in range(processes):
             spec = dict(threads=threads, processes=processes, process_id=pid,
                         first_port=first_port, record_path=record_path if record else None)
-            env = dict(os.environ, PATHWAY_THREADS=str(threads),
-                       PATHWAY_PROCESSES=str(processes), PATHWAY_FIRST_PORT=str(first_port),
-                       PATHWAY_PROCESS_ID=str(pid), PATHWAY_RUN_ID=run_id)
+            env = environ_snapshot(PATHWAY_THREADS=str(threads),
+                                   PATHWAY_PROCESSES=str(processes),
+                                   PATHWAY_FIRST_PORT=str(first_port),
+                                   PATHWAY_PROCESS_ID=str(pid), PATHWAY_RUN_ID=run_id)
             if record:
                 env.update(PATHWAY_REPLAY_STORAGE=record_path, PATHWAY_SNAPSHOT_ACCESS="record")
             children.append(subprocess.Popen(
@@ -554,7 +557,7 @@ def cmd_spawn(args) -> int:
 
 
 def cmd_spawn_from_env(args) -> int:
-    argv = [*shlex.split(os.environ.get("PATHWAY_SPAWN_ARGS", "")), args.program,
+    argv = [*shlex.split(launcher_env("PATHWAY_SPAWN_ARGS") or ""), args.program,
             *args.arguments]
     return main(["spawn", *argv])
 

@@ -18,8 +18,15 @@ import queue
 import threading
 from typing import Any, Callable, Coroutine
 
+from pathway_tpu_torch.analysis.runtime import make_lock
+
+# lock-discipline declaration (analyzer rule GL401): the shared loop
+# singleton may only be touched under its lock. StageWorker needs no
+# declaration: its shared state is a thread-safe queue.Queue
+_GUARDED_BY = {"_loop": "_loop_lock"}
+
 _loop: asyncio.AbstractEventLoop | None = None
-_loop_lock = threading.Lock()
+_loop_lock = make_lock("async.loop")
 
 
 def get_event_loop() -> asyncio.AbstractEventLoop:

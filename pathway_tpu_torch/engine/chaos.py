@@ -39,8 +39,10 @@ the off position costs the hot path one ``is not None`` check.
 from __future__ import annotations
 
 import random
-import threading
 import zlib
+
+from pathway_tpu_torch.analysis.annotations import guarded_by
+from pathway_tpu_torch.analysis.runtime import make_lock
 
 _rate = 0.0
 _seed = 0
@@ -71,6 +73,7 @@ class InjectedFault(RuntimeError):
         self.seq = seq
 
 
+@guarded_by(_seq="_lock")
 class ChaosSite:
     """One armed injection point: a per-site deterministic RNG and an
     operation counter, so the Nth pass through a site faults (or not)
@@ -82,7 +85,7 @@ class ChaosSite:
         # hash() is randomized per process; crc32 keeps (seed, name) ->
         # schedule stable across processes, runs and the two packages
         self._rng = random.Random((int(seed) << 32) ^ zlib.crc32(name.encode()))
-        self._lock = threading.Lock()
+        self._lock = make_lock(f"chaos.{name}")
         self._seq = 0
 
     def maybe_fail(self) -> None:

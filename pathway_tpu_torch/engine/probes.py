@@ -36,6 +36,9 @@ import threading
 import time
 import weakref
 
+from pathway_tpu_torch.analysis.annotations import assumes_held, guarded_by
+from pathway_tpu_torch.analysis.runtime import make_lock
+
 # H100 SXM5 80 GB, NVIDIA's data sheet: dense bf16 tensor-core peak and
 # HBM3 bandwidth (at the full 700 W power limit)
 H100_PEAK_BF16_FLOPS = 989.4e12
@@ -186,6 +189,7 @@ LATENCY_HISTOGRAMS = (
 )
 
 
+@guarded_by(_counters="_lock", _gauges="_lock", _hists="_lock")
 class MetricsRegistry:
     """Single thread-safe registry of counters, gauges and log-bucketed
     histograms, each a family of label-keyed series.
@@ -195,7 +199,7 @@ class MetricsRegistry:
     :func:`set_metrics` (read per call); resets always apply."""
 
     def __init__(self, hist_bounds: tuple = _DEFAULT_HIST_BOUNDS):
-        self._lock = threading.RLock()
+        self._lock = make_lock("probes.registry", rlock=True)
         self.hist_bounds = tuple(float(b) for b in hist_bounds)
         self._counters: dict[str, dict[tuple, float]] = {}
         self._gauges: dict[str, dict[tuple, float]] = {}
@@ -616,14 +620,22 @@ def reset_engine_stats() -> None:
 # freely (a rebuilt pool overwrites current; high-water is monotone).
 # Single-device callers land on device "0", ownerless callers on "".
 
-_hbm_lock = threading.RLock()
+_hbm_lock = make_lock("probes.hbm", rlock=True)
 _hbm_current: dict[tuple[str, str, str], int] = {}  # (component, device, owner)
 _hbm_high_water: dict[str, int] = {}                # component (+ "total")
 _hbm_dev_high_water: dict[str, int] = {}            # device total
 # owners whose holder was garbage-collected, dropped at the next ledger call
 _hbm_collected: collections.deque = collections.deque()
 
+_GUARDED_BY = {
+    "_hbm_current": "_hbm_lock",
+    "_hbm_high_water": "_hbm_lock",
+    "_hbm_dev_high_water": "_hbm_lock",
+    "_retrieval_backends": "_hbm_lock",
+}
 
+
+@assumes_held("_hbm_lock")
 def _hbm_publish(touched: set) -> None:
     """Update the high-waters and the gauges of the ``(component,
     device)`` pairs in ``touched`` from ``_hbm_current`` (under the lock)."""
@@ -662,6 +674,7 @@ def drop_hbm_owner_at_collect(holder, owner: str) -> None:
     weakref.finalize(holder, _hbm_collected.append, str(owner))
 
 
+@assumes_held("_hbm_lock")
 def _drop_collected() -> None:
     """Apply the drops :func:`drop_hbm_owner_at_collect` queued (under the
     lock)."""
@@ -1099,6 +1112,7 @@ class PhaseRoofline:
         }
 
 
+@guarded_by(phases="_lock")
 class RooflineModel:
     """Per-phase (seconds, FLOPs, bytes) ledger -> MFU / bandwidth report."""
 
@@ -1106,7 +1120,7 @@ class RooflineModel:
                  peak_bytes: float = H100_PEAK_HBM_BYTES):
         self.peak_flops = peak_flops
         self.peak_bytes = peak_bytes
-        self._lock = threading.RLock()
+        self._lock = make_lock("probes.roofline", rlock=True)
         self.phases: dict[str, PhaseRoofline] = {}
 
     def add(self, phase: str, *, seconds: float = 0.0, flops: float = 0.0,
@@ -1149,6 +1163,7 @@ class ConnectorStats:
     finished: bool = False
 
 
+@guarded_by(operators="_lock", connectors="_lock", steps_skipped="_lock")
 class SchedulerStats:
     """Thread-safe stats registry attached to a live scheduler.
 
@@ -1158,7 +1173,7 @@ class SchedulerStats:
     they stop."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("probes.scheduler_stats")
         self.operators: dict[int, OperatorStats] = {}
         # keyed by connector node id (names may collide across connectors)
         self.connectors: dict[int, ConnectorStats] = {}

@@ -32,10 +32,11 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import threading
 import time
 from typing import Callable
 
+from pathway_tpu_torch.analysis.annotations import assumes_held, guarded_by
+from pathway_tpu_torch.analysis.runtime import make_lock
 from pathway_tpu_torch.engine import probes
 
 
@@ -86,6 +87,8 @@ def _prefix_hit_rate() -> float | None:
     return stats["hit_rate"]
 
 
+@guarded_by(_samples="_lock", _values="_lock", _alerts="_lock",
+            _breaches="_lock", _last_tick="_lock")
 class SloWatchdog:
     """Rolling-window burn-rate evaluator over a set of objectives."""
 
@@ -105,7 +108,7 @@ class SloWatchdog:
         self.burn_threshold = float(burn_threshold)
         self.budget = max(float(budget), 1e-9)
         self.clock = clock
-        self._lock = threading.Lock()
+        self._lock = make_lock("slo.watchdog")
         # name -> deque[(t, violated)], capped so a hammering scraper
         # cannot grow memory without bound
         self._samples: dict[str, collections.deque] = {
@@ -174,6 +177,7 @@ class SloWatchdog:
                 reg.counter_add("slo_breaches", objective=name)
         return self.state()
 
+    @assumes_held("_lock")
     def _burn_locked(self, name: str, now: float, window: float) -> float:
         """Burn rate of ``name`` over the last ``window`` seconds; the
         caller holds ``_lock``."""
@@ -216,6 +220,7 @@ class SloWatchdog:
             return out
 
 
+@guarded_by(_level="_lock", _last_change="_lock", _last_eval="_lock")
 class DegradationController:
     """SLO-driven degradation ladder over the watchdog's alert state.
 
@@ -239,7 +244,7 @@ class DegradationController:
         self.watchdog = watchdog
         self.step_s = float(step_s)
         self.clock = clock if clock is not None else watchdog.clock
-        self._lock = threading.Lock()
+        self._lock = make_lock("slo.degradation")
         self._level = 0
         self._last_change = float("-inf")
         self._last_eval = float("-inf")
@@ -281,6 +286,7 @@ class DegradationController:
         return self.evaluate(now)
 
 
+@guarded_by(_vtime="_lock", _inflight="_lock", _last_served="_lock")
 class TenantScheduler:
     """Weighted-fair multi-tenant admission (stride scheduling) with
     per-tenant in-flight token budgets.
@@ -305,7 +311,7 @@ class TenantScheduler:
                  clock: Callable[[], float] | None = None):
         self.budget_tokens = int(budget_tokens)
         self.clock = clock if clock is not None else time.monotonic
-        self._lock = threading.Lock()
+        self._lock = make_lock("slo.tenant_sched")
         self._weights = {str(k): float(v)
                          for k, v in (weights or {}).items() if float(v) > 0}
         self._vtime: dict[str, float] = {}
@@ -353,6 +359,7 @@ class TenantScheduler:
         with self._lock:
             return self._inflight.get(tenant, 0)
 
+    @assumes_held("_lock")
     def _over(self, tenant: str) -> bool:
         held = self._inflight.get(tenant, 0)
         return self.budget_tokens > 0 and held > 0 and held >= self.budget_tokens
@@ -410,7 +417,12 @@ _settings = dict(ttft_p95_ms=0.0, e2e_p95_ms=0.0, occupancy_min=0.0,
                  burn_threshold=1.0, budget=0.1)
 _watchdog: SloWatchdog | None = None
 _degradation: DegradationController | None = None
-_watchdog_lock = threading.Lock()
+_watchdog_lock = make_lock("slo.singleton")
+
+_GUARDED_BY = {
+    "_watchdog": "_watchdog_lock",
+    "_degradation": "_watchdog_lock",
+}
 
 
 def configure(ttft_p95_ms: float = 0.0, e2e_p95_ms: float = 0.0,

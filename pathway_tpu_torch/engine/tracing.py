@@ -1,5 +1,5 @@
 """Per-request serving spans (counterpart of
-``pathway_tpu/engine/tracing.py``, without its OpenTelemetry export).
+``pathway_tpu/engine/tracing.py``).
 
 A :class:`Span` is one request's timeline through a serving loop: a
 monotonic start plus timestamped events (``enqueue`` implicitly at
@@ -17,7 +17,11 @@ as the ``phase`` label, and records the serialized span in two sinks:
 * a JSONL flight recorder when :func:`configure` is given a
   ``trace_dir``: one line per span appended to ``trace-<pid>.jsonl``
   through one buffered handle per process, flushed every 32 spans and by
-  :func:`flush_traces` (server shutdown and ``atexit``).
+  :func:`flush_traces` (server shutdown and ``atexit``);
+* the OpenTelemetry exporter (``internals/telemetry.py``) when a collector
+  endpoint is set (``pw.set_monitoring_config(server_endpoint=...)``):
+  each finished span becomes one ``pathway_tpu.<kind>`` span with JAX's
+  ``pathway_tpu.*`` attributes and its events.
 
 With metrics off (``probes.set_metrics(False)``) :func:`start_span`
 returns the shared :data:`NULL_SPAN`, whose methods do nothing. Spans
@@ -30,10 +34,10 @@ import atexit
 import itertools
 import json
 import os
-import threading
 import time
 from collections import deque
 
+from pathway_tpu_torch.analysis.runtime import make_lock
 from pathway_tpu_torch.engine import probes
 
 __all__ = [
@@ -56,8 +60,19 @@ class _NullSpan:
 
 NULL_SPAN = _NullSpan()
 
+# lock-discipline declaration for module globals (analyzer rule GL401):
+# the span ring, the flight recorder's file-handle state and the lazy
+# telemetry singleton may only be touched under their locks
+_GUARDED_BY = {
+    "_ring": "_ring_lock",
+    "_jsonl_file": "_jsonl_lock",
+    "_jsonl_path": "_jsonl_lock",
+    "_jsonl_unflushed": "_jsonl_lock",
+    "_telemetry": "_telemetry_lock",
+}
+
 _ids = itertools.count(1)
-_ring_lock = threading.RLock()
+_ring_lock = make_lock("tracing.ring", rlock=True)
 _ring: deque = deque()
 _ring_limit = 256
 _trace_dir: str | None = None
@@ -195,13 +210,14 @@ def _record(span_dict: dict) -> None:
     trace_dir = _trace_dir
     if trace_dir:
         _write_jsonl(trace_dir, span_dict)
+    _export_otel(span_dict)
 
 
 # flight-recorder file state: one buffered append handle per process,
 # reopened when the directory changes, flushed every _JSONL_FLUSH_EVERY
 # spans (bounding what an abrupt kill drops) and drained by flush_traces
 _JSONL_FLUSH_EVERY = 32
-_jsonl_lock = threading.RLock()
+_jsonl_lock = make_lock("tracing.jsonl", rlock=True)
 _jsonl_file = None
 _jsonl_path: str | None = None
 _jsonl_unflushed = 0
@@ -256,3 +272,43 @@ def flush_traces(close: bool = True) -> None:
 
 
 atexit.register(flush_traces)
+
+
+# the exporter's Telemetry, built lazily for the configured endpoint
+_telemetry = None
+_telemetry_lock = make_lock("tracing.telemetry")
+
+
+def _get_telemetry():
+    """Lazy per-endpoint ``Telemetry``; rebuilt if the configured
+    collector endpoint changes. None when no endpoint is set."""
+    global _telemetry
+    from pathway_tpu_torch.internals import config
+
+    endpoint = config.monitoring_server
+    if not endpoint:
+        return None
+    with _telemetry_lock:
+        if _telemetry is None or _telemetry.endpoint != endpoint:
+            from pathway_tpu_torch.internals.telemetry import Telemetry
+
+            _telemetry = Telemetry(endpoint)
+        return _telemetry
+
+
+def _export_otel(span_dict: dict) -> None:
+    tel = _get_telemetry()
+    if tel is None or not tel.enabled:
+        return
+    try:
+        attributes = {
+            "pathway_tpu.request_id": str(span_dict["id"]),
+            "pathway_tpu.server": str(span_dict.get("server")),
+            **{f"pathway_tpu.{k}": v
+               for k, v in span_dict["metrics"].items()},
+        }
+        with tel.span(f"pathway_tpu.{span_dict['kind']}", attributes):
+            for e in span_dict["events"]:
+                tel.event(e["name"], {"t_ms": e["t_ms"]})
+    except Exception:  # noqa: BLE001 - export must never break serving
+        pass

@@ -2,7 +2,9 @@
 ``pathway_tpu/internals/config.py``), as one value ``pw.run`` takes.
 
 Each field is a JAX ``PATHWAY_*`` / ``PATHWAY_TPU_*`` flag with the JAX
-default; the port reads no environment variable. ``pw.run(config=...)``
+default; the port reads no flag from the environment (its few
+environment reads go through ``env_interpolate``, ``environ_snapshot`` and
+``launcher_env`` below). ``pw.run(config=...)``
 installs a config for that run and restores the one before it after;
 ``active()`` is what the scheduler and operators read while a run is on
 (the defaults outside a run, e.g. for the ``debug`` helpers).
@@ -17,6 +19,7 @@ constructor's ``tuned_config=`` argument.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 
 # --------------------------------------------------------------------- #
@@ -101,6 +104,10 @@ class Knob:
     parse: object = None
     tunable: Tunable | None = None
     why_not: str = ""  # for target=None: why the port has no counterpart
+    # JAX's kill-switch contract (analysis rules GL301 / GL302): the test
+    # file that pins the argument's off arm against its on arm
+    kill_switch: bool = False
+    pinned_by: str | None = None
 
     def parse_raw(self, raw: str):
         """JAX's ``Flag.parse_raw``: the kind's parser (or ``parse``), then
@@ -136,33 +143,43 @@ KNOBS: tuple[Knob, ...] = (
        tunable=Tunable("int", lo=1, hi=8, log=True)),
     _k("PIPELINE_QUEUE", "int", 8, "SentenceEmbedderModel", "pipeline_queue", minimum=1,
        tunable=Tunable("int", lo=2, hi=32, log=True)),
-    _k("CHUNKED_PREFILL", "bool", True, "DecoderChat", "chunked_prefill", tunable=_CHOICE01),
+    _k("CHUNKED_PREFILL", "bool", True, "DecoderChat", "chunked_prefill", tunable=_CHOICE01,
+       kill_switch=True, pinned_by="tests/test_torch_chunk_admission.py"),
     _k("PREFILL_CHUNK", "int", 64, "DecoderChat", "prefill_chunk", minimum=8,
        tunable=Tunable("int", lo=8, hi=256, log=True)),
-    _k("EAGER_REFILL", "bool", True, "DecoderChat", "eager_refill", tunable=_CHOICE01),
+    _k("EAGER_REFILL", "bool", True, "DecoderChat", "eager_refill", tunable=_CHOICE01,
+       kill_switch=True, pinned_by="tests/test_torch_chunk_admission.py"),
     _k("DRAIN_COALESCE_MAX", "int", 8, "EngineConfig", "drain_coalesce_max", minimum=1,
        tunable=Tunable("int", lo=1, hi=32, log=True)),
-    _k("BATCH_ADMIT", "bool", True, "DecoderChat", "batch_admit", tunable=_CHOICE01),
-    _k("PREFILL_OVERLAP", "bool", True, "DecoderChat", "prefill_overlap", tunable=_CHOICE01),
-    _k("CHUNK_AUTOTUNE", "bool", True, "DecoderChat", "chunk_autotune", tunable=_CHOICE01),
-    _k("PREFIX_CACHE", "bool", True, "DecoderChat", "prefix_cache", tunable=_CHOICE01),
+    _k("BATCH_ADMIT", "bool", True, "DecoderChat", "batch_admit", tunable=_CHOICE01,
+       kill_switch=True, pinned_by="tests/test_torch_chunk_admission.py"),
+    _k("PREFILL_OVERLAP", "bool", True, "DecoderChat", "prefill_overlap", tunable=_CHOICE01,
+       kill_switch=True, pinned_by="tests/test_torch_chunk_admission.py"),
+    _k("CHUNK_AUTOTUNE", "bool", True, "DecoderChat", "chunk_autotune", tunable=_CHOICE01,
+       kill_switch=True, pinned_by="tests/test_torch_chunk_admission.py"),
+    _k("PREFIX_CACHE", "bool", True, "DecoderChat", "prefix_cache", tunable=_CHOICE01,
+       kill_switch=True, pinned_by="tests/test_torch_prefix_cache.py"),
     _k("PREFIX_CACHE_MB", "float", 64, "DecoderChat", "prefix_cache_mb", minimum=0,
        tunable=Tunable("float", lo=8, hi=256, log=True)),
     _k("PREFIX_BLOCK", "int", 0, "DecoderChat", "prefix_block", minimum=0,
        tunable=Tunable("choice", choices=("0", "8", "16", "32", "64"))),
-    _k("SPEC_DECODE", "bool", True, "DecoderChat", "spec_decode", tunable=_CHOICE01),
+    _k("SPEC_DECODE", "bool", True, "DecoderChat", "spec_decode", tunable=_CHOICE01,
+       kill_switch=True, pinned_by="tests/test_torch_spec_decode.py"),
     _k("SPEC_DECODE_DRAFT_LAYERS", "int", 0, "DecoderChat", "spec_draft_layers", minimum=0,
        tunable=Tunable("choice", choices=("0", "1", "2"))),
     _k("SPEC_DECODE_K", "int", 3, "DecoderChat", "spec_k", minimum=1,
        tunable=Tunable("int", lo=1, hi=8, step=1)),
     _k("WEIGHT_QUANT", "str", "", "DecoderChat", "weight_quant", parse=_parse_int8,
-       tunable=Tunable("choice", choices=("0", "int8"))),
-    _k("FLASH_PREFILL", "bool", False, "DecoderChat", "flash_prefill", tunable=_CHOICE01),
+       tunable=Tunable("choice", choices=("0", "int8")),
+       kill_switch=True, pinned_by="tests/test_torch_serving.py"),
+    _k("FLASH_PREFILL", "bool", False, "DecoderChat", "flash_prefill", tunable=_CHOICE01,
+       kill_switch=True, pinned_by="tests/test_torch_prefix_cache.py"),
     _k("FLASH_BLOCK_Q", "int", 0, None, None, minimum=0, why_not=_TILE,
        tunable=Tunable("choice", choices=("0", "64", "128", "256", "512"))),
     _k("FLASH_BLOCK_K", "int", 0, None, None, minimum=0, why_not=_TILE,
        tunable=Tunable("choice", choices=("0", "64", "128", "256", "512"))),
-    _k("DISAGG", "bool", False, "DecoderChat", "disagg", tunable=_CHOICE01),
+    _k("DISAGG", "bool", False, "DecoderChat", "disagg", tunable=_CHOICE01,
+       kill_switch=True, pinned_by="tests/test_torch_disagg.py"),
     _k("DISAGG_PREFILL_BUDGET", "int", 1, "DecoderChat", "disagg_prefill_budget", minimum=1,
        tunable=Tunable("int", lo=1, hi=4, step=1)),
     _k("PREFIX_T2_MB", "float", 0.0, "DecoderChat", "prefix_t2_mb", minimum=0,
@@ -174,17 +191,23 @@ KNOBS: tuple[Knob, ...] = (
     _k("TENANT_BUDGET", "int", 0, "DecoderChat", "tenant_budget", minimum=0,
        tunable=Tunable("choice", choices=("0", "64", "128", "256"))),
     # the flags profiles, validation and the chip phase set
-    _k("TENANT_SCHED", "bool", False, "DecoderChat", "tenant_sched"),
+    _k("TENANT_SCHED", "bool", False, "DecoderChat", "tenant_sched",
+       kill_switch=True, pinned_by="tests/test_torch_disagg.py"),
     _k("TENANT_WEIGHTS", "str", "", "DecoderChat", "tenant_weights"),
     _k("SLO_E2E_P95_MS", "float", 0.0, "slo", "e2e_p95_ms"),
-    _k("CHAOS", "float", 0.0, "chaos", "rate", minimum=0),
+    _k("CHAOS", "float", 0.0, "chaos", "rate", minimum=0,
+       kill_switch=True, pinned_by="tests/test_torch_chaos.py"),
     _k("CHAOS_SITES", "str", "", "chaos", "sites"),
     _k("CHAOS_SEED", "int", 0, "chaos", "seed"),
-    _k("SERVE_RESTARTS", "int", 0, "DecoderChat", "serve_restarts", minimum=0),
+    _k("SERVE_RESTARTS", "int", 0, "DecoderChat", "serve_restarts", minimum=0,
+       kill_switch=True, pinned_by="tests/test_torch_supervision.py"),
     _k("SERVE_RETRIES", "int", 1, "DecoderChat", "serve_retries", minimum=0),
-    _k("PAGED_KV", "bool", False, "DecoderChat", "paged_kv"),
-    _k("PAGED_KERNEL", "bool", False, "DecoderChat", "paged_kernel"),
-    _k("WQ_KERNEL", "bool", False, "DecoderChat", "wq_kernel"),
+    _k("PAGED_KV", "bool", False, "DecoderChat", "paged_kv",
+       kill_switch=True, pinned_by="tests/test_torch_serving.py"),
+    _k("PAGED_KERNEL", "bool", False, "DecoderChat", "paged_kernel",
+       kill_switch=True, pinned_by="tests/test_torch_serving.py"),
+    _k("WQ_KERNEL", "bool", False, "DecoderChat", "wq_kernel",
+       kill_switch=True, pinned_by="tests/test_torch_serving.py"),
 )
 
 KNOBS_BY_ENV: dict[str, Knob] = {k.env: k for k in KNOBS}
@@ -393,6 +416,44 @@ def install_persistence(cfg):
     global _persistence
     prev, _persistence = _persistence, cfg
     return prev
+
+
+# --------------------------------------------------------------------- #
+# the environment's choke points (JAX's names): the library reads no flag,
+# and the few legitimate environment reads go through these three
+# functions, so that "who reads the environment" stays a one-file question
+# (analysis rules GL201 / GL202)
+
+# the spawn contract a launcher hands the processes it starts (``cli
+# spawn``, ``serving.spawn_replica_process``): read only by code a caller
+# runs to join such a launch, ``DistributedConfig.from_env`` and the CLI's
+# ``spawn-from-env``
+LAUNCHER_VARS = (
+    "PATHWAY_PROCESSES", "PATHWAY_PROCESS_ID", "PATHWAY_FIRST_PORT",
+    "PATHWAY_COORDINATOR", "PATHWAY_SPAWN_ARGS",
+)
+
+
+def env_interpolate(name: str) -> str | None:
+    """Read one environment variable by (possibly dynamic) name: a
+    variable the user names (YAML ``$ENV`` interpolation) or a toolchain's
+    (``CUDA_HOME``), never a setting of the library."""
+    return os.environ.get(name)
+
+
+def environ_snapshot(**overrides: str) -> dict[str, str]:
+    """A copy of the current process environment (plus ``overrides``),
+    for handing a subprocess its inherited environment."""
+    env = dict(os.environ)
+    env.update(overrides)
+    return env
+
+
+def launcher_env(name: str) -> str | None:
+    """One variable of a launcher's spawn contract (``LAUNCHER_VARS``)."""
+    if name not in LAUNCHER_VARS:
+        raise KeyError(f"{name} is not a variable of the spawn contract")
+    return os.environ.get(name)
 
 
 # PATHWAY_LICENSE_KEY / PATHWAY_MONITORING_SERVER: kept for what reads

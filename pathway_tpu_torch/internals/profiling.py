@@ -26,12 +26,15 @@ which opens and closes one empty session.
 from __future__ import annotations
 
 import os
-import threading
 import time
 
+from pathway_tpu_torch.analysis.runtime import make_lock
+
 # one capture at a time; the sequence number keys capture subdirectories
-_capture_lock = threading.Lock()
+_capture_lock = make_lock("profiling.capture")
 _capture_seq = 0
+
+_GUARDED_BY = {"_capture_seq": "_capture_lock"}
 
 # ceiling on a single capture: a fat-fingered ms=3600000 must not pin the
 # profiler (and a request thread) for an hour

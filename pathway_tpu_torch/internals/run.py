@@ -21,7 +21,10 @@ operator-persisting mode restores every stateful operator or none, and the
 run's end snapshots operators and finalizes the store with the readers'
 offsets. ``LAST_PERSISTENCE_STATS`` holds the last persistent run's
 figures (store bytes written, rows replayed, replay seconds, operators
-restored).
+restored). With a collector endpoint set
+(``pw.set_monitoring_config(server_endpoint=...)``) and the OpenTelemetry
+SDK importable, the scheduler's run is one ``pathway-tpu.run`` span with
+JAX's ``operators`` and ``xpacks`` attributes (``internals/telemetry.py``).
 """
 
 from __future__ import annotations
@@ -221,10 +224,20 @@ class GraphRunner:
             sched.shutdown()
             self._stop_observers(monitor, metrics_server)
             raise
+        from pathway_tpu_torch.internals.telemetry import Telemetry, get_imported_xpacks
+
+        telemetry = Telemetry.create()
         for c in connectors:
             c.start(sched)
         try:
-            sched.run()
+            with telemetry.span(
+                "pathway-tpu.run",
+                {
+                    "operators": len(sched.order),
+                    "xpacks": ",".join(get_imported_xpacks()),
+                },
+            ):
+                sched.run()
             # end-of-stream: flush buffers repeatedly until quiescent. With
             # several processes the "anyone flushed?" decision is global —
             # a process that flushed nothing still has to serve exchanges
@@ -261,6 +274,7 @@ class GraphRunner:
                 c.reset_after_run()
             sched.teardown_exchanges()
             sched.shutdown()
+            telemetry.shutdown()
             # drain the span flight recorder's buffered JSONL lines —
             # the run's serving/ingest spans are all finished by now
             from pathway_tpu_torch.engine import tracing

@@ -10,9 +10,10 @@ is imported when a document is loaded, not with the package.
 from __future__ import annotations
 
 import importlib
-import os
 import re
 from typing import IO, Any
+
+from pathway_tpu_torch.internals.config import env_interpolate
 
 _ENV_RE = re.compile(r"\$\{?([A-Za-z_][A-Za-z_0-9]*)\}?")
 
@@ -33,7 +34,7 @@ def _resolve_entry(value: Any, registry: dict[str, Any]) -> Any:
         if m:
             # the variable the YAML names: a user's value, not a setting
             # of the library
-            env_val = os.environ.get(m.group(1))
+            env_val = env_interpolate(m.group(1))
             if env_val is not None:
                 return env_val
     return value

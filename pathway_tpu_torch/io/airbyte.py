@@ -46,6 +46,7 @@ from typing import Any, Iterable, Sequence
 
 from pathway_tpu_torch.engine.operators.core import InputNode
 from pathway_tpu_torch.engine.value import hash_values
+from pathway_tpu_torch.internals import config
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import schema as schema_mod
 from pathway_tpu_torch.internals.json import Json
@@ -59,9 +60,7 @@ def environ_snapshot(**env_vars: str) -> dict[str, str]:
     """The environment a connector process inherits from its caller, plus
     ``env_vars``: the caller's variables are the connector's (``PATH`` and
     the like), not a setting the library reads."""
-    env = dict(os.environ)
-    env.update(env_vars)
-    return env
+    return config.environ_snapshot(**env_vars)
 
 
 class AirbyteSourceError(RuntimeError):

@@ -91,7 +91,9 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    from pathway_tpu_torch.internals.config import env_interpolate
+
+    home = env_interpolate("CUDA_HOME") or env_interpolate("CUDA_PATH") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)

@@ -36,6 +36,8 @@ from collections import deque
 
 import torch
 
+from pathway_tpu_torch.analysis.annotations import guarded_by
+from pathway_tpu_torch.analysis.runtime import make_lock
 from pathway_tpu_torch.engine import chaos, probes, tracing
 from pathway_tpu_torch.internals.config import apply_tuned_config
 from pathway_tpu_torch.internals.errors import get_global_error_log
@@ -77,6 +79,13 @@ class QueryRequest:
         self.done.set()
 
 
+@guarded_by(
+    _queue="_cond", _stop="_cond", failed="_cond",
+    _ticks="_stats_lock", _dispatches="_stats_lock",
+    _requests="_stats_lock", _batch_hist="_stats_lock",
+    _restarts="_stats_lock", _group_failures="_stats_lock",
+    _leaked_thread="_stats_lock",
+)
 class QueryServer:
     """Coalesces concurrent retrieve / retrieve-rerank requests into
     batched pipeline calls, one per ``(kind, k)`` group per tick."""
@@ -94,11 +103,11 @@ class QueryServer:
         self.tick_s = float(tick_ms) / 1e3
         self.max_batch = max(1, int(max_batch))
         self.queue_bound = max(1, int(queue_bound))
-        self._cond = threading.Condition(threading.Lock())
+        self._cond = threading.Condition(make_lock("query_server.cond"))
         self._queue: deque[QueryRequest] = deque()
         self._stop = False
         self.failed: BaseException | None = None
-        self._stats_lock = threading.Lock()
+        self._stats_lock = make_lock("query_server.stats")
         self._ticks = 0
         self._dispatches = 0
         self._requests = 0

@@ -20,7 +20,6 @@ The serving mesh's shape comes in as arguments (JAX reads the
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import torch
 
@@ -35,13 +34,14 @@ class DistributedConfig:
 
     @classmethod
     def from_env(cls) -> "DistributedConfig":
-        n = int(os.environ.get("PATHWAY_PROCESSES", "1") or 1)
-        port = int(os.environ.get("PATHWAY_FIRST_PORT", _DEFAULT_FIRST_PORT)
-                   or _DEFAULT_FIRST_PORT)
-        addr = os.environ.get("PATHWAY_COORDINATOR") or (
+        from pathway_tpu_torch.internals.config import launcher_env
+
+        n = int(launcher_env("PATHWAY_PROCESSES") or 1)
+        port = int(launcher_env("PATHWAY_FIRST_PORT") or _DEFAULT_FIRST_PORT)
+        addr = launcher_env("PATHWAY_COORDINATOR") or (
             f"127.0.0.1:{port}" if n > 1 else None)
         return cls(num_processes=n,
-                   process_id=int(os.environ.get("PATHWAY_PROCESS_ID", "0") or 0),
+                   process_id=int(launcher_env("PATHWAY_PROCESS_ID") or 0),
                    coordinator_address=addr)
 
 

@@ -30,11 +30,17 @@ from __future__ import annotations
 import threading
 import time
 
+from pathway_tpu_torch.analysis.annotations import guarded_by
+from pathway_tpu_torch.analysis.runtime import make_lock
 from pathway_tpu_torch.engine import chaos, slo
 from pathway_tpu_torch.internals.retries import ExponentialBackoffRetryStrategy
 from pathway_tpu_torch.serving.router import FleetRouter
 
 
+@guarded_by(_fail_counts="_lock", _seq="_lock", _events="_lock",
+            _respawns="_lock", _last_scale_at="_lock", _last_burn="_lock",
+            _spawned_at="_lock", _ever_ready="_lock",
+            _burn_signal_seen="_lock")
 class FleetManager:
     """Supervises ``factory(replica_id) -> replica`` instances. The
     bookkeeping below the router (failure counts, spawn times, events,
@@ -66,7 +72,7 @@ class FleetManager:
             max_delay_ms=1000)
         self._clock = clock if clock is not None else time.monotonic
         self._sleep = sleep if sleep is not None else time.sleep
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.fleet")
         self._fail_counts: dict = {}
         self._spawned_at: dict = {}
         self._ever_ready: set = set()

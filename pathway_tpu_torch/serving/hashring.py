@@ -20,9 +20,10 @@ from __future__ import annotations
 
 import bisect
 import hashlib
-import threading
 from typing import Sequence
 
+from pathway_tpu_torch.analysis.annotations import guarded_by
+from pathway_tpu_torch.analysis.runtime import make_lock
 from pathway_tpu_torch.ops import next_pow2
 
 
@@ -54,6 +55,7 @@ def head_block_key(tokens: Sequence[int], *, block: int, blocks: int) -> bytes:
     return repr(head).encode("utf-8")
 
 
+@guarded_by(_points="_lock", _ids="_lock", _members="_lock")
 class HashRing:
     """Consistent-hash ring of ``vnodes`` virtual nodes per member. All
     state is guarded by ``_lock``; a lookup is a binary search over the
@@ -63,7 +65,7 @@ class HashRing:
         if vnodes <= 0:
             raise ValueError(f"vnodes must be positive, got {vnodes}")
         self.vnodes = int(vnodes)
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.hashring")
         self._points: list[int] = []  # sorted vnode positions
         self._ids: list[str] = []  # owner of each position
         self._members: dict[str, list[int]] = {}  # id -> its positions

@@ -20,13 +20,13 @@ from __future__ import annotations
 
 import http.client
 import json
-import os
 import socket
 import subprocess
 import urllib.error
 import urllib.request
 
 from pathway_tpu_torch.engine import slo
+from pathway_tpu_torch.internals.config import environ_snapshot
 
 
 class ReplicaError(RuntimeError):
@@ -51,7 +51,7 @@ def spawn_replica_process(argv: list, *, replica_index: int, port: int, run_id: 
     ``EngineConfig`` from what it was given (the CLI also passes ``--port``
     on its command line). ``env`` replaces this process's environment as
     the base; ``popen_kw`` go to ``subprocess.Popen`` (e.g. ``stderr=``)."""
-    child = dict(os.environ) if env is None else dict(env)
+    child = environ_snapshot() if env is None else dict(env)
     child["PATHWAY_THREADS"] = "1"
     child["PATHWAY_PROCESSES"] = "1"
     child["PATHWAY_PROCESS_ID"] = str(int(replica_index))

@@ -28,6 +28,8 @@ import json
 import threading
 import time
 
+from pathway_tpu_torch.analysis.annotations import guarded_by
+from pathway_tpu_torch.analysis.runtime import make_lock
 from pathway_tpu_torch.engine import chaos, probes
 from pathway_tpu_torch.serving.hashring import HashRing, affinity_block_tokens, head_block_key
 from pathway_tpu_torch.serving.replica import ReplicaError
@@ -99,6 +101,7 @@ class FleetCompletion:
         return True
 
 
+@guarded_by(_replicas="_lock", _rr_next="_lock")
 class FleetRouter:
     """Membership, the ring, candidate order and dispatch. ``_replicas``
     and ``_rr_next`` are guarded by ``_lock``. Defaults are the JAX flag
@@ -110,7 +113,7 @@ class FleetRouter:
         self.block = affinity_block_tokens() if block is None else int(block)
         self.tokenize = tokenize or _char_tokenize
         self.ring = HashRing(vnodes=vnodes)
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.router")
         self._replicas: dict = {}
         self._rr_next = 0
         self._chaos_forward = chaos.site("router.forward")

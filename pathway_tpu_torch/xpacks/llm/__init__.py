@@ -8,8 +8,9 @@ and the answer LLM (``DecoderChat``, a batched ``BaseChat``). The
 application layer is JAX's: ``DocumentStore`` and ``VectorStoreServer``
 over a ``DataIndex``, ``BaseRAGQuestionAnswerer`` and its adaptive
 variant, and the REST servers (``servers.py``) over ``pw.io.http``. The
-API-client chats and embedders (OpenAI, LiteLLM, Gemini, Cohere,
-FlashRank) are not ported (ROADMAP A12).
+API-client chats, embedders and reranker (OpenAI, LiteLLM, Gemini, Cohere,
+a ``transformers`` pipeline, FlashRank) and the vision parsers keep JAX's
+signatures, in ``llms``, ``embedders``, ``rerankers`` and ``parsers``.
 """
 
 from pathway_tpu_torch.xpacks.llm import (

@@ -62,9 +62,9 @@ async def parse_image_details(b_64_img, parse_schema, model: str = DEFAULT_VISIO
     """Parse a structured schema from an image via an OpenAI-compatible
     vision endpoint (reference ``:96``); needs network + the `instructor`
     package, both absent here — gated accordingly."""
-    try:
+    from pathway_tpu_torch.optional_import import optional_imports
+
+    with optional_imports("xpack-llm"):
         import instructor  # noqa: F401
         import openai  # noqa: F401
-    except ImportError as exc:
-        raise ImportError(f"{exc}. Consider installing 'pathway_tpu[xpack-llm]'") from exc
     raise NotImplementedError("structured image parsing requires network access")

@@ -14,8 +14,10 @@ device handle.
 
 Called on a list of texts instead of a column, the embedder embeds the
 batch directly (the plain seam the ingest path and ``FusedRAGPipeline``
-drive). The API-client embedders of the JAX package (OpenAI, LiteLLM,
-Gemini) are not ported.
+drive). The API-client embedders (``OpenAIEmbedder``, ``LiteLLMEmbedder``,
+``GeminiEmbedder``) keep JAX's signatures and the reference's async-UDF
+shape; each imports its SDK when it is called and raises JAX's
+``ImportError`` without it.
 """
 
 from __future__ import annotations
@@ -214,3 +216,94 @@ class SentenceTransformerEmbedder(BaseEmbedder):
 
     def close(self) -> None:
         self.model.close()
+
+
+class OpenAIEmbedder(BaseEmbedder):
+    """OpenAI embeddings API client UDF (reference ``OpenAIEmbedder``,
+    embedders.py:85-178). Async, retried/capacity-limited via executor."""
+
+    def __init__(
+        self,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = "text-embedding-3-small",
+        **openai_kwargs,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        self.kwargs = dict(openai_kwargs)
+        if model is not None:
+            self.kwargs["model"] = model
+
+    async def __wrapped__(self, input: str, **kwargs) -> np.ndarray:
+        try:
+            import openai
+        except ImportError as exc:  # pragma: no cover - gated dependency
+            raise ImportError("OpenAIEmbedder requires the `openai` package") from exc
+        kwargs = {**self.kwargs, **kwargs}
+        api_kwargs = {
+            k: kwargs.pop(k)
+            for k in ("api_key", "base_url", "organization")
+            if k in kwargs
+        }
+        client = openai.AsyncOpenAI(**api_kwargs)
+        ret = await client.embeddings.create(input=[input or "."], **kwargs)
+        return np.array(ret.data[0].embedding)
+
+
+class LiteLLMEmbedder(BaseEmbedder):
+    """LiteLLM multi-provider embedder (reference ``LiteLLMEmbedder``,
+    embedders.py:180-268)."""
+
+    def __init__(
+        self,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = None,
+        **llmlite_kwargs,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        self.kwargs = dict(llmlite_kwargs)
+        if model is not None:
+            self.kwargs["model"] = model
+
+    async def __wrapped__(self, input: str, **kwargs) -> np.ndarray:
+        try:
+            import litellm
+        except ImportError as exc:  # pragma: no cover - gated dependency
+            raise ImportError("LiteLLMEmbedder requires the `litellm` package") from exc
+        ret = await litellm.aembedding(input=[input or "."], **{**self.kwargs, **kwargs})
+        return np.array(ret.data[0]["embedding"])
+
+
+class GeminiEmbedder(BaseEmbedder):
+    """Google Gemini embeddings client (reference ``GeminiEmbedder``,
+    embedders.py:330-413)."""
+
+    def __init__(
+        self,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = "models/text-embedding-004",
+        **genai_kwargs,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        self.kwargs = dict(genai_kwargs)
+        self.model = model
+
+    def __wrapped__(self, input: str, **kwargs) -> np.ndarray:
+        try:
+            import google.generativeai as genai
+        except ImportError as exc:  # pragma: no cover - gated dependency
+            raise ImportError(
+                "GeminiEmbedder requires the `google-generativeai` package"
+            ) from exc
+        response = genai.embed_content(
+            model=self.model, content=input or ".", **{**self.kwargs, **kwargs}
+        )
+        return np.array(response["embedding"])

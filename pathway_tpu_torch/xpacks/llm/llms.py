@@ -88,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import threading
 import time
 from collections import deque
@@ -95,6 +96,8 @@ from collections import deque
 import numpy as np
 import torch
 
+from pathway_tpu_torch.analysis.annotations import guarded_by
+from pathway_tpu_torch.analysis.runtime import make_lock
 from pathway_tpu_torch.device import resolve_device, to_device
 from pathway_tpu_torch.engine import chaos, probes, slo, tracing
 from pathway_tpu_torch.engine.async_runtime import StageWorker
@@ -148,6 +151,9 @@ def _parse_quant(raw) -> str:
     return "int8" if str(raw).strip().lower() in ("1", "true", "yes", "on", "int8") else ""
 
 
+logger = logging.getLogger(__name__)
+
+
 def _messages_to_list(messages) -> list[dict]:
     if isinstance(messages, Json):
         messages = messages.value
@@ -175,6 +181,166 @@ class BaseChat(udfs.UDF):
     def _accepts_call_arg(self, arg_name: str) -> bool:
         """Whether the underlying API accepts ``arg_name`` as a call kwarg."""
         return True
+
+
+class OpenAIChat(BaseChat):
+    """OpenAI chat-completions client (reference ``OpenAIChat``,
+    llms.py:84-311)."""
+
+    def __init__(
+        self,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = "gpt-4o-mini",
+        verbose: bool = False,
+        **openai_kwargs,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        self.kwargs = dict(openai_kwargs)
+        self.verbose = verbose
+        if model is not None:
+            self.kwargs["model"] = model
+
+    async def __wrapped__(self, messages: list[dict] | Json, **kwargs) -> str | None:
+        try:
+            import openai
+        except ImportError as exc:  # pragma: no cover - gated dependency
+            raise ImportError("OpenAIChat requires the `openai` package") from exc
+        messages = _messages_to_list(messages)
+        kwargs = {**self.kwargs, **kwargs}
+        logger.info("OpenAIChat: %s", _prep_message_log(messages, self.verbose))
+        api_kwargs = {
+            k: kwargs.pop(k)
+            for k in ("api_key", "base_url", "organization")
+            if k in kwargs
+        }
+        client = openai.AsyncOpenAI(**api_kwargs)
+        ret = await client.chat.completions.create(messages=messages, **kwargs)
+        return ret.choices[0].message.content
+
+
+class LiteLLMChat(BaseChat):
+    """LiteLLM multi-provider chat (reference ``LiteLLMChat``,
+    llms.py:313-439)."""
+
+    def __init__(
+        self,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = None,
+        verbose: bool = False,
+        **litellm_kwargs,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        self.kwargs = dict(litellm_kwargs)
+        self.verbose = verbose
+        if model is not None:
+            self.kwargs["model"] = model
+
+    def __wrapped__(self, messages: list[dict] | Json, **kwargs) -> str | None:
+        try:
+            import litellm
+        except ImportError as exc:  # pragma: no cover - gated dependency
+            raise ImportError("LiteLLMChat requires the `litellm` package") from exc
+        messages = _messages_to_list(messages)
+        ret = litellm.completion(messages=messages, **{**self.kwargs, **kwargs})
+        return ret.choices[0]["message"]["content"]
+
+
+class HFPipelineChat(BaseChat):
+    """Local HuggingFace ``transformers`` text-generation pipeline (reference
+    ``HFPipelineChat``, llms.py:441-542). Runs on the card unless given
+    ``device="cpu"``."""
+
+    def __init__(
+        self,
+        model: str | None = None,
+        call_kwargs: dict = {},
+        device: str | None = None,
+        batch_size: int | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        **pipeline_kwargs,
+    ):
+        super().__init__(cache_strategy=cache_strategy)
+        try:
+            import transformers
+        except ImportError as exc:  # pragma: no cover - gated dependency
+            raise ImportError(
+                "HFPipelineChat requires the `transformers` package"
+            ) from exc
+        # None is the card (JAX's default is "cpu": its chats ran on the
+        # host); resolve_device raises without CUDA unless "cpu" is asked
+        self.device = resolve_device(device)
+        self.pipeline = transformers.pipeline(
+            "text-generation", model=model, device=self.device, **pipeline_kwargs
+        )
+        self.tokenizer = self.pipeline.tokenizer
+        self.call_kwargs = dict(call_kwargs)
+        if batch_size is not None:
+            self.call_kwargs["batch_size"] = batch_size
+
+    def crop_to_max_length(self, input_string: str, max_prompt_length: int = 500) -> str:
+        tokens = self.tokenizer.tokenize(input_string)
+        if len(tokens) > max_prompt_length:
+            tokens = tokens[-max_prompt_length:]
+            return self.tokenizer.convert_tokens_to_string(tokens)
+        return input_string
+
+    def __wrapped__(self, messages: list[dict] | Json | str, **kwargs) -> str | None:
+        if isinstance(messages, (Json, list)):
+            messages_decoded: Any = _messages_to_list(messages)
+        else:
+            messages_decoded = messages
+        output = self.pipeline(messages_decoded, **{**self.call_kwargs, **kwargs})
+        result = output[0]["generated_text"]
+        if isinstance(result, list):  # chat format: last message is the reply
+            result = result[-1]["content"]
+        return result
+
+
+class CohereChat(BaseChat):
+    """Cohere chat client with RAG-style cited generation (reference
+    ``CohereChat``, llms.py:544-684)."""
+
+    def __init__(
+        self,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = "command",
+        **cohere_kwargs,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        self.kwargs = dict(cohere_kwargs)
+        if model is not None:
+            self.kwargs["model"] = model
+
+    def __wrapped__(
+        self, messages: list[dict] | Json, documents: list[dict] | Json | None = None,
+        **kwargs,
+    ) -> tuple[str, list[dict]]:
+        try:
+            import cohere
+        except ImportError as exc:  # pragma: no cover - gated dependency
+            raise ImportError("CohereChat requires the `cohere` package") from exc
+        messages = _messages_to_list(messages)
+        docs = None
+        if documents is not None:
+            docs = documents.value if isinstance(documents, Json) else list(documents)
+        kwargs = {**self.kwargs, **kwargs}
+        client = cohere.Client()
+        message = messages[-1]["content"]
+        chat_history = messages[:-1]
+        ret = client.chat(
+            message=message, chat_history=chat_history, documents=docs, **kwargs
+        )
+        cited_docs = [dict(c.__dict__) for c in (ret.citations or [])]
+        return ret.text, cited_docs
 
 
 @udfs.udf
@@ -519,6 +685,7 @@ class _PendingCompletion:
 _UNPORTED: tuple = ()
 
 
+@guarded_by(queue="lock", free="lock")
 class _ContinuousServer:
     """Slot-pool serving loop for ``DecoderChat(continuous=True)``.
 
@@ -767,7 +934,7 @@ class _ContinuousServer:
         self.queue: deque = deque()
         self.slots: list = [None] * self.n_slots
         self.free = list(range(self.n_slots))
-        self.lock = threading.Lock()
+        self.lock = make_lock("decode_server.lock")
         self.wake = threading.Event()
         self._stop = False
         self.failed: BaseException | None = None

@@ -18,7 +18,7 @@ and each pair is scored once.
 ``LLMReranker`` asks a chat for a 1-5 rating; ``ListwiseLLMReranker`` has
 a chat order a window of documents in one prompt (over ``pw.Json`` docs as
 a UDF, or through ``rerank_batch`` directly). ``FlashRankReranker`` is
-not ported yet (ROADMAP A12).
+JAX's client of the ``flashrank`` package, imported when it is built.
 """
 
 from __future__ import annotations
@@ -340,6 +340,35 @@ class ListwiseLLMReranker(udfs.UDF):
         perms = self.rerank_batch(list(query), texts, **kwargs)
         return [[row[j] for j in perm]
                 for row, perm in zip([list(r or []) for r in docs], perms)]
+
+
+class FlashRankReranker(udfs.UDF):
+    """FlashRank listwise reranker (reference ``FlashRankReranker``,
+    rerankers.py:319-345). Gated on the ``flashrank`` package."""
+
+    def __init__(
+        self,
+        model_name: str = "ms-marco-TinyBERT-L-2-v2",
+        *,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        max_length: int = 512,
+    ):
+        super().__init__(cache_strategy=cache_strategy, return_type=float)
+        try:
+            from flashrank import Ranker
+        except ImportError as exc:  # pragma: no cover - gated dependency
+            raise ImportError(
+                "FlashRankReranker requires the `flashrank` package"
+            ) from exc
+        self.ranker = Ranker(model_name=model_name, max_length=max_length)
+
+    def __wrapped__(self, doc: str, query: str) -> float:
+        from flashrank import RerankRequest
+
+        results = self.ranker.rerank(
+            RerankRequest(query=query, passages=[{"text": doc}])
+        )
+        return float(results[0]["score"])
 
 
 def _doc_text(d: Any) -> str:

@@ -58,14 +58,27 @@ def cli(capfd, monkeypatch):
     return run
 
 
-def _free_port() -> int:
+def _free_port(n: int = 2) -> int:
+    """A base port with ``n`` consecutive free ports: spawned process ``i``
+    binds ``first_port + i``."""
     import socket
 
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    while True:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        base = s.getsockname()[1]
+        held = [s]
+        try:
+            for p in range(base + 1, base + n):
+                t = socket.socket()
+                held.append(t)
+                t.bind(("127.0.0.1", p))
+            return base
+        except (OSError, OverflowError):
+            continue
+        finally:
+            for t in held:
+                t.close()
 
 
 # ------------------------------------------------------------------- spawn

@@ -528,3 +528,40 @@ def test_yaml_and_google_are_imported_lazily():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.split() == ["load_yaml", "read"]
+
+
+def test_source_scan_sees_the_last_modules():
+    files = set(_sources())
+    pkg = ROOT / "pathway_tpu_torch"
+    for rel in ("analysis/__init__.py", "analysis/__main__.py", "analysis/annotations.py",
+                "analysis/core.py", "analysis/flag_hygiene.py", "analysis/jit_purity.py",
+                "analysis/kill_switch.py", "analysis/lock_discipline.py",
+                "analysis/runtime.py", "internals/telemetry.py", "demo/__init__.py",
+                "stdlib/viz/plotting.py", "stdlib/viz/table_viz.py",
+                "xpacks/connectors/sharepoint/__init__.py", "optional_import.py",
+                "native/binding.py"):
+        assert pkg / rel in files, rel
+    assert ROOT / "tools" / "run_phase26.py" in files
+
+
+def test_optional_sdks_are_imported_lazily():
+    """Importing the package, the analysis CLI, the clients, viz and
+    SharePoint needs none of the optional SDKs (none is on the card's
+    machine): each is imported when its class is built or called."""
+    import subprocess
+    import sys
+
+    sdks = ("openai", "litellm", "cohere", "flashrank", "google.generativeai",
+            "bokeh", "panel", "office365", "opentelemetry", "pdf2image")
+    code = ("import sys\n"
+            f"for m in {sdks!r}: sys.modules[m] = None\n"
+            "import pathway_tpu_torch as pw, pathway_tpu_torch.analysis.__main__\n"
+            "from pathway_tpu_torch.xpacks.llm import embedders, llms, parsers, rerankers\n"
+            "from pathway_tpu_torch.xpacks.connectors import sharepoint\n"
+            "print(pw.viz.__name__, pw.demo.__name__, llms.OpenAIChat.__name__,\n"
+            "      parsers._LazyVisionLLM._inner)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split() == ["pathway_tpu_torch.stdlib.viz", "pathway_tpu_torch.demo",
+                                   "OpenAIChat", "None"]
